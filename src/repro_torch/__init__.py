@@ -1,0 +1,19 @@
+"""repro_torch — the PyTorch/CUDA port of ``repro``.
+
+Federated network-anomaly detection with adaptive client selection
+(async quorum aggregation, the θ sign-alignment filter, adaptive
+selection, dynamic batch sizes, Weibull checkpointing), running on an
+NVIDIA H100. The JAX package ``repro`` stays the reference; the port
+keeps its module layout and public names, imports neither JAX nor
+``repro``, and runs on the card unless the caller passes another
+``device``.
+
+    import repro_torch
+    res = repro_torch.run_experiment(repro_torch.ExperimentSpec(
+        model="anomaly-mlp", strategy="ours", rounds=8))
+"""
+from repro_torch.api import *  # noqa: F401,F403
+from repro_torch.api import __all__ as _api_all
+from repro_torch.convert import params_from_jax
+
+__all__ = list(_api_all) + ["params_from_jax"]

@@ -1,0 +1,154 @@
+"""The port's numpy host layer against the JAX package's: the copies must
+give byte-identical outputs (same Generator draws in the same order), and
+the α staleness table must equal the one the JAX package computes in XLA
+f32."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+from repro.core import aggregation as jagg
+from repro.core import async_engine as jae
+from repro.core import batchsize as jbs
+from repro.core import checkpoint_policy as jck
+from repro.core import schedule as jsched
+from repro.core import selection as jsel
+from repro.data import loader as jloader
+from repro.data import partition as jpart
+from repro.data import synthetic as jsyn
+
+from repro_torch.core import aggregation as tagg
+from repro_torch.core import async_engine as tae
+from repro_torch.core import batchsize as tbs
+from repro_torch.core import checkpoint_policy as tck
+from repro_torch.core import schedule as tsched
+from repro_torch.core import selection as tsel
+from repro_torch.data import loader as tloader
+from repro_torch.data import partition as tpart
+from repro_torch.data import synthetic as tsyn
+
+
+def _same(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_synthetic_datasets_are_byte_identical(seed):
+    for args in [(seed, 500), (seed, 300, 16, 4)]:
+        for a, b in zip(jsyn.make_unsw_like(*args), tsyn.make_unsw_like(*args)):
+            _same(a, b)
+    for a, b in zip(jsyn.make_road_like(seed, 200, window=32),
+                    tsyn.make_road_like(seed, 200, window=32)):
+        _same(a, b)
+
+
+@pytest.mark.parametrize("alpha", [0.1, 0.5, 5.0])
+def test_partitions_are_byte_identical(alpha):
+    _, y = jsyn.make_unsw_like(0, 2000)
+    for a, b in zip(jpart.dirichlet_partition(y, 10, alpha=alpha, seed=3),
+                    tpart.dirichlet_partition(y, 10, alpha=alpha, seed=3)):
+        _same(a, b)
+    for a, b in zip(jpart.iid_partition(2000, 7, seed=3),
+                    tpart.iid_partition(2000, 7, seed=3)):
+        _same(a, b)
+
+
+def test_loader_draws_are_byte_identical():
+    x, y = jsyn.make_unsw_like(1, 300)
+    arrays = {"x": x, "y": y}
+    jl, tl = jloader.ArrayLoader(arrays, 64, seed=5), \
+        tloader.ArrayLoader(arrays, 64, seed=5)
+    for bs in (64, 17, 1000):
+        jl.set_batch_size(bs)
+        tl.set_batch_size(bs)
+        assert jl.batch_size == tl.batch_size
+        for _ in range(3):
+            ja, ta = jl.sample(), tl.sample()
+            for k in arrays:
+                _same(ja[k], ta[k])
+        for ja, ta in zip(jl.epoch(), tl.epoch()):
+            for k in arrays:
+                _same(ja[k], ta[k])
+
+
+def test_selector_draws_are_identical():
+    js, ts = jsel.AdaptiveClientSelector(12, seed=4), \
+        tsel.AdaptiveClientSelector(12, seed=4)
+    rng = np.random.default_rng(0)
+    for _ in range(20):
+        for c in range(12):
+            kw = dict(delivered=bool(rng.random() < 0.8),
+                      passed=bool(rng.random() < 0.6),
+                      round_time=float(rng.uniform(0.1, 5.0)))
+            js.observe(c, **kw)
+            ts.observe(c, **kw)
+        assert js.select(5) == ts.select(5)
+        assert [js.score(c) for c in range(12)] == \
+            [ts.score(c) for c in range(12)]
+
+
+def test_batch_controller_is_identical():
+    jc, tc = jbs.BatchSizeController(), tbs.BatchSizeController()
+    rng = np.random.default_rng(1)
+    for cid in range(8):
+        m = dict(compute=float(rng.lognormal(0, 0.6)),
+                 memory=float(rng.uniform(0.4, 1)),
+                 latency=float(rng.uniform(0.01, 0.2)))
+        assert jc.initial(cid, jbs.ClientMetrics(**m)) == \
+            tc.initial(cid, tbs.ClientMetrics(**m))
+    for _ in range(6):
+        times = {c: float(rng.uniform(0.5, 8.0)) for c in range(8)}
+        assert jc.feedback(times) == tc.feedback(times)
+
+
+def test_weibull_fit_and_interval_are_identical():
+    rng = np.random.default_rng(2)
+    for shape in (0.7, 1.5, 3.0):
+        gaps = rng.weibull(shape, size=25) * 4.0
+        jfit, tfit = jck.fit_weibull(gaps), tck.fit_weibull(gaps)
+        assert jfit == tfit
+        assert jck.optimal_interval(50.0, 0.2, *jfit) == \
+            tck.optimal_interval(50.0, 0.2, *tfit)
+    assert jck.fit_weibull([]) == tck.fit_weibull([])
+    assert jck.fit_weibull([3.0]) == tck.fit_weibull([3.0])
+
+
+def test_schedule_spec_is_identical():
+    st = jae.StrategyConfig(mode="async", quorum=0.3, alpha0=0.6)
+    tst = tae.StrategyConfig(mode="async", quorum=0.3, alpha0=0.6)
+    assert dataclasses.asdict(jsched.ScheduleSpec.from_strategy(st)) == \
+        dataclasses.asdict(tsched.ScheduleSpec.from_strategy(tst))
+    for kind in ("sync", "semi-async", "bogus"):
+        assert dataclasses.asdict(jsched.resolve_schedule(kind, st)) == \
+            dataclasses.asdict(tsched.resolve_schedule(kind, tst))
+        assert jsched.resolve_schedule(kind, st).issues() == \
+            tsched.resolve_schedule(kind, tst).issues()
+
+
+@pytest.mark.parametrize("alpha0", [1.0, 0.6])
+def test_alpha_table_equals_xla_f32(alpha0):
+    taus = np.arange(65)
+    _same(jagg.staleness_weights_np(taus, alpha0),
+          tagg.staleness_weights_np(taus, alpha0))
+
+
+def test_profile_factories_are_identical():
+    for kw in (dict(seed=1), dict(seed=9, dropout_p=0.1, speed_sigma=1.0)):
+        ja = jae.heterogeneous_profile_arrays(11, **kw)
+        ta = tae.heterogeneous_profile_arrays(11, **kw)
+        for k in ja:
+            _same(ja[k], ta[k])
+        assert [dataclasses.asdict(p) for p in
+                jae.heterogeneous_profiles(11, **kw)] == \
+            [dataclasses.asdict(p) for p in
+             tae.heterogeneous_profiles(11, **kw)]
+    assert [dataclasses.asdict(p) for p in jae.uniform_profiles(4, 0.2)] == \
+        [dataclasses.asdict(p) for p in tae.uniform_profiles(4, 0.2)]
+    for k, v in jae.uniform_profile_arrays(4, 0.2).items():
+        _same(v, tae.uniform_profile_arrays(4, 0.2)[k])
+    for n, bs in [(10, 64), (4000, 64), (2000, 256), (50, 1024)]:
+        for st in (dict(), dict(local_epochs=2, max_samples_per_round=512)):
+            assert jae.local_step_count(n, bs, jae.StrategyConfig(**st)) == \
+                tae.local_step_count(n, bs, tae.StrategyConfig(**st))
