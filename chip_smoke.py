@@ -9,16 +9,28 @@ Phases, each printing JSON lines:
                CUDA versions; TF32 matmuls must be off.
   2. build   — compile every ``csrc/*.cu`` with nvcc, all at once.
   3. kernels — each hand-written kernel against its plain PyTorch version
-               on the card, at the main path's shape (C = 16 clients,
-               R = 54 arena rows) and a ragged one (C = 5, R = 7), with ±0
-               updates and -2 sentinel padding; times with CUDA events.
+               on the card. Sign-align and masked-agg at the main path's
+               shape (C = 16 clients, R = 54 arena rows) and a ragged one
+               (C = 5, R = 7), with ±0 updates and -2 sentinel padding; the
+               int8 codec at 864 rows (the cohort folded), 54 (one client)
+               and 35, with zero, ±0, exact-tie, 1e30 and subnormal rows,
+               codes, scales and values equal. Times with CUDA events.
   4. slice   — the paper's quickstart experiment (anomaly-mlp, 10 clients,
                20,000 samples, 8 rounds) through ``repro_torch.run_experiment``
-               on the card, for ``fedavg`` and ``ours``, from random weights
-               made from a seed; every kernel of the path must launch.
-  5. card vs CPU — ``ours`` on the card and on the CPU from the same
-               weights: selection, dropout, bytes, update counts and times
-               equal, accuracy and loss within ``repro_torch.api.parity``.
+               on the card, from random weights made from a seed: ``fedavg``,
+               ``ours``, and ``ours`` with int8 wire compression on the
+               megastep path and on the per-client loop
+               (``megastep=False``). Every kernel of each path must launch.
+  5. card vs CPU — ``ours`` and compressed ``ours`` (megastep) on the card
+               and on the CPU from the same weights: selection, dropout,
+               bytes, update counts and times equal, accuracy and loss
+               within ``repro_torch.api.parity``, the error-feedback arenas
+               after round 0 within its EF tolerances; the int8 codes of
+               round 0 that differ are counted, and per round the
+               error-feedback elements beyond its EF_RTOL, card against CPU
+               and card against a card run from weights one ulp apart. The
+               card's compressed loop is held to its compressed megastep
+               within the loop-vs-megastep tolerances.
 
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -46,13 +58,15 @@ F32_OPS_PER_S = 67e12          # non-tensor-core f32 (and int32 ALU) rate
 
 MAIN_SHAPE = (16, 54)          # 10 clients padded to 16; 54,602 params
 RAGGED_SHAPE = (5, 7)
+QUANT_ROWS = (16 * 54, 54, 35)  # cohort folded, one client, ragged
 
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def quickstart_spec(T, strategy: str):
+def quickstart_spec(T, strategy: str, quantize: bool = False,
+                    megastep: bool = True):
     """examples/quickstart.py's spec, at full width."""
     return T.ExperimentSpec(
         model="anomaly-mlp",
@@ -61,8 +75,9 @@ def quickstart_spec(T, strategy: str):
         comm=T.CommModel(bandwidth=5e6, latency=0.5, t_sample=2e-3,
                          t_launch=0.25),
         strategy=strategy,
-        strategy_kwargs=dict(batch_size=64, lr=3e-2, local_epochs=2),
-        rounds=8, seed=0)
+        strategy_kwargs=dict(batch_size=64, lr=3e-2, local_epochs=2,
+                             quantize_updates=quantize),
+        rounds=8, seed=0, megastep=megastep)
 
 
 def kernel_inputs(C: int, R: int, seed: int = 0):
@@ -76,6 +91,23 @@ def kernel_inputs(C: int, R: int, seed: int = 0):
     u[:, -1, -200:] = 0.0
     w = torch.randn((C,), generator=g, device="cuda")
     return u, r, w
+
+
+def quant_inputs(R: int, seed: int = 0) -> torch.Tensor:
+    """(R, 1024) f32 rows of widely spread magnitudes, then the special
+    rows: all zero, ±0, exact ties (amax 127, so the scale is exactly 1,
+    and ±(k + 0.5)), magnitudes near 1e30 and a subnormal row. Made on
+    the CPU, where nothing flushes subnormals, then moved to the card."""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn((R, 1024), generator=g)
+         * torch.exp(3.0 * torch.randn((R, 1), generator=g)))
+    x[0] = 0.0
+    x[1, ::2], x[1, 1::2] = 0.0, -0.0
+    x[2] = torch.arange(1024) % 254 - 126.5
+    x[2, 0], x[2, 1] = 127.0, -127.0
+    x[3] = torch.randn(1024, generator=g) * 1e30
+    x[4] = torch.randn(1024, generator=g) * 1e-40
+    return x.cuda()
 
 
 def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -180,19 +212,195 @@ def phase_kernels(sign_align, masked_agg, ref) -> dict:
     return rows
 
 
-def run_card(T, strategy: str, params) -> tuple:
+def phase_quantize(quantize, ref) -> dict:
+    """Hold the int8 codec kernels to their plain versions, bit for bit;
+    time both at the cohort-folded main shape."""
+    q_err = d_err = 0.0
+    for R in QUANT_ROWS:
+        x = quant_inputs(R, seed=R)
+        q, s = quantize.quantize_q8(x)
+        q_ref, s_ref = ref.quantize_q8(x)
+        d = quantize.dequantize_q8(q, s)
+        d_ref = ref.dequantize_q8(q, s)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, q_ref) and torch.equal(s, s_ref)):
+            raise AssertionError(
+                f"quantize_q8 differs from its plain version at R={R}: "
+                f"{int((q != q_ref).sum())} codes, "
+                f"{int((s != s_ref).sum())} scales")
+        if not torch.equal(d, d_ref):
+            raise AssertionError(f"dequantize_q8 differs from its plain "
+                                 f"version at R={R}")
+        q_err = max(q_err, float((q.float() - q_ref.float()).abs().max()),
+                    float((s - s_ref).abs().max()))
+        d_err = max(d_err, float((d - d_ref).abs().max()))
+        if q[:2].any() or q[4].any() or s[2, 0] != 1.0 or not torch.equal(
+                q[2].float(), torch.round(x[2])):
+            raise AssertionError(f"special rows coded wrongly at R={R}")
+        emit("kernels", rows=R, quantize_q8="equal", dequantize_q8="equal")
+
+    R = QUANT_ROWS[0]
+    x = quant_inputs(R, seed=1)
+    q, s = quantize.quantize_q8(x)
+    # why the plain version divides by a tensor: PyTorch's CUDA division
+    # by a Python number multiplies by its reciprocal
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    emit("kernels", rows=R, scales_off_when_divided_by_a_number=int(
+        (amax / 127.0 != amax / amax.new_full((), 127.0)).sum()))
+    n = R * 1024
+    # bytes: f32 in and int8 out (or back) plus one f32 scale per row;
+    # operations: |x|, max, divide, round, clamp (quantize), one multiply
+    q_bound = bound_ms(5 * n + 4 * R, 5 * n)
+    d_bound = bound_ms(5 * n + 4 * R, n)
+    rows = {
+        "quantize_q8": dict(
+            route="cuda", source="src/repro_torch/csrc/quantize.cu",
+            replaces="src/repro/kernels/quantize.py:34", max_abs_err=q_err,
+            ms=time_ms(lambda: quantize.quantize_q8(x)),
+            device_ms=graph_ms(lambda: quantize.quantize_q8(x)),
+            plain_ms=time_ms(lambda: ref.quantize_q8(x)),
+            bound_ms=q_bound[0], bound_by=q_bound[1],
+            # torch.quantize_per_channel takes the scales as an input and
+            # codes to -128..127: no one-call equivalent
+            library_ms=None),
+        "dequantize_q8": dict(
+            route="cuda", source="src/repro_torch/csrc/quantize.cu",
+            replaces="src/repro/kernels/quantize.py:58", max_abs_err=d_err,
+            ms=time_ms(lambda: quantize.dequantize_q8(q, s)),
+            device_ms=graph_ms(lambda: quantize.dequantize_q8(q, s)),
+            plain_ms=time_ms(lambda: ref.dequantize_q8(q, s)),
+            bound_ms=d_bound[0], bound_by=d_bound[1],
+            library_ms=time_ms(lambda: torch.mul(q, s))),
+    }
+    for name, row in rows.items():
+        emit("kernels", name=name, rows=R,
+             **{k: v for k, v in row.items() if k.endswith("ms")})
+    return rows
+
+
+def reset_launches(mods) -> None:
+    mods["sign_align"].launches = mods["masked_agg"].launches = 0
+    mods["quantize"].launches.update(quantize_q8=0, dequantize_q8=0)
+
+
+def read_launches(mods) -> dict:
+    return {"per_client_sign_align": mods["sign_align"].launches,
+            "masked_agg": mods["masked_agg"].launches,
+            **mods["quantize"].launches}
+
+
+def run_card(T, spec, params, mods) -> tuple:
+    """Run ``spec`` on the card with every launch count set to 0 just
+    before; returns (result, wall seconds, launches)."""
     torch.cuda.synchronize()
+    reset_launches(mods)
     t0 = time.perf_counter()
-    res = T.run_experiment(quickstart_spec(T, strategy), device="cuda",
-                           params=params)
+    res = T.run_experiment(spec, device="cuda", params=params)
     torch.cuda.synchronize()
-    return res, time.perf_counter() - t0
+    return res, time.perf_counter() - t0, read_launches(mods)
+
+
+def run_round0_codes(sim, quantize) -> torch.Tensor:
+    """Run round 0 of ``sim`` and return, on the CPU, every int8 code that
+    ``quantize_q8`` produced in it (padding rows included)."""
+    seen = []
+    wrapped = quantize.quantize_q8
+
+    def recording(x):
+        q, s = wrapped(x)
+        seen.append(q.cpu())
+        return q, s
+
+    quantize.quantize_q8 = recording
+    try:
+        sim.run(1)
+    finally:
+        quantize.quantize_q8 = wrapped
+    return torch.cat(seen)
+
+
+def nudged(params: dict) -> dict:
+    """``params`` with one ulp added to the first 64 weights of w1."""
+    out = {k: v.clone() for k, v in params.items()}
+    w = out["w1"].reshape(-1)[:64]
+    w.copy_(torch.nextafter(w, torch.full_like(w, math.inf)))
+    return out
+
+
+def ef_rows(sim):
+    """The error-feedback arena's client rows, on the CPU; row N is the
+    padding rows' dummy, which no result reads."""
+    return sim._ef_arena[:-1].cpu().numpy()
+
+
+def compare_card_cpu(T, parity, spec, params, card_records, quantize):
+    """``spec`` on the card and on the CPU from the same weights; returns
+    the comparison line's fields. With compression the runs go round by
+    round: the error feedback is held to ``parity.ef_mismatches`` after
+    round 0, and each round prints how many of its elements lie beyond
+    ``parity.EF_RTOL``, card against CPU and card against a card run from
+    weights one ulp apart (``nudged``)."""
+    sims = {dev: T.build_simulation(spec, device=dev, params=params)
+            for dev in ("cuda", "cpu")}
+    card, cpu = sims["cuda"], sims["cpu"]
+    problems, out = [], {}
+    if spec.resolve_strategy().quantize_updates:
+        codes = {dev: run_round0_codes(sim, quantize)
+                 for dev, sim in sims.items()}
+        problems += parity.ef_mismatches(ef_rows(card), ef_rows(cpu))
+        twin = T.build_simulation(spec, device="cuda", params=nudged(params))
+        twin.run(1)
+        flips = {"card_vs_cpu": [], "card_vs_nudged_card": []}
+        for rnd in range(spec.rounds):
+            if rnd:
+                for sim in (card, cpu, twin):
+                    sim.run(1)
+            flips["card_vs_cpu"].append(parity.ef_flips(ef_rows(card),
+                                                        ef_rows(cpu)))
+            flips["card_vs_nudged_card"].append(
+                parity.ef_flips(ef_rows(twin), ef_rows(card)))
+        out = dict(round0_codes=codes["cpu"].numel(),
+                   round0_codes_differing=int((codes["cuda"]
+                                               != codes["cpu"]).sum()),
+                   ef_elements=ef_rows(cpu).size,
+                   ef_elements_beyond_rtol_per_round=flips)
+    else:
+        for sim in sims.values():
+            sim.run(spec.rounds)
+    problems += (parity.theta_band_violations(card.theta_ratios, 0.65)
+                 + parity.theta_band_violations(cpu.theta_ratios, 0.65))
+    card_recs = T.result_from_simulation(spec, card).records
+    cpu_recs = T.result_from_simulation(spec, cpu).records
+    problems += parity.record_mismatches(card_recs, cpu_recs)
+    problems += parity.record_mismatches(card_records, cpu_recs)
+    if {c: dataclasses.asdict(r) for c, r in card.selector.records.items()} \
+            != {c: dataclasses.asdict(r)
+                for c, r in cpu.selector.records.items()}:
+        problems.append("selector records differ")
+    if card.failure_log != cpu.failure_log:
+        problems.append("dropout draws differ")
+    if [l.batch_size for l in card.loaders] != \
+            [l.batch_size for l in cpu.loaders]:
+        problems.append("batch sizes differ")
+    ratio_gap = max((abs(a[2] - b[2]) for a, b in
+                     zip(card.theta_ratios, cpu.theta_ratios)), default=0.0)
+    out.update(problems=problems, theta_tests=len(card.theta_ratios),
+               max_ratio_gap=ratio_gap,
+               min_ratio_distance_to_theta=min(
+                   (abs(x[2] - 0.65) for x in card.theta_ratios),
+                   default=None),
+               max_loss_rel_gap=max(abs(a.loss - b.loss) / abs(b.loss)
+                                    for a, b in zip(card_recs, cpu_recs)),
+               max_acc_gap=max(abs(a.accuracy - b.accuracy)
+                               for a, b in zip(card_recs, cpu_recs)))
+    return out
 
 
 def main() -> int:
     import repro_torch as T
     from repro_torch.api import parity
-    from repro_torch.kernels import _build, masked_agg, ref, sign_align
+    from repro_torch.kernels import (_build, masked_agg, quantize, ref,
+                                     sign_align)
     from repro_torch.models import api as model_api
 
     if not torch.cuda.is_available():
@@ -221,74 +429,69 @@ def main() -> int:
 
     # 3. kernels
     rows = phase_kernels(sign_align, masked_agg, ref)
+    rows.update(phase_quantize(quantize, ref))
 
-    # 4. slice: the quickstart spec on the card
+    # 4. slice: the quickstart spec on the card. Each run sets every launch
+    # count to 0 just before it and reads them just after.
+    mods = {"sign_align": sign_align, "masked_agg": masked_agg,
+            "quantize": quantize}
     cfg = quickstart_spec(T, "ours").resolve_model()
     params = model_api.init_params(torch.Generator().manual_seed(0), cfg)
+    runs = {  # name -> (spec, kernels that must launch)
+        "fedavg": (quickstart_spec(T, "fedavg"), ("masked_agg",)),
+        "ours": (quickstart_spec(T, "ours"),
+                 ("per_client_sign_align", "masked_agg")),
+        "ours+int8": (quickstart_spec(T, "ours", quantize=True),
+                      tuple(rows)),
+        "ours+int8 loop": (quickstart_spec(T, "ours", quantize=True,
+                                           megastep=False),
+                           ("quantize_q8", "dequantize_q8")),
+    }
     finals, launches = {}, {}
-    for strategy in ("fedavg", "ours"):
-        sign_align.launches = masked_agg.launches = 0
-        res, wall = run_card(T, strategy, params)
-        launches[strategy] = {"per_client_sign_align": sign_align.launches,
-                              "masked_agg": masked_agg.launches}
+    for run, (spec, needed) in runs.items():
+        res, wall, launches[run] = run_card(T, spec, params, mods)
         for rec in res.records:
-            emit("slice", strategy=strategy, **dataclasses.asdict(rec))
-        emit("slice", strategy=strategy, rounds=len(res.records),
-             wall_s=wall, wall_s_per_round=wall / len(res.records),
-             launches=launches[strategy])
+            emit("slice", run=run, **dataclasses.asdict(rec))
+        emit("slice", run=run, megastep=spec.megastep,
+             rounds=len(res.records), wall_s=wall,
+             wall_s_per_round=wall / len(res.records),
+             launches=launches[run])
         if not all(math.isfinite(r.accuracy) and math.isfinite(r.loss)
                    for r in res.records):
-            raise AssertionError(f"{strategy}: accuracy or loss not finite")
-        finals[strategy] = res
-    for kname, count in launches["ours"].items():
-        if count < 1:
-            raise AssertionError(f"{kname} was never launched on the main "
-                                 "path of 'ours'")
-    base, ours = finals["fedavg"].final, finals["ours"].final
-    emit("slice", headline=dict(
-        time_reduction_pct=100 * (1 - ours.sim_time / base.sim_time),
-        bytes_saving_pct=100 * (1 - ours.bytes_sent / max(base.bytes_sent, 1)),
-        accuracy_delta_pts=100 * (ours.accuracy - base.accuracy)),
-        note="simulated seconds and bytes of the experiment, not card speed")
+            raise AssertionError(f"{run}: accuracy or loss not finite")
+        for kname in needed:
+            if launches[run][kname] < 1:
+                raise AssertionError(f"{kname} was never launched on the "
+                                     f"path of '{run}'")
+        finals[run] = res
+    base = finals["fedavg"].final
+    for run in ("ours", "ours+int8"):
+        final = finals[run].final
+        emit("slice", run=run, headline=dict(
+            time_reduction_pct=100 * (1 - final.sim_time / base.sim_time),
+            bytes_saving_pct=100 * (1 - final.bytes_sent
+                                    / max(base.bytes_sent, 1)),
+            accuracy_delta_pts=100 * (final.accuracy - base.accuracy)),
+            note="simulated seconds and bytes of the experiment against "
+                 "fedavg, not card speed")
 
-    # 5. card vs CPU, from the same weights
-    spec = quickstart_spec(T, "ours")
-    sims = {}
-    for dev in ("cuda", "cpu"):
-        sim = T.build_simulation(spec, device=dev, params=params)
-        sim.run(spec.rounds)
-        sims[dev] = sim
-    card, cpu = sims["cuda"], sims["cpu"]
-    problems = (parity.theta_band_violations(card.theta_ratios, 0.65)
-                + parity.theta_band_violations(cpu.theta_ratios, 0.65))
-    card_recs = T.result_from_simulation(spec, card).records
-    cpu_recs = T.result_from_simulation(spec, cpu).records
-    problems += parity.record_mismatches(card_recs, cpu_recs)
-    problems += parity.record_mismatches(finals["ours"].records, cpu_recs)
-    if {c: dataclasses.asdict(r) for c, r in card.selector.records.items()} \
-            != {c: dataclasses.asdict(r)
-                for c, r in cpu.selector.records.items()}:
-        problems.append("selector records differ")
-    if card.failure_log != cpu.failure_log:
-        problems.append("dropout draws differ")
-    if [l.batch_size for l in card.loaders] != \
-            [l.batch_size for l in cpu.loaders]:
-        problems.append("batch sizes differ")
-    ratio_gap = max((abs(a[2] - b[2]) for a, b in
-                     zip(card.theta_ratios, cpu.theta_ratios)), default=0.0)
-    emit("card_vs_cpu", problems=problems, theta_tests=len(card.theta_ratios),
-         max_ratio_gap=ratio_gap,
-         min_ratio_distance_to_theta=min(
-             (abs(x[2] - 0.65) for x in card.theta_ratios), default=None),
-         max_loss_rel_gap=max(abs(a.loss - b.loss) / abs(b.loss)
-                              for a, b in zip(card_recs, cpu_recs)),
-         max_acc_gap=max(abs(a.accuracy - b.accuracy)
-                         for a, b in zip(card_recs, cpu_recs)))
+    # 5. card vs CPU, from the same weights; the card's loop against its
+    # megastep
+    problems = []
+    for run in ("ours", "ours+int8"):
+        line = compare_card_cpu(T, parity, runs[run][0], params,
+                                finals[run].records, quantize)
+        emit("card_vs_cpu", run=run, **line)
+        problems += [f"{run}: {p}" for p in line["problems"]]
+    loop_vs_mega = parity.path_mismatches(finals["ours+int8 loop"].records,
+                                          finals["ours+int8"].records)
+    emit("loop_vs_megastep", run="ours+int8", problems=loop_vs_mega)
+    problems += [f"loop vs megastep: {p}" for p in loop_vs_mega]
     if problems:
-        raise AssertionError("card and CPU disagree: " + "; ".join(problems))
+        raise AssertionError("runs disagree: " + "; ".join(problems))
 
     print(json.dumps({"kernels": [
-        {"name": k, **row, "launches": launches["ours"][k]}
+        {"name": k, **row, "launches": launches["ours+int8"][k]}
         for k, row in rows.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

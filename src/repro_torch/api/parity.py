@@ -14,16 +14,44 @@ draw selection, dropout and batches from the same numpy Generators. So:
   * a θ decision is reproducible only if its ratio lies farther than
     ``THETA_BAND`` from θ: float noise moves a few of the 54,602 sign
     counts, about 1e-4 of the ratio.
+
+With int8 wire compression one more thing can part: an element whose
+x/scale lies within float noise of a .5 tie takes the neighbouring code in
+the other run. Its dequantized value moves by one code step (the row's
+amax/127), and so does its error-feedback residual. After ONE round from
+the same state, two error-feedback states agree to ``EF_RTOL`` of each
+row's largest residual (float noise) except at such flipped elements,
+which are at most ``EF_FLIP_FRAC`` of all (``ef_mismatches``). Over more
+rounds the flips feed back, through the global model into every later
+delta, and the states part element by element: a run from weights one
+ulp apart does the same (``chip_smoke.py`` prints both, round by round).
+So the error feedback is compared after round 0, and the whole run by
+its records: a flipped sign moves a θ ratio by 1/54,602, well inside
+``THETA_BAND``, and the record tolerances stay as they are.
+
+The megastep and the per-client loop of ONE package compute the same
+round with other reduction orders. ``path_mismatches`` holds them to the
+JAX package's own tolerances for that pair (tests/test_megastep.py):
+equal update counts, accept rates and bytes, times to ``PATH_TIME_RTOL``
+(idle time with an absolute floor of 1e-12 s),
+accuracy within ``PATH_ACC_TOL`` and loss within ``PATH_LOSS_RTOL``.
 """
 from __future__ import annotations
 
 from typing import Iterable, List, Sequence
+
+import numpy as np
 
 ACC_TOL = 2.5e-3          # 10 of the quickstart's 4,000 eval samples
 LOSS_RTOL = 1e-3
 THETA_BAND = 1e-3
 EXACT_FIELDS = ("round", "sim_time", "comm_time", "idle_time", "bytes_sent",
                 "updates_applied", "accept_rate")
+EF_RTOL = 0.05            # of the row's largest |residual|
+EF_FLIP_FRAC = 1e-4       # of all elements: codes that took a neighbour
+PATH_TIME_RTOL = 1e-9
+PATH_ACC_TOL = 2e-3
+PATH_LOSS_RTOL = 1e-3
 
 
 def record_mismatches(got: Sequence, want: Sequence) -> List[str]:
@@ -53,3 +81,53 @@ def theta_band_violations(theta_ratios: Iterable[tuple],
     return [f"round {rnd}, client {cid}: ratio {ratio} within {THETA_BAND} "
             f"of θ={theta}" for rnd, cid, ratio in theta_ratios
             if abs(ratio - theta) <= THETA_BAND]
+
+
+def ef_flips(got, want, lane: int = 1024) -> int:
+    """Elements of two error-feedback states (arrays of one shape, a
+    multiple of ``lane`` long: the arena's row layout) that differ by more
+    than EF_RTOL of their row's largest residual in ``want``."""
+    got = np.asarray(got, np.float32).reshape(-1, lane)
+    want = np.asarray(want, np.float32).reshape(-1, lane)
+    row_max = np.abs(want).max(axis=1, keepdims=True)
+    return int((np.abs(got - want) > EF_RTOL * row_max).sum())
+
+
+def ef_mismatches(got, want, lane: int = 1024) -> List[str]:
+    """Two error-feedback states after one round from the same state,
+    against EF_RTOL and EF_FLIP_FRAC; empty when they agree."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        return [f"error feedback of shape {got.shape} against {want.shape}"]
+    flips = ef_flips(got, want, lane)
+    if flips > EF_FLIP_FRAC * want.size:
+        return [f"error feedback: {flips} of {want.size} elements differ by "
+                f"more than {EF_RTOL} of their row's largest residual "
+                f"(at most {EF_FLIP_FRAC} of them may)"]
+    return []
+
+
+def path_mismatches(got: Sequence, want: Sequence) -> List[str]:
+    """Records of one package's two execution paths (loop ``got``,
+    megastep ``want``) against the PATH_* tolerances."""
+    if len(got) != len(want):
+        return [f"{len(got)} records against {len(want)}"]
+    out = []
+    for g, w in zip(got, want):
+        for f in ("round", "updates_applied", "accept_rate", "bytes_sent"):
+            if getattr(g, f) != getattr(w, f):
+                out.append(f"round {w.round}: {f} {getattr(g, f)!r} != "
+                           f"{getattr(w, f)!r}")
+        for f, atol in (("sim_time", 0.0), ("comm_time", 0.0),
+                        ("idle_time", 1e-12)):
+            a, b = getattr(g, f), getattr(w, f)
+            if not abs(a - b) <= PATH_TIME_RTOL * abs(b) + atol:
+                out.append(f"round {w.round}: {f} {a!r} vs {b!r} (relative "
+                           f"tolerance {PATH_TIME_RTOL})")
+        if not abs(g.accuracy - w.accuracy) <= PATH_ACC_TOL:
+            out.append(f"round {w.round}: accuracy {g.accuracy} vs "
+                       f"{w.accuracy} (tolerance {PATH_ACC_TOL})")
+        if not abs(g.loss - w.loss) <= PATH_LOSS_RTOL * abs(w.loss):
+            out.append(f"round {w.round}: loss {g.loss} vs {w.loss} "
+                       f"(relative tolerance {PATH_LOSS_RTOL})")
+    return out

@@ -32,7 +32,9 @@ def build_simulation(spec: ExperimentSpec, *, device=None,
                                   world.profiles, comm=spec.resolve_comm(),
                                   seed=spec.seed, eval_every=spec.eval_every,
                                   schedule=spec.resolve_schedule(),
-                                  device=device, params=params)
+                                  device=device, params=params,
+                                  eval_fn=spec.eval_fn,
+                                  megastep=spec.megastep)
 
 
 def record_from_metrics(m: "ae.RoundMetrics") -> RoundRecord:

@@ -3,8 +3,10 @@
 An ``ExperimentSpec`` names everything a paper experiment varies (model,
 data/partition, client world, communication model, strategy, schedule,
 rounds, seed), with the JAX package's field names, and
-``run_experiment(spec)`` runs it on the event-driven simulator's
-megastep path.
+``run_experiment(spec)`` runs it on the event-driven simulator: the
+cohort megastep path, or the per-client reference loop with
+``megastep=False``, with or without int8 wire compression
+(``strategy.quantize_updates``) and a custom ``eval_fn``.
 
 The spec has every field of the JAX package's spec, and ``validate()``
 refuses each option the port does not run yet, naming the ROADMAP.md
@@ -82,9 +84,6 @@ _NOT_PORTED = {
     "candidate_frac": (None, 10, "two-stage candidate selection"),
     "rounds_per_dispatch": (None, 8, "the scanned device control plane"),
     "fused_eval": (False, 8, "evaluation fused into the scanned rounds"),
-    "megastep": (True, 6, "the per-client reference loop "
-                          "(_run_round_loop)"),
-    "eval_fn": (None, 6, "a custom evaluation callable"),
     "lr_schedule": (None, 9, "an LR schedule of the spmd engine"),
     "optimizer": (None, 9, "an optimizer choice of the spmd engine"),
 }
@@ -208,11 +207,6 @@ class ExperimentSpec:
             issues.append(SpecIssue("strategy", self.strategy_name(),
                                     str(e)))
         if strategy is not None:
-            if strategy.quantize_updates:
-                issues.append(SpecIssue(
-                    "strategy.quantize_updates", True,
-                    "int8 wire compression is not ported yet; it comes "
-                    "with ROADMAP.md queue 1 item 7"))
             try:
                 schedule = self.resolve_schedule()
             except TypeError as e:

@@ -13,12 +13,18 @@ sign-alignment filter against the sign of the last global update),
 ``selection`` (adaptive top-k), ``dynamic_batch`` and ``checkpointing``
 (Weibull interval).
 
-This is the JAX package's megastep path: each round's client work runs
-as one cohort step per (steps, batch) shape group (core/megastep.py) and
-the server aggregation is one weighted arena sum. All host randomness
-(dropout, batch draws, selection) comes from the same seeded numpy
-Generators in the same order as the JAX package, so timing, bytes and
-selection reproduce it exactly; the parameters agree to float rounding.
+Two execution paths, as in the JAX package. By default (``megastep``)
+each round's client work runs as one cohort step per (steps, batch) shape
+group (core/megastep.py) and the server aggregation is one weighted arena
+sum. ``megastep=False`` selects the per-client reference loop: each client
+trains alone, is θ-tested leaf by leaf, and the server averages parameter
+dicts. ``quantize_updates`` puts int8 with error feedback on the wire on
+either path (core/compression.py): one error-feedback arena for all
+clients on the megastep path, one buffer dict per client on the loop.
+All host randomness (dropout, batch draws, selection) comes from the same
+seeded numpy Generators in the same order as the JAX package, so timing,
+bytes and selection reproduce it exactly; the parameters agree to float
+rounding.
 
 Simulated time model (recorded separately from real wall time):
   train_time  = (steps · t_launch + samples · t_sample) / speed
@@ -29,13 +35,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.convert import params_from_jax
-from repro_torch.core import aggregation
+from repro_torch.core import aggregation, alignment, compression
 from repro_torch.core import megastep as megastep_mod
 from repro_torch.core.batchsize import BatchSizeController, ClientMetrics
 from repro_torch.core.checkpoint_policy import fit_weibull, optimal_interval
@@ -82,7 +88,7 @@ class StrategyConfig:
     quorum: float = 0.5                   # async round advances at this frac
     per_client_lr: bool = False           # FedL2P-style personalization
     grad_norm_selection: bool = False     # ACFL-style critical-period proxy
-    quantize_updates: bool = False        # int8 + error feedback (not ported)
+    quantize_updates: bool = False        # int8 + error feedback on the wire
     max_samples_per_round: int = 4096     # per-round sample cap
 
 
@@ -126,11 +132,8 @@ class FederatedSimulation:
                  strategy: StrategyConfig, profiles: List[ClientProfile],
                  comm: CommModel = None, seed: int = 0, eval_every: int = 1,
                  schedule: Optional[ScheduleSpec] = None, *, device=None,
-                 params=None):
-        if strategy.quantize_updates:
-            raise NotImplementedError(
-                "quantize_updates (int8 error feedback) is not ported yet; "
-                "it comes with ROADMAP.md queue 1 item 7")
+                 params=None, eval_fn: Optional[Callable] = None,
+                 megastep: bool = True):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.strategy = strategy
@@ -144,6 +147,7 @@ class FederatedSimulation:
         self.eval_arrays = eval_arrays
         self._eval_dev = _to_device(eval_arrays, self.device)
         self.eval_every = max(1, int(eval_every))
+        self.megastep = bool(megastep)
 
         # --- model/optim setup ------------------------------------------
         if params is None:
@@ -155,15 +159,35 @@ class FederatedSimulation:
         self.param_bytes = sum(p.numel() * p.element_size()
                                for p in params.values())
         self.opt = optim_mod.sgd(lr=strategy.lr)
-        self._eval = api.build_default_eval(cfg)
+        # eval_fn(params_dict, eval_batch) -> float replaces the default
+        self._eval = eval_fn or api.build_default_eval(cfg)
 
-        # --- cohort megastep / parameter arena ----------------------------
+        # --- parameter state: the arena (megastep) or a dict (loop) -------
         self._arena = arena_mod.ParamArena(params)
-        self._params_mat = self._arena.pack(params)
+        self._params_mat = None       # (rows, lane) f32 when megastep
+        self._params_tree = None      # parameter dict on the loop
         self._ref_mat = None          # (rows, lane) int8, -2 padding
-        self._cohort_step = megastep_mod.build_cohort_step(
-            cfg, self.opt, self._arena, theta=strategy.theta)
-        self._apply_update = megastep_mod.build_apply_update(self._arena)
+        self.ref_sign = None          # the loop's int8 sign dict
+        self._ef_arena = None         # (N + 1, rows, lane) EF buffers
+        self._ef_state: Dict[int, Dict[str, torch.Tensor]] = {}  # loop EF
+        if self.megastep:
+            self._params_mat = self._arena.pack(params)
+            self._cohort_step = megastep_mod.build_cohort_step(
+                cfg, self.opt, self._arena, theta=strategy.theta,
+                quantize=strategy.quantize_updates)
+            self._apply_update = megastep_mod.build_apply_update(self._arena)
+            if strategy.quantize_updates:
+                # the extra row N takes the residuals of the cohort-width
+                # padding rows; no result reads it
+                self._ef_arena = compression.init_error_arena(
+                    self.num_clients + 1, self._arena, self.device)
+        else:
+            self._params_tree = params
+        # wire bytes of one compressed update (the loop sets it from the
+        # first payload it sends)
+        self._wire_bytes = (compression.arena_wire_bytes(self._arena)
+                            if self.megastep and strategy.quantize_updates
+                            else None)
 
         # --- per-client state --------------------------------------------
         self.batch_ctrl = BatchSizeController()
@@ -209,8 +233,11 @@ class FederatedSimulation:
     # ------------------------------------------------------------------
     @property
     def params(self) -> Dict[str, torch.Tensor]:
-        """The global parameters, as views into the arena."""
-        return self._arena.unpack(self._params_mat)
+        """The global parameters: views into the arena on the megastep
+        path, the loop's own dict otherwise."""
+        if self.megastep:
+            return self._arena.unpack(self._params_mat)
+        return self._params_tree
 
     # ------------------------------------------------------------------
     # client-local work (simulated timing + real gradients)
@@ -230,11 +257,51 @@ class FederatedSimulation:
         return (steps * self.comm.t_launch
                 + n_samples * self.comm.t_sample) / max(prof.speed, 1e-3)
 
+    def _payload_bytes(self) -> float:
+        if self.strategy.quantize_updates and self._wire_bytes:
+            return float(self._wire_bytes)
+        return float(self.param_bytes)
+
     def _transfer_time(self, sent: bool, prof: ClientProfile) -> float:
         lat, bw = prof.net_latency, self.comm.bandwidth
         if sent:
-            return lat + self.param_bytes / bw
+            return lat + self._payload_bytes() / bw
         return lat + self.comm.beacon_bytes / bw
+
+    def _train_client(self, cid: int):
+        """The loop's local training of one client, as a cohort of one;
+        with compression, the update is the dequantized payload and the
+        client's error-feedback buffers advance. Returns (new_params,
+        delta, loss, train_time)."""
+        batches, steps, n_samples = self._client_batches(cid)
+        batch = _to_device({k: v[None] for k, v in batches.items()},
+                           self.device)
+        lr_scale = torch.tensor([self.client_lr_scale[cid]],
+                                dtype=torch.float32, device=self.device)
+        old = self.params
+        trained, loss = megastep_mod.local_sgd(self.cfg, self.opt, old,
+                                               batch, lr_scale)
+        new_params = {k: v[0] for k, v in trained.items()}
+        delta = {k: new_params[k] - old[k] for k in old}
+        if self.strategy.quantize_updates:
+            err = self._ef_state.setdefault(
+                cid, compression.init_error_state(delta))
+            q, s, _n, self._ef_state[cid] = compression.compress_update(
+                delta, err)
+            delta = compression.decompress_update(q, s, delta)
+            new_params = {k: old[k] + delta[k] for k in old}
+            self._wire_bytes = compression.transport_bytes(q, s)
+        train_time = self._train_time(steps, n_samples, self.profiles[cid])
+        return new_params, delta, float(loss[0]), train_time
+
+    def _filter_update(self, rnd: int, cid: int, delta) -> bool:
+        """The loop's client-side θ filter (Algorithm 1 lines 27-32):
+        whether the client sends its update."""
+        if self.strategy.theta is None or self.ref_sign is None:
+            return True
+        ratio = float(alignment.alignment_ratio(delta, self.ref_sign))
+        self.theta_ratios.append((rnd, cid, ratio))
+        return ratio >= self.strategy.theta
 
     # ------------------------------------------------------------------
     # rounds
@@ -250,7 +317,78 @@ class FederatedSimulation:
 
     def run_round(self, rnd: int, evaluate: bool = True) -> RoundMetrics:
         self.round_idx += 1
-        return self._run_round_mega(rnd, evaluate)
+        if self.megastep:
+            return self._run_round_mega(rnd, evaluate)
+        return self._run_round_loop(rnd, evaluate)
+
+    def _draw_dropout(self, cid: int, round_start: float) -> Optional[float]:
+        """The client's dropout draw: None if it is lost this round, else
+        its restart delay (0 when it did not drop)."""
+        if self.rng.random() < min(1.0, self.profiles[cid].dropout_p):
+            self.failure_log.append(round_start)
+            self.selector.observe(cid, delivered=False)
+            if not self.strategy.checkpointing:
+                return None                       # client lost this round
+            return (self.recovery_time if self.checkpoints.get(cid)
+                    else self.restart_time)
+        return 0.0
+
+    def _deliver(self, cid: int, round_start: float, delay: float,
+                 train_time: float, sent: bool, gn: float) -> float:
+        """One trained client's event accounting, in selection order:
+        transfer, selector, grad-norm EMA, LR scale, bytes, checkpoint.
+        Returns its arrival time."""
+        st = self.strategy
+        transfer = self._transfer_time(sent, self.profiles[cid])
+        arrive = round_start + delay + train_time + transfer
+        self.selector.observe(cid, delivered=True, passed=sent,
+                              round_time=arrive - round_start)
+        self.grad_norms[cid] = 0.5 * self.grad_norms[cid] + 0.5 * gn
+        if st.per_client_lr:
+            self.client_lr_scale[cid] = float(np.clip(
+                self.client_lr_scale[cid] * (1.05 if gn < 1.0 else 0.9),
+                0.25, 2.0))
+        if sent:
+            self.bytes_sent += self._payload_bytes()
+        else:
+            self.bytes_sent += self.comm.beacon_bytes
+        self.comm_time += transfer
+        if st.checkpointing:
+            self.checkpoints[cid] = True   # periodic local state save
+        return arrive
+
+    def _schedule(self, arrivals: List[tuple]) -> List[tuple]:
+        """Advance the clock over the round's arrivals (sorted in place;
+        (arrive, cid, sent, ...)) and return the updates the server
+        applies, as (cid, α) in arrival order: every sender with α = 1
+        under sync; under async the senders no staler than the bound, with
+        α(τ) from the quorum arrival on."""
+        arrivals.sort(key=lambda a: a[0])
+        sched = self.schedule
+        applied = []
+        if sched.is_sync:
+            applied = [(a[1], 1.0) for a in arrivals if a[2]]
+            if applied:
+                self.server_step += 1
+            if arrivals:
+                barrier = arrivals[-1][0]
+                self.idle_time += sum(barrier - a[0] for a in arrivals)
+                self.sim_time = barrier
+        elif arrivals:
+            # async: quorum clock + buffered mean of staleness-discounted
+            # deltas; semi-async drops arrivals staler than the bound
+            q_idx = max(0, math.ceil(sched.quorum * len(arrivals)) - 1)
+            self.sim_time = arrivals[q_idx][0]
+            for i, a in enumerate(arrivals):
+                if not a[2]:
+                    continue
+                tau = max(0, i - q_idx)
+                if (sched.max_staleness is not None
+                        and tau > sched.max_staleness):
+                    continue          # too stale: transmitted, dropped
+                applied.append((a[1], float(self._alpha_table[tau])))
+                self.server_step += 1
+        return applied
 
     def _finish_round(self, rnd: int, evaluate: bool, n_selected: int,
                       losses: List[float], n_sent: int, updates_applied: int,
@@ -287,25 +425,20 @@ class FederatedSimulation:
 
         # pass 1: dropout draws, in the JAX package's Generator order
         cohort: List[int] = []
-        meta: Dict[int, tuple] = {}       # cid -> (delay, steps, n_samples)
+        delays: Dict[int, float] = {}
         for cid in selected:
-            prof = self.profiles[cid]
-            delay = 0.0
-            if self.rng.random() < min(1.0, prof.dropout_p):
-                self.failure_log.append(round_start)
-                self.selector.observe(cid, delivered=False)
-                if not st.checkpointing:
-                    continue                      # client lost this round
-                delay = (self.recovery_time if self.checkpoints.get(cid)
-                         else self.restart_time)
-            cohort.append(cid)
-            meta[cid] = (delay, 0, 0)
+            delay = self._draw_dropout(cid, round_start)
+            if delay is not None:
+                cohort.append(cid)
+                delays[cid] = delay
 
         # pass 2: per-loader batch draws, grouped by (steps, batch)
         groups: Dict[tuple, dict] = {}
+        train_times: Dict[int, float] = {}
         for cid in cohort:
             batches, steps, n_samples = self._client_batches(cid)
-            meta[cid] = (meta[cid][0], steps, n_samples)
+            train_times[cid] = self._train_time(steps, n_samples,
+                                                self.profiles[cid])
             g = groups.setdefault((steps, self.loaders[cid].batch_size),
                                   {"cids": [], "batches": []})
             g["cids"].append(cid)
@@ -314,7 +447,9 @@ class FederatedSimulation:
         # pass 3: one cohort step per shape group. The cohort width is
         # padded UP to a power of two (the last client's batch replicated,
         # its results discarded, its aggregation weight 0), as in the JAX
-        # package, so the same arena shapes reach the kernels.
+        # package, so the same arena shapes reach the kernels; with
+        # compression the pad rows read and write the error arena's extra
+        # row N.
         has_ref = self._ref_mat is not None and st.theta is not None
         per_client: Dict[int, tuple] = {}     # cid -> (loss, ratio, norm)
         group_results = []                    # (cids, padded_C, deltas)
@@ -327,10 +462,15 @@ class FederatedSimulation:
                                 for k in blist[0]}, self.device)
             lr_scale = np.ones(padded, np.float32)
             lr_scale[:C] = self.client_lr_scale[cids]
-            deltas, losses, ratios, norms = self._cohort_step(
+            idx = None
+            if st.quantize_updates:
+                idx = torch.tensor(cids + [self.num_clients] * (padded - C),
+                                   dtype=torch.int64, device=self.device)
+            deltas, losses, ratios, norms, self._ef_arena = self._cohort_step(
                 self._params_mat, batch,
                 torch.from_numpy(lr_scale).to(self.device),
-                self._ref_mat if has_ref else None, has_ref=has_ref)
+                self._ref_mat if has_ref else None, self._ef_arena, idx,
+                has_ref=has_ref)
             losses, ratios, norms = (losses.cpu().numpy(),
                                      ratios.cpu().numpy(),
                                      norms.cpu().numpy())
@@ -347,73 +487,22 @@ class FederatedSimulation:
         round_times: Dict[int, float] = {}
         n_sent = 0
         for cid in cohort:
-            delay, steps, n_samples = meta[cid]
             loss, ratio, gn = per_client[cid]
-            prof = self.profiles[cid]
             losses_all.append(loss)
-            sent = (st.theta is None or not has_ref
-                    or ratio >= st.theta)
-            transfer = self._transfer_time(sent, prof)
-            arrive = (round_start + delay
-                      + self._train_time(steps, n_samples, prof) + transfer)
+            sent = st.theta is None or not has_ref or ratio >= st.theta
+            arrive = self._deliver(cid, round_start, delays[cid],
+                                   train_times[cid], sent, gn)
             arrivals.append((arrive, cid, sent))
             round_times[cid] = arrive - round_start
-            self.selector.observe(cid, delivered=True, passed=sent,
-                                  round_time=arrive - round_start)
-            self.grad_norms[cid] = 0.5 * self.grad_norms[cid] + 0.5 * gn
-            if st.per_client_lr:
-                self.client_lr_scale[cid] = float(np.clip(
-                    self.client_lr_scale[cid] * (1.05 if gn < 1.0 else 0.9),
-                    0.25, 2.0))
-            if sent:
-                n_sent += 1
-                self.bytes_sent += float(self.param_bytes)
-            else:
-                self.bytes_sent += self.comm.beacon_bytes
-            self.comm_time += transfer
-            if st.checkpointing:
-                self.checkpoints[cid] = True   # periodic local state save
+            n_sent += sent
 
-        arrivals.sort(key=lambda a: a[0])
-        updates_applied = 0
-        sched = self.schedule
-        weights: Dict[int, float] = {}    # cid -> aggregation weight
-
-        if sched.is_sync:
-            senders = [cid for (_, cid, sent) in arrivals if sent]
-            if senders:
-                w = 1.0 / len(senders)
-                weights = {cid: w for cid in senders}
-                self.server_step += 1
-                updates_applied = len(senders)
-            if arrivals:
-                barrier = arrivals[-1][0]
-                self.idle_time += sum(barrier - a for (a, *_r) in arrivals)
-                self.sim_time = barrier
-        else:
-            # async: quorum clock + buffered mean of staleness-discounted
-            # deltas; semi-async drops arrivals staler than the bound
-            if arrivals:
-                q_idx = max(0, math.ceil(sched.quorum * len(arrivals)) - 1)
-                self.sim_time = arrivals[q_idx][0]
-                buf = []
-                for i, (_arrive, cid, sent) in enumerate(arrivals):
-                    if not sent:
-                        continue
-                    tau = max(0, i - q_idx)
-                    if (sched.max_staleness is not None
-                            and tau > sched.max_staleness):
-                        continue          # too stale: transmitted, dropped
-                    alpha = float(self._alpha_table[tau])
-                    buf.append((cid, alpha))
-                    self.server_step += 1
-                    updates_applied += 1
-                if buf:
-                    inv = 1.0 / len(buf)
-                    weights = {cid: alpha * inv for cid, alpha in buf}
+        applied = self._schedule(arrivals)
+        updates_applied = len(applied)
 
         # server aggregation: one weighted arena sum per shape group
-        if weights:
+        if applied:
+            inv = 1.0 / len(applied)
+            weights = {cid: alpha * inv for cid, alpha in applied}
             d_groups = tuple(d for (_cids, _p, d) in group_results)
             w_groups = []
             for cids, padded, _d in group_results:
@@ -424,10 +513,60 @@ class FederatedSimulation:
                                                   d_groups, tuple(w_groups))
             self._params_mat = new_mat
             # reference direction = sign of the global movement this round
-            if updates_applied and st.theta is not None:
+            if st.theta is not None:
                 self._ref_mat = ref_mat
 
         return self._finish_round(rnd, evaluate, len(selected), losses_all,
+                                  n_sent, updates_applied, round_times)
+
+    def _run_round_loop(self, rnd: int, evaluate: bool = True) -> RoundMetrics:
+        """The per-client reference loop: each surviving client trains
+        alone, is θ-tested against the sign dict, and the server averages
+        the sent parameter dicts (sync) or buffers their discounted deltas
+        (async)."""
+        st = self.strategy
+        selected = self._select_clients()
+        round_start = self.sim_time
+        prev_params = self.params
+        arrivals = []                     # (arrive, cid, sent, new_params)
+        round_times: Dict[int, float] = {}
+        losses: List[float] = []
+        n_sent = 0
+        for cid in selected:
+            delay = self._draw_dropout(cid, round_start)
+            if delay is None:
+                continue
+            new_params, delta, loss, train_time = self._train_client(cid)
+            losses.append(loss)
+            sent = self._filter_update(rnd, cid, delta)
+            gn = math.sqrt(sum(float(torch.dot(g.reshape(-1), g.reshape(-1)))
+                               for _k, g in sorted(delta.items())))
+            arrive = self._deliver(cid, round_start, delay, train_time, sent,
+                                   gn)
+            arrivals.append((arrive, cid, sent, new_params))
+            round_times[cid] = arrive - round_start
+            n_sent += sent
+
+        applied = self._schedule(arrivals)
+        updates_applied = len(applied)
+        if applied:
+            sent_params = {a[1]: a[3] for a in arrivals if a[2]}
+            if self.schedule.is_sync:
+                self._params_tree = aggregation.fedavg({
+                    k: torch.stack([sent_params[c][k] for c, _a in applied])
+                    for k in prev_params})
+            else:
+                self._params_tree = aggregation.buffered_async_update(
+                    prev_params, [(alpha, sent_params[c])
+                                  for c, alpha in applied])
+            # reference direction = sign of the global movement this round
+            if st.theta is not None:
+                self.ref_sign = alignment.tree_sign(
+                    {k: self._params_tree[k].to(torch.float32)
+                     - prev_params[k].to(torch.float32)
+                     for k in prev_params})
+
+        return self._finish_round(rnd, evaluate, len(selected), losses,
                                   n_sent, updates_applied, round_times)
 
     def run(self, num_rounds: int,

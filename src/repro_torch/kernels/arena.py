@@ -7,6 +7,8 @@ reduction runs over one buffer:
 
   * per-client sign-alignment counts    (kernels/sign_align.py)
   * weighted cohort aggregation         (kernels/masked_agg.py)
+  * per-row int8 quantization and its inverse, the wire codec of error
+    feedback                            (kernels/quantize.py)
 
 Values pad with 0; reference signs pad with the -2 sentinel, so padded
 slots never count as aligned (a sign is -1, 0 or 1).
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import masked_agg as _agg
+from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sign_align as _sa
 
@@ -105,3 +108,13 @@ def cohort_sign_align(u: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 def weighted_sum(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Σ_c w[c]·u[c] over the client axis -> (rows, lane) f32."""
     return _agg.masked_agg(u, w)
+
+
+def quantize_rows(x: torch.Tensor):
+    """x: (R, lane) f32 -> (q int8 (R, lane), scales f32 (R, 1))."""
+    return _qz.quantize_q8(x)
+
+
+def dequantize_rows(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """q: (R, lane) int8, s: (R, 1) f32 -> q·s (R, lane) f32."""
+    return _qz.dequantize_q8(q, s)

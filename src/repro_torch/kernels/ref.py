@@ -2,7 +2,8 @@
 
 Shapes follow the kernels' layout: the flat parameter vector is a
 (R, LANE) matrix with LANE = 1024, and the cohort's updates are
-(C, R, LANE). These run whenever the tensors lie on the CPU, and
+(C, R, LANE); the int8 wire codec works row by row on (R, LANE). These
+run whenever the tensors lie on the CPU, and
 ``chip_smoke.py`` holds the CUDA kernels to them on the card.
 """
 from __future__ import annotations
@@ -33,3 +34,21 @@ def masked_agg(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for c in range(u.shape[0]):
         acc = acc + w[c] * u[c]
     return acc
+
+
+def quantize_q8(x: torch.Tensor):
+    """Per-row symmetric int8. x: (R, LANE) f32 -> (q int8 (R, LANE),
+    scale f32 (R, 1)), scale = max(amax, 1e-12) / 127 by true division and
+    q = clip(round(x / scale), ±127), rounding half to even as
+    ``jnp.round`` does. The 127 is a tensor on x's device, not a Python
+    number: PyTorch's CUDA division by a CPU scalar multiplies by its
+    reciprocal, one ulp off the quotient in some rows."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(amax, 1e-12) / amax.new_full((), 127.0)
+    q = torch.clamp(torch.round(x / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_q8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """q (R, LANE) int8, scale (R, 1) f32 -> q·scale (R, LANE) f32."""
+    return q.to(torch.float32) * scale

@@ -106,7 +106,8 @@ def test_run_experiment_is_the_simulation_run():
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.api, "
-            "repro_torch.kernels.sign_align, repro_torch.kernels.masked_agg;"
+            "repro_torch.kernels.sign_align, repro_torch.kernels.masked_agg,"
+            "repro_torch.kernels.quantize, repro_torch.core.compression;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             "assert not bad, bad")
@@ -141,11 +142,7 @@ REFUSED = {
     "topology": dict(topology="two-tier-pods"),
     "rounds_per_dispatch": dict(rounds_per_dispatch=2),
     "fused_eval": dict(fused_eval=True),
-    "megastep": dict(megastep=False),
-    "eval_fn": dict(eval_fn=lambda p, b: 0.0),
     "candidate_frac": dict(candidate_frac=0.5),
-    "strategy.quantize_updates": dict(
-        strategy_kwargs=dict(quantize_updates=True)),
     "world.resident": dict(world=T.WorldSpec(resident=False)),
     "model": dict(model="qwen2-1.5b"),
 }

@@ -8,7 +8,9 @@ A delta entry that small can take the other sign, so the sign-alignment
 ratios may differ by a few counts in 54,602 (about 1e-4): they are held to
 2e-4. Given the SAME deltas, the apply step's new reference sign is equal
 wherever the global movement is above that float noise, and the -2
-padding sentinel is equal everywhere.
+padding sentinel is equal everywhere. With int8 compression the error
+feedback is held to ``repro_torch.api.parity.ef_mismatches`` (float noise,
+and the rare code that took its neighbour at a tie).
 """
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,7 @@ from repro.kernels import arena as jarena
 from repro.models import api as japi
 from repro.optim import adamw as jopt
 
+from repro_torch.api import parity
 from repro_torch.configs import anomaly_mlp as tcfg
 from repro_torch.core import megastep as tmega
 from repro_torch.kernels import arena as tarena
@@ -68,10 +71,10 @@ def test_cohort_step_matches_jax(name, has_ref):
                               jnp.asarray(ref) if has_ref else None,
                               None, None, has_ref=has_ref)
     tstep = tmega.build_cohort_step(tc, topt.sgd(lr=3e-2), ta, theta=0.65)
-    td, tl, tr, tn = tstep(torch.from_numpy(pmat), _tbatch(x, y),
-                           torch.from_numpy(lr_scale),
-                           torch.from_numpy(ref) if has_ref else None,
-                           has_ref=has_ref)
+    td, tl, tr, tn, _ = tstep(torch.from_numpy(pmat), _tbatch(x, y),
+                              torch.from_numpy(lr_scale),
+                              torch.from_numpy(ref) if has_ref else None,
+                              None, None, has_ref=has_ref)
     _close(td.numpy(), jd)
     _close(tl.numpy(), jl)
     _close(tn.numpy(), jn)
@@ -82,6 +85,39 @@ def test_cohort_step_matches_jax(name, has_ref):
     assert not td.reshape(td.shape[0], -1)[:, ta.n:].any()
 
 
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_quantized_cohort_step_matches_jax(name):
+    """Cohort of 3 padded to 4: the pad row reads and writes the error
+    arena's extra row N = 5; client rows gather and scatter by id."""
+    jc, tc, ja, ta, pmat, x, y, lr_scale, ref = _setup(name)
+    rng = np.random.default_rng(11)
+    ef = (1e-4 * rng.standard_normal((6, ta.rows, ta.lane))).astype(np.float32)
+    idx = np.array([4, 0, 2, 5])
+    jstep = jmega.build_cohort_step(jc, jopt.sgd(lr=3e-2), ja, theta=0.65,
+                                    quantize=True)
+    jd, jl, jr, jn, jef = jstep(jnp.asarray(pmat),
+                                {"x": jnp.asarray(x), "y": jnp.asarray(y)},
+                                jnp.asarray(lr_scale), None, jnp.asarray(ref),
+                                jnp.asarray(ef), jnp.asarray(idx, jnp.int32),
+                                has_ref=True)
+    tstep = tmega.build_cohort_step(tc, topt.sgd(lr=3e-2), ta, theta=0.65,
+                                    quantize=True)
+    td, tl, tr, tn, tef = tstep(torch.from_numpy(pmat), _tbatch(x, y),
+                                torch.from_numpy(lr_scale),
+                                torch.from_numpy(ref), torch.from_numpy(ef),
+                                torch.from_numpy(idx), has_ref=True)
+    assert tef.shape == ef.shape
+    np.testing.assert_array_equal(tef.numpy()[[1, 3]], ef[[1, 3]])
+    assert not parity.ef_mismatches(tef.numpy()[:5], np.asarray(jef)[:5])
+    assert not parity.ef_mismatches(td.numpy()[:3], np.asarray(jd)[:3])
+    _close(tl.numpy(), jl)
+    _close(tn.numpy(), jn)
+    assert np.abs(tr.numpy() - np.asarray(jr)).max() <= 2e-4
+    # the payload is the dequantized codes: at most 255 levels a row
+    rows = td.numpy().reshape(-1, ta.lane)
+    assert max(len(np.unique(r)) for r in rows) <= 255
+
+
 def test_cohort_step_scales_each_clients_gradient():
     """lr_scale multiplies the gradient before momentum, so with one step
     a client's delta scales with its lr_scale (up to the rounding of
@@ -90,7 +126,7 @@ def test_cohort_step_scales_each_clients_gradient():
     x[1], y[1] = x[0], y[0]
     tstep = tmega.build_cohort_step(tc, topt.sgd(lr=3e-2), ta)
     td, *_ = tstep(torch.from_numpy(pmat), _tbatch(x, y),
-                   torch.tensor([1.0, 0.25]), None, has_ref=False)
+                   torch.tensor([1.0, 0.25]), None, None, None, has_ref=False)
     np.testing.assert_allclose(td[1].numpy(), 0.25 * td[0].numpy(), rtol=0,
                                atol=2.0 ** -22 * np.abs(pmat).max())
 
