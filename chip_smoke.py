@@ -14,13 +14,25 @@ Phases, each printing JSON lines:
                (C = 5, R = 7), with ±0 updates and -2 sentinel padding; the
                int8 codec at 864 rows (the cohort folded), 54 (one client)
                and 35, with zero, ±0, exact-tie, 1e30 and subnormal rows,
-               codes, scales and values equal. Times with CUDA events.
+               codes, scales and values equal; the cohort gather at the
+               error-feedback arena's shape (11 slabs of 54 rows) for 10
+               and 5 clients and at a ragged (7, 3) with -0.0, NaN, Inf and
+               subnormal slabs, equal by bits. Times with CUDA events.
   4. slice   — the paper's quickstart experiment (anomaly-mlp, 10 clients,
                20,000 samples, 8 rounds) through ``repro_torch.run_experiment``
                on the card, from random weights made from a seed: ``fedavg``,
                ``ours``, and ``ours`` with int8 wire compression on the
                megastep path and on the per-client loop
-               (``megastep=False``). Every kernel of each path must launch.
+               (``megastep=False``); then the scanned path, 4 rounds per
+               dispatch: ``ours`` + int8 with fused eval, ``ours`` + int8
+               selecting half the clients, and ``fedavg``. Every kernel of
+               each path must launch, the gather once a round in the int8
+               scanned runs. One dispatch of 4 rounds runs under
+               ``torch.cuda.set_sync_debug_mode("error")``: any host
+               synchronisation inside it raises. Then ``torch.profiler``
+               traces one warm scanned dispatch and one warm megastep
+               round (``"phase": "trace"``): kernels a round, device busy
+               time and the device's idle share of the wall time.
   5. card vs CPU — ``ours`` and compressed ``ours`` (megastep) on the card
                and on the CPU from the same weights: selection, dropout,
                bytes, update counts and times equal, accuracy and loss
@@ -30,7 +42,14 @@ Phases, each printing JSON lines:
                error-feedback elements beyond its EF_RTOL, card against CPU
                and card against a card run from weights one ulp apart. The
                card's compressed loop is held to its compressed megastep
-               within the loop-vs-megastep tolerances.
+               within the loop-vs-megastep tolerances. The scanned
+               half-selection run on the card and on the CPU from the same
+               weights and draws: selections, integer control state, update
+               counts and accept rates equal, the f32 accumulators, EMAs,
+               accuracy and loss within ``parity``'s scanned tolerances, the
+               error feedback after round 0 within its EF tolerances; and the
+               card's fused scanned run at 4 rounds per dispatch against 1,
+               which must be equal.
 
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -50,6 +69,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the kernels' bounds.
@@ -66,7 +86,7 @@ def emit(phase: str, **kw) -> None:
 
 
 def quickstart_spec(T, strategy: str, quantize: bool = False,
-                    megastep: bool = True):
+                    megastep: bool = True, **strategy_kwargs):
     """examples/quickstart.py's spec, at full width."""
     return T.ExperimentSpec(
         model="anomaly-mlp",
@@ -76,7 +96,7 @@ def quickstart_spec(T, strategy: str, quantize: bool = False,
                          t_launch=0.25),
         strategy=strategy,
         strategy_kwargs=dict(batch_size=64, lr=3e-2, local_epochs=2,
-                             quantize_updates=quantize),
+                             quantize_updates=quantize, **strategy_kwargs),
         rounds=8, seed=0, megastep=megastep)
 
 
@@ -108,6 +128,22 @@ def quant_inputs(R: int, seed: int = 0) -> torch.Tensor:
     x[3] = torch.randn(1024, generator=g) * 1e30
     x[4] = torch.randn(1024, generator=g) * 1e-40
     return x.cuda()
+
+
+def gather_inputs(N: int, R: int, seed: int = 0,
+                  special: bool = False) -> torch.Tensor:
+    """(N, R, 1024) f32 slabs with -0.0 lanes; ``special`` adds NaN (one
+    with a payload), +-Inf and subnormal values. Made on the CPU, where
+    nothing flushes subnormals, then moved to the card."""
+    g = torch.Generator().manual_seed(seed)
+    src = torch.randn((N, R, 1024), generator=g)
+    src[:, :, :8] = -0.0
+    if special:
+        src[1, 0, 8] = math.nan
+        src.view(torch.int32)[1, 0, 9] = 0x7FC01234
+        src[2, -1, 10], src[2, -1, 11] = math.inf, -math.inf
+        src[3, 0, 12], src[3, 0, 13] = 1e-45, -1e-40
+    return src.cuda()
 
 
 def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -278,26 +314,173 @@ def phase_quantize(quantize, ref) -> dict:
     return rows
 
 
+def phase_gather(gather, ref) -> dict:
+    """Hold the cohort gather to its plain version, bit for bit; time both
+    at the error-feedback arena's shape with all ten clients."""
+    cases = ((11, 54, list(range(10))), (11, 54, [10, 3, 7, 0, 5]),
+             (7, 3, [6, 1, 2, 3, 1]))
+    for N, R, ids in cases:
+        src = gather_inputs(N, R, seed=N * R, special=N == 7)
+        idx = torch.tensor(ids, dtype=torch.int64, device="cuda")
+        got = gather.cohort_gather(src, idx)
+        want = ref.cohort_gather(src, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            raise AssertionError(
+                f"cohort_gather differs from its plain version at N={N}, "
+                f"R={R}, idx={ids}: {bad} elements")
+        emit("kernels", slabs=[N, R], idx=ids, cohort_gather="equal by bits")
+
+    N, R, ids = cases[0]
+    src = gather_inputs(N, R, seed=1)
+    idx = torch.tensor(ids, dtype=torch.int64, device="cuda")
+    K = len(ids)
+    # bytes: each gathered slab read once and written once, the indices
+    # read once; no arithmetic
+    bound = bound_ms(2 * K * R * 4096 + 8 * K, 0)
+    row = dict(
+        route="cuda", source="src/repro_torch/csrc/gather.cu",
+        replaces="src/repro/kernels/gather.py:45", max_abs_err=0.0,
+        ms=time_ms(lambda: gather.cohort_gather(src, idx)),
+        device_ms=graph_ms(lambda: gather.cohort_gather(src, idx)),
+        plain_ms=time_ms(lambda: ref.cohort_gather(src, idx)),
+        bound_ms=bound[0], bound_by=bound[1],
+        library_ms=time_ms(lambda: torch.index_select(src, 0, idx)))
+    emit("kernels", name="cohort_gather", slabs=[N, R], k=K,
+         **{k: v for k, v in row.items() if k.endswith("ms")})
+    return {"cohort_gather": row}
+
+
 def reset_launches(mods) -> None:
     mods["sign_align"].launches = mods["masked_agg"].launches = 0
+    mods["gather"].launches = 0
     mods["quantize"].launches.update(quantize_q8=0, dequantize_q8=0)
 
 
 def read_launches(mods) -> dict:
     return {"per_client_sign_align": mods["sign_align"].launches,
             "masked_agg": mods["masked_agg"].launches,
-            **mods["quantize"].launches}
+            **mods["quantize"].launches,
+            "cohort_gather": mods["gather"].launches}
 
 
 def run_card(T, spec, params, mods) -> tuple:
     """Run ``spec`` on the card with every launch count set to 0 just
-    before; returns (result, wall seconds, launches)."""
+    before; returns (simulation, wall seconds, launches)."""
     torch.cuda.synchronize()
     reset_launches(mods)
     t0 = time.perf_counter()
-    res = T.run_experiment(spec, device="cuda", params=params)
+    sim = T.build_simulation(spec, device="cuda", params=params)
+    sim.run(spec.rounds, eval_final=True)
     torch.cuda.synchronize()
-    return res, time.perf_counter() - t0, read_launches(mods)
+    return sim, time.perf_counter() - t0, read_launches(mods)
+
+
+def sync_free_dispatch(T, spec, params) -> dict:
+    """One dispatch of 4 scanned rounds, called directly under
+    ``set_sync_debug_mode("error")``: a host synchronisation inside it
+    (``.item()``, a blocking copy, a mask index) raises. The mode is off
+    again before anything is read back."""
+    sim = T.build_simulation(spec, device="cuda", params=params)
+    fn = sim._scan_fn(4)
+    args = sim._scan_args()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _carry, ms = fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    host = sim.scan_readback(ms)
+    if not (np.isfinite(host["loss"]).all() and len(host["loss"]) == 4):
+        raise AssertionError(f"sync-free dispatch: bad metrics {host}")
+    return {"rounds": 4, "sync_debug_mode": "error", "raised": False,
+            "updates_applied": [int(x) for x in host["updates_applied"]]}
+
+
+def trace(run_once) -> dict:
+    """``torch.profiler`` over one call of ``run_once`` (warm, ending in a
+    synchronisation): the kernels the card ran, their device time, and
+    the share of the call's wall time in which no kernel ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_once()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:                  # length of the union of the spans
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(((e.key, e.count, e.device_time_total)
+                  for e in prof.key_averages()
+                  if e.device_time_total > 0), key=lambda x: -x[2])[:6]
+    return dict(device_events=len(spans), device_busy_us=busy,
+                wall_us=wall_us,
+                device_idle_share=(1.0 - busy / wall_us) if spans else None,
+                top_by_device_time=[dict(name=n[:60], count=c, us=t)
+                                    for n, c, t in top])
+
+
+def phase_trace(T, spec_scanned, spec_mega, params) -> None:
+    """One warm scanned dispatch of 4 rounds and one warm megastep round,
+    each traced."""
+    sim = T.build_simulation(spec_scanned, device="cuda", params=params)
+    sim._scan_dispatch(4)
+    line = trace(lambda: sim.scan_readback(sim._scan_dispatch(4)))
+    emit("trace", run="ours+int8 scanned fused", rounds=4,
+         device_events_per_round=line["device_events"] / 4, **line)
+    mega = T.build_simulation(spec_mega, device="cuda", params=params)
+    mega.run(1)
+    line = trace(lambda: mega.run(1))
+    emit("trace", run="ours+int8", rounds=1,
+         device_events_per_round=line["device_events"], **line)
+
+
+def scanned_card_cpu(T, parity, spec, params, card_sim) -> dict:
+    """``spec`` (scanned) on the CPU from the same weights and draws as the
+    card's run ``card_sim``; then both for one round again, for the error
+    feedback after round 0. Returns the comparison line's fields."""
+    cpu = T.build_simulation(spec, device="cpu", params=params)
+    cpu.run(spec.rounds)
+    card_recs = T.result_from_simulation(spec, card_sim).records
+    cpu_recs = T.result_from_simulation(spec, cpu).records
+    problems = parity.scanned_mismatches(card_recs, cpu_recs)
+    if card_sim.cohorts != cpu.cohorts:
+        problems.append(f"selections differ: {card_sim.cohorts} vs "
+                        f"{cpu.cohorts}")
+    problems += parity.control_mismatches(
+        {f: v.cpu().numpy() for f, v in card_sim._scan_ctl._asdict().items()},
+        {f: v.numpy() for f, v in cpu._scan_ctl._asdict().items()})
+    problems += (parity.theta_band_violations(card_sim.theta_ratios, 0.65)
+                 + parity.theta_band_violations(cpu.theta_ratios, 0.65))
+    one = dataclasses.replace(spec, rounds=1)
+    ef = {}
+    for dev in ("cuda", "cpu"):
+        sim = T.build_simulation(one, device=dev, params=params)
+        sim.run(1)
+        ef[dev] = sim._scan_ctl.ef[:-1].cpu().numpy()
+    problems += parity.ef_mismatches(ef["cuda"], ef["cpu"])
+    gaps = {f: max(abs(getattr(a, f) - getattr(b, f))
+                   / max(abs(getattr(b, f)), 1e-30)
+                   for a, b in zip(card_recs, cpu_recs))
+            for f in ("sim_time", "comm_time", "idle_time", "bytes_sent",
+                      "loss")}
+    return dict(problems=problems, cohorts=card_sim.cohorts,
+                theta_tests=len(card_sim.theta_ratios),
+                max_ratio_gap=max((abs(a[2] - b[2]) for a, b in zip(
+                    card_sim.theta_ratios, cpu.theta_ratios)), default=0.0),
+                max_rel_gap=gaps,
+                max_acc_gap=max((abs(a.accuracy - b.accuracy)
+                                 for a, b in zip(card_recs, cpu_recs)
+                                 if math.isfinite(b.accuracy)), default=0.0),
+                ef_round0_elements_beyond_rtol=parity.ef_flips(ef["cuda"],
+                                                               ef["cpu"]))
 
 
 def run_round0_codes(sim, quantize) -> torch.Tensor:
@@ -399,8 +582,8 @@ def compare_card_cpu(T, parity, spec, params, card_records, quantize):
 def main() -> int:
     import repro_torch as T
     from repro_torch.api import parity
-    from repro_torch.kernels import (_build, masked_agg, quantize, ref,
-                                     sign_align)
+    from repro_torch.kernels import (_build, gather, masked_agg, quantize,
+                                     ref, sign_align)
     from repro_torch.models import api as model_api
 
     if not torch.cuda.is_available():
@@ -430,40 +613,67 @@ def main() -> int:
     # 3. kernels
     rows = phase_kernels(sign_align, masked_agg, ref)
     rows.update(phase_quantize(quantize, ref))
+    rows.update(phase_gather(gather, ref))
 
     # 4. slice: the quickstart spec on the card. Each run sets every launch
     # count to 0 just before it and reads them just after.
     mods = {"sign_align": sign_align, "masked_agg": masked_agg,
-            "quantize": quantize}
+            "quantize": quantize, "gather": gather}
     cfg = quickstart_spec(T, "ours").resolve_model()
     params = model_api.init_params(torch.Generator().manual_seed(0), cfg)
+    codec = ("quantize_q8", "dequantize_q8")
+    scanned = dict(rounds_per_dispatch=4)
     runs = {  # name -> (spec, kernels that must launch)
         "fedavg": (quickstart_spec(T, "fedavg"), ("masked_agg",)),
         "ours": (quickstart_spec(T, "ours"),
                  ("per_client_sign_align", "masked_agg")),
         "ours+int8": (quickstart_spec(T, "ours", quantize=True),
-                      tuple(rows)),
+                      ("per_client_sign_align", "masked_agg") + codec),
         "ours+int8 loop": (quickstart_spec(T, "ours", quantize=True,
-                                           megastep=False),
-                           ("quantize_q8", "dequantize_q8")),
+                                           megastep=False), codec),
+        "ours+int8 scanned fused": (dataclasses.replace(
+            quickstart_spec(T, "ours", quantize=True), fused_eval=True,
+            **scanned), tuple(rows)),
+        "ours+int8 scanned half": (dataclasses.replace(
+            quickstart_spec(T, "ours", quantize=True, select_fraction=0.5),
+            **scanned), tuple(rows)),
+        "fedavg scanned": (dataclasses.replace(
+            quickstart_spec(T, "fedavg"), **scanned), ("masked_agg",)),
     }
-    finals, launches = {}, {}
+    finals, sims, launches = {}, {}, {}
     for run, (spec, needed) in runs.items():
-        res, wall, launches[run] = run_card(T, spec, params, mods)
+        sim, wall, launches[run] = run_card(T, spec, params, mods)
+        res = T.result_from_simulation(spec, sim, wall_time=wall)
         for rec in res.records:
             emit("slice", run=run, **dataclasses.asdict(rec))
         emit("slice", run=run, megastep=spec.megastep,
-             rounds=len(res.records), wall_s=wall,
-             wall_s_per_round=wall / len(res.records),
-             launches=launches[run])
-        if not all(math.isfinite(r.accuracy) and math.isfinite(r.loss)
-                   for r in res.records):
+             rounds_per_dispatch=spec.rounds_per_dispatch,
+             fused_eval=spec.fused_eval, rounds=len(res.records),
+             wall_s=wall, wall_s_per_round=wall / len(res.records),
+             dispatches=sim.dispatches, launches=launches[run],
+             cohorts=sim.cohorts or None)
+        # the scanned path without fused eval evaluates at the end of each
+        # dispatch, so its first rounds carry NaN
+        first_eval = (spec.rounds_per_dispatch - 1 if
+                      spec.rounds_per_dispatch and not spec.fused_eval else 0)
+        if not (all(math.isfinite(r.loss) for r in res.records) and all(
+                math.isfinite(r.accuracy) for r in res.records[first_eval:])):
             raise AssertionError(f"{run}: accuracy or loss not finite")
         for kname in needed:
             if launches[run][kname] < 1:
                 raise AssertionError(f"{kname} was never launched on the "
                                      f"path of '{run}'")
-        finals[run] = res
+        if "int8 scanned" in run and launches[run]["cohort_gather"] != \
+                spec.rounds:
+            raise AssertionError(f"{run}: cohort_gather launched "
+                                 f"{launches[run]['cohort_gather']} times, "
+                                 f"not once a round")
+        finals[run], sims[run] = res, sim
+    emit("slice", run="ours+int8 scanned half",
+         sync_free_dispatch=sync_free_dispatch(
+             T, runs["ours+int8 scanned half"][0], params))
+    phase_trace(T, runs["ours+int8 scanned fused"][0], runs["ours+int8"][0],
+                params)
     base = finals["fedavg"].final
     for run in ("ours", "ours+int8"):
         final = finals[run].final
@@ -487,11 +697,30 @@ def main() -> int:
                                           finals["ours+int8"].records)
     emit("loop_vs_megastep", run="ours+int8", problems=loop_vs_mega)
     problems += [f"loop vs megastep: {p}" for p in loop_vs_mega]
+    run = "ours+int8 scanned half"
+    line = scanned_card_cpu(T, parity, runs[run][0], params, sims[run])
+    emit("card_vs_cpu", run=run, **line)
+    problems += [f"{run}: {p}" for p in line["problems"]]
+    run = "ours+int8 scanned fused"
+    single, _wall, _l = run_card(T, dataclasses.replace(
+        runs[run][0], rounds_per_dispatch=1), params, mods)
+    grouping = [] if single.history == sims[run].history else [
+        f"round {a.round}: {a} != {b}"
+        for a, b in zip(sims[run].history, single.history) if a != b]
+    if single.cohorts != sims[run].cohorts:
+        grouping.append("selections differ")
+    emit("r4_vs_r1", run=run, equal=not grouping, problems=grouping,
+         dispatches=[sims[run].dispatches, single.dispatches])
+    problems += [f"{run} R=4 vs R=1: {p}" for p in grouping]
     if problems:
         raise AssertionError("runs disagree: " + "; ".join(problems))
 
+    # launches on each kernel's main path: the megastep int8 run for the
+    # four kernels it runs, the fused scanned int8 run for the gather
+    main_run = dict.fromkeys(rows, "ours+int8")
+    main_run["cohort_gather"] = "ours+int8 scanned fused"
     print(json.dumps({"kernels": [
-        {"name": k, **row, "launches": launches["ours+int8"][k]}
+        {"name": k, **row, "launches": launches[main_run[k]][k]}
         for k, row in rows.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

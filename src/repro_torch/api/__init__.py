@@ -8,7 +8,8 @@ strategies, one call to run them.
 """
 from repro_torch.api.result import ROUND_FIELDS, ExperimentResult, RoundRecord
 from repro_torch.api.runner import (build_simulation, record_from_metrics,
-                                    result_from_simulation, run_experiment)
+                                    result_from_simulation, run_experiment,
+                                    run_scanned_seed_batch)
 from repro_torch.api.spec import (DataSpec, ExperimentSpec, SpecError,
                                   SpecIssue, WorldSpec)
 from repro_torch.api.strategies import (STRATEGY_REGISTRY, Strategy,
@@ -26,4 +27,5 @@ __all__ = [
     "World", "WorldSpec", "build_simulation", "build_world", "get_strategy",
     "list_strategies", "record_from_metrics", "register_strategy",
     "resolve_strategy", "result_from_simulation", "run_experiment",
+    "run_scanned_seed_batch",
 ]

@@ -35,6 +35,38 @@ JAX package's own tolerances for that pair (tests/test_megastep.py):
 equal update counts, accept rates and bytes, times to ``PATH_TIME_RTOL``
 (idle time with an absolute floor of 1e-12 s),
 accuracy within ``PATH_ACC_TOL`` and loss within ``PATH_LOSS_RTOL``.
+
+The scanned path (``rounds_per_dispatch``) keeps the control plane and
+the accounting on the device, in f32, and is held to other rules
+(``scanned_mismatches``, ``control_mismatches``). Runs compared there draw
+the same uniforms (the port fed the JAX package's own draws, or the card
+and the CPU fed the port's), so the round labels, update counts, accept
+rates, selections and the integer ``ControlState`` fields (batch,
+staleness, has_ckpt) are equal. What is not:
+
+  * the f32 accumulators (sim, comm and idle time, bytes) add the
+    cohort's K terms in another order (XLA's fused reduction, torch's
+    CPU and CUDA sums), and XLA contracts products into FMAs; every add
+    rounds, so the last bits differ from round 0 (against the JAX
+    package on the CPU the comm time does; ``chip_smoke.py`` prints the
+    card's gaps against the CPU).
+    Each round adds at most K + 1 roundings of 2^-24 relative, so 16
+    rounds of 10 clients stay within ``SCAN_RTOL`` = 1e-5. Idle time is
+    a sum of (barrier − arrival) terms whose error scales with the
+    clock, so its tolerance is relative to the round's sim time. Bytes
+    are sums of integers and 1/8-byte beacons: exact while the total
+    stays below 2^21 (beacons) or 2^24 (payloads), rounded beyond (the
+    quickstart's ``fedavg`` reaches 15.5 M in 8 rounds, so a longer run
+    passes 2^24); they take the same ``SCAN_RTOL``;
+  * the EMAs (availability, pass rate, round time) and the LR scales are
+    the same f32 arithmetic up to FMA contraction: a few ulps, which the
+    EMA's factor 0.8 keeps from growing, within ``EMA_RTOL`` = 1e-6; the update-norm EMA is driven by update norms of
+    several SGD steps, which agree to 1e-4 (tests/test_torch_megastep.py),
+    so ``NORM_RTOL`` = 1e-4;
+  * accuracy and loss as above (``ACC_TOL``, ``LOSS_RTOL``); NaN (no
+    evaluation yet) must be NaN in both;
+  * the error-feedback arena is chaotic over rounds as above: it is
+    compared after one round from the same state (``ef_mismatches``).
 """
 from __future__ import annotations
 
@@ -52,6 +84,14 @@ EF_FLIP_FRAC = 1e-4       # of all elements: codes that took a neighbour
 PATH_TIME_RTOL = 1e-9
 PATH_ACC_TOL = 2e-3
 PATH_LOSS_RTOL = 1e-3
+SCAN_RTOL = 1e-5
+SCAN_EXACT_FIELDS = ("round", "updates_applied", "accept_rate")
+EMA_RTOL = 1e-6
+NORM_RTOL = 1e-4
+CONTROL_EXACT = ("batch", "staleness", "has_ckpt")
+CONTROL_RTOL = {"avail": EMA_RTOL, "pass_rate": EMA_RTOL,
+                "round_time": EMA_RTOL, "lr_scale": EMA_RTOL,
+                "grad_norm": NORM_RTOL}
 
 
 def record_mismatches(got: Sequence, want: Sequence) -> List[str]:
@@ -130,4 +170,58 @@ def path_mismatches(got: Sequence, want: Sequence) -> List[str]:
         if not abs(g.loss - w.loss) <= PATH_LOSS_RTOL * abs(w.loss):
             out.append(f"round {w.round}: loss {g.loss} vs {w.loss} "
                        f"(relative tolerance {PATH_LOSS_RTOL})")
+    return out
+
+
+def _nan_aware_gap(a: float, b: float) -> float:
+    if np.isnan(a) and np.isnan(b):
+        return 0.0
+    return abs(a - b) if not (np.isnan(a) or np.isnan(b)) else np.inf
+
+
+def scanned_mismatches(got: Sequence, want: Sequence) -> List[str]:
+    """Records of two scanned runs against the SCAN_* tolerances; empty
+    when they agree."""
+    if len(got) != len(want):
+        return [f"{len(got)} records against {len(want)}"]
+    out = []
+    for g, w in zip(got, want):
+        for f in SCAN_EXACT_FIELDS:
+            if getattr(g, f) != getattr(w, f):
+                out.append(f"round {w.round}: {f} {getattr(g, f)!r} != "
+                           f"{getattr(w, f)!r}")
+        for f in ("sim_time", "comm_time", "idle_time", "bytes_sent"):
+            a, b = getattr(g, f), getattr(w, f)
+            scale = abs(b) if f != "idle_time" else max(abs(b), w.sim_time)
+            if not abs(a - b) <= SCAN_RTOL * scale:
+                out.append(f"round {w.round}: {f} {a!r} vs {b!r} (relative "
+                           f"tolerance {SCAN_RTOL})")
+        if not _nan_aware_gap(g.accuracy, w.accuracy) <= ACC_TOL:
+            out.append(f"round {w.round}: accuracy {g.accuracy} vs "
+                       f"{w.accuracy} (tolerance {ACC_TOL})")
+        if not _nan_aware_gap(g.loss, w.loss) <= LOSS_RTOL * abs(w.loss):
+            out.append(f"round {w.round}: loss {g.loss} vs {w.loss} "
+                       f"(relative tolerance {LOSS_RTOL})")
+    return out
+
+
+def control_mismatches(got, want) -> List[str]:
+    """Two ``ControlState``s (dicts or objects of numpy-convertible
+    fields): integer fields equal, f32 statistics within CONTROL_RTOL; the
+    error-feedback arena is left to ``ef_mismatches``."""
+    def get(state, f):
+        return np.asarray(state[f] if isinstance(state, dict)
+                          else getattr(state, f))
+    out = []
+    for f in CONTROL_EXACT + tuple(CONTROL_RTOL):
+        a, b = get(got, f), get(want, f)
+        if a.shape != b.shape:
+            out.append(f"{f}: shape {a.shape} against {b.shape}")
+        elif f in CONTROL_EXACT:
+            if not np.array_equal(a, b):
+                out.append(f"{f}: {a.tolist()} != {b.tolist()}")
+        elif not np.all(np.abs(a.astype(np.float64) - b)
+                        <= CONTROL_RTOL[f] * np.abs(b)):
+            out.append(f"{f}: {a.tolist()} vs {b.tolist()} (relative "
+                       f"tolerance {CONTROL_RTOL[f]})")
     return out

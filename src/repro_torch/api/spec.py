@@ -4,9 +4,10 @@ An ``ExperimentSpec`` names everything a paper experiment varies (model,
 data/partition, client world, communication model, strategy, schedule,
 rounds, seed), with the JAX package's field names, and
 ``run_experiment(spec)`` runs it on the event-driven simulator: the
-cohort megastep path, or the per-client reference loop with
-``megastep=False``, with or without int8 wire compression
-(``strategy.quantize_updates``) and a custom ``eval_fn``.
+cohort megastep path, the per-client reference loop with
+``megastep=False``, or the scanned device control plane with
+``rounds_per_dispatch`` (and ``fused_eval``), with or without int8 wire
+compression (``strategy.quantize_updates``) and a custom ``eval_fn``.
 
 The spec has every field of the JAX package's spec, and ``validate()``
 refuses each option the port does not run yet, naming the ROADMAP.md
@@ -82,8 +83,6 @@ _NOT_PORTED = {
     "scenario": (None, 10, "dynamic-world scenarios"),
     "topology": (None, 10, "hierarchical topologies"),
     "candidate_frac": (None, 10, "two-stage candidate selection"),
-    "rounds_per_dispatch": (None, 8, "the scanned device control plane"),
-    "fused_eval": (False, 8, "evaluation fused into the scanned rounds"),
     "lr_schedule": (None, 9, "an LR schedule of the spmd engine"),
     "optimizer": (None, 9, "an optimizer choice of the spmd engine"),
 }
@@ -179,6 +178,28 @@ class ExperimentSpec:
         if self.eval_every < 1:
             issues.append(SpecIssue("eval_every", self.eval_every,
                                     "eval_every must be >= 1"))
+        if self.rounds_per_dispatch is not None:
+            if self.rounds_per_dispatch < 1:
+                issues.append(SpecIssue(
+                    "rounds_per_dispatch", self.rounds_per_dispatch,
+                    "rounds_per_dispatch must be >= 1"))
+            if not self.megastep:
+                issues.append(SpecIssue(
+                    "megastep", self.megastep,
+                    "rounds_per_dispatch requires megastep=True (the "
+                    "scanned path runs on the parameter arena)"))
+        if self.fused_eval:
+            if self.rounds_per_dispatch is None:
+                issues.append(SpecIssue(
+                    "fused_eval", self.fused_eval,
+                    "fused_eval evaluates inside the scanned dispatch — "
+                    "set rounds_per_dispatch"))
+            if self.eval_fn is not None:
+                issues.append(SpecIssue(
+                    "fused_eval", self.fused_eval,
+                    "fused_eval keeps the accuracy on the device inside the "
+                    "dispatch; a custom eval_fn returns a host float — drop "
+                    "one of the two"))
         if self.world.num_clients < 1:
             issues.append(SpecIssue("world.num_clients",
                                     self.world.num_clients,

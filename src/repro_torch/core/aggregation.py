@@ -11,6 +11,8 @@ event-driven engine looks up per arrival. The JAX package computes it in
 XLA f32, whose power is correctly rounded; torch's and numpy's f32 power
 are not always (one ulp off at some τ). So the power is taken in f64 and
 rounded once to f32, which reproduces the JAX table bit for bit.
+``staleness_weight`` is the device α(τ) of the scanned rounds: a gather
+from that table, built once, never a power in f32 torch.
 """
 from __future__ import annotations
 
@@ -64,3 +66,10 @@ def staleness_weights_np(taus, alpha0: float = 0.6) -> np.ndarray:
     tau = torch.as_tensor(np.asarray(taus), dtype=torch.float64)
     power = ((1.0 + tau) ** -0.5).to(torch.float32)
     return (torch.tensor(alpha0, dtype=torch.float32) * power).numpy()
+
+
+def staleness_weight(tau: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """α(τ) for an int tensor of staleness values, gathered from ``table``
+    (``staleness_weights_np(arange(len(table)), alpha0)`` on tau's device;
+    every τ must lie below its length)."""
+    return table[tau.to(torch.int64)]

@@ -13,18 +13,23 @@ sign-alignment filter against the sign of the last global update),
 ``selection`` (adaptive top-k), ``dynamic_batch`` and ``checkpointing``
 (Weibull interval).
 
-Two execution paths, as in the JAX package. By default (``megastep``)
+Three execution paths, as in the JAX package. By default (``megastep``)
 each round's client work runs as one cohort step per (steps, batch) shape
 group (core/megastep.py) and the server aggregation is one weighted arena
 sum. ``megastep=False`` selects the per-client reference loop: each client
 trains alone, is θ-tested leaf by leaf, and the server averages parameter
-dicts. ``quantize_updates`` puts int8 with error feedback on the wire on
-either path (core/compression.py): one error-feedback arena for all
-clients on the megastep path, one buffer dict per client on the loop.
-All host randomness (dropout, batch draws, selection) comes from the same
-seeded numpy Generators in the same order as the JAX package, so timing,
-bytes and selection reproduce it exactly; the parameters agree to float
-rounding.
+dicts. ``rounds_per_dispatch=R`` selects the scanned path: the control
+plane lives on the device (core/control.py) and R whole rounds run as one
+dispatch (``megastep.build_scanned_rounds``), read back once at its end;
+``fused_eval`` evaluates inside the dispatch too. Its random draws come
+from a draw source (core/draws.py), not from the host Generators.
+``quantize_updates`` puts int8 with error feedback on the wire on any
+path (core/compression.py): one error-feedback arena for all clients on
+the megastep and scanned paths, one buffer dict per client on the loop.
+On the megastep and the loop, all host randomness (dropout, batch draws,
+selection) comes from the same seeded numpy Generators in the same order
+as the JAX package, so timing, bytes and selection reproduce it exactly;
+the parameters agree to float rounding.
 
 Simulated time model (recorded separately from real wall time):
   train_time  = (steps · t_launch + samples · t_sample) / speed
@@ -42,9 +47,11 @@ import torch
 
 from repro_torch.convert import params_from_jax
 from repro_torch.core import aggregation, alignment, compression
+from repro_torch.core import control as control_mod
 from repro_torch.core import megastep as megastep_mod
 from repro_torch.core.batchsize import BatchSizeController, ClientMetrics
 from repro_torch.core.checkpoint_policy import fit_weibull, optimal_interval
+from repro_torch.core.draws import HostDraws
 from repro_torch.core.schedule import ScheduleSpec
 from repro_torch.core.selection import AdaptiveClientSelector
 from repro_torch.data.loader import ArrayLoader
@@ -133,7 +140,9 @@ class FederatedSimulation:
                  comm: CommModel = None, seed: int = 0, eval_every: int = 1,
                  schedule: Optional[ScheduleSpec] = None, *, device=None,
                  params=None, eval_fn: Optional[Callable] = None,
-                 megastep: bool = True):
+                 megastep: bool = True,
+                 rounds_per_dispatch: Optional[int] = None,
+                 fused_eval: bool = False, draws=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.strategy = strategy
@@ -148,6 +157,30 @@ class FederatedSimulation:
         self._eval_dev = _to_device(eval_arrays, self.device)
         self.eval_every = max(1, int(eval_every))
         self.megastep = bool(megastep)
+        # rounds_per_dispatch=None -> host control plane (per-round
+        # megastep / reference loop); an int >= 1 -> the device-resident
+        # control plane, R rounds per dispatch
+        self.rounds_per_dispatch = (int(rounds_per_dispatch)
+                                    if rounds_per_dispatch else None)
+        if self.rounds_per_dispatch and not self.megastep:
+            raise ValueError("rounds_per_dispatch requires megastep=True "
+                             "(the scanned path runs on the parameter "
+                             "arena)")
+        # fused eval evaluates inside the dispatch: it needs the scanned
+        # path and the default eval, whose result stays a device tensor
+        self.fused_eval = bool(fused_eval)
+        if self.fused_eval and not self.rounds_per_dispatch:
+            raise ValueError("fused_eval evaluates inside the scanned "
+                             "dispatch — set rounds_per_dispatch")
+        if self.fused_eval and eval_fn is not None:
+            raise ValueError("fused_eval keeps the accuracy on the device "
+                             "inside the dispatch; a custom eval_fn returns "
+                             "a host float — drop one of the two")
+        # host round trips of the scanned path: one per dispatch of R
+        # rounds (its metrics read back once) plus one per host eval
+        # readback; the megastep and the loop paths read back several
+        # times a round and do not count here
+        self.dispatches = 0
 
         # --- model/optim setup ------------------------------------------
         if params is None:
@@ -218,6 +251,18 @@ class FederatedSimulation:
         self._alpha_table = aggregation.staleness_weights_np(
             np.arange(self.num_clients + 1), self.schedule.alpha0)
 
+        # --- device-resident control plane (scanned path, built lazily) ---
+        self._draws = draws           # None -> HostDraws at _scan_setup
+        self._scan_fns: Dict[int, Callable] = {}   # R -> dispatch callable
+        self._scan_world = None       # (data, sizes, speed, latency, drop_p)
+        self._scan_ctl = None         # ControlState carry
+        self._scan_ref = None         # (rows, lane) int8 reference carry
+        self._scan_ref_valid = None   # 0-dim bool carry
+        self._scan_acc = None         # (4,) f32 sim/comm/idle/bytes carry
+        self._scan_prev_acc = None    # 0-dim f32 accuracy carry (fused)
+        self._scan_alpha = None       # α(τ) for τ < K on the device
+        self._scan_round0 = 0
+
         # --- accounting -----------------------------------------------------
         self.sim_time = 0.0
         self.comm_time = 0.0
@@ -229,6 +274,8 @@ class FederatedSimulation:
         # (round, cid, ratio) of every θ test made against a reference —
         # what a parity check reads to see how close a decision came to θ
         self.theta_ratios: List[tuple] = []
+        # the scanned path's selected cohort of every round
+        self.cohorts: List[List[int]] = []
 
     # ------------------------------------------------------------------
     @property
@@ -569,8 +616,208 @@ class FederatedSimulation:
         return self._finish_round(rnd, evaluate, len(selected), losses,
                                   n_sent, updates_applied, round_times)
 
+    # ------------------------------------------------------------------
+    # scanned path: the device-resident control plane, R rounds of
+    # {select -> train -> θ-filter -> aggregate -> control update} per
+    # dispatch (core/megastep.build_scanned_rounds)
+    # ------------------------------------------------------------------
+    def _scan_setup(self):
+        """Build the device world and the scanned carry once (lazy)."""
+        if self._scan_world is not None:
+            return self._scan_world
+        cap = max(l.n for l in self.loaders)
+        stacked = {}
+        for k in self.loaders[0].arrays:
+            parts = []
+            for l in self.loaders:
+                a = np.asarray(l.arrays[k])
+                pad = np.zeros((cap - len(a),) + a.shape[1:], a.dtype)
+                parts.append(np.concatenate([a, pad]) if len(pad) else a)
+            stacked[k] = np.stack(parts)
+        data = _to_device(stacked, self.device)
+
+        def vec(values, dtype):
+            return torch.tensor(values, dtype=dtype, device=self.device)
+
+        sizes = vec([l.n for l in self.loaders], torch.int32)
+        speed = vec([p.speed for p in self.profiles], torch.float32)
+        latency = vec([p.net_latency for p in self.profiles], torch.float32)
+        dropout_p = vec([p.dropout_p for p in self.profiles], torch.float32)
+        self._scan_world = (data, sizes, speed, latency, dropout_p)
+        self._scan_ctl = control_mod.init_control(
+            self.num_clients,
+            batch_sizes=[l.batch_size for l in self.loaders],
+            arena=self._arena, quantize=self.strategy.quantize_updates,
+            device=self.device)
+        k, steps_phys, batch_phys = self._scan_shapes()
+        # α(τ) for τ < K: the quorum arrival is τ = 0, the last τ = K - 1
+        self._scan_alpha = torch.from_numpy(self._alpha_table[:k]).to(
+            self.device)
+        if self._draws is None:
+            self._draws = HostDraws(self.seed, k, steps_phys, batch_phys,
+                                    self.device)
+        self._scan_ref = (self._ref_mat if self._ref_mat is not None else
+                          torch.from_numpy(np.where(
+                              self._arena.valid_mask(), 0, -2).astype(
+                                  np.int8)).to(self.device))
+        self._scan_ref_valid = torch.tensor(self._ref_mat is not None,
+                                            device=self.device)
+        self._scan_acc = vec([self.sim_time, self.comm_time, self.idle_time,
+                              self.bytes_sent], torch.float32)
+        self._scan_prev_acc = vec(self.history[-1].accuracy if self.history
+                                  else math.nan, torch.float32)
+        return self._scan_world
+
+    def _scan_shapes(self):
+        """Static (select_k, steps_phys, batch_phys) of the scanned rounds."""
+        st = self.strategy
+        k = max(1, int(st.select_fraction * self.num_clients))
+        if not (st.grad_norm_selection
+                or (st.selection and st.select_fraction < 1.0)):
+            k = self.num_clients
+        batch_phys = min(l.batch_size for l in self.loaders)
+        steps_phys = min(local_step_count(l.n, batch_phys, st)
+                         for l in self.loaders)
+        return k, steps_phys, batch_phys
+
+    def _scan_fn(self, R: int):
+        """The dispatch callable of R rounds (built once per R)."""
+        if R not in self._scan_fns:
+            self._scan_setup()
+            k, steps_phys, batch_phys = self._scan_shapes()
+            self._scan_fns[R] = megastep_mod.build_scanned_rounds(
+                self.cfg, self.opt, self._arena, self.strategy, self.comm,
+                num_clients=self.num_clients, select_k=k,
+                steps_phys=steps_phys, batch_phys=batch_phys,
+                rounds_per_dispatch=R, param_bytes=self.param_bytes,
+                schedule=self.schedule, alpha_table=self._scan_alpha,
+                wire_bytes=self._wire_bytes,
+                recovery_time=self.recovery_time,
+                restart_time=self.restart_time,
+                eval_fn=(self._eval if self.fused_eval else None),
+                eval_every=self.eval_every)
+        return self._scan_fns[R]
+
+    def _scan_args(self, eval_mark: int = -1) -> list:
+        """The arguments of the next dispatch: the carry and the world, all
+        already on the device, and host ints; nothing is copied here."""
+        data, sizes, speed, latency, dropout_p = self._scan_setup()
+        args = [self._params_mat, self._scan_ref, self._scan_ref_valid,
+                self._scan_ctl, data, sizes, speed, latency, dropout_p,
+                self._draws, self._scan_round0, self._scan_acc]
+        if self.fused_eval:
+            args += [self._scan_prev_acc, eval_mark, self._eval_dev]
+        return args
+
+    def _scan_dispatch(self, R: int, eval_mark: int = -1) -> dict:
+        """Run the next R rounds as one dispatch and keep its carry; returns
+        the per-round metrics, still on the device."""
+        carry, ms = self._scan_fn(R)(*self._scan_args(eval_mark))
+        (self._params_mat, self._scan_ref, self._scan_ref_valid,
+         self._scan_ctl, self._scan_acc, prev_acc) = carry
+        if self.fused_eval:
+            self._scan_prev_acc = prev_acc
+        self._scan_round0 += R
+        self.dispatches += 1
+        return ms
+
+    @staticmethod
+    def scan_readback(ms: dict) -> Dict[str, np.ndarray]:
+        """Every metric of one or more dispatches in ONE device-to-host
+        copy. Integer metrics and client ids are exact in f32 (below
+        2^24)."""
+        names = sorted(ms)
+        cols = [ms[k].to(torch.float32).reshape(ms[k].shape[0], -1)
+                for k in names]
+        host = torch.cat(cols, dim=1).cpu().numpy()
+        out, off = {}, 0
+        for k, c in zip(names, cols):
+            width = c.shape[1]
+            v = host[:, off:off + width]
+            out[k] = v[:, 0] if ms[k].dim() == 1 else v
+            off += width
+        return out
+
+    def _record_scanned(self, ms: Dict[str, np.ndarray], eval_acc=None):
+        """Append one dispatch's host metrics to the history and the
+        accounting (``eval_acc``: the host eval of its last round), and
+        expose the reference sign once one exists."""
+        Rg = len(ms["loss"])
+        start = self.round_idx
+        prev_acc = (self.history[-1].accuracy if self.history
+                    else float("nan"))
+        for j in range(Rg):
+            if "accuracy" in ms:
+                acc = float(ms["accuracy"][j])
+            elif j == Rg - 1 and eval_acc is not None:
+                acc = eval_acc
+            else:
+                acc = prev_acc
+            self.history.append(RoundMetrics(
+                round=start + j,
+                sim_time=float(ms["sim_time"][j]),
+                comm_time=float(ms["comm_time"][j]),
+                idle_time=float(ms["idle_time"][j]),
+                bytes_sent=float(ms["bytes_sent"][j]),
+                updates_applied=int(ms["updates_applied"][j]),
+                accept_rate=float(ms["accept_rate"][j]), accuracy=acc,
+                loss=float(ms["loss"][j])))
+            self.cohorts.append([int(c) for c in ms["cohort"][j]])
+            self.theta_ratios.extend(
+                (start + j, int(c), float(x))
+                for c, x in zip(ms["cohort"][j], ms["ratios"][j])
+                if not math.isnan(x))
+        self.server_step += int(ms["updates_applied"].sum())
+        # failure times are known to round granularity only on the scanned
+        # path; each is logged at its round's start clock
+        starts = [self.sim_time] + [float(t) for t in ms["sim_time"][:-1]]
+        for j in range(Rg):
+            self.failure_log.extend([starts[j]] * int(ms["n_failures"][j]))
+        self.sim_time = float(ms["sim_time"][-1])
+        self.comm_time = float(ms["comm_time"][-1])
+        self.idle_time = float(ms["idle_time"][-1])
+        self.bytes_sent = float(ms["bytes_sent"][-1])
+        self.round_idx += Rg
+        self._ref_mat = (self._scan_ref if bool(self._scan_ref_valid)
+                         else None)
+
+    def _run_scanned(self, num_rounds: int,
+                     eval_final: bool = True) -> List[RoundMetrics]:
+        R = self.rounds_per_dispatch
+        start = self.round_idx   # absolute round labels across run() calls
+        done = 0
+        while done < num_rounds:
+            Rg = min(R, num_rounds - done)
+            last = start + done + Rg - 1
+            is_final = eval_final and last == start + num_rounds - 1
+            # fused: only the final round of the run() is forced; the rest
+            # follow the absolute eval_every cadence inside the dispatch
+            ms = self.scan_readback(self._scan_dispatch(
+                Rg, last if (self.fused_eval and is_final) else -1))
+            eval_acc = None
+            if not self.fused_eval and (
+                    is_final or any(r % self.eval_every == 0
+                                    for r in range(start + done, last + 1))):
+                # evaluated once per dispatch, at its last round
+                eval_acc = float(self._eval(self.params, self._eval_dev))
+                self.dispatches += 1
+            self._record_scanned(ms, eval_acc)
+            done += Rg
+        return self.history
+
+    def client_pass_rates(self) -> np.ndarray:
+        """(num_clients,) θ pass-rate EMAs the server has learned: the
+        device ControlState on the scanned path, the host selector records
+        otherwise."""
+        if self._scan_ctl is not None:
+            return self._scan_ctl.pass_rate.cpu().numpy()
+        return np.array([self.selector.records[c].pass_rate
+                         for c in range(self.num_clients)])
+
     def run(self, num_rounds: int,
             eval_final: bool = True) -> List[RoundMetrics]:
+        if self.rounds_per_dispatch:
+            return self._run_scanned(num_rounds, eval_final=eval_final)
         first = self.round_idx          # absolute: resumes keep numbering
         for r in range(first, first + num_rounds):
             # eval_every > 1 skips the eval on off-rounds; the final round

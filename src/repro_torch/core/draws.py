@@ -1,0 +1,70 @@
+"""The random draws of the scanned rounds, as an input.
+
+The JAX package draws inside its ``lax.scan`` from a PRNG key folded with
+the absolute round index, which torch cannot replay. The port's scanned
+round body (core/megastep.py, ``build_scanned_rounds``) takes its
+randomness from a draw source instead, with three calls:
+
+  ``prepare(round0, rounds)``  — once per dispatch, before its rounds;
+  ``round_draws(r)``           — (eps_u, pick_u, drop_u), each (K,) f32 in
+                                 [0, 1): ε-greedy exploration, pool picks
+                                 and dropout for round r;
+  ``batch_index(r, sz)``       — (K, steps, batch) int64 sample indices for
+                                 the selected cohort, whose shard sizes
+                                 ``sz`` (K,) are known only after selection.
+
+``HostDraws`` is the port's own source. A test can hand the engine another
+with the same calls, such as one that repeats the JAX package's key
+calls, to hold the port to the reference round by round.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class HostDraws:
+    """Uniforms from a numpy Generator seeded with (seed, absolute round),
+    so a round's draws do not depend on how the rounds are grouped into
+    dispatches (``rounds_per_dispatch=R`` gives the same run as ``=1``).
+
+    ``prepare`` draws every uniform of the dispatch's rounds on the host
+    and copies them to the device in one copy, from pinned memory and
+    without blocking when the device is a card. Sample indices are
+    ``min(floor(u · sz), sz − 1)``, computed on the device, so the same
+    draws give the same batches on the card and on the CPU."""
+
+    def __init__(self, seed: int, k: int, steps: int, batch: int, device):
+        self.seed = int(seed)
+        self.k, self.steps, self.batch = int(k), int(steps), int(batch)
+        self.device = torch.device(device)
+        self._round0 = 0
+        self._buf = None            # (rounds, 3K + K·steps·batch) f32
+
+    def prepare(self, round0: int, rounds: int) -> None:
+        # one f32 row a round: eps | pick | drop | data
+        width = 3 * self.k + self.k * self.steps * self.batch
+        rows = np.stack([
+            np.random.default_rng([self.seed, round0 + j]).random(
+                width, dtype=np.float32) for j in range(rounds)])
+        host = torch.from_numpy(rows)
+        if self.device.type == "cuda":
+            pinned = torch.empty(host.shape, dtype=host.dtype,
+                                 pin_memory=True)
+            pinned.copy_(host)
+            host = pinned
+        self._buf = host.to(self.device, non_blocking=True)
+        self._round0 = int(round0)
+
+    def _row(self, r: int) -> torch.Tensor:
+        return self._buf[int(r) - self._round0]
+
+    def round_draws(self, r: int):
+        row, k = self._row(r), self.k
+        return row[:k], row[k:2 * k], row[2 * k:3 * k]
+
+    def batch_index(self, r: int, sz: torch.Tensor) -> torch.Tensor:
+        u = self._row(r)[3 * self.k:].reshape(self.k, self.steps, self.batch)
+        n = sz.to(torch.float32).reshape(-1, 1, 1)
+        idx = torch.floor(u * n).to(torch.int64)
+        return torch.minimum(idx, (sz.to(torch.int64) - 1).reshape(-1, 1, 1))

@@ -9,6 +9,8 @@ reduction runs over one buffer:
   * weighted cohort aggregation         (kernels/masked_agg.py)
   * per-row int8 quantization and its inverse, the wire codec of error
     feedback                            (kernels/quantize.py)
+  * the cohort gather of per-client slabs (the scanned path's
+    error-feedback fetch)               (kernels/gather.py)
 
 Values pad with 0; reference signs pad with the -2 sentinel, so padded
 slots never count as aligned (a sign is -1, 0 or 1).
@@ -21,6 +23,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.kernels import gather as _gather
 from repro_torch.kernels import masked_agg as _agg
 from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import ref as _ref
@@ -118,3 +121,9 @@ def quantize_rows(x: torch.Tensor):
 def dequantize_rows(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """q: (R, lane) int8, s: (R, 1) f32 -> q·s (R, lane) f32."""
     return _qz.dequantize_q8(q, s)
+
+
+def cohort_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """src: (N, rows, lane) f32 per-client slabs, idx: (K,) int64 client
+    ids -> (K, rows, lane), row k the slab of client idx[k]."""
+    return _gather.cohort_gather(src, idx)

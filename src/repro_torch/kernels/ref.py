@@ -2,7 +2,8 @@
 
 Shapes follow the kernels' layout: the flat parameter vector is a
 (R, LANE) matrix with LANE = 1024, and the cohort's updates are
-(C, R, LANE); the int8 wire codec works row by row on (R, LANE). These
+(C, R, LANE); the int8 wire codec works row by row on (R, LANE), and the
+cohort gather takes (K,) slabs of an (N, R, LANE) arena. These
 run whenever the tensors lie on the CPU, and
 ``chip_smoke.py`` holds the CUDA kernels to them on the card.
 """
@@ -52,3 +53,9 @@ def quantize_q8(x: torch.Tensor):
 def dequantize_q8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """q (R, LANE) int8, scale (R, 1) f32 -> q·scale (R, LANE) f32."""
     return q.to(torch.float32) * scale
+
+
+def cohort_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """src (N, R, LANE) f32, idx (K,) int64 -> src[idx], (K, R, LANE): the
+    rows copied as they are, as ``jnp.take`` does."""
+    return src.index_select(0, idx)

@@ -107,7 +107,9 @@ def test_run_experiment_is_the_simulation_run():
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.api, "
             "repro_torch.kernels.sign_align, repro_torch.kernels.masked_agg,"
-            "repro_torch.kernels.quantize, repro_torch.core.compression;"
+            "repro_torch.kernels.quantize, repro_torch.core.compression,"
+            "repro_torch.kernels.gather, repro_torch.core.control,"
+            "repro_torch.core.draws;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             "assert not bad, bad")
@@ -140,8 +142,6 @@ REFUSED = {
     "engine": dict(engine="spmd"),
     "scenario": dict(scenario="drift"),
     "topology": dict(topology="two-tier-pods"),
-    "rounds_per_dispatch": dict(rounds_per_dispatch=2),
-    "fused_eval": dict(fused_eval=True),
     "candidate_frac": dict(candidate_frac=0.5),
     "world.resident": dict(world=T.WorldSpec(resident=False)),
     "model": dict(model="qwen2-1.5b"),
