@@ -17,7 +17,12 @@ Phases, each printing JSON lines:
                codes, scales and values equal; the cohort gather at the
                error-feedback arena's shape (11 slabs of 54 rows) for 10
                and 5 clients and at a ragged (7, 3) with -0.0, NaN, Inf and
-               subnormal slabs, equal by bits. Times with CUDA events.
+               subnormal slabs, equal by bits; ``fused_update`` at
+               (C, R) = (10, 54), (16, 864), (1, 35) with f32 p and at
+               (10, 54) with bf16 p (f32 within 1e-6 of Σ_c|w_c·u_c| plus one
+               ulp of the larger of |p| and |result|, bf16 within one bf16
+               ulp); ``sign_align_counts`` at 54, 864 and 35 rows, f32 and
+               bf16, counts equal. Times with CUDA events.
   4. slice   — the paper's quickstart experiment (anomaly-mlp, 10 clients,
                20,000 samples, 8 rounds) through ``repro_torch.run_experiment``
                on the card, from random weights made from a seed: ``fedavg``,
@@ -50,6 +55,20 @@ Phases, each printing JSON lines:
                error feedback after round 0 within its EF tolerances; and the
                card's fused scanned run at 4 rounds per dispatch against 1,
                which must be equal.
+  6. ops and spmd — the kernel-ops API (``sign_align_ratio``,
+               ``per_client_sign_align_ratio``, ``masked_aggregate``,
+               ``fused_selective_update``) on the anomaly-mlp parameter dict
+               with 10 clients, card against CPU, each kernel launched once
+               (``"phase": "ops"``); the quickstart spec on the spmd engine
+               (``engine="spmd"``: ``fedavg``, ``cmfl``, ``acfl``, ``fedl2p``,
+               ``cmfl`` + int8; ``"phase": "slice"``), the two ``cmfl`` runs
+               against the CPU with an f32 aggregation (the card's kernel
+               reduces in f32; the gap to the default bf16 CPU run is printed
+               beside it; ``"phase": "card_vs_cpu"``), ``run_spmd_seed_batch``
+               of ``fedavg`` without dropout at three seeds against solo runs
+               (``"phase": "seed_batch"``), a trace of a warm ``cmfl`` + int8
+               and ``fedavg`` spmd round and the host-time split of a warm
+               ``cmfl`` + int8 round (``"phase": "round_breakdown"``).
 
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -352,15 +371,381 @@ def phase_gather(gather, ref) -> dict:
     return {"cohort_gather": row}
 
 
+FUSED_SHAPES = ((10, 54), (16, 864), (1, 35))   # (C, R)
+COUNT_ROWS = (54, 864, 35)
+
+
+def fused_inputs(C: int, R: int, dtype, seed: int = 0):
+    """p (R, 1024) in ``dtype``, u (C, R, 1024) f32 with ±0 lanes, and
+    w_lr (C,) = lr·mask·weight with one filtered client."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.randn((R, 1024), generator=g, device="cuda").to(dtype)
+    u = torch.randn((C, R, 1024), generator=g, device="cuda")
+    u[:, :, :16] = 0.0
+    u[:, :, 16:32] = -0.0
+    w = torch.rand((C,), generator=g, device="cuda") * 0.03
+    if C > 1:
+        w[1] = 0.0
+    return p, u, w
+
+
+def count_inputs(R: int, dtype, seed: int = 0):
+    """g (R, 1024) in ``dtype`` with ±0 lanes and zero padding; r int8
+    with zeros and the -2 sentinel on the padding."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((R, 1024), generator=g, device="cuda")
+    x[:, :16] = 0.0
+    x[:, 16:32] = -0.0
+    x[-1, -200:] = 0.0
+    r = torch.randint(-1, 2, (R, 1024), generator=g, device="cuda",
+                      dtype=torch.int8)
+    r[-1, -200:] = -2
+    return x.to(dtype), r
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |x| (8 significant bits), in f32."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def fused_excess(got, want, p, u, w) -> float:
+    """Largest excess of |got − want| over the tolerance: for f32 1e-6 of
+    Σ_c|w_c·u_c| plus one ulp of the larger of |p| and |want| (the
+    subtraction rounds once on each side); for bf16 one bf16 ulp."""
+    gap = (got.float() - want.float()).abs()
+    if p.dtype == torch.bfloat16:
+        return float((gap - bf16_ulp(want)).max())
+    scale = (u * w[:, None, None]).abs().sum(dim=0)
+    big = torch.maximum(p.abs(), want.abs())
+    ulp = torch.nextafter(big, torch.full_like(big, math.inf)) - big
+    return float((gap - 1e-6 * scale - ulp).max())
+
+
+def phase_spmd_kernels(sign_align, masked_agg, ref) -> dict:
+    """Hold fused_update and sign_align_counts to their plain versions at
+    every listed shape and dtype; time both at the anomaly-mlp arena."""
+    fu_err = sc_err = 0.0
+    cases = [(C, R, torch.float32) for C, R in FUSED_SHAPES]
+    cases.append((10, 54, torch.bfloat16))
+    for C, R, dtype in cases:
+        p, u, w = fused_inputs(C, R, dtype, seed=C * R)
+        got = masked_agg.fused_update(p, u, w)
+        want = ref.fused_update(p, u, w)
+        torch.cuda.synchronize()
+        excess = fused_excess(got, want, p, u, w)
+        if got.dtype != dtype or not excess <= 0.0:
+            raise AssertionError(f"fused_update differs from its plain "
+                                 f"version at C={C}, R={R}, {dtype} (excess "
+                                 f"{excess}, dtype {got.dtype})")
+        err = float((got.float() - want.float()).abs().max())
+        fu_err = max(fu_err, err)
+        emit("kernels", shape=[C, R], dtype=str(dtype).split(".")[-1],
+             fused_update_max_abs_err=err,
+             elements_differing=int((got != want).sum()))
+    for R in COUNT_ROWS:
+        for dtype in (torch.float32, torch.bfloat16):
+            g, r = count_inputs(R, dtype, seed=R)
+            got = sign_align.sign_align_counts(g, r)
+            want = ref.sign_align_counts(g, r)
+            torch.cuda.synchronize()
+            if got.shape != () or got.device.type != "cuda" or \
+                    not torch.equal(got, want):
+                raise AssertionError(f"sign_align_counts differs at R={R}, "
+                                     f"{dtype}: {got} vs {want}")
+            sc_err = max(sc_err, float((got - want).abs()))
+            emit("kernels", rows=R, dtype=str(dtype).split(".")[-1],
+                 sign_align_counts="equal", count=float(got))
+
+    C, R = FUSED_SHAPES[0]
+    n = R * 1024
+    p, u, w = fused_inputs(C, R, torch.float32, seed=1)
+    g, r = count_inputs(R, torch.float32, seed=1)
+    # fused_update: u read once, p read once, out written once (f32), w_lr
+    # read once; a multiply-add per update and a subtract per output.
+    # sign_align_counts: g (f32) and r read once, one int32 written; a
+    # compare and an add per slot
+    fu_bound = bound_ms((C + 2) * n * 4 + 4 * C, 2 * C * n + n)
+    sc_bound = bound_ms(5 * n + 4, 2 * n)
+    uf = u.view(C, -1)
+    rows = {
+        "fused_update": dict(
+            route="cuda", source="src/repro_torch/csrc/masked_agg.cu",
+            replaces="src/repro/kernels/masked_agg.py:64", max_abs_err=fu_err,
+            ms=time_ms(lambda: masked_agg.fused_update(p, u, w)),
+            device_ms=graph_ms(lambda: masked_agg.fused_update(p, u, w)),
+            plain_ms=time_ms(lambda: ref.fused_update(p, u, w)),
+            bound_ms=fu_bound[0], bound_by=fu_bound[1],
+            library_ms=time_ms(lambda: torch.addmv(
+                p.view(-1), uf.t(), w, alpha=-1))),
+        "sign_align_counts": dict(
+            route="cuda", source="src/repro_torch/csrc/sign_align.cu",
+            replaces="src/repro/kernels/sign_align.py:38",
+            max_abs_err=sc_err,
+            ms=time_ms(lambda: sign_align.sign_align_counts(g, r)),
+            device_ms=graph_ms(lambda: sign_align.sign_align_counts(g, r)),
+            plain_ms=time_ms(lambda: ref.sign_align_counts(g, r)),
+            bound_ms=sc_bound[0], bound_by=sc_bound[1],
+            # no single PyTorch call counts sign matches against int8
+            # reference signs
+            library_ms=None),
+    }
+    emit("kernels", name="fused_update", shape=[C, R], dtype="float32",
+         **{k: v for k, v in rows["fused_update"].items()
+            if k.endswith("ms")})
+    emit("kernels", name="sign_align_counts", rows=R, dtype="float32",
+         **{k: v for k, v in rows["sign_align_counts"].items()
+            if k.endswith("ms")})
+    return rows
+
+
+def phase_ops(T, ops, params, mods) -> dict:
+    """The kernel-ops API on the anomaly-mlp parameter dict (54,602 f32
+    values) with 10 clients, card against CPU; returns the launches of the
+    card's calls, counted from 0."""
+    g = torch.Generator().manual_seed(5)
+    C = 10
+    stacked = {k: torch.randn((C,) + v.shape, generator=g) * 0.01
+               for k, v in params.items()}
+    ref_sign = {k: torch.randint(-1, 2, v.shape, generator=g,
+                                 dtype=torch.int8)
+                for k, v in params.items()}
+    mask = (torch.rand((C,), generator=g) > 0.3).to(torch.float32)
+    mask[0] = 1.0
+    weights = torch.rand((C,), generator=g)
+    lr = 3e-2
+    cpu = dict(params=params, stacked=stacked, ref_sign=ref_sign, mask=mask,
+               weights=weights)
+    card = {k: ({n: t.cuda() for n, t in v.items()} if isinstance(v, dict)
+                else v.cuda()) for k, v in cpu.items()}
+    out = {}
+    torch.cuda.synchronize()
+    reset_launches(mods)
+    for dev, a in (("cuda", card), ("cpu", cpu)):
+        one = {k: v[0] for k, v in a["stacked"].items()}
+        out[dev] = dict(
+            ratio=ops.sign_align_ratio(one, a["ref_sign"]),
+            ratios=ops.per_client_sign_align_ratio(a["stacked"],
+                                                   a["ref_sign"]),
+            agg=ops.masked_aggregate(a["stacked"], a["mask"], a["weights"]),
+            fused=ops.fused_selective_update(a["params"], a["stacked"],
+                                             a["mask"], lr, a["weights"]))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = read_launches(mods)
+    w = mask * weights
+    w = w / w.sum()
+    scale = {k: (v * w.reshape((C,) + (1,) * (v.dim() - 1))).abs().sum(0)
+             for k, v in stacked.items()}
+    problems = []
+    if float(out["cuda"]["ratio"]) != float(out["cpu"]["ratio"]):
+        problems.append("sign_align_ratio differs")
+    if not torch.equal(out["cuda"]["ratios"].cpu(), out["cpu"]["ratios"]):
+        problems.append("per_client_sign_align_ratio differs")
+    gaps = {}
+    for name, factor in (("agg", 1.0), ("fused", lr)):
+        gap = 0.0
+        for k in params:
+            got, want = out["cuda"][name][k].cpu(), out["cpu"][name][k]
+            big = torch.maximum(want.abs(), params[k].abs()) if \
+                name == "fused" else torch.zeros_like(want)
+            ulp = torch.nextafter(big, torch.full_like(big, math.inf)) - big
+            excess = float(((got - want).abs() - 1e-6 * factor * scale[k]
+                            - (ulp if name == "fused" else 0.0)).max())
+            if not excess <= 0.0:
+                problems.append(f"{name} leaf {k}: excess {excess}")
+            gap = max(gap, float((got - want).abs().max()))
+        gaps[name] = gap
+    for name in ("sign_align_counts", "per_client_sign_align",
+                 "masked_agg", "fused_update"):
+        if launches[name] != 1:
+            problems.append(f"{name} launched {launches[name]} times")
+    emit("ops", values=sum(v.numel() for v in params.values()), clients=C,
+         problems=problems, ratio=float(out["cuda"]["ratio"]),
+         max_abs_gap={"masked_aggregate": gaps["agg"],
+                      "fused_selective_update": gaps["fused"]},
+         launches=launches)
+    if problems:
+        raise AssertionError("ops card vs CPU: " + "; ".join(problems))
+    return launches
+
+
+SPMD_RUNS = {  # name -> (strategy, int8, kernels that must launch)
+    "fedavg spmd": ("fedavg", False, ("masked_agg",)),
+    "cmfl spmd": ("cmfl", False, ("per_client_sign_align", "masked_agg")),
+    "acfl spmd": ("acfl", False, ("masked_agg",)),
+    "fedl2p spmd": ("fedl2p", False, ("masked_agg",)),
+    "cmfl+int8 spmd": ("cmfl", True, ("per_client_sign_align", "masked_agg",
+                                      "quantize_q8", "dequantize_q8")),
+}
+
+
+def spmd_spec(T, strategy: str, quantize: bool = False):
+    """The quickstart spec on the spmd engine."""
+    return dataclasses.replace(quickstart_spec(T, strategy, quantize),
+                               engine="spmd")
+
+
+def run_spmd_card(T, spec, params, mods) -> tuple:
+    """``spec`` through ``SpmdDriver`` on the card, every launch count set
+    to 0 just before; returns (driver, records, wall seconds, launches)."""
+    torch.cuda.synchronize()
+    reset_launches(mods)
+    t0 = time.perf_counter()
+    driver = T.SpmdDriver(spec, device="cuda", params=params)
+    records = driver.run_rounds(spec.rounds)
+    torch.cuda.synchronize()
+    return driver, records, time.perf_counter() - t0, read_launches(mods)
+
+
+def round_breakdown(driver, rounds: int = 4) -> dict:
+    """Host milliseconds of the parts of a warm spmd round, averaged over
+    ``rounds``: the driver's own ``run_rounds`` body, cut by a
+    synchronisation between the parts (batch and draws to the card; the
+    step's enqueue; waiting for the card; the one metric readback; the
+    accounting with its evaluation)."""
+    from repro_torch.api import runner
+    parts = dict.fromkeys(("batch", "step_enqueue", "step_wait", "readback",
+                           "account_eval"), 0.0)
+    for _ in range(rounds):
+        rnd = driver.round_idx
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        batch = driver._draw_batch()
+        draws = driver.draws.round_draws(rnd) if driver.draws else None
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        driver.state, m = driver.step(driver.state, batch, draws)
+        t.append(time.perf_counter())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        host = runner._readback(m)
+        t.append(time.perf_counter())
+        driver._account(rnd, host, evaluate=True)
+        t.append(time.perf_counter())
+        driver.round_idx += 1
+        for name, a, b in zip(parts, t, t[1:]):
+            parts[name] += (b - a) * 1e3 / rounds
+    return dict(ms=parts, total_ms=sum(parts.values()), rounds=rounds)
+
+
+def phase_spmd(T, parity, params, mods) -> dict:
+    """The five spmd runs on the card, card against CPU for the two cmfl
+    runs, the seed batch against solo runs, and a trace of a warm round.
+    Returns each run's launches."""
+    launches, drivers, records = {}, {}, {}
+    for run, (strategy, int8, needed) in SPMD_RUNS.items():
+        spec = spmd_spec(T, strategy, int8)
+        driver, recs, wall, launches[run] = run_spmd_card(T, spec, params,
+                                                           mods)
+        for rec in recs:
+            emit("slice", run=run, **dataclasses.asdict(rec))
+        emit("slice", run=run, engine="spmd", rounds=len(recs), wall_s=wall,
+             wall_s_per_round=wall / len(recs), launches=launches[run],
+             updates_applied=[r.updates_applied for r in recs])
+        if not all(math.isfinite(r.loss) and math.isfinite(r.accuracy)
+                   for r in recs):
+            raise AssertionError(f"{run}: accuracy or loss not finite")
+        for kname in needed:
+            if launches[run][kname] < 1:
+                raise AssertionError(f"{kname} was never launched on the "
+                                     f"path of '{run}'")
+        drivers[run], records[run] = driver, recs
+
+    problems = []
+    for run in ("cmfl spmd", "cmfl+int8 spmd"):
+        strategy, int8, _ = SPMD_RUNS[run]
+        spec = spmd_spec(T, strategy, int8)
+        cpu = {}
+        for name, agg in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            d = T.SpmdDriver(spec, device="cpu", params=params, agg_dtype=agg)
+            cpu[name] = (d, d.run_rounds(spec.rounds))
+        card = drivers[run]
+        f32, f32_recs = cpu["f32"]
+        line = parity.record_mismatches(records[run], f32_recs)
+        line += (parity.theta_band_violations(card.theta_ratios, 0.65)
+                 + parity.theta_band_violations(f32.theta_ratios, 0.65))
+        line += parity.control_mismatches(
+            {f: v.cpu().numpy() for f, v in card.state.control._asdict().items()},
+            {f: v.numpy() for f, v in f32.state.control._asdict().items()})
+        bf16_recs = cpu["bf16"][1]
+        ref_flips = sum(int((card.state.ref_sign[k].cpu()
+                             != f32.state.ref_sign[k]).sum())
+                        for k in params)
+        emit("card_vs_cpu", run=run, cpu_agg_dtype="float32", problems=line,
+             theta_tests=len(card.theta_ratios),
+             max_ratio_gap=max((abs(a[2] - b[2]) for a, b in zip(
+                 card.theta_ratios, f32.theta_ratios)), default=0.0),
+             max_loss_rel_gap=max(abs(a.loss - b.loss) / abs(b.loss)
+                                  for a, b in zip(records[run], f32_recs)),
+             max_acc_gap=max(abs(a.accuracy - b.accuracy)
+                             for a, b in zip(records[run], f32_recs)),
+             ref_signs_differing=ref_flips,
+             gap_to_bf16_cpu=dict(
+                 record_mismatches=parity.record_mismatches(records[run],
+                                                            bf16_recs),
+                 max_loss_rel_gap=max(abs(a.loss - b.loss) / abs(b.loss)
+                                      for a, b in zip(records[run],
+                                                      bf16_recs)),
+                 max_acc_gap=max(abs(a.accuracy - b.accuracy)
+                                 for a, b in zip(records[run], bf16_recs)),
+                 max_param_gap=max(float((card.params[k].cpu()
+                                          - cpu["bf16"][0].params[k])
+                                         .abs().max()) for k in params)))
+        problems += [f"{run}: {p}" for p in line]
+
+    # the seed batch: quickstart fedavg without dropout (seed-vectorizable)
+    # at seeds whose smallest shard takes the same 32 local steps (seed 2's
+    # takes 16, and the batch refuses to mix cohort shapes)
+    seeds = (0, 1, 3)
+    spec = dataclasses.replace(spmd_spec(T, "fedavg"),
+                               world=T.WorldSpec(num_clients=10))
+    torch.cuda.synchronize()
+    reset_launches(mods)
+    t0 = time.perf_counter()
+    batch = T.run_spmd_seed_batch(spec, seeds, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    batch_launches = read_launches(mods)
+    unequal = []
+    for s, res in zip(seeds, batch):
+        solo = T.run_experiment(dataclasses.replace(spec, seed=s),
+                                device="cuda")
+        if res.records != solo.records:
+            unequal.append(f"seed {s}: records differ")
+        if any(not torch.equal(v, solo.params[k])
+               for k, v in res.params.items()):
+            unequal.append(f"seed {s}: params differ")
+    emit("seed_batch", run="fedavg spmd", seeds=list(seeds),
+         rounds=spec.rounds, wall_s=wall, launches=batch_launches,
+         equal_to_solo=not unequal, problems=unequal,
+         final_accuracy=[res.final.accuracy for res in batch])
+    problems += unequal
+
+    for run, (strategy, int8, _) in (("cmfl+int8 spmd",
+                                      SPMD_RUNS["cmfl+int8 spmd"]),
+                                     ("fedavg spmd", SPMD_RUNS["fedavg spmd"])):
+        driver = T.SpmdDriver(spmd_spec(T, strategy, int8), device="cuda",
+                              params=params)
+        driver.run_rounds(1)
+        line = trace(lambda: driver.run_rounds(1))
+        emit("trace", run=run, rounds=1,
+             device_events_per_round=line["device_events"], **line)
+        if int8:
+            emit("round_breakdown", run=run, **round_breakdown(driver))
+    if problems:
+        raise AssertionError("spmd runs disagree: " + "; ".join(problems))
+    return launches
+
+
 def reset_launches(mods) -> None:
-    mods["sign_align"].launches = mods["masked_agg"].launches = 0
+    for name in ("sign_align", "masked_agg", "quantize"):
+        mods[name].launches.update(dict.fromkeys(mods[name].launches, 0))
     mods["gather"].launches = 0
-    mods["quantize"].launches.update(quantize_q8=0, dequantize_q8=0)
 
 
 def read_launches(mods) -> dict:
-    return {"per_client_sign_align": mods["sign_align"].launches,
-            "masked_agg": mods["masked_agg"].launches,
+    return {**mods["sign_align"].launches, **mods["masked_agg"].launches,
             **mods["quantize"].launches,
             "cohort_gather": mods["gather"].launches}
 
@@ -582,8 +967,8 @@ def compare_card_cpu(T, parity, spec, params, card_records, quantize):
 def main() -> int:
     import repro_torch as T
     from repro_torch.api import parity
-    from repro_torch.kernels import (_build, gather, masked_agg, quantize,
-                                     ref, sign_align)
+    from repro_torch.kernels import (_build, gather, masked_agg, ops,
+                                     quantize, ref, sign_align)
     from repro_torch.models import api as model_api
 
     if not torch.cuda.is_available():
@@ -614,6 +999,8 @@ def main() -> int:
     rows = phase_kernels(sign_align, masked_agg, ref)
     rows.update(phase_quantize(quantize, ref))
     rows.update(phase_gather(gather, ref))
+    engine_kernels = tuple(rows)      # the five an engine path launches
+    rows.update(phase_spmd_kernels(sign_align, masked_agg, ref))
 
     # 4. slice: the quickstart spec on the card. Each run sets every launch
     # count to 0 just before it and reads them just after.
@@ -633,10 +1020,10 @@ def main() -> int:
                                            megastep=False), codec),
         "ours+int8 scanned fused": (dataclasses.replace(
             quickstart_spec(T, "ours", quantize=True), fused_eval=True,
-            **scanned), tuple(rows)),
+            **scanned), engine_kernels),
         "ours+int8 scanned half": (dataclasses.replace(
             quickstart_spec(T, "ours", quantize=True, select_fraction=0.5),
-            **scanned), tuple(rows)),
+            **scanned), engine_kernels),
         "fedavg scanned": (dataclasses.replace(
             quickstart_spec(T, "fedavg"), **scanned), ("masked_agg",)),
     }
@@ -715,10 +1102,16 @@ def main() -> int:
     if problems:
         raise AssertionError("runs disagree: " + "; ".join(problems))
 
+    # 6. the kernel-ops API and the spmd engine
+    launches["ops"] = phase_ops(T, ops, params, mods)
+    launches.update(phase_spmd(T, parity, params, mods))
+
     # launches on each kernel's main path: the megastep int8 run for the
-    # four kernels it runs, the fused scanned int8 run for the gather
+    # four kernels it runs, the fused scanned int8 run for the gather, the
+    # ops phase for the two kernels that only the ops API reaches
     main_run = dict.fromkeys(rows, "ours+int8")
     main_run["cohort_gather"] = "ours+int8 scanned fused"
+    main_run["fused_update"] = main_run["sign_align_counts"] = "ops"
     print(json.dumps({"kernels": [
         {"name": k, **row, "launches": launches[main_run[k]][k]}
         for k, row in rows.items()]}))

@@ -11,9 +11,13 @@ keeps its module layout and public names, imports neither JAX nor
     import repro_torch
     res = repro_torch.run_experiment(repro_torch.ExperimentSpec(
         model="anomaly-mlp", strategy="ours", rounds=8))
+    base = repro_torch.run_experiment(repro_torch.ExperimentSpec(
+        model="anomaly-mlp", strategy="fedavg", engine="spmd", rounds=8))
 """
 from repro_torch.api import *  # noqa: F401,F403
 from repro_torch.api import __all__ as _api_all
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import (control_from_jax, fl_state_from_jax,
+                                 params_from_jax)
 
-__all__ = list(_api_all) + ["params_from_jax"]
+__all__ = list(_api_all) + ["control_from_jax", "fl_state_from_jax",
+                            "params_from_jax"]

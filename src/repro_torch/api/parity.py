@@ -67,6 +67,33 @@ staleness, has_ckpt) are equal. What is not:
     evaluation yet) must be NaN in both;
   * the error-feedback arena is chaotic over rounds as above: it is
     compared after one round from the same state (``ef_mismatches``).
+
+The spmd engine (``engine="spmd"``, core/fl_step.py) takes ONE gradient
+step a round at the shared weights, and its accounting is host f64
+arithmetic on the round's masks. Runs compared there start from the same
+``FLState`` and draw the same uniforms (the JAX package's draws fed to the
+port, or the port's on card and CPU), so:
+
+  * masks, selections, deliveries and reference signs are equal, and
+    with them the records' ``EXACT_FIELDS``: times from the masks, bytes
+    as whole payloads and 1/8-byte beacons summed in f32 (exact at these
+    sizes), accept rates as ratios of small integers;
+  * the parameters agree to ``SPMD_PARAM_RTOL`` of each leaf's largest
+    |value| per step taken: the per-client gradients differ in their last
+    bits (another reduction order in the backward's matrix products), and
+    the f32 aggregation adds the C terms in another order; a few ulps a
+    step, well inside 1e-6;
+  * the JAX package aggregates in bf16 by default (``agg_dtype``), and
+    where an update's f32 last bits straddle a bf16 rounding boundary the
+    two packages round it to neighbouring bf16 values: one bf16 ulp,
+    ``SPMD_BF16_MOVE_RTOL`` = 2^-8 of the largest movement of the leaf,
+    per step. The CUDA kernel reduces in f32 whatever ``agg_dtype`` says
+    (as the Pallas kernels do), so the card is compared with an f32
+    aggregation on the CPU; against the bf16 CPU run it moves by up to
+    that much per step, and ``chip_smoke.py`` prints the gap;
+  * loss and accuracy as above (``LOSS_RTOL``, ``ACC_TOL``); the control
+    state within ``control_mismatches``; θ decisions reproducible only
+    outside ``THETA_BAND``, as everywhere.
 """
 from __future__ import annotations
 
@@ -89,6 +116,8 @@ SCAN_EXACT_FIELDS = ("round", "updates_applied", "accept_rate")
 EMA_RTOL = 1e-6
 NORM_RTOL = 1e-4
 CONTROL_EXACT = ("batch", "staleness", "has_ckpt")
+SPMD_PARAM_RTOL = 1e-6
+SPMD_BF16_MOVE_RTOL = 2.0 ** -8
 CONTROL_RTOL = {"avail": EMA_RTOL, "pass_rate": EMA_RTOL,
                 "round_time": EMA_RTOL, "lr_scale": EMA_RTOL,
                 "grad_norm": NORM_RTOL}
@@ -224,4 +253,24 @@ def control_mismatches(got, want) -> List[str]:
                         <= CONTROL_RTOL[f] * np.abs(b)):
             out.append(f"{f}: {a.tolist()} vs {b.tolist()} (relative "
                        f"tolerance {CONTROL_RTOL[f]})")
+    return out
+
+
+def spmd_param_mismatches(got, want, start, steps: int,
+                          bf16_agg: bool = False) -> List[str]:
+    """Parameter dicts (numpy-convertible leaves) after ``steps`` spmd
+    steps from the same ``start``: each leaf within ``steps`` ×
+    (SPMD_PARAM_RTOL of its largest |value|, plus with a bf16 aggregation
+    SPMD_BF16_MOVE_RTOL of its largest movement from ``start``)."""
+    out = []
+    for k in sorted(want):
+        w = np.asarray(want[k], np.float64)
+        g = np.asarray(got[k], np.float64)
+        tol = SPMD_PARAM_RTOL * np.abs(w).max()
+        if bf16_agg:
+            tol += SPMD_BF16_MOVE_RTOL * np.abs(
+                w - np.asarray(start[k], np.float64)).max()
+        gap = np.abs(g - w).max()
+        if not gap <= steps * tol:
+            out.append(f"{k}: largest gap {gap} beyond {steps} x {tol}")
     return out

@@ -2,12 +2,19 @@
 
 An ``ExperimentSpec`` names everything a paper experiment varies (model,
 data/partition, client world, communication model, strategy, schedule,
-rounds, seed), with the JAX package's field names, and
-``run_experiment(spec)`` runs it on the event-driven simulator: the
-cohort megastep path, the per-client reference loop with
-``megastep=False``, or the scanned device control plane with
-``rounds_per_dispatch`` (and ``fused_eval``), with or without int8 wire
-compression (``strategy.quantize_updates``) and a custom ``eval_fn``.
+engine, rounds, seed), with the JAX package's field names, and
+``run_experiment(spec)`` runs it on either engine:
+
+  engine="sim"   — the event-driven simulator: the cohort megastep path,
+                   the per-client reference loop with ``megastep=False``,
+                   or the scanned device control plane with
+                   ``rounds_per_dispatch`` (and ``fused_eval``);
+  engine="spmd"  — one synchronous round per step (core/fl_step.py), the
+                   path of the paper's synchronous baselines, with an
+                   optional ``lr_schedule`` and ``optimizer="sgd"``;
+
+each with or without int8 wire compression (``strategy.quantize_updates``)
+and a custom ``eval_fn``.
 
 The spec has every field of the JAX package's spec, and ``validate()``
 refuses each option the port does not run yet, naming the ROADMAP.md
@@ -23,6 +30,8 @@ from repro_torch.api import world as world_mod
 from repro_torch.core.async_engine import CommModel, StrategyConfig
 from repro_torch.core.schedule import ScheduleSpec, resolve_schedule
 
+ENGINES = ("sim", "spmd")
+OPTIMIZERS = ("sgd",)                 # strings the port runs
 DATASETS = ("auto", "unsw", "road")
 PARTITIONS = ("dirichlet", "iid")
 PROFILES = ("heterogeneous", "uniform")
@@ -79,12 +88,9 @@ class WorldSpec:
 # option -> (the value the port runs, the ROADMAP.md queue 1 item that
 # brings the others)
 _NOT_PORTED = {
-    "engine": ("sim", 9, "the compiled spmd engine"),
     "scenario": (None, 10, "dynamic-world scenarios"),
     "topology": (None, 10, "hierarchical topologies"),
     "candidate_frac": (None, 10, "two-stage candidate selection"),
-    "lr_schedule": (None, 9, "an LR schedule of the spmd engine"),
-    "optimizer": (None, 9, "an optimizer choice of the spmd engine"),
 }
 
 
@@ -111,10 +117,11 @@ class ExperimentSpec:
     rounds_per_dispatch: Optional[int] = None
     fused_eval: bool = False
     eval_fn: Optional[Callable] = None
-    lr_schedule: Optional[Callable] = None
+    lr_schedule: Optional[Callable] = None     # spmd engine only: step -> lr
     candidate_frac: Optional[float] = None
     candidate_shards: int = 8
     optimizer: Union[str, Any, None] = None
+    # spmd engine only: None or "sgd" (momentum 0), or an Optimizer pair
 
     # ------------------------------------------------------------------
     # resolution helpers
@@ -156,6 +163,11 @@ class ExperimentSpec:
         """Raise :class:`SpecError` listing EVERY violation (field name,
         offending value, hint) — not just the first one found."""
         issues: List[SpecIssue] = []
+        if self.engine not in ENGINES:
+            issues.append(SpecIssue(
+                "engine", self.engine,
+                f"unknown engine; expected one of {ENGINES}"))
+        issues.extend(self._validate_optimizer())
         for name, (ported, item, what) in _NOT_PORTED.items():
             value = getattr(self, name)
             if value != ported:
@@ -183,6 +195,11 @@ class ExperimentSpec:
                 issues.append(SpecIssue(
                     "rounds_per_dispatch", self.rounds_per_dispatch,
                     "rounds_per_dispatch must be >= 1"))
+            if self.engine != "sim":
+                issues.append(SpecIssue(
+                    "rounds_per_dispatch", self.rounds_per_dispatch,
+                    "rounds_per_dispatch is a sim-engine knob (the spmd "
+                    "step is already one round per call)"))
             if not self.megastep:
                 issues.append(SpecIssue(
                     "megastep", self.megastep,
@@ -194,6 +211,11 @@ class ExperimentSpec:
                     "fused_eval", self.fused_eval,
                     "fused_eval evaluates inside the scanned dispatch — "
                     "set rounds_per_dispatch"))
+            if self.engine != "sim":
+                issues.append(SpecIssue(
+                    "fused_eval", self.fused_eval,
+                    "fused_eval is a sim-engine knob (the scanned control "
+                    "plane)"))
             if self.eval_fn is not None:
                 issues.append(SpecIssue(
                     "fused_eval", self.fused_eval,
@@ -235,6 +257,45 @@ class ExperimentSpec:
         if schedule is not None:
             issues.extend(SpecIssue(f, v, h) for f, v, h
                           in schedule.issues())
+            if self.engine == "spmd":
+                issues.extend(self._validate_spmd(strategy, schedule))
         if issues:
             raise SpecError(issues)
         return self
+
+    def _validate_optimizer(self) -> List[SpecIssue]:
+        opt = self.optimizer
+        if opt is None or opt in OPTIMIZERS:
+            return []
+        if opt in ("adamw", "adafactor"):
+            return [SpecIssue("optimizer", opt,
+                              f"{opt} is not ported yet; it comes with "
+                              "ROADMAP.md queue 1 item 14")]
+        if isinstance(opt, str):
+            return [SpecIssue("optimizer", opt,
+                              "unknown optimizer; expected 'sgd', 'adamw', "
+                              "'adafactor' or an Optimizer")]
+        if not (callable(getattr(opt, "init", None))
+                and callable(getattr(opt, "update", None))):
+            return [SpecIssue("optimizer", opt,
+                              "expected an Optimizer (init, update)")]
+        return []
+
+    def _validate_spmd(self, st: StrategyConfig,
+                       schedule: ScheduleSpec) -> List[SpecIssue]:
+        """The spmd step is a synchronous cohort step. Selection, dropout,
+        per-client LR scaling and quantized updates run on the device
+        control plane as cohort masking, so only knobs that need the
+        event-driven simulator are refused."""
+        issues = []
+        if not schedule.is_sync:
+            issues.append(SpecIssue(
+                "schedule.kind", schedule.kind,
+                "engine='spmd' does not support asynchronous schedules — "
+                "the quorum clock is event-driven (use engine='sim')"))
+        if st.dynamic_batch:
+            issues.append(SpecIssue(
+                "strategy.dynamic_batch", st.dynamic_batch,
+                "engine='spmd' does not support dynamic_batch (the cohort "
+                "batch has one shape for every round)"))
+        return issues

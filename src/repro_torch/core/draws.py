@@ -16,6 +16,11 @@ randomness from a draw source instead, with three calls:
 ``HostDraws`` is the port's own source. A test can hand the engine another
 with the same calls, such as one that repeats the JAX package's key
 calls, to hold the port to the reference round by round.
+
+The spmd step (core/fl_step.py) takes its draws the same way, one call a
+step: ``SpmdDraws.round_draws(step)`` gives (eps_u (k,), pick_u (k,),
+drop_u (C,)), the uniforms of ε-greedy exploration, pool picks and
+dropout that the JAX package draws from ``fold_in(PRNGKey(seed), step)``.
 """
 from __future__ import annotations
 
@@ -47,13 +52,7 @@ class HostDraws:
         rows = np.stack([
             np.random.default_rng([self.seed, round0 + j]).random(
                 width, dtype=np.float32) for j in range(rounds)])
-        host = torch.from_numpy(rows)
-        if self.device.type == "cuda":
-            pinned = torch.empty(host.shape, dtype=host.dtype,
-                                 pin_memory=True)
-            pinned.copy_(host)
-            host = pinned
-        self._buf = host.to(self.device, non_blocking=True)
+        self._buf = _to_device(torch.from_numpy(rows), self.device)
         self._round0 = int(round0)
 
     def _row(self, r: int) -> torch.Tensor:
@@ -68,3 +67,31 @@ class HostDraws:
         n = sz.to(torch.float32).reshape(-1, 1, 1)
         idx = torch.floor(u * n).to(torch.int64)
         return torch.minimum(idx, (sz.to(torch.int64) - 1).reshape(-1, 1, 1))
+
+
+def _to_device(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device``; to a card from pinned memory, without
+    blocking."""
+    if device.type == "cuda":
+        pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        pinned.copy_(host)
+        host = pinned
+    return host.to(device, non_blocking=True)
+
+
+class SpmdDraws:
+    """The spmd step's uniforms from a numpy Generator seeded with
+    (seed, absolute step): a step's draws do not depend on what ran
+    before it. ``k`` is the selection width, ``num_clients`` the cohort."""
+
+    def __init__(self, seed: int, num_clients: int, k: int, device):
+        self.seed = int(seed)
+        self.num_clients, self.k = int(num_clients), int(k)
+        self.device = torch.device(device)
+
+    def round_draws(self, step: int):
+        k, c = self.k, self.num_clients
+        row = np.random.default_rng([self.seed, int(step)]).random(
+            2 * k + c, dtype=np.float32)
+        dev = _to_device(torch.from_numpy(row), self.device)
+        return dev[:k], dev[k:2 * k], dev[2 * k:]

@@ -6,7 +6,8 @@ in the JAX package's leaf order (dict keys sorted), so that every hot
 reduction runs over one buffer:
 
   * per-client sign-alignment counts    (kernels/sign_align.py)
-  * weighted cohort aggregation         (kernels/masked_agg.py)
+  * weighted cohort aggregation, and the same sum applied to the
+    parameters in one pass              (kernels/masked_agg.py)
   * per-row int8 quantization and its inverse, the wire codec of error
     feedback                            (kernels/quantize.py)
   * the cohort gather of per-client slabs (the scanned path's
@@ -41,6 +42,8 @@ class ParamArena:
     def __init__(self, template: Dict[str, object], lane: int = LANE):
         self.names = tuple(sorted(template))
         self.shapes = tuple(tuple(template[k].shape) for k in self.names)
+        self.dtypes = tuple(_torch_dtype(template[k].dtype)
+                            for k in self.names)
         self.sizes = tuple(math.prod(s) for s in self.shapes)
         self.n = int(sum(self.sizes))
         self.lane = int(lane)
@@ -63,12 +66,15 @@ class ParamArena:
                                 device=first.device))
         return torch.cat(flat, dim=1).reshape(C, self.rows, self.lane)
 
-    def unpack(self, mat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """(rows, lane) -> dict of views into ``mat``."""
+    def unpack(self, mat: torch.Tensor, dtype=None) -> Dict[str, torch.Tensor]:
+        """(rows, lane) -> dict; leaves cast to the template dtypes, or to
+        one override ``dtype`` (f32 for gradient math). A leaf whose dtype
+        is already the target is a view into ``mat``."""
         flat = mat.reshape(-1)
         out, off = {}, 0
-        for k, shape, size in zip(self.names, self.shapes, self.sizes):
-            out[k] = flat[off:off + size].reshape(shape)
+        for k, shape, dt, size in zip(self.names, self.shapes, self.dtypes,
+                                      self.sizes):
+            out[k] = flat[off:off + size].reshape(shape).to(dtype or dt)
             off += size
         return out
 
@@ -97,6 +103,21 @@ class ParamArena:
         sign[self.n:] = -2
         return sign.reshape(self.rows, self.lane)
 
+    def pack_signs(self, signs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """int8 sign dict -> (rows, lane) with the -2 padding sentinel."""
+        first = signs[self.names[0]]
+        flat = [signs[k].reshape(-1).to(torch.int8) for k in self.names]
+        flat.append(torch.full((self.pad,), -2, dtype=torch.int8,
+                               device=first.device))
+        return torch.cat(flat).reshape(self.rows, self.lane)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A tensor's or an array's dtype as a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
+
 
 # ---------------------------------------------------------------------------
 # cohort ops over the arena (the tensor's device picks kernel or plain)
@@ -108,9 +129,26 @@ def cohort_sign_align(u: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return _sa.per_client_sign_align(u, r)
 
 
-def weighted_sum(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Σ_c w[c]·u[c] over the client axis -> (rows, lane) f32."""
+def weighted_sum(u: torch.Tensor, w: torch.Tensor,
+                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Σ_c w[c]·u[c] over the client axis -> (rows, lane) f32.
+
+    ``compute_dtype`` is the reduction precision of the plain version on
+    the CPU: bf16 is one einsum over bf16-rounded inputs, rounded to bf16
+    once (what the JAX package's oracle computes, bit for bit). The CUDA
+    kernel reduces in f32 whatever it is asked, as the Pallas kernels do.
+    """
+    if u.device.type == "cpu" and compute_dtype != torch.float32:
+        return torch.einsum("crl,c->rl", u.to(compute_dtype),
+                            w.to(compute_dtype)).to(torch.float32)
     return _agg.masked_agg(u, w)
+
+
+def fused_apply(p: torch.Tensor, u: torch.Tensor,
+                w_lr: torch.Tensor) -> torch.Tensor:
+    """p − Σ_c w_lr[c]·u[c] (aggregation and apply in one pass, p's dtype
+    kept)."""
+    return _agg.fused_update(p, u, w_lr)
 
 
 def quantize_rows(x: torch.Tensor):

@@ -3,11 +3,14 @@
 
 ``masked_agg(u, w)`` takes the cohort's packed updates u (C, R, LANE) f32
 and host-chosen weights w (C,) f32 (zero for filtered and padding
-clients) and returns Σ_c w[c]·u[c] as (R, LANE) f32. The tensor's device
-decides the implementation: on the CPU the plain version in
-``kernels/ref.py``, on a CUDA device the hand-written kernel in
-``csrc/masked_agg.cu`` or an exception. ``launches`` counts the kernel's
-launches.
+clients) and returns Σ_c w[c]·u[c] as (R, LANE) f32.
+``fused_update(p, u, w_lr)`` subtracts the same sum, weighted by
+w_lr = lr·mask·weight, from the parameters p (R, LANE), f32 or bf16, in
+one pass, and returns a new tensor in p's dtype. The tensor's device
+decides the implementation: on the CPU the plain versions in
+``kernels/ref.py``, on a CUDA device the hand-written kernels in
+``csrc/masked_agg.cu`` or an exception. ``launches`` counts each kernel's
+launches, by function name.
 """
 from __future__ import annotations
 
@@ -20,15 +23,21 @@ from repro_torch.kernels import ref
 
 LANE = 1024
 
-launches = 0
+launches = {"masked_agg": 0, "fused_update": 0}
+
+_ARGTYPES = {
+    "masked_agg": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+    "fused_update": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_longlong, ctypes.c_void_p],
+}
 
 
-def _lib():
-    lib = _build.load("masked_agg")
-    fn = lib.masked_agg
+def _lib(name: str):
+    fn = getattr(_build.load("masked_agg"), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -54,11 +63,48 @@ def masked_agg(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("the masked-agg kernel takes contiguous u and w")
     if u.data_ptr() % 16:
         raise ValueError("the masked-agg kernel takes a 16-byte aligned u")
-    global launches
     out = torch.empty(u.shape[1:], dtype=torch.float32, device=u.device)
-    err = _lib()(u.data_ptr(), w.data_ptr(), out.data_ptr(), u.shape[0],
-                 out.numel(), torch.cuda.current_stream(u.device).cuda_stream)
+    err = _lib("masked_agg")(u.data_ptr(), w.data_ptr(), out.data_ptr(),
+                             u.shape[0], out.numel(),
+                             torch.cuda.current_stream(u.device).cuda_stream)
     if err:
         raise RuntimeError(f"masked-agg kernel launch failed: CUDA error {err}")
-    launches += 1
+    launches["masked_agg"] += 1
+    return out
+
+
+def check_fused_args(p: torch.Tensor, u: torch.Tensor,
+                     w_lr: torch.Tensor) -> None:
+    check_args(u, w_lr)
+    if tuple(p.shape) != tuple(u.shape[1:]):
+        raise ValueError(f"p must be {tuple(u.shape[1:])}; got "
+                         f"{tuple(p.shape)}")
+    if p.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"expected p float32 or bfloat16; got {p.dtype}")
+    if p.device != u.device:
+        raise ValueError(f"p on {p.device} but u on {u.device}")
+
+
+def fused_update(p: torch.Tensor, u: torch.Tensor,
+                 w_lr: torch.Tensor) -> torch.Tensor:
+    check_fused_args(p, u, w_lr)
+    if p.device.type == "cpu":
+        return ref.fused_update(p, u, w_lr)
+    if p.device.type != "cuda":
+        raise ValueError(f"no fused_update kernel for device {p.device}")
+    if not (p.is_contiguous() and u.is_contiguous() and w_lr.is_contiguous()):
+        raise ValueError("the fused_update kernel takes contiguous p, u and "
+                         "w_lr")
+    if p.data_ptr() % 16 or u.data_ptr() % 16:
+        raise ValueError("the fused_update kernel takes 16-byte aligned p "
+                         "and u")
+    out = torch.empty_like(p)
+    err = _lib("fused_update")(
+        p.data_ptr(), int(p.dtype == torch.bfloat16), u.data_ptr(),
+        w_lr.data_ptr(), out.data_ptr(), u.shape[0], p.numel(),
+        torch.cuda.current_stream(p.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"fused_update kernel launch failed: CUDA error "
+                           f"{err}")
+    launches["fused_update"] += 1
     return out

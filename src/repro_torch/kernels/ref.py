@@ -17,6 +17,12 @@ def sign(x: torch.Tensor) -> torch.Tensor:
     return ((x > 0).to(torch.int8) - (x < 0).to(torch.int8))
 
 
+def sign_align_counts(g: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """g: (R, LANE) f32 or bf16; r: (R, LANE) int8 -> 0-dim f32 count of
+    the slots where sign(g) == r, taken in int64 and converted once."""
+    return (sign(g) == r).sum().to(torch.float32)
+
+
 def per_client_sign_align(u: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """u: (C, R, LANE) f32; r: (R, LANE) int8 -> (C,) f32 aligned counts.
 
@@ -35,6 +41,15 @@ def masked_agg(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for c in range(u.shape[0]):
         acc = acc + w[c] * u[c]
     return acc
+
+
+def fused_update(p: torch.Tensor, u: torch.Tensor,
+                 w_lr: torch.Tensor) -> torch.Tensor:
+    """p: (R, LANE) f32 or bf16; u: (C, R, LANE) f32; w_lr: (C,) f32 ->
+    p − Σ_c w_lr[c]·u[c] in p's dtype: the sum in f32 in the order of
+    ``masked_agg``, the difference in f32, rounded once to p's dtype
+    (round to nearest even, as ``.astype`` does)."""
+    return (p.to(torch.float32) - masked_agg(u, w_lr)).to(p.dtype)
 
 
 def quantize_q8(x: torch.Tensor):

@@ -109,7 +109,10 @@ def test_import_leaves_jax_out():
             "repro_torch.kernels.sign_align, repro_torch.kernels.masked_agg,"
             "repro_torch.kernels.quantize, repro_torch.core.compression,"
             "repro_torch.kernels.gather, repro_torch.core.control,"
-            "repro_torch.core.draws;"
+            "repro_torch.core.draws, repro_torch.core.fl_step,"
+            "repro_torch.kernels.ops, repro_torch.kernels.arena,"
+            "repro_torch.api.runner, repro_torch.api.parity,"
+            "repro_torch.convert;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             "assert not bad, bad")
@@ -139,7 +142,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 REFUSED = {
-    "engine": dict(engine="spmd"),
+    "optimizer": dict(engine="spmd", strategy="fedavg", optimizer="adamw"),
     "scenario": dict(scenario="drift"),
     "topology": dict(topology="two-tier-pods"),
     "candidate_frac": dict(candidate_frac=0.5),
