@@ -69,6 +69,24 @@ Phases, each printing JSON lines:
                (``"phase": "seed_batch"``), a trace of a warm ``cmfl`` + int8
                and ``fedavg`` spmd round and the host-time split of a warm
                ``cmfl`` + int8 round (``"phase": "round_breakdown"``).
+  7. LM serving — ``flash_attention`` against its plain version on the card
+               (``"phase": "kernels"``): qwen2-1.5b's prefill flattened
+               (48, 2048, 128) and in its own layout (B 4, S 2048, H 12, K 2,
+               hd 128) and with K = H = 12, bf16 causal; f32 at (12, 512, 32)
+               causal and not; S 512 against Sk 1024; hd 64 and 96; a window
+               of 256 at S 1024 (f32 within 1e-5, bf16 within one bf16 ulp
+               plus 1e-5), each timed beside its bound, its plain version and
+               ``scaled_dot_product_attention``. Then ``serve_lm`` at
+               qwen2-1.5b's full width (28 layers, random weights drawn on
+               the card from seed 0) with ``attention_impl="blockwise"``,
+               batch 4, a 2048-token prompt and 16 greedy tokens: exactly one
+               kernel launch per layer in the prefill and none in the decode
+               (``"phase": "slice"``); the same with ``"full"`` attention (no
+               launch), its gap to the blockwise run printed; a 2-layer f32
+               qwen2-1.5b, card (kernel) against CPU (plain), prefill and
+               four teacher-forced decode steps within 1e-4 of max|logit|
+               (``"phase": "card_vs_cpu"``); and a traced warm blockwise
+               prefill (``"phase": "trace"``, with the kernel's share).
 
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -78,6 +96,7 @@ around it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import pathlib
@@ -94,6 +113,7 @@ import torch  # noqa: E402
 # Published H100 SXM peaks (NVIDIA data sheet) for the kernels' bounds.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12          # non-tensor-core f32 (and int32 ALU) rate
+BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core rate
 
 MAIN_SHAPE = (16, 54)          # 10 clients padded to 16; 54,602 params
 RAGGED_SHAPE = (5, 7)
@@ -742,12 +762,14 @@ def reset_launches(mods) -> None:
     for name in ("sign_align", "masked_agg", "quantize"):
         mods[name].launches.update(dict.fromkeys(mods[name].launches, 0))
     mods["gather"].launches = 0
+    mods["flash_attn"].launches = 0
 
 
 def read_launches(mods) -> dict:
     return {**mods["sign_align"].launches, **mods["masked_agg"].launches,
             **mods["quantize"].launches,
-            "cohort_gather": mods["gather"].launches}
+            "cohort_gather": mods["gather"].launches,
+            "flash_attention": mods["flash_attn"].launches}
 
 
 def run_card(T, spec, params, mods) -> tuple:
@@ -783,10 +805,12 @@ def sync_free_dispatch(T, spec, params) -> dict:
             "updates_applied": [int(x) for x in host["updates_applied"]]}
 
 
-def trace(run_once) -> dict:
+def trace(run_once, share_of: str = None) -> dict:
     """``torch.profiler`` over one call of ``run_once`` (warm, ending in a
     synchronisation): the kernels the card ran, their device time, and
-    the share of the call's wall time in which no kernel ran."""
+    the share of the call's wall time in which no kernel ran; with
+    ``share_of``, the device time of the kernels whose name holds it and
+    their share of the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -802,14 +826,21 @@ def trace(run_once) -> dict:
         if b > end:
             busy += b - max(a, end)
             end = b
-    top = sorted(((e.key, e.count, e.device_time_total)
-                  for e in prof.key_averages()
-                  if e.device_time_total > 0), key=lambda x: -x[2])[:6]
-    return dict(device_events=len(spans), device_busy_us=busy,
+    by_key = sorted(((e.key, e.count, e.device_time_total)
+                     for e in prof.key_averages()
+                     if e.device_time_total > 0), key=lambda x: -x[2])
+    line = dict(device_events=len(spans), device_busy_us=busy,
                 wall_us=wall_us,
                 device_idle_share=(1.0 - busy / wall_us) if spans else None,
                 top_by_device_time=[dict(name=n[:60], count=c, us=t)
-                                    for n, c, t in top])
+                                    for n, c, t in by_key[:6]])
+    if share_of is not None:
+        mine = [(c, t) for n, c, t in by_key if share_of in n]
+        us = sum(t for _, t in mine)
+        line.update(kernel=share_of, kernel_count=sum(c for c, _ in mine),
+                    kernel_us=us, kernel_share_of_busy=us / busy if busy
+                    else None)
+    return line
 
 
 def phase_trace(T, spec_scanned, spec_mega, params) -> None:
@@ -964,11 +995,361 @@ def compare_card_cpu(T, parity, spec, params, card_records, quantize):
     return out
 
 
+# (name, layout, shape, dtype, causal, window, Sk): "flat" is (BH, S, hd)
+# through flash_attention, "gqa" (B, S, H, K, hd) through flash_attention_gqa
+FLASH_CASES = (
+    ("qwen2 prefill flat", "flat", (48, 2048, 128), "bfloat16", True, None,
+     None),
+    ("qwen2 prefill", "gqa", (4, 2048, 12, 2, 128), "bfloat16", True, None,
+     None),
+    ("qwen2 prefill K=H", "gqa", (4, 2048, 12, 12, 128), "bfloat16", True,
+     None, None),
+    ("f32 causal", "flat", (12, 512, 32), "float32", True, None, None),
+    ("f32 full", "flat", (12, 512, 32), "float32", False, None, None),
+    ("S 512 Sk 1024", "flat", (8, 512, 128), "bfloat16", False, None, 1024),
+    ("hd 64", "gqa", (2, 1024, 8, 2, 64), "bfloat16", True, None, None),
+    ("hd 96", "gqa", (2, 1024, 8, 2, 96), "bfloat16", True, None, None),
+    ("window 256", "gqa", (2, 1024, 12, 2, 128), "bfloat16", True, 256,
+     None),
+)
+FLASH_MAIN = "qwen2 prefill"
+
+
+def flash_inputs(layout, shape, dtype, Sk=None, seed=0):
+    """N(0, 1) q, k, v on the card, made in f32 and rounded to ``dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if layout == "flat":
+        BH, S, hd = shape
+        qs, ks = (BH, S, hd), (BH, Sk or S, hd)
+    else:
+        B, S, H, K, hd = shape
+        qs, ks = (B, S, H, hd), (B, Sk or S, K, hd)
+    dt = getattr(torch, dtype)
+    return tuple(torch.randn(sh, generator=g, device="cuda").to(dt)
+                 for sh in (qs, ks, ks))
+
+
+def plain_gqa(ref, q, k, v, causal, window):
+    """The plain version in the (B, S, H, hd) layout, as the wrapper takes
+    it on the CPU (heads flattened, query row b·H + h reading KV row
+    b·K + h // G)."""
+    B, S, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    flat = ref.flash_attention(
+        q.transpose(1, 2).reshape(B * H, S, hd),
+        k.transpose(1, 2).reshape(B * K, Sk, hd),
+        v.transpose(1, 2).reshape(B * K, Sk, hd), causal, window,
+        kv_groups=H // K)
+    return flat.reshape(B, H, S, hd).transpose(1, 2)
+
+
+def flash_excess(got, want) -> float:
+    """Largest excess of |got − want| over the tolerance: f32 1e-5; bf16
+    one bf16 ulp of the larger magnitude plus 1e-5 (both round once from
+    f32 values up to 1e-5 apart)."""
+    gap = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        big = torch.maximum(got.float().abs(), want.float().abs())
+        return float((gap - bf16_ulp(big) - 1e-5).max())
+    return float((gap - 1e-5).max())
+
+
+def flash_work(layout, shape, causal, window, Sk, itemsize):
+    """(bytes, FLOPs) this call's data needs: q, k, v read once and o
+    written once; 4·hd FLOPs (two products) for every unmasked score."""
+    if layout == "flat":
+        (BH, S, hd), H, K, B = shape, 1, 1, shape[0]
+    else:
+        B, S, H, K, hd = shape
+    Sk = Sk or S
+    i = torch.arange(S, dtype=torch.int64)[:, None]
+    j = torch.arange(Sk, dtype=torch.int64)[None, :]
+    keep = torch.ones((S, Sk), dtype=torch.bool)
+    if causal:
+        keep &= j <= i
+    if window is not None:
+        keep &= (i - j) < window
+    pairs = int(keep.sum()) * B * H
+    nbytes = (2 * B * S * H + 2 * B * Sk * K) * hd * itemsize
+    return nbytes, 4 * hd * pairs
+
+
+def phase_flash(flash_attn, ref) -> dict:
+    """Hold flash_attention to its plain version at every listed shape;
+    time each beside its bound, its plain version and SDPA."""
+    F = torch.nn.functional
+    row, err = None, 0.0
+    for name, layout, shape, dtype, causal, window, Sk in FLASH_CASES:
+        q, k, v = flash_inputs(layout, shape, dtype, Sk)
+        if layout == "flat":
+            call = functools.partial(flash_attn.flash_attention, q, k, v,
+                                     causal=causal)
+            plain = functools.partial(ref.flash_attention, q, k, v, causal)
+            sdpa = functools.partial(F.scaled_dot_product_attention,
+                                     q[None], k[None], v[None],
+                                     is_causal=causal)
+        else:
+            call = functools.partial(flash_attn.flash_attention_gqa, q, k, v,
+                                     causal=causal, sliding_window=window)
+            plain = functools.partial(plain_gqa, ref, q, k, v, causal, window)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            mask = None
+            if window is not None:
+                S = q.shape[1]
+                i = torch.arange(S, device="cuda")[:, None]
+                j = torch.arange(S, device="cuda")[None, :]
+                mask = (j <= i) & ((i - j) < window)
+            sdpa = functools.partial(
+                F.scaled_dot_product_attention, qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        excess = flash_excess(got, want)
+        gap = float((got.float() - want.float()).abs().max())
+        if got.dtype != q.dtype or got.shape != want.shape or \
+                not excess <= 0.0:
+            raise AssertionError(f"flash_attention differs from its plain "
+                                 f"version at {name} {shape} {dtype}: excess "
+                                 f"{excess}, max gap {gap}")
+        err = max(err, gap)
+        nbytes, flops = flash_work(layout, shape, causal, window, Sk,
+                                   q.element_size())
+        rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / rate * 1e3
+        line = dict(name="flash_attention", case=name, layout=layout,
+                    shape=list(shape), dtype=dtype, causal=causal,
+                    window=window, sk=Sk, max_abs_err=gap,
+                    elements_differing=int((got != want).sum()),
+                    ms=time_ms(call, iters=10, warmup=2),
+                    device_ms=graph_ms(call, per_graph=3, replays=3),
+                    plain_ms=time_ms(plain, iters=3, warmup=1),
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    library_ms=time_ms(sdpa, iters=10, warmup=2))
+        emit("kernels", **line)
+        if name == FLASH_MAIN:
+            row = {k: line[k] for k in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms")}
+        del q, k, v, got, want
+    return {"flash_attention": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/flash_attn.py:71", max_abs_err=err,
+        ms=row["ms"], device_ms=row["device_ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+        library_ms=row["library_ms"])}
+
+
+class ServeRecorder:
+    """Wraps the transformer's ``prefill`` and ``decode_step`` for one
+    ``serve_lm`` call: the prefill's logits, the kernel launches when the
+    prefill ends and the times at its end and at the first decode step,
+    each after a synchronisation."""
+
+    def __init__(self, transformer, flash_attn):
+        self.tf, self.fa = transformer, flash_attn
+
+    def __enter__(self):
+        self.prefill, self.decode = self.tf.prefill, self.tf.decode_step
+        self.logits, self.t_decode = None, None
+
+        def prefill(*a, **k):
+            out = self.prefill(*a, **k)
+            torch.cuda.synchronize()
+            self.t_prefill, self.prefill_launches = (time.perf_counter(),
+                                                     self.fa.launches)
+            self.logits = out[0]
+            return out
+
+        def decode_step(*a, **k):
+            if self.t_decode is None:
+                torch.cuda.synchronize()
+                self.t_decode = time.perf_counter()
+            return self.decode(*a, **k)
+
+        self.tf.prefill, self.tf.decode_step = prefill, decode_step
+        return self
+
+    def __exit__(self, *exc):
+        self.tf.prefill, self.tf.decode_step = self.prefill, self.decode
+
+
+def serve_run(serve, transformer, mods, cfg, params, batch, prompt_len,
+              steps) -> dict:
+    """``serve_lm`` on the card with every launch count set to 0 just
+    before; returns its tokens, prefill logits, times, launches and peak
+    memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    with ServeRecorder(transformer, mods["flash_attn"]) as rec:
+        t0 = time.perf_counter()
+        toks = serve.serve_lm(cfg, batch, prompt_len, steps, device="cuda",
+                              params=params)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    launches = read_launches(mods)
+    return dict(tokens=toks, logits=rec.logits,
+                prefill_s=rec.t_prefill - t0, decode_s=t_end - rec.t_decode,
+                decode_tokens_per_s=batch * steps / (t_end - rec.t_decode),
+                launches=launches,
+                prefill_launches=rec.prefill_launches,
+                decode_launches=launches["flash_attention"]
+                - rec.prefill_launches,
+                peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def teacher_forced(model_api, cfg, params, prompt, feed, device) -> list:
+    """Prefill ``prompt`` on ``device``, graft the cache, then decode the
+    tokens ``feed`` (B, n) one by one; returns the logits of the prefill
+    and of each step, on the CPU in f32."""
+    B, S = prompt.shape
+    logits, cache = model_api.prefill(params, {"tokens": prompt.to(device)},
+                                      cfg)
+    full = model_api.init_cache(cfg, B, S + feed.shape[1], device=device)
+    for name in ("k", "v"):
+        full[name][:, :, :S] = cache[name]
+    full["step"] = S
+    out = [logits.float().cpu()]
+    for i in range(feed.shape[1]):
+        logits, full = model_api.decode_step(
+            params, full, {"tokens": feed[:, i:i + 1].to(device)}, cfg)
+        out.append(logits.float().cpu())
+    return out
+
+
+def phase_lm(mods) -> dict:
+    """qwen2-1.5b serving at full width, blockwise and full attention; the
+    2-layer f32 card-vs-CPU check; a traced warm prefill. Returns the
+    blockwise run's launches."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import api as model_api
+    from repro_torch.models import transformer
+    base = registry.get_config("qwen2-1.5b")
+    blockwise = base.replace(attention_impl="blockwise")
+    batch, prompt_len, steps = 4, 2048, 16
+    t0 = time.perf_counter()
+    params = model_api.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                   blockwise, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    emit("slice", run="qwen2-1.5b weights", params=n_params,
+         param_count=blockwise.param_count(),
+         bytes=sum(t.numel() * t.element_size() for t in _leaves(params)),
+         draw_s=time.perf_counter() - t0)
+    serve.serve_lm(blockwise, 1, 512, 1, device="cuda", params=params)  # warm
+
+    runs = {}
+    for run, cfg in (("qwen2-1.5b serve blockwise", blockwise),
+                     ("qwen2-1.5b serve full", base)):
+        r = serve_run(serve, transformer, mods, cfg, params, batch,
+                      prompt_len, steps)
+        toks, logits = r["tokens"], r["logits"]
+        # greedy argmax runs over the padded vocabulary, as in JAX
+        ok = (tuple(toks.shape) == (batch, 1 + steps)
+              and bool(((toks >= 0) & (toks < cfg.padded_vocab)).all())
+              and bool(torch.isfinite(logits).all())
+              and tuple(logits.shape) == (batch, prompt_len,
+                                          cfg.padded_vocab))
+        emit("slice", run=run, arch=cfg.name, layers=cfg.num_layers,
+             attention_impl=cfg.attention_impl, batch=batch,
+             prompt_len=prompt_len, decode_steps=steps,
+             prefill_s=r["prefill_s"], decode_s=r["decode_s"],
+             decode_tokens_per_s=r["decode_tokens_per_s"],
+             peak_memory_bytes=r["peak_memory_bytes"],
+             launches=r["launches"],
+             flash_launches_prefill=r["prefill_launches"],
+             flash_launches_decode=r["decode_launches"],
+             tokens_row0=toks[0].tolist(), well_formed=ok)
+        if not ok:
+            raise AssertionError(f"{run}: tokens or logits malformed")
+        want = cfg.num_layers if cfg.attention_impl == "blockwise" else 0
+        if r["prefill_launches"] != want or r["decode_launches"] != 0:
+            raise AssertionError(
+                f"{run}: flash_attention launched {r['prefill_launches']} "
+                f"times in the prefill (want {want}) and "
+                f"{r['decode_launches']} in the decode (want 0)")
+        runs[run] = r
+    a, b = (runs[k] for k in ("qwen2-1.5b serve blockwise",
+                              "qwen2-1.5b serve full"))
+    emit("slice", run="qwen2-1.5b serve blockwise vs full",
+         prefill_logit_gap_rel=float((a["logits"].float() - b["logits"].float())
+                                     .abs().max()
+                                     / b["logits"].float().abs().max()),
+         argmax_agreement=float((a["logits"].argmax(-1)
+                                 == b["logits"].argmax(-1)).float().mean()),
+         tokens_equal=int((a["tokens"] == b["tokens"]).sum()),
+         tokens=a["tokens"].numel())
+    launches = runs["qwen2-1.5b serve blockwise"]["launches"]
+    del runs, a, b
+
+    # a warm blockwise prefill, traced
+    prompt = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+        0, base.vocab_size, size=(batch, prompt_len)), device="cuda")}
+    with torch.no_grad():
+        model_api.prefill(params, prompt, blockwise)
+        line = trace(lambda: model_api.prefill(params, prompt, blockwise),
+                     share_of="flash_fwd_kernel")
+    emit("trace", run="qwen2-1.5b prefill blockwise", batch=batch,
+         prompt_len=prompt_len, **line)
+    del params, prompt
+
+    # two layers in f32, card (kernel) against CPU (plain), same weights
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = blockwise.replace(num_layers=2, dtype="float32")
+    cpu_params = model_api.init_params(torch.Generator().manual_seed(0), small,
+                                       "cpu")
+    card_params = transformer.tree_to(cpu_params, "cuda")
+    # the CPU's greedy tokens after serve_lm's prompt (seed 0) are fed to
+    # both devices' decode steps
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, small.vocab_size, size=(1, 512)))
+    feed = serve.serve_lm(small, 1, 512, 4, device="cpu",
+                          params=cpu_params)[:, :4]
+    with torch.no_grad():
+        cpu_logits = teacher_forced(model_api, small, cpu_params, prompt,
+                                    feed, "cpu")
+        torch.cuda.synchronize()
+        reset_launches(mods)
+        card_logits = teacher_forced(model_api, small, card_params, prompt,
+                                     feed, "cuda")
+        torch.cuda.synchronize()
+        card_launches = mods["flash_attn"].launches
+    problems, gaps = [], []
+    for i, (c, g) in enumerate(zip(card_logits, cpu_logits)):
+        gap = float((c - g).abs().max() / g.abs().max())
+        gaps.append(gap)
+        if not gap <= 1e-4:
+            problems.append(f"{'prefill' if i == 0 else f'decode {i}'}: "
+                            f"logit gap {gap} of max|logit|")
+    if card_launches != small.num_layers:
+        problems.append(f"flash_attention launched {card_launches} times, "
+                        f"not {small.num_layers}")
+    emit("card_vs_cpu", run="qwen2-1.5b 2-layer f32", layers=2, batch=1,
+         prompt_len=512, decode_steps=4,
+         allow_tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                         cudnn=torch.backends.cudnn.allow_tf32),
+         logit_gap_rel=gaps, flash_launches=card_launches, problems=problems)
+    if problems:
+        raise AssertionError("qwen2 card vs CPU: " + "; ".join(problems))
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     import repro_torch as T
     from repro_torch.api import parity
-    from repro_torch.kernels import (_build, gather, masked_agg, ops,
-                                     quantize, ref, sign_align)
+    from repro_torch.kernels import (_build, flash_attn, gather, masked_agg,
+                                     ops, quantize, ref, sign_align)
     from repro_torch.models import api as model_api
 
     if not torch.cuda.is_available():
@@ -1001,11 +1382,12 @@ def main() -> int:
     rows.update(phase_gather(gather, ref))
     engine_kernels = tuple(rows)      # the five an engine path launches
     rows.update(phase_spmd_kernels(sign_align, masked_agg, ref))
+    rows.update(phase_flash(flash_attn, ref))
 
     # 4. slice: the quickstart spec on the card. Each run sets every launch
     # count to 0 just before it and reads them just after.
     mods = {"sign_align": sign_align, "masked_agg": masked_agg,
-            "quantize": quantize, "gather": gather}
+            "quantize": quantize, "gather": gather, "flash_attn": flash_attn}
     cfg = quickstart_spec(T, "ours").resolve_model()
     params = model_api.init_params(torch.Generator().manual_seed(0), cfg)
     codec = ("quantize_q8", "dequantize_q8")
@@ -1106,12 +1488,17 @@ def main() -> int:
     launches["ops"] = phase_ops(T, ops, params, mods)
     launches.update(phase_spmd(T, parity, params, mods))
 
+    # 7. LM serving at qwen2-1.5b's full width
+    launches["qwen2-1.5b serve blockwise"] = phase_lm(mods)
+
     # launches on each kernel's main path: the megastep int8 run for the
     # four kernels it runs, the fused scanned int8 run for the gather, the
-    # ops phase for the two kernels that only the ops API reaches
+    # ops phase for the two kernels that only the ops API reaches, the
+    # blockwise qwen2-1.5b serving run for flash attention
     main_run = dict.fromkeys(rows, "ours+int8")
     main_run["cohort_gather"] = "ours+int8 scanned fused"
     main_run["fused_update"] = main_run["sign_align_counts"] = "ops"
+    main_run["flash_attention"] = "qwen2-1.5b serve blockwise"
     print(json.dumps({"kernels": [
         {"name": k, **row, "launches": launches[main_run[k]][k]}
         for k, row in rows.items()]}))

@@ -1,1 +1,2 @@
-"""Model configurations the port supports (the anomaly-mlp family)."""
+"""Model configurations the port supports: the anomaly-mlp family and
+the dense transformers."""

@@ -6,7 +6,9 @@ from repro_torch.configs.base import ArchConfig
 
 CONFIG = ArchConfig(
     name="anomaly-mlp", family="mlp", source="paper §IV-C / Algorithm 1",
-    mlp_hidden=(256, 128, 64), num_features=49, num_classes=10, dropout=0.3,
+    num_layers=3, d_model=256, mlp_hidden=(256, 128, 64),
+    num_features=49, num_classes=10, dropout=0.3,
+    dtype="float32", remat=False,
 )
 
 ROAD_CONFIG = CONFIG.replace(name="anomaly-mlp-road", num_features=32,

@@ -1,28 +1,98 @@
-"""Architecture configuration: the fields the mlp family reads.
+"""Architecture configuration: the fields the mlp and dense families read.
 
 The JAX package's ``ArchConfig`` describes every family it supports; the
-port carries only what the anomaly-detection MLP reads, under the same
-names, so a config reads the same in both packages.
+port carries what its ported families read, under the same names, so a
+config reads the same in both packages. Families:
+  dense — llama-style decoder (GQA + RoPE + SwiGLU or variants)
+  mlp   — the paper's own 256-128-64 anomaly-detection MLP
+The moe, ssm, hybrid, audio and vlm fields come with their families
+(ROADMAP.md queue 1 item 14).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+import torch
+
+_NOT_PORTED = ("the {} family is not ported yet; it comes with ROADMAP.md "
+               "queue 1 item 14")
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # only "mlp" in the port so far
+    family: str                      # dense | mlp in the port so far
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: int = 0                # 0 -> d_model // num_heads
     source: str = ""                 # citation for the config
+
+    # attention / norm variants -------------------------------------------
+    qkv_bias: bool = False
+    attention_impl: str = "full"     # full | blockwise (the flash kernel)
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    mlp_act: str = "swiglu"          # swiglu | gelu
+    rope_theta: float = 10000.0
+    rope_fraction: float = 1.0       # partial rotary (stablelm uses 0.25)
+    tie_embeddings: bool = False
+    sliding_window: Optional[int] = None
+
+    # mlp detector -----------------------------------------------------------
     mlp_hidden: Tuple[int, ...] = ()
     num_features: int = 0
     num_classes: int = 0
     dropout: float = 0.0             # the paper's; training applies none
 
+    # numerics -----------------------------------------------------------------
+    dtype: str = "bfloat16"
+    remat: bool = True               # read by training (not ported yet)
+
+    @property
+    def hd(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.num_heads, 1)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to a multiple of 256, as the JAX package's
+        embedding and LM head use it (labels never reference pad ids)."""
+        v = self.vocab_size
+        return v if v % 256 == 0 else (v // 256 + 1) * 256
+
+    @property
+    def q_groups(self) -> int:
+        return self.num_heads // max(self.num_kv_heads, 1)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        dims = (self.num_features,) + tuple(self.mlp_hidden) + (self.num_classes,)
-        return sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+        """Analytic parameter count (the JAX package's formula)."""
+        if self.family == "mlp":
+            dims = ((self.num_features,) + tuple(self.mlp_hidden)
+                    + (self.num_classes,))
+            return sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+        if self.family != "dense":
+            raise NotImplementedError(_NOT_PORTED.format(repr(self.family)))
+        d, ff, L, V = self.d_model, self.d_ff, self.num_layers, self.vocab_size
+        hd, H, K = self.hd, self.num_heads, self.num_kv_heads
+        attn = d * H * hd + 2 * d * K * hd + H * hd * d
+        if self.qkv_bias:
+            attn += (H + 2 * K) * hd
+        if self.mlp_act == "swiglu":
+            ffn = 3 * d * ff
+        else:
+            ffn = 2 * d * ff + ff + d
+        norms = 2 * d
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        return L * (attn + ffn + norms) + emb + d

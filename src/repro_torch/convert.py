@@ -7,7 +7,8 @@ arrays, into the port's dict of f32 tensors (same names, same layouts).
 ``control_from_jax`` does the same for a scanned run's ``ControlState``,
 so both packages can step one round from the same mid-run state, and
 ``fl_state_from_jax`` for the spmd step's whole ``FLState`` (parameters,
-optimizer state, reference sign, control state, step and counters).
+optimizer state, reference sign, control state, step and counters), and
+``lm_params_from_jax`` for a language model's nested parameter tree.
 """
 from __future__ import annotations
 
@@ -24,6 +25,23 @@ def params_from_jax(tree: Dict[str, object], device=None
     dev = resolve_device(device)
     return {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=dev)
             for k, v in tree.items()}
+
+
+def lm_params_from_jax(tree, device=None):
+    """A language model's parameters from the JAX package's nested dict of
+    numpy arrays, in the same nest and the same dtype: f32 stays f32 and
+    bf16 (ml_dtypes' ``bfloat16``) becomes ``torch.bfloat16`` by way of
+    f32, which is exact."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: lm_params_from_jax(v, dev) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=dev, dtype=torch.bfloat16)
+    if a.dtype != np.float32:
+        raise TypeError(f"expected f32 or bf16 parameters; got {a.dtype}")
+    return torch.tensor(a, device=dev)
 
 
 def control_from_jax(fields: Dict[str, object], device=None):

@@ -36,9 +36,10 @@ oracle does; the CUDA kernel reduces in f32 whatever it is asked, as the
 Pallas kernels do (kernels/arena.py).
 
 Not ported yet: dynamic-world scenarios, topologies and two-stage
-candidate selection (ROADMAP.md queue 1 item 10) and the prefill / serve
-steps (item 14). The JAX ``FLState``'s ``world`` and ``topology`` fields
-belong to those and have no counterpart here.
+candidate selection (ROADMAP.md queue 1 item 10); the JAX ``FLState``'s
+``world`` and ``topology`` fields belong to those and have no counterpart
+here. The prefill and serve steps at the end serve the dense language
+models.
 """
 from __future__ import annotations
 
@@ -394,3 +395,19 @@ def build_seed_batched_step(cfg, optimizer=None,
 
 def _update_bytes(params) -> float:
     return float(sum(p.numel() * p.element_size() for p in params.values()))
+
+
+# ---------------------------------------------------------------------------
+# serving / prefill steps (the dense language models)
+# ---------------------------------------------------------------------------
+
+def build_prefill_step(cfg):
+    def step(params, batch):
+        return api.prefill(params, batch, cfg)
+    return step
+
+
+def build_serve_step(cfg):
+    def step(params, cache, batch):
+        return api.decode_step(params, cache, batch, cfg)
+    return step

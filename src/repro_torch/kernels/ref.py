@@ -1,13 +1,16 @@
-"""Plain PyTorch versions of the arena kernels (the correctness reference).
+"""Plain PyTorch versions of the kernels (the correctness reference).
 
 Shapes follow the kernels' layout: the flat parameter vector is a
 (R, LANE) matrix with LANE = 1024, and the cohort's updates are
 (C, R, LANE); the int8 wire codec works row by row on (R, LANE), and the
-cohort gather takes (K,) slabs of an (N, R, LANE) arena. These
-run whenever the tensors lie on the CPU, and
-``chip_smoke.py`` holds the CUDA kernels to them on the card.
+cohort gather takes (K,) slabs of an (N, R, LANE) arena; attention takes
+heads flattened into the leading axis, (BH, S, hd). These run whenever
+the tensors lie on the CPU, and ``chip_smoke.py`` holds the CUDA kernels
+to them on the card.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -74,3 +77,33 @@ def cohort_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """src (N, R, LANE) f32, idx (K,) int64 -> src[idx], (K, R, LANE): the
     rows copied as they are, as ``jnp.take`` does."""
     return src.index_select(0, idx)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, sliding_window=None, kv_groups: int = 1,
+                    out_dtype=None) -> torch.Tensor:
+    """Dense masked softmax attention in f32, the function of the flash
+    kernel. q: (BH, S, hd); k, v: (BH / kv_groups, Sk, hd); query row i
+    reads KV row i // kv_groups (with heads flattened as b·H + h, that is
+    KV head h // G). q is scaled by 1/√hd in f32, masked scores are −1e30
+    (causal: k_pos <= q_pos; window: q_pos − k_pos < window; positions
+    from 0 on both axes), and the output is P·V / max(l, 1e-30), rounded
+    once to ``out_dtype`` (q's dtype by default)."""
+    S, Sk, hd = q.shape[1], k.shape[1], q.shape[2]
+    qf = q.to(torch.float32) * (1.0 / math.sqrt(hd))
+    kf = k.to(torch.float32).repeat_interleave(kv_groups, dim=0)
+    vf = v.to(torch.float32).repeat_interleave(kv_groups, dim=0)
+    s = qf @ kf.transpose(1, 2)                       # (BH, S, Sk)
+    if causal or sliding_window is not None:
+        i = torch.arange(S, device=q.device)[:, None]
+        j = torch.arange(Sk, device=q.device)[None, :]
+        mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= j <= i
+        if sliding_window is not None:
+            mask &= (i - j) < sliding_window
+        s = torch.where(mask, s, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    out = (p @ vf) / torch.clamp_min(l, 1e-30)
+    return out.to(q.dtype if out_dtype is None else out_dtype)

@@ -1,11 +1,18 @@
-"""Model API: family dispatch (the mlp family only, so far)."""
+"""Model API: family dispatch (the mlp and dense families, so far).
+
+Every family exposes ``init_params(generator, cfg, device)`` and
+``loss_fn(params, batch, cfg)``; the dense family also
+``prefill(params, batch, cfg) -> (logits, cache)``,
+``decode_step(params, cache, batch, cfg) -> (logits, cache)`` and
+``init_cache(cfg, batch, seq)``.
+"""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import mlp_detector
+from repro_torch.models import mlp_detector, transformer
 
-_FAMILY = {"mlp": mlp_detector}
+_FAMILY = {"mlp": mlp_detector, "dense": transformer}
 
 
 def module_for(cfg):
@@ -13,8 +20,9 @@ def module_for(cfg):
         return _FAMILY[cfg.family]
     except KeyError:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet; the language "
-            "models come with ROADMAP.md queue 1 item 14") from None
+            f"model family {cfg.family!r} is not ported yet; the port runs "
+            "the mlp and dense families, and the other language models "
+            "come with ROADMAP.md queue 1 item 14") from None
 
 
 def init_params(generator, cfg, device="cpu"):
@@ -23,6 +31,27 @@ def init_params(generator, cfg, device="cpu"):
 
 def loss_fn(params, batch, cfg):
     return module_for(cfg).loss_fn(params, batch, cfg)
+
+
+def _lm(cfg):
+    mod = module_for(cfg)
+    if cfg.family == "mlp":
+        raise NotImplementedError(
+            "the anomaly-mlp family has no prefill or decode; its serving "
+            "path comes with ROADMAP.md queue 1 item 12")
+    return mod
+
+
+def prefill(params, batch, cfg):
+    return _lm(cfg).prefill(params, batch, cfg)
+
+
+def decode_step(params, cache, batch, cfg):
+    return _lm(cfg).decode_step(params, cache, batch, cfg)
+
+
+def init_cache(cfg, batch_size: int, seq_len: int, device=None):
+    return _lm(cfg).init_cache(cfg, batch_size, seq_len, device=device)
 
 
 def build_default_eval(cfg):
@@ -35,4 +64,3 @@ def build_default_eval(cfg):
         return mod.accuracy(params, batch, cfg)
 
     return ev
-

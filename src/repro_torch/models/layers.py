@@ -1,20 +1,331 @@
-"""Layer primitives the mlp family uses: initialiser and loss."""
+"""Layer primitives: initialisers, norms, rotary embeddings, attention,
+feed-forward and the loss.
+
+Conventions, as in the JAX package:
+  * params are dicts of tensors; per-layer params are STACKED over a
+    leading layer dim, and the transformer loops over it.
+  * activations run in the config's compute dtype; softmax and
+    normalisation statistics run in f32.
+  * attention supports GQA (grouped einsum — KV heads are never repeated
+    into H full heads), causal masks, sliding windows, and single-token
+    decode against a (cyclic) KV cache.
+"""
 from __future__ import annotations
 
+import functools
 import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
+
+# --------------------------------------------------------------------------
+# initializers
+# --------------------------------------------------------------------------
 
 def dense_init(generator: torch.Generator, shape, dtype=torch.float32,
                scale: float = 1.0) -> torch.Tensor:
-    """normal · scale/√fan_in, drawn on the CPU from ``generator`` (the
-    distribution of the JAX package's ``dense_init``; the bits differ)."""
+    """normal · scale/√fan_in in f32, drawn on the generator's device, then
+    cast (the distribution of the JAX package's ``dense_init``; the bits
+    differ). A stacked (L, in, out) shape has the fan-in of (in, out)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale / math.sqrt(fan_in)
-    return (torch.randn(shape, generator=generator, dtype=torch.float32)
-            * std).to(dtype)
+    return (torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device) * std).to(dtype)
 
+
+def embed_init(generator: torch.Generator, shape, dtype) -> torch.Tensor:
+    return (torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device) * 0.02).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+def rmsnorm(x, weight, eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.to(torch.float32)).to(x.dtype)
+
+
+def layernorm(x, weight, bias, eps: float = 1e-5):
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
+
+
+def apply_norm(cfg, x, p, prefix=""):
+    if cfg.norm == "layernorm":
+        return layernorm(x, p[prefix + "w"], p[prefix + "b"])
+    return rmsnorm(x, p[prefix + "w"])
+
+
+def norm_params(cfg, d, dtype, device, lead=()):
+    """Norm weights (and layernorm bias) of width d, with leading dims
+    ``lead`` (the layer axis of a stack)."""
+    shape = tuple(lead) + (d,)
+    p = {"w": torch.ones(shape, dtype=dtype, device=device)}
+    if cfg.norm == "layernorm":
+        p["b"] = torch.zeros(shape, dtype=dtype, device=device)
+    return p
+
+
+# --------------------------------------------------------------------------
+# rotary position embeddings (partial fraction supported)
+# --------------------------------------------------------------------------
+
+def rope_freqs(hd: int, fraction: float, theta: float):
+    """Inverse frequencies 1 / θ^(i/rot), i = 0, 2, .., rot − 2, f32 on
+    the CPU, bit-equal to the JAX package's. The exponent i/rot is an f32
+    quotient as there; the power is taken in f64 and rounded once, since
+    XLA's f32 power is correctly rounded and torch's f32 power is not
+    everywhere; the reciprocal is an f32 division, as there."""
+    rot = int(hd * fraction)
+    rot -= rot % 2
+    expo = torch.arange(0, rot, 2, dtype=torch.float32) / rot
+    power = (torch.tensor(theta, dtype=torch.float32).double()
+             ** expo.double()).to(torch.float32)
+    return 1.0 / power, rot
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(hd: int, fraction: float, theta: float, device):
+    """``rope_freqs`` copied once to ``device``: no host copy per layer."""
+    inv, rot = rope_freqs(hd, fraction, theta)
+    return inv.to(device), rot
+
+
+def apply_rope(x, positions, fraction: float, theta: float):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    inv, rot = _rope_freqs_on(hd, fraction, theta, x.device)
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    ang = positions[..., :, None, None].to(torch.float32) * inv  # (...,S,1,rot/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1 = xr[..., 0::2].to(torch.float32)
+    x2 = xr[..., 1::2].to(torch.float32)
+    o1 = x1 * cos - x2 * sin
+    o2 = x1 * sin + x2 * cos
+    out = torch.stack([o1, o2], dim=-1).reshape(xr.shape).to(x.dtype)
+    return torch.cat([out, xp], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# attention (GQA, grouped einsum; full-sequence and decode paths)
+# --------------------------------------------------------------------------
+
+def attn_params(cfg, generator, dtype, lead=()):
+    """wq/wk/wv/wo (and QKV biases) with leading dims ``lead``."""
+    d = cfg.d_model
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    lead = tuple(lead)
+    p = {
+        "wq": dense_init(generator, lead + (d, H * hd), dtype),
+        "wk": dense_init(generator, lead + (d, K * hd), dtype),
+        "wv": dense_init(generator, lead + (d, K * hd), dtype),
+        "wo": dense_init(generator, lead + (H * hd, d), dtype,
+                         scale=1.0 / math.sqrt(2 * cfg.num_layers)),
+    }
+    if cfg.qkv_bias:
+        dev = generator.device
+        p["bq"] = torch.zeros(lead + (H * hd,), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros(lead + (K * hd,), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros(lead + (K * hd,), dtype=dtype, device=dev)
+    return p
+
+
+def _project_qkv(cfg, p, x):
+    B, S, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.reshape(B, S, H, hd), k.reshape(B, S, K, hd),
+            v.reshape(B, S, K, hd))
+
+
+def _gqa_scores(q, k):
+    """q: (B,Sq,H,hd) k: (B,Sk,K,hd) -> scores (B,K,G,Sq,Sk) f32; query
+    head h reads KV head h // G."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, Sq, K, H // K, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
+                     k.to(torch.float32))
+    return s / math.sqrt(hd)
+
+
+def _gqa_out(probs, v, dtype):
+    """probs: (B,K,G,Sq,Sk) v: (B,Sk,K,hd) -> (B,Sq,H*hd)."""
+    B, K, G, Sq, Sk = probs.shape
+    o = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(torch.float32))
+    return o.reshape(B, Sq, K * G * v.shape[-1]).to(dtype)
+
+
+# full_attention takes the blockwise (flash) branch when the config asks
+# for it and both sequence lengths are multiples of this, as in JAX.
+FLASH_BLOCK = 512
+
+
+def full_attention(cfg, p, x, positions=None, causal=True,
+                   sliding_window: Optional[int] = None, use_rope=True):
+    """Full-sequence self-attention (prefill). Returns (out, (k, v))."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(cfg, p, x)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
+    if cfg.attention_impl == "blockwise" and S % FLASH_BLOCK == 0:
+        out = blockwise_attention(q, k, v, causal=causal,
+                                  sliding_window=sliding_window,
+                                  out_dtype=x.dtype)
+        return out @ p["wo"], (k, v)
+    scores = _gqa_scores(q, k)                     # (B,K,G,S,S)
+    if causal:
+        i = torch.arange(S, device=x.device)[:, None]
+        j = torch.arange(S, device=x.device)[None, :]
+        mask = j <= i
+        if sliding_window is not None:
+            mask &= (i - j) < sliding_window
+        scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, v, x.dtype)
+    return out @ p["wo"], (k, v)
+
+
+def blockwise_attention(q, k, v, *, causal: bool, sliding_window=None,
+                        out_dtype, block: int = FLASH_BLOCK):
+    """Flash-style online-softmax attention. q: (B,S,H,hd), k/v:
+    (B,Sk,K,hd) -> (B,S,H*hd) in ``out_dtype``.
+
+    The tensor's device decides. On a CUDA device this is the flash
+    kernel (``kernels/flash_attn.py``), which tiles on its own. On the CPU
+    it is the JAX package's loop, step for step: (m, l, acc) carried in
+    f32 across KV blocks of ``block``, masked scores at −1e30, fully
+    masked tiles still computed (their contribution multiplies to zero).
+    """
+    if q.device.type == "cuda":
+        from repro_torch.kernels import flash_attn
+        out = flash_attn.flash_attention_gqa(
+            q, k, v, causal=causal, sliding_window=sliding_window,
+            out_dtype=out_dtype)
+        return out.reshape(q.shape[0], q.shape[1], -1)
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    nq, nk = S // block, k.shape[1] // block
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.reshape(B, nq, block, K, G, hd).to(torch.float32)
+    kf = k.reshape(B, nk, block, K, hd).to(torch.float32)
+    vf = v.reshape(B, nk, block, K, hd).to(torch.float32)
+    idx = torch.arange(block, device=q.device)
+    outs = []
+    for qi in range(nq):
+        qb = qf[:, qi]                             # (B, block, K, G, hd)
+        m = torch.full((B, K, G, block), -1e30, dtype=torch.float32)
+        l = torch.zeros((B, K, G, block), dtype=torch.float32)
+        acc = torch.zeros((B, K, G, block, hd), dtype=torch.float32)
+        for kj in range(nk):
+            kb, vb = kf[:, kj], vf[:, kj]          # (B, block, K, hd)
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb) * scale
+            if causal or sliding_window is not None:
+                qi_abs = qi * block + idx[:, None]
+                kj_abs = kj * block + idx[None, :]
+                mask = torch.ones((block, block), dtype=torch.bool)
+                if causal:
+                    mask &= kj_abs <= qi_abs
+                if sliding_window is not None:
+                    mask &= (qi_abs - kj_abs) < sliding_window
+                s = torch.where(mask, s, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd",
+                                                       p, vb)
+            m = m_new
+        out = acc / torch.clamp_min(l[..., None], 1e-30)  # (B,K,G,block,hd)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, block, H * hd))
+    return torch.cat(outs, dim=1).to(out_dtype)
+
+
+def decode_attention(cfg, p, x, cache_k, cache_v, step: int, *,
+                     sliding_window: Optional[int] = None,
+                     use_rope: bool = True):
+    """One-token decode. x: (B,1,d); cache_[kv]: (B,Scache,K,hd), written
+    in place at the step's slot; ``step`` is the token's position.
+
+    For sliding-window archs the cache is cyclic with Scache == window and
+    the new KV is written at ``step % window``. Returns the attention out.
+    """
+    B = x.shape[0]
+    q, k_new, v_new = _project_qkv(cfg, p, x)
+    Sc = cache_k.shape[1]
+    if use_rope:
+        pos = torch.full((B, 1), step, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_fraction, cfg.rope_theta)
+        k_new = apply_rope(k_new, pos, cfg.rope_fraction, cfg.rope_theta)
+    slot = step % Sc if sliding_window is not None else step
+    cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+    scores = _gqa_scores(q, cache_k)               # (B,K,G,1,Sc)
+    s_idx = torch.arange(Sc, device=x.device)
+    if sliding_window is not None:
+        # slot s holds absolute position step - ((step - s) mod Sc)
+        slot_pos = step - torch.remainder(step - s_idx, Sc)
+        valid = (slot_pos >= 0) & (slot_pos <= step)
+    else:
+        valid = s_idx <= step
+    scores = torch.where(valid, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    return _gqa_out(probs, cache_v, x.dtype) @ p["wo"]
+
+
+# --------------------------------------------------------------------------
+# feed-forward
+# --------------------------------------------------------------------------
+
+def ffn_params(cfg, generator, dtype, lead=()):
+    d, ff = cfg.d_model, cfg.d_ff
+    lead = tuple(lead)
+    down = 1.0 / math.sqrt(2 * cfg.num_layers)
+    if cfg.mlp_act == "swiglu":
+        return {
+            "wg": dense_init(generator, lead + (d, ff), dtype),
+            "wu": dense_init(generator, lead + (d, ff), dtype),
+            "wd": dense_init(generator, lead + (ff, d), dtype, scale=down),
+        }
+    dev = generator.device
+    return {
+        "w1": dense_init(generator, lead + (d, ff), dtype),
+        "b1": torch.zeros(lead + (ff,), dtype=dtype, device=dev),
+        "w2": dense_init(generator, lead + (ff, d), dtype, scale=down),
+        "b2": torch.zeros(lead + (d,), dtype=dtype, device=dev),
+    }
+
+
+def ffn(cfg, p, x):
+    if cfg.mlp_act == "swiglu":
+        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(x @ p["w1"] + p["b1"], approximate="tanh") @ p["w2"] + p["b2"]
+
+
+# --------------------------------------------------------------------------
+# loss
+# --------------------------------------------------------------------------
 
 def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-example softmax cross-entropy; logits (..., V), labels int64
@@ -28,6 +339,12 @@ def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return lse - gold
 
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean softmax cross-entropy over every example."""
-    return nll(logits, labels).mean()
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean softmax cross-entropy over the examples (over the ones where
+    ``mask`` is nonzero, when given)."""
+    loss = nll(logits, labels)
+    if mask is None:
+        return loss.mean()
+    mask = mask.to(torch.float32)
+    return (loss * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

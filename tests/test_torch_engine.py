@@ -30,6 +30,8 @@ from repro.models import api as japi
 
 import repro_torch as T
 from repro_torch import device as tdevice
+from repro_torch.configs import registry as tregistry
+from repro_torch.launch import serve as tserve
 from repro_torch.api import parity
 from repro_torch.models import api as tapi
 
@@ -112,7 +114,9 @@ def test_import_leaves_jax_out():
             "repro_torch.core.draws, repro_torch.core.fl_step,"
             "repro_torch.kernels.ops, repro_torch.kernels.arena,"
             "repro_torch.api.runner, repro_torch.api.parity,"
-            "repro_torch.convert;"
+            "repro_torch.convert, repro_torch.launch.serve,"
+            "repro_torch.models.transformer, repro_torch.kernels.flash_attn,"
+            "repro_torch.configs.registry;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             "assert not bad, bad")
@@ -138,6 +142,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
         tdevice.resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         T.run_experiment(_spec(T, "smoke", "ours"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tserve.serve_lm(tregistry.get_config("qwen2-1.5b", smoke=True), 1, 8, 1)
     assert tdevice.resolve_device("cpu").type == "cpu"
 
 
