@@ -7,7 +7,9 @@ Phases, each printing JSON lines:
 
   1. device  — the card's name and power limit (nvidia-smi), torch and
                CUDA versions; TF32 matmuls must be off.
-  2. build   — compile every ``csrc/*.cu`` with nvcc, all at once.
+  2. build   — compile every ``csrc/*.cu`` with nvcc, all at once; the
+               wgmma flash source's ptxas report per instantiation
+               (registers, spill bytes, which must be 0, shared memory).
   3. kernels — each hand-written kernel against its plain PyTorch version
                on the card. Sign-align and masked-agg at the main path's
                shape (C = 16 clients, R = 54 arena rows) and a ragged one
@@ -70,23 +72,30 @@ Phases, each printing JSON lines:
                and ``fedavg`` spmd round and the host-time split of a warm
                ``cmfl`` + int8 round (``"phase": "round_breakdown"``).
   7. LM serving — ``flash_attention`` against its plain version on the card
-               (``"phase": "kernels"``): qwen2-1.5b's prefill flattened
-               (48, 2048, 128) and in its own layout (B 4, S 2048, H 12, K 2,
-               hd 128) and with K = H = 12, bf16 causal; f32 at (12, 512, 32)
-               causal and not; S 512 against Sk 1024; hd 64 and 96; a window
-               of 256 at S 1024 (f32 within 1e-5, bf16 within one bf16 ulp
-               plus 1e-5), each timed beside its bound, its plain version and
-               ``scaled_dot_product_attention``. Then ``serve_lm`` at
+               (``"phase": "kernels"``), each case through the kernel that
+               ``route(dtype, hd)`` names and launched there once: qwen2-1.5b's
+               prefill flattened (48, 2048, 128) and in its own layout (B 4,
+               S 2048, H 12, K 2, hd 128) and with K = H = 12, bf16 causal; S
+               512 against Sk 1024; hd 64 and 96; a window of 256 at S 1024
+               (all bf16 at hd 64/96/128, so the wgmma kernel); f32 at (12,
+               512, 32) causal and not, bf16 at hd 32 and the 2-layer f32
+               run's (1, 512, 12, 2, 128) (the SIMT kernel); f32 within 1e-5,
+               bf16 within one bf16 ulp plus 1e-5, each timed beside its
+               bound, its plain version and ``scaled_dot_product_attention``,
+               and at qwen2's prefill the SIMT kernel on the same inputs
+               (``simt_ms``, ``simt_device_ms``), which the wgmma kernel must
+               beat. Then ``serve_lm`` at
                qwen2-1.5b's full width (28 layers, random weights drawn on
                the card from seed 0) with ``attention_impl="blockwise"``,
                batch 4, a 2048-token prompt and 16 greedy tokens: exactly one
-               kernel launch per layer in the prefill and none in the decode
-               (``"phase": "slice"``); the same with ``"full"`` attention (no
+               wgmma kernel launch per layer in the prefill and none in the
+               decode (``"phase": "slice"``); the same with ``"full"`` attention (no
                launch), its gap to the blockwise run printed; a 2-layer f32
                qwen2-1.5b, card (kernel) against CPU (plain), prefill and
-               four teacher-forced decode steps within 1e-4 of max|logit|
-               (``"phase": "card_vs_cpu"``); and a traced warm blockwise
-               prefill (``"phase": "trace"``, with the kernel's share).
+               four teacher-forced decode steps within 1e-4 of max|logit|,
+               its two launches on the SIMT kernel (``"phase":
+               "card_vs_cpu"``); and a traced warm blockwise prefill
+               (``"phase": "trace"``, with the wgmma kernel's share).
 
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -100,6 +109,7 @@ import functools
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -763,13 +773,19 @@ def reset_launches(mods) -> None:
         mods[name].launches.update(dict.fromkeys(mods[name].launches, 0))
     mods["gather"].launches = 0
     mods["flash_attn"].launches = 0
+    fa = mods["flash_attn"].launches_by_route
+    fa.update(dict.fromkeys(fa, 0))
 
 
 def read_launches(mods) -> dict:
+    """Each kernel's launches; flash attention's by its two kernels (the
+    wgmma one under the function's name)."""
+    fa = mods["flash_attn"].launches_by_route
     return {**mods["sign_align"].launches, **mods["masked_agg"].launches,
             **mods["quantize"].launches,
             "cohort_gather": mods["gather"].launches,
-            "flash_attention": mods["flash_attn"].launches}
+            "flash_attention": fa["wgmma"],
+            "flash_attention_simt": fa["simt"]}
 
 
 def run_card(T, spec, params, mods) -> tuple:
@@ -1011,8 +1027,15 @@ FLASH_CASES = (
     ("hd 96", "gqa", (2, 1024, 8, 2, 96), "bfloat16", True, None, None),
     ("window 256", "gqa", (2, 1024, 12, 2, 128), "bfloat16", True, 256,
      None),
+    ("hd 32 bf16", "gqa", (2, 1024, 8, 2, 32), "bfloat16", True, None, None),
+    ("qwen2 2-layer f32", "gqa", (1, 512, 12, 2, 128), "float32", True, None,
+     None),
 )
-FLASH_MAIN = "qwen2 prefill"
+# the main path's case of each kernel: the blockwise bf16 serve runs the
+# wgmma kernel, the 2-layer f32 card-vs-CPU run the SIMT one
+FLASH_MAIN = {"wgmma": "qwen2 prefill", "simt": "qwen2 2-layer f32"}
+FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attn_wgmma.cu",
+                 "simt": "src/repro_torch/csrc/flash_attn.cu"}
 
 
 def flash_inputs(layout, shape, dtype, Sk=None, seed=0):
@@ -1074,13 +1097,43 @@ def flash_work(layout, shape, causal, window, Sk, itemsize):
     return nbytes, 4 * hd * pairs
 
 
+def wgmma_ptxas(log: str, flash_attn) -> list:
+    """``-Xptxas -v`` of csrc/flash_attn_wgmma.cu, one entry per
+    instantiation (hd, output type): registers at launch (the consumers
+    take 240 after setmaxnreg), spill bytes, dynamic shared memory."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m and "flash_wgmma_kernel" in m.group(1):
+            t = re.search(r"ILi(\d+)E(\w+?)EEv", m.group(1))
+            hd = int(t.group(1))
+            cur = dict(hd=hd, out="bf16" if "bfloat16" in t.group(2) else
+                       "f32", smem_bytes=flash_attn.wgmma_smem_bytes(hd))
+            out.append(cur)
+        elif cur is not None and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill", line)
+            cur.update(spill_stores=int(st), spill_loads=int(ld))
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+            cur = None
+    return out
+
+
 def phase_flash(flash_attn, ref) -> dict:
-    """Hold flash_attention to its plain version at every listed shape;
-    time each beside its bound, its plain version and SDPA."""
+    """Hold flash_attention to its plain version at every listed shape,
+    each through the kernel its route names (bf16 at hd 64/96/128 must be
+    "wgmma"); time each beside its bound, its plain version and SDPA, and
+    at the wgmma kernel's main case the SIMT kernel on the same inputs."""
     F = torch.nn.functional
-    row, err = None, 0.0
+    rows, err = {}, dict.fromkeys(FLASH_MAIN, 0.0)
     for name, layout, shape, dtype, causal, window, Sk in FLASH_CASES:
         q, k, v = flash_inputs(layout, shape, dtype, Sk)
+        which = flash_attn.route(q.dtype, shape[-1])
+        if dtype == "bfloat16" and shape[-1] in (64, 96, 128) and \
+                which != "wgmma":
+            raise AssertionError(f"{name}: bf16 hd {shape[-1]} routes to "
+                                 f"{which}, not wgmma")
         if layout == "flat":
             call = functools.partial(flash_attn.flash_attention, q, k, v,
                                      causal=causal)
@@ -1102,8 +1155,13 @@ def phase_flash(flash_attn, ref) -> dict:
             sdpa = functools.partial(
                 F.scaled_dot_product_attention, qt, kt, vt, attn_mask=mask,
                 is_causal=causal and mask is None, enable_gqa=True)
+        before = dict(flash_attn.launches_by_route)
         got, want = call(), plain()
         torch.cuda.synchronize()
+        took = {r: n - before[r] for r, n in
+                flash_attn.launches_by_route.items()}
+        if took != {r: int(r == which) for r in took}:
+            raise AssertionError(f"{name}: route {which}, launches {took}")
         excess = flash_excess(got, want)
         gap = float((got.float() - want.float()).abs().max())
         if got.dtype != q.dtype or got.shape != want.shape or \
@@ -1111,14 +1169,15 @@ def phase_flash(flash_attn, ref) -> dict:
             raise AssertionError(f"flash_attention differs from its plain "
                                  f"version at {name} {shape} {dtype}: excess "
                                  f"{excess}, max gap {gap}")
-        err = max(err, gap)
+        err[which] = max(err[which], gap)
         nbytes, flops = flash_work(layout, shape, causal, window, Sk,
                                    q.element_size())
         rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / rate * 1e3
-        line = dict(name="flash_attention", case=name, layout=layout,
-                    shape=list(shape), dtype=dtype, causal=causal,
+        line = dict(name="flash_attention", case=name, route=which,
+                    layout=layout, shape=list(shape), dtype=dtype,
+                    causal=causal,
                     window=window, sk=Sk, max_abs_err=gap,
                     elements_differing=int((got != want).sum()),
                     ms=time_ms(call, iters=10, warmup=2),
@@ -1127,17 +1186,31 @@ def phase_flash(flash_attn, ref) -> dict:
                     bound_ms=max(t_bytes, t_ops),
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     library_ms=time_ms(sdpa, iters=10, warmup=2))
+        if name == FLASH_MAIN["wgmma"]:
+            # the SIMT kernel on the same bf16 inputs, for the old time
+            # beside the new one on one card
+            out = torch.empty(q.shape, dtype=q.dtype, device="cuda")
+            simt = functools.partial(flash_attn._launch, q, k, v, out,
+                                     causal, window, "simt")
+            line.update(simt_ms=time_ms(simt, iters=5, warmup=1),
+                        simt_device_ms=graph_ms(simt, per_graph=2,
+                                                replays=2))
+            if not line["device_ms"] < line["simt_device_ms"]:
+                raise AssertionError(
+                    f"{name}: the wgmma kernel ({line['device_ms']} ms) is "
+                    f"not faster than the SIMT one ({line['simt_device_ms']})")
+            del out
         emit("kernels", **line)
-        if name == FLASH_MAIN:
-            row = {k: line[k] for k in ("ms", "device_ms", "plain_ms",
-                                        "bound_ms", "bound_by", "library_ms")}
+        for r, case in FLASH_MAIN.items():
+            if name == case:
+                rows[r] = {k: line[k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "simt_ms", "simt_device_ms") if k in line}
         del q, k, v, got, want
-    return {"flash_attention": dict(
-        route="cuda", source="src/repro_torch/csrc/flash_attn.cu",
-        replaces="src/repro/kernels/flash_attn.py:71", max_abs_err=err,
-        ms=row["ms"], device_ms=row["device_ms"], plain_ms=row["plain_ms"],
-        bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-        library_ms=row["library_ms"])}
+    return {("flash_attention" if r == "wgmma" else "flash_attention_simt"):
+            dict(route="cuda", kernel=r, source=FLASH_SOURCES[r],
+                 replaces="src/repro/kernels/flash_attn.py:71",
+                 max_abs_err=err[r], **rows[r]) for r in FLASH_MAIN}
 
 
 class ServeRecorder:
@@ -1156,8 +1229,8 @@ class ServeRecorder:
         def prefill(*a, **k):
             out = self.prefill(*a, **k)
             torch.cuda.synchronize()
-            self.t_prefill, self.prefill_launches = (time.perf_counter(),
-                                                     self.fa.launches)
+            self.t_prefill = time.perf_counter()
+            self.prefill_routes = dict(self.fa.launches_by_route)
             self.logits = out[0]
             return out
 
@@ -1189,13 +1262,13 @@ def serve_run(serve, transformer, mods, cfg, params, batch, prompt_len,
         torch.cuda.synchronize()
         t_end = time.perf_counter()
     launches = read_launches(mods)
+    prefill = sum(rec.prefill_routes.values())
     return dict(tokens=toks, logits=rec.logits,
                 prefill_s=rec.t_prefill - t0, decode_s=t_end - rec.t_decode,
                 decode_tokens_per_s=batch * steps / (t_end - rec.t_decode),
-                launches=launches,
-                prefill_launches=rec.prefill_launches,
-                decode_launches=launches["flash_attention"]
-                - rec.prefill_launches,
+                launches=launches, prefill_launches=prefill,
+                prefill_routes=rec.prefill_routes,
+                decode_launches=mods["flash_attn"].launches - prefill,
                 peak_memory_bytes=torch.cuda.max_memory_allocated())
 
 
@@ -1221,7 +1294,7 @@ def teacher_forced(model_api, cfg, params, prompt, feed, device) -> list:
 def phase_lm(mods) -> dict:
     """qwen2-1.5b serving at full width, blockwise and full attention; the
     2-layer f32 card-vs-CPU check; a traced warm prefill. Returns the
-    blockwise run's launches."""
+    launches of the blockwise run and of the 2-layer f32 card run."""
     from repro_torch.configs import registry
     from repro_torch.launch import serve
     from repro_torch.models import api as model_api
@@ -1260,15 +1333,17 @@ def phase_lm(mods) -> dict:
              peak_memory_bytes=r["peak_memory_bytes"],
              launches=r["launches"],
              flash_launches_prefill=r["prefill_launches"],
+             flash_routes_prefill=r["prefill_routes"],
              flash_launches_decode=r["decode_launches"],
              tokens_row0=toks[0].tolist(), well_formed=ok)
         if not ok:
             raise AssertionError(f"{run}: tokens or logits malformed")
         want = cfg.num_layers if cfg.attention_impl == "blockwise" else 0
-        if r["prefill_launches"] != want or r["decode_launches"] != 0:
+        if r["prefill_routes"] != {"wgmma": want, "simt": 0} or \
+                r["decode_launches"] != 0:
             raise AssertionError(
-                f"{run}: flash_attention launched {r['prefill_launches']} "
-                f"times in the prefill (want {want}) and "
+                f"{run}: flash_attention launched {r['prefill_routes']} "
+                f"times in the prefill (want {want}, all wgmma) and "
                 f"{r['decode_launches']} in the decode (want 0)")
         runs[run] = r
     a, b = (runs[k] for k in ("qwen2-1.5b serve blockwise",
@@ -1290,7 +1365,7 @@ def phase_lm(mods) -> dict:
     with torch.no_grad():
         model_api.prefill(params, prompt, blockwise)
         line = trace(lambda: model_api.prefill(params, prompt, blockwise),
-                     share_of="flash_fwd_kernel")
+                     share_of="flash_wgmma_kernel")
     emit("trace", run="qwen2-1.5b prefill blockwise", batch=batch,
          prompt_len=prompt_len, **line)
     del params, prompt
@@ -1317,6 +1392,7 @@ def phase_lm(mods) -> dict:
                                      feed, "cuda")
         torch.cuda.synchronize()
         card_launches = mods["flash_attn"].launches
+        f32_launches = read_launches(mods)
     problems, gaps = [], []
     for i, (c, g) in enumerate(zip(card_logits, cpu_logits)):
         gap = float((c - g).abs().max() / g.abs().max())
@@ -1324,9 +1400,11 @@ def phase_lm(mods) -> dict:
         if not gap <= 1e-4:
             problems.append(f"{'prefill' if i == 0 else f'decode {i}'}: "
                             f"logit gap {gap} of max|logit|")
-    if card_launches != small.num_layers:
+    if f32_launches["flash_attention_simt"] != small.num_layers or \
+            card_launches != small.num_layers:
         problems.append(f"flash_attention launched {card_launches} times, "
-                        f"not {small.num_layers}")
+                        f"{f32_launches['flash_attention_simt']} on the SIMT "
+                        f"kernel, not {small.num_layers} (f32 takes it)")
     emit("card_vs_cpu", run="qwen2-1.5b 2-layer f32", layers=2, batch=1,
          prompt_len=512, decode_steps=4,
          allow_tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
@@ -1334,7 +1412,8 @@ def phase_lm(mods) -> dict:
          logit_gap_rel=gaps, flash_launches=card_launches, problems=problems)
     if problems:
         raise AssertionError("qwen2 card vs CPU: " + "; ".join(problems))
-    return launches
+    return {"qwen2-1.5b serve blockwise": launches,
+            "qwen2-1.5b 2-layer f32": f32_launches}
 
 
 def _leaves(tree):
@@ -1375,6 +1454,13 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, built=sorted(logs),
          ptxas={k: [l for l in v.splitlines() if "registers" in l]
                 for k, v in logs.items()})
+    if "flash_attn_wgmma" in logs:
+        report = wgmma_ptxas(logs["flash_attn_wgmma"], flash_attn)
+        emit("build", source="src/repro_torch/csrc/flash_attn_wgmma.cu",
+             ptxas=report)
+        spills = [r for r in report if r["spill_stores"] or r["spill_loads"]]
+        if spills:
+            raise AssertionError(f"flash_attn_wgmma spills: {spills}")
 
     # 3. kernels
     rows = phase_kernels(sign_align, masked_agg, ref)
@@ -1489,16 +1575,18 @@ def main() -> int:
     launches.update(phase_spmd(T, parity, params, mods))
 
     # 7. LM serving at qwen2-1.5b's full width
-    launches["qwen2-1.5b serve blockwise"] = phase_lm(mods)
+    launches.update(phase_lm(mods))
 
     # launches on each kernel's main path: the megastep int8 run for the
     # four kernels it runs, the fused scanned int8 run for the gather, the
     # ops phase for the two kernels that only the ops API reaches, the
-    # blockwise qwen2-1.5b serving run for flash attention
+    # blockwise qwen2-1.5b serving run for the wgmma flash kernel and the
+    # 2-layer f32 card run for the SIMT one
     main_run = dict.fromkeys(rows, "ours+int8")
     main_run["cohort_gather"] = "ours+int8 scanned fused"
     main_run["fused_update"] = main_run["sign_align_counts"] = "ops"
     main_run["flash_attention"] = "qwen2-1.5b serve blockwise"
+    main_run["flash_attention_simt"] = "qwen2-1.5b 2-layer f32"
     print(json.dumps({"kernels": [
         {"name": k, **row, "launches": launches[main_run[k]][k]}
         for k, row in rows.items()]}))

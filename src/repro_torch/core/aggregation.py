@@ -7,10 +7,13 @@ w_g ← w_a + (1/N) Σ_i α(τ_i)·(w_i − w_a). The per-client reference loop
 aggregates with these; the megastep path with one weighted arena sum.
 
 ``staleness_weights_np`` is the host table α(τ) = α₀·(1+τ)^-0.5 that the
-event-driven engine looks up per arrival. The JAX package computes it in
-XLA f32, whose power is correctly rounded; torch's and numpy's f32 power
-are not always (one ulp off at some τ). So the power is taken in f64 and
-rounded once to f32, which reproduces the JAX table bit for bit.
+event-driven engine looks up per arrival. The JAX package computes the
+power in XLA f32, which is not correctly rounded: it is one ulp off the
+correctly rounded value at 631 τ below 2^20, the first at τ = 1057. The
+table takes the correctly rounded power (1/sqrt in f64, rounded once to
+f32), steps it by one ulp at the τ that ``core/xla_pow.py`` lists
+(generated from the JAX package by ``tests/gen_xla_pow_table.py``), and
+multiplies by f32(α₀): bit-equal to the JAX table for every τ < 2^20.
 ``staleness_weight`` is the device α(τ) of the scanned rounds: a gather
 from that table, built once, never a power in f32 torch.
 """
@@ -20,6 +23,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core import xla_pow
 
 Params = Dict[str, torch.Tensor]
 
@@ -63,9 +68,21 @@ def buffered_async_update(anchor: Params,
 
 
 def staleness_weights_np(taus, alpha0: float = 0.6) -> np.ndarray:
-    tau = torch.as_tensor(np.asarray(taus), dtype=torch.float64)
-    power = ((1.0 + tau) ** -0.5).to(torch.float32)
-    return (torch.tensor(alpha0, dtype=torch.float32) * power).numpy()
+    """α(τ) in f32 for integer τ in [0, 2^20), as the JAX package's XLA
+    f32 computes it; raises for any other τ."""
+    tau = np.asarray(taus)
+    if tau.size and (tau.dtype.kind not in "iu" or tau.min() < 0
+                     or tau.max() >= xla_pow.MAX_TAU):
+        raise ValueError(
+            f"staleness τ must be integers in [0, 2^20); the α table is "
+            f"bit-equal to the JAX package's only there (larger worlds "
+            f"are ROADMAP.md queue 1 item 10); got {tau.dtype} in "
+            f"[{tau.min()}, {tau.max()}]")
+    power = (1.0 / np.sqrt(1.0 + tau.astype(np.float64))).astype(np.float32)
+    bits = power.view(np.int32)
+    bits += np.isin(tau, xla_pow.UP).astype(np.int32)
+    bits -= np.isin(tau, xla_pow.DOWN).astype(np.int32)
+    return np.asarray(np.float32(alpha0) * power)
 
 
 def staleness_weight(tau: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

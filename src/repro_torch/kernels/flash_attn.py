@@ -10,9 +10,13 @@ never expanded, output (B, S, H, hd). Both reach one kernel, driven by
 strides.
 
 The tensor's device decides the implementation: on the CPU the plain
-version ``kernels/ref.py::flash_attention``, on a CUDA device the
-hand-written kernel in ``csrc/flash_attn.cu`` or an exception.
-``launches`` counts the kernel's launches.
+version ``kernels/ref.py::flash_attention``, on a CUDA device a
+hand-written kernel or an exception. Which kernel is ``route(dtype, hd)``,
+a pure function decided before any launch: bf16 with hd 64, 96 or 128
+takes the tensor-core kernel ``csrc/flash_attn_wgmma.cu`` ("wgmma"); f32,
+and bf16 at any other hd, the SIMT kernel ``csrc/flash_attn.cu``
+("simt"). A failed build or launch raises; no route gives way to another.
+``launches`` counts the launches of both, ``launches_by_route`` each.
 
 Contract, checked on either device: q, k and v f32 or bf16, one dtype,
 contiguous along hd; S and Sk multiples of 128; hd a multiple of 8, at
@@ -34,17 +38,40 @@ TILE = 128                 # S and Sk must be multiples (the TPU contract)
 MAX_HD = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+WGMMA_HD = (64, 96, 128)
+
 launches = 0
+launches_by_route = {"wgmma": 0, "simt": 0}
 
 
-def _lib():
-    fn = _build.load("flash_attn").flash_attention
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel a CUDA call of this input dtype and head dim takes."""
+    return ("wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HD
+            else "simt")
+
+
+def _lib(name: str):
+    """``flash_attention`` of csrc/flash_attn.cu ("simt") or
+    ``flash_attention_wgmma`` of csrc/flash_attn_wgmma.cu ("wgmma")."""
+    if name == "simt":
+        fn = _build.load("flash_attn").flash_attention
+        ints = 8                   # in_bf16, out_bf16, B, H, K, S, Sk, hd
+    else:
+        fn = _build.load("flash_attn_wgmma").flash_attention_wgmma
+        ints = 7                   # out_bf16, B, H, K, S, Sk, hd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * ints
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                           ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def wgmma_smem_bytes(hd: int) -> int:
+    """The wgmma kernel's dynamic shared memory a block at head dim hd."""
+    fn = _build.load("flash_attn_wgmma").flash_attention_wgmma_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(hd)
 
 
 def _check(q, k, v, causal, sliding_window, out_dtype) -> None:
@@ -83,24 +110,41 @@ def _check(q, k, v, causal, sliding_window, out_dtype) -> None:
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
 
 
-def _launch(q, k, v, out, causal: bool, window: Optional[int]) -> None:
+def _launch(q, k, v, out, causal: bool, window: Optional[int],
+            which: Optional[str] = None) -> None:
+    """Launch the kernel of ``route`` (or of ``which``, for measurements
+    that hold the two kernels side by side) on q's current stream."""
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for device {q.device}")
     B, S, H, hd = q.shape
-    if B * H > 65535:
+    which = which or route(q.dtype, hd)
+    if which == "simt" and B * H > 65535:
         raise ValueError(f"B·H = {B * H} exceeds the kernel's grid (65535)")
+    if which == "wgmma" and S // 128 > 65535:
+        raise ValueError(f"S / 128 = {S // 128} exceeds the kernel's grid "
+                         f"(65535)")
+    fn = _lib(which)
+    # TMA reads from 16-byte aligned addresses in steps of 16 bytes
+    if which == "wgmma" and any(
+            t.data_ptr() % 16 or any(st % 8 for st, n in zip(
+                t.stride()[:3], t.shape[:3]) if n > 1) for t in (q, k, v)):
+        raise ValueError("the wgmma kernel needs q, k and v 16-byte aligned, "
+                         "with strides in multiples of 8 elements")
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
                                          for s in t.stride()[:3]))
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _DTYPES[q.dtype], _DTYPES[out.dtype], B, H, k.shape[2], S,
-                 k.shape[1], hd, strides, int(causal), window or 0,
-                 1.0 / math.sqrt(hd),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+    dtypes = ((_DTYPES[q.dtype],) if which == "simt" else ()) + (
+        _DTYPES[out.dtype],)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             *dtypes, B, H, k.shape[2], S, k.shape[1], hd, strides,
+             int(causal), window or 0, 1.0 / math.sqrt(hd),
+             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention {which} kernel launch failed: "
+                           f"error {err} (> 0 a CUDA error, < 0 the "
+                           f"tensor-map encoder's)")
     global launches
     launches += 1
+    launches_by_route[which] += 1
 
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

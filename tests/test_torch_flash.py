@@ -15,7 +15,19 @@ Tolerances, with their reasons:
   * the port's ``blockwise_attention`` against the JAX one: 3e-4, the JAX
     package's own tolerance for that function (``tests/test_flash_attn.py``).
 The rotary frequencies must be bit-equal to the JAX package's.
+
+The card's bf16 kernel (``csrc/flash_attn_wgmma.cu``) cannot run here; its
+arithmetic can. A torch emulation of it (bf16 Q·Kᵀ products summed in f32,
+then the scale, folded with log2(e) as the kernel's exp2 softmax does;
+online softmax over KV tiles of 64; P split into bf16 hi and lo parts,
+O += P_hi·V + P_lo·V in f32; l from the f32 P) is held to the plain
+version with ``chip_smoke.py``'s own tolerance function, and the same
+emulation with P rounded to bf16 alone is shown to exceed it.
 """
+import importlib.util
+import math
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -181,3 +193,118 @@ def test_cuda_tensor_gets_the_kernel_or_an_exception(monkeypatch):
             TL.blockwise_attention(q, kv, kv, causal=True,
                                    out_dtype=torch.float32)
     assert tfa.launches == before
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module, for the card's tolerance function
+    ``flash_excess`` (and its ``bf16_ulp``)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+LOG2E = 1.4426950408889634
+
+
+def _emulate_wgmma(q, k, v, causal, window, kv_groups, split=True):
+    """The wgmma kernel's arithmetic on the CPU: q (BH, S, hd), k/v
+    (BH / G, Sk, hd) bf16 -> (BH, S, hd) bf16. With ``split=False``, P
+    is rounded to bf16 before P·V (FlashAttention-3's choice)."""
+    S, Sk, hd = q.shape[1], k.shape[1], q.shape[2]
+    kf = k.float().repeat_interleave(kv_groups, 0)
+    vf = v.float().repeat_interleave(kv_groups, 0)
+    scale_log2 = (torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+                  * torch.tensor(LOG2E, dtype=torch.float32))
+    scores = (q.float() @ kf.transpose(1, 2)) * scale_log2
+    i = torch.arange(S)[:, None]
+    j = torch.arange(Sk)[None, :]
+    keep = torch.ones((S, Sk), dtype=torch.bool)
+    if causal:
+        keep &= j <= i
+    if window is not None:
+        keep &= (i - j) < window
+    scores = torch.where(keep, scores, -1e30)
+    m = torch.full(q.shape[:2] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape)
+    for t in range(0, Sk, 64):
+        s, vt = scores[:, :, t:t + 64], vf[:, t:t + 64]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        acc = acc * corr + hi @ vt
+        if split:
+            acc = acc + (p - hi).to(torch.bfloat16).float() @ vt
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)).to(torch.bfloat16)
+
+
+def _bf16_flat(BH, S, hd, G, seed):
+    q = _pair(_normal((BH, S, hd), seed), "bfloat16")[0]
+    k, v = (_pair(_normal((BH // G, S, hd), seed + i), "bfloat16")[0]
+            for i in (1, 2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("mode", ["causal", "full", "window"])
+@pytest.mark.parametrize("hd", [64, 96, 128])
+def test_split_p_emulation_within_chip_tolerance(hd, mode):
+    """GQA (G = 2) at S 256: the split-P arithmetic stays within one bf16
+    ulp plus 1e-5 of the plain version, as the card's check demands."""
+    causal, window = mode != "full", (100 if mode == "window" else None)
+    q, k, v = _bf16_flat(8, 256, hd, 2, seed=hd)
+    want = ref.flash_attention(q, k, v, causal, window, kv_groups=2)
+    got = _emulate_wgmma(q, k, v, causal, window, 2)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert _chip_smoke().flash_excess(got, want) <= 0.0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_p_alone_exceeds_chip_tolerance(causal):
+    """Why the kernel splits P: rounding P to bf16 before P·V moves the
+    output past the tolerance (here by 1.9e-3 causal and 4.2e-4 full),
+    where the split stays inside it."""
+    q, k, v = _bf16_flat(4, 512, 128, 1, seed=3)
+    want = ref.flash_attention(q, k, v, causal, None)
+    excess = _chip_smoke().flash_excess
+    assert excess(_emulate_wgmma(q, k, v, causal, None, 1), want) <= 0.0
+    assert excess(_emulate_wgmma(q, k, v, causal, None, 1, split=False),
+                  want) > 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_route_is_a_function_of_dtype_and_hd(dtype):
+    """Every hd the contract admits (multiples of 8 up to 256): bf16 at
+    64, 96 and 128 takes the wgmma kernel, everything else the SIMT one."""
+    for hd in range(8, tfa.MAX_HD + 1, 8):
+        want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 96, 128)
+                else "simt")
+        assert tfa.route(dtype, hd) == want, hd
+
+
+def test_cuda_bf16_gets_the_wgmma_kernel_or_an_exception(monkeypatch):
+    """A bf16 hd-128 CUDA call builds csrc/flash_attn_wgmma.cu and, when
+    that fails, raises; it never reaches the SIMT source or the plain
+    version. An f32 call of the same shape builds the SIMT source."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    asked = []
+
+    def load(name):
+        asked.append(name)
+        raise RuntimeError(f"nvcc not found (building {name})")
+
+    monkeypatch.setattr(_build, "load", load)
+    before = (tfa.launches, dict(tfa.launches_by_route))
+    with FakeTensorMode():
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.empty((1, 512, 4, 128), device="cuda", dtype=dtype)
+            kv = torch.empty((1, 512, 2, 128), device="cuda", dtype=dtype)
+            with pytest.raises(RuntimeError, match="nvcc"):
+                TL.blockwise_attention(q, kv, kv, causal=True,
+                                       out_dtype=dtype)
+    assert asked == ["flash_attn_wgmma", "flash_attn"]
+    assert (tfa.launches, tfa.launches_by_route) == before

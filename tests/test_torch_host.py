@@ -127,11 +127,16 @@ def test_schedule_spec_is_identical():
             tsched.resolve_schedule(kind, tst).issues()
 
 
-@pytest.mark.parametrize("alpha0", [1.0, 0.6])
+@pytest.mark.parametrize("alpha0", [0.5, 0.6, 0.9, 1.0])
 def test_alpha_table_equals_xla_f32(alpha0):
-    taus = np.arange(65)
+    """Bit-equal for every τ < 2^20, where XLA's f32 power is one ulp off
+    the correctly rounded value at 631 τ; the port refuses τ beyond."""
+    taus = np.arange(1 << 20)
     _same(jagg.staleness_weights_np(taus, alpha0),
           tagg.staleness_weights_np(taus, alpha0))
+    for bad in ([1 << 20], [-1], [2.0]):
+        with pytest.raises(ValueError, match="queue 1 item 10"):
+            tagg.staleness_weights_np(np.asarray(bad), alpha0)
 
 
 def test_profile_factories_are_identical():
