@@ -24,7 +24,20 @@ Phases, each printing JSON lines:
                (10, 54) with bf16 p (f32 within 1e-6 of Σ_c|w_c·u_c| plus one
                ulp of the larger of |p| and |result|, bf16 within one bf16
                ulp); ``sign_align_counts`` at 54, 864 and 35 rows, f32 and
-               bf16, counts equal. Times with CUDA events.
+               bf16, counts equal. Times with CUDA events: eager (back to
+               back calls) and device (a CUDA graph), each kernel's and,
+               where one PyTorch call computes the same function, that
+               call's (``library_ms``, ``library_device_ms``). Every
+               wrapper launches through ``kernels/_launch.py``; for
+               ``quantize_q8``, ``dequantize_q8`` and ``cohort_gather``
+               the split of one call's host time by piece (``host_us``:
+               checks, lookup, stream, alloc, the C call, the whole call)
+               and its eager ms beside its library call's, in turns.
+               Then (``"phase": "launch"``) the launch path's stream must
+               be PyTorch's current one on the default stream, under
+               ``torch.cuda.stream(side)`` and during a graph's capture,
+               and ten non-contiguous or misaligned inputs to the
+               wrappers must be refused with ``ValueError``.
   4. slice   — the paper's quickstart experiment (anomaly-mlp, 10 clients,
                20,000 samples, 8 rounds) through ``repro_torch.run_experiment``
                on the card, from random weights made from a seed: ``fedavg``,
@@ -236,6 +249,138 @@ def graph_ms(fn, per_graph: int = 50, replays: int = 20) -> float:
     return start.elapsed_time(end) / (replays * per_graph)
 
 
+def host_us(pieces: dict, n: int = 1000, warmup: int = 100) -> dict:
+    """Host microseconds per call of each piece of one wrapper call, and
+    of the whole call (``"call"``): each timed alone by
+    ``time.perf_counter_ns`` over ``n`` calls after ``warmup``, with the
+    card idle before each."""
+    out = {}
+    for name, fn in pieces.items():
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(n):
+            fn()
+        out[name] = (time.perf_counter_ns() - t0) / n / 1e3
+        torch.cuda.synchronize()
+    return out
+
+
+def split_inputs():
+    """The inputs at which a wrapper call's host time is split: 864 rows
+    of the codec (the cohort folded) and 10 of 11 slabs of 54 rows."""
+    x = quant_inputs(QUANT_ROWS[0], seed=1)
+    q = torch.randint(-127, 128, x.shape, dtype=torch.int8, device="cuda")
+    s = torch.rand((x.shape[0], 1), device="cuda")
+    return x, q, s, gather_inputs(11, 54, seed=1), torch.arange(
+        10, device="cuda")
+
+
+def launch_pieces(quantize, gather, launch, x, q, s, src, idx) -> dict:
+    """The pieces of each wrapper call on the shared launch path
+    (``kernels/_launch.py``), as the wrappers take them, for ``host_us``."""
+    dev, R = x.get_device(), x.shape[0]
+    N, Rg, _ = src.shape
+    K = idx.shape[0]
+    fns = {k: launch.entries[k] for k in launch.ENTRY_POINTS}
+    stream = launch.stream(dev)
+    ptr = launch.aligned_pointer
+    px, pq, ps, psrc, pidx = (t.data_ptr() for t in (x, q, s, src, idx))
+    q_out, s_out = torch.empty_like(q), torch.empty_like(s)
+    d_out, g_out = torch.empty_like(x), src.new_empty((K, Rg, 1024))
+
+    def g_checks():
+        gather.check_args(src, idx)
+        ptr("cohort_gather", src)
+        idx.is_contiguous()
+
+    def g_alloc():
+        N, R, _ = src.shape
+        K = idx.numel()
+        return src.new_empty(K, R, 1024)
+
+    def lookup(name):
+        return lambda: launch.entries[name]
+
+    return {
+        "quantize_q8": dict(
+            checks=lambda: (quantize.check_quantize(x),
+                            ptr("quantize_q8", x)),
+            lookup=lookup("quantize_q8"), stream=lambda: launch.stream(dev),
+            alloc=lambda: (torch.empty_like(x, dtype=torch.int8),
+                           x.new_empty(x.shape[0], 1)),
+            c_call=lambda: fns["quantize_q8"](
+                px, q_out.data_ptr(), s_out.data_ptr(), R, stream),
+            call=lambda: quantize.quantize_q8(x)),
+        "dequantize_q8": dict(
+            checks=lambda: (quantize.check_dequantize(q, s),
+                            ptr("dequantize_q8", q), ptr("dequantize_q8", s)),
+            lookup=lookup("dequantize_q8"), stream=lambda: launch.stream(dev),
+            alloc=lambda: torch.empty_like(q, dtype=torch.float32),
+            c_call=lambda: fns["dequantize_q8"](
+                pq, ps, d_out.data_ptr(), R, stream),
+            call=lambda: quantize.dequantize_q8(q, s)),
+        "cohort_gather": dict(
+            checks=g_checks, lookup=lookup("cohort_gather"),
+            stream=lambda: launch.stream(dev), alloc=g_alloc,
+            c_call=lambda: fns["cohort_gather"](
+                psrc, pidx, g_out.data_ptr(), N, Rg, K, stream),
+            call=lambda: gather.cohort_gather(src, idx)),
+    }
+
+
+def library_calls(x, q, s, src, idx) -> dict:
+    """The one PyTorch call that computes each launch-path wrapper's
+    function, where there is one, at ``split_inputs()``."""
+    return {"dequantize_q8": lambda: torch.mul(q, s),
+            "cohort_gather": lambda: torch.index_select(src, 0, idx)}
+
+
+def turns(name: str, pieces: dict, library: dict, order) -> dict:
+    """Time one wrapper in turns: for each entry of ``order``, a key of
+    ``pieces`` (a version of the wrapper, its pieces as ``launch_pieces``
+    gives them) or ``"library"``, the split of one call's host time
+    (``host_us``) and the call's eager ms. The host's speed drifts by
+    tens of percent within a run, so versions are compared only over
+    turns that alternate. Returns {version: {"host_us": [...], "ms":
+    [...]}}, one entry a turn."""
+    out = {}
+    for who in order:
+        if who == "library":
+            if name not in library:
+                continue
+            fns = {"call": library[name]}
+        else:
+            fns = pieces[who][name]
+        runs = out.setdefault(who, {"host_us": [], "ms": []})
+        runs["host_us"].append(host_us(fns))
+        runs["ms"].append(time_ms(fns["call"]))
+    return out
+
+
+def host_split(names, launch, quantize, gather, **shape) -> None:
+    """One ``kernels`` line per named wrapper: the split of one call's
+    host time by piece (``host_us``, µs, the median over five turns;
+    ``call`` is the whole wrapper call, timed the same way) at
+    ``split_inputs()``, and the call's eager ms beside its library
+    call's, each turn's and their medians, in turns of this wrapper,
+    library, library, this wrapper."""
+    inputs = split_inputs()
+    pieces = {"this": launch_pieces(quantize, gather, launch, *inputs)}
+    library = library_calls(*inputs)
+    for name in names:
+        runs = turns(name, pieces, library, ["this", "library", "library",
+                                             "this"] * 5)
+        this, lib = runs["this"], runs.get("library")
+        emit("kernels", name=name, wrapper="this", **shape,
+             host_us={k: float(np.median([r[k] for r in this["host_us"]]))
+                      for k in this["host_us"][0]},
+             ms=this["ms"], ms_median=float(np.median(this["ms"])),
+             library_ms=lib and lib["ms"],
+             library_ms_median=lib and float(np.median(lib["ms"])))
+
+
 def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -280,7 +425,8 @@ def phase_kernels(sign_align, masked_agg, ref) -> dict:
             ms=time_ms(lambda: sign_align.per_client_sign_align(u, r)),
             device_ms=graph_ms(lambda: sign_align.per_client_sign_align(u, r)),
             plain_ms=time_ms(lambda: ref.per_client_sign_align(u, r)),
-            bound_ms=sa_bound[0], bound_by=sa_bound[1], library_ms=None),
+            bound_ms=sa_bound[0], bound_by=sa_bound[1], library_ms=None,
+            library_device_ms=None),
         "masked_agg": dict(
             route="cuda", source="src/repro_torch/csrc/masked_agg.cu",
             replaces="src/repro/kernels/masked_agg.py:37",
@@ -289,7 +435,9 @@ def phase_kernels(sign_align, masked_agg, ref) -> dict:
             device_ms=graph_ms(lambda: masked_agg.masked_agg(u, w)),
             plain_ms=time_ms(lambda: ref.masked_agg(u, w)),
             bound_ms=ma_bound[0], bound_by=ma_bound[1],
-            library_ms=time_ms(lambda: torch.einsum("crl,c->rl", u, w))),
+            library_ms=time_ms(lambda: torch.einsum("crl,c->rl", u, w)),
+            library_device_ms=graph_ms(
+                lambda: torch.einsum("crl,c->rl", u, w))),
     }
     for name, row in rows.items():
         emit("kernels", name=name, shape=[C, R],
@@ -297,7 +445,7 @@ def phase_kernels(sign_align, masked_agg, ref) -> dict:
     return rows
 
 
-def phase_quantize(quantize, ref) -> dict:
+def phase_quantize(quantize, gather, launch, ref) -> dict:
     """Hold the int8 codec kernels to their plain versions, bit for bit;
     time both at the cohort-folded main shape."""
     q_err = d_err = 0.0
@@ -347,7 +495,7 @@ def phase_quantize(quantize, ref) -> dict:
             bound_ms=q_bound[0], bound_by=q_bound[1],
             # torch.quantize_per_channel takes the scales as an input and
             # codes to -128..127: no one-call equivalent
-            library_ms=None),
+            library_ms=None, library_device_ms=None),
         "dequantize_q8": dict(
             route="cuda", source="src/repro_torch/csrc/quantize.cu",
             replaces="src/repro/kernels/quantize.py:58", max_abs_err=d_err,
@@ -355,15 +503,17 @@ def phase_quantize(quantize, ref) -> dict:
             device_ms=graph_ms(lambda: quantize.dequantize_q8(q, s)),
             plain_ms=time_ms(lambda: ref.dequantize_q8(q, s)),
             bound_ms=d_bound[0], bound_by=d_bound[1],
-            library_ms=time_ms(lambda: torch.mul(q, s))),
+            library_ms=time_ms(lambda: torch.mul(q, s)),
+            library_device_ms=graph_ms(lambda: torch.mul(q, s))),
     }
     for name, row in rows.items():
         emit("kernels", name=name, rows=R,
              **{k: v for k, v in row.items() if k.endswith("ms")})
+    host_split(rows, launch, quantize, gather, rows=R)
     return rows
 
 
-def phase_gather(gather, ref) -> dict:
+def phase_gather(quantize, gather, launch, ref) -> dict:
     """Hold the cohort gather to its plain version, bit for bit; time both
     at the error-feedback arena's shape with all ten clients."""
     cases = ((11, 54, list(range(10))), (11, 54, [10, 3, 7, 0, 5]),
@@ -395,10 +545,99 @@ def phase_gather(gather, ref) -> dict:
         device_ms=graph_ms(lambda: gather.cohort_gather(src, idx)),
         plain_ms=time_ms(lambda: ref.cohort_gather(src, idx)),
         bound_ms=bound[0], bound_by=bound[1],
-        library_ms=time_ms(lambda: torch.index_select(src, 0, idx)))
+        library_ms=time_ms(lambda: torch.index_select(src, 0, idx)),
+        library_device_ms=graph_ms(lambda: torch.index_select(src, 0, idx)))
     emit("kernels", name="cohort_gather", slabs=[N, R], k=K,
          **{k: v for k, v in row.items() if k.endswith("ms")})
+    host_split(["cohort_gather"], launch, quantize, gather, slabs=[N, R],
+               k=K)
     return {"cohort_gather": row}
+
+
+def phase_launch(quantize, gather, masked_agg, sign_align, launch) -> None:
+    """The shared launch path on the card: the stream it launches on is
+    PyTorch's current one, on the default stream, under
+    ``torch.cuda.stream(side)`` and during a graph's capture; and the
+    codec and gather wrappers each refuse a non-contiguous and a
+    misaligned input with ``ValueError``, the aggregation and sign-count
+    wrappers one of the two each, launching nothing."""
+    dev = torch.cuda.current_device()
+    streams = {"default": (launch.stream(dev),
+                           torch.cuda.current_stream().cuda_stream)}
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        streams["side"] = (launch.stream(dev),
+                           torch.cuda.current_stream().cuda_stream)
+    if streams["side"][1] != side.cuda_stream:
+        raise AssertionError("torch.cuda.stream(side) did not make side "
+                             "current")
+    x = torch.zeros((4, 1024), device="cuda")
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            streams["capture"] = (launch.stream(dev),
+                                  torch.cuda.current_stream().cuda_stream)
+            quantize.quantize_q8(x)
+    torch.cuda.current_stream().wait_stream(side)
+    wrong = {k: v for k, v in streams.items() if v[0] != v[1]}
+    if wrong:
+        raise AssertionError(f"the launch path's stream is not the current "
+                             f"one: {wrong}")
+
+    def misaligned(shape, dtype):
+        nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        buf = torch.empty(nbytes + 16, dtype=torch.uint8, device="cuda")
+        return buf[4:4 + nbytes].view(dtype).view(shape)
+
+    R = 54
+    x = torch.randn((R, 1024), device="cuda")
+    q, s = quantize.quantize_q8(x)
+    src = torch.randn((11, R, 1024), device="cuda")
+    idx = torch.arange(10, device="cuda")
+    cases = {
+        "quantize_q8 non-contiguous": lambda: quantize.quantize_q8(
+            torch.zeros((R, 2048), device="cuda")[:, ::2]),
+        "quantize_q8 misaligned": lambda: quantize.quantize_q8(
+            misaligned((R, 1024), torch.float32)),
+        "dequantize_q8 non-contiguous": lambda: quantize.dequantize_q8(
+            torch.zeros((R, 2048), dtype=torch.int8, device="cuda")[:, ::2],
+            s),
+        "dequantize_q8 misaligned": lambda: quantize.dequantize_q8(
+            misaligned((R, 1024), torch.int8), s),
+        "cohort_gather non-contiguous": lambda: gather.cohort_gather(
+            torch.zeros((11, R, 2048), device="cuda")[..., ::2], idx),
+        "cohort_gather misaligned": lambda: gather.cohort_gather(
+            misaligned((11, R, 1024), torch.float32), idx),
+        "masked_agg misaligned": lambda: masked_agg.masked_agg(
+            misaligned((10, R, 1024), torch.float32), idx.float()),
+        "fused_update non-contiguous": lambda: masked_agg.fused_update(
+            x.t().contiguous().t(), src[:10], idx.float()),
+        "per_client_sign_align misaligned": lambda:
+            sign_align.per_client_sign_align(
+                src[:10], misaligned((R, 1024), torch.int8)),
+        "sign_align_counts non-contiguous": lambda:
+            sign_align.sign_align_counts(x.t().contiguous().t(), q),
+    }
+
+    def counts():
+        return (dict(quantize.launches), gather.launches,
+                dict(masked_agg.launches), dict(sign_align.launches))
+
+    before = counts()
+    refused = {}
+    for case, call in cases.items():
+        try:
+            call()
+        except ValueError as e:
+            refused[case] = str(e)
+        else:
+            raise AssertionError(f"{case}: not refused")
+    torch.cuda.synchronize()
+    if counts() != before:
+        raise AssertionError("a refused call launched a kernel")
+    emit("launch", stream={k: v[0] == v[1] for k, v in streams.items()},
+         refused=refused)
 
 
 FUSED_SHAPES = ((10, 54), (16, 864), (1, 35))   # (C, R)
@@ -507,6 +746,8 @@ def phase_spmd_kernels(sign_align, masked_agg, ref) -> dict:
             plain_ms=time_ms(lambda: ref.fused_update(p, u, w)),
             bound_ms=fu_bound[0], bound_by=fu_bound[1],
             library_ms=time_ms(lambda: torch.addmv(
+                p.view(-1), uf.t(), w, alpha=-1)),
+            library_device_ms=graph_ms(lambda: torch.addmv(
                 p.view(-1), uf.t(), w, alpha=-1))),
         "sign_align_counts": dict(
             route="cuda", source="src/repro_torch/csrc/sign_align.cu",
@@ -518,7 +759,7 @@ def phase_spmd_kernels(sign_align, masked_agg, ref) -> dict:
             bound_ms=sc_bound[0], bound_by=sc_bound[1],
             # no single PyTorch call counts sign matches against int8
             # reference signs
-            library_ms=None),
+            library_ms=None, library_device_ms=None),
     }
     emit("kernels", name="fused_update", shape=[C, R], dtype="float32",
          **{k: v for k, v in rows["fused_update"].items()
@@ -1185,12 +1426,14 @@ def phase_flash(flash_attn, ref) -> dict:
                     plain_ms=time_ms(plain, iters=3, warmup=1),
                     bound_ms=max(t_bytes, t_ops),
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    library_ms=time_ms(sdpa, iters=10, warmup=2))
+                    library_ms=time_ms(sdpa, iters=10, warmup=2),
+                    library_device_ms=graph_ms(sdpa, per_graph=3,
+                                               replays=3))
         if name == FLASH_MAIN["wgmma"]:
             # the SIMT kernel on the same bf16 inputs, for the old time
             # beside the new one on one card
             out = torch.empty(q.shape, dtype=q.dtype, device="cuda")
-            simt = functools.partial(flash_attn._launch, q, k, v, out,
+            simt = functools.partial(flash_attn._enqueue, q, k, v, out,
                                      causal, window, "simt")
             line.update(simt_ms=time_ms(simt, iters=5, warmup=1),
                         simt_device_ms=graph_ms(simt, per_graph=2,
@@ -1205,7 +1448,8 @@ def phase_flash(flash_attn, ref) -> dict:
             if name == case:
                 rows[r] = {k: line[k] for k in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "simt_ms", "simt_device_ms") if k in line}
+                    "library_ms", "library_device_ms", "simt_ms",
+                    "simt_device_ms") if k in line}
         del q, k, v, got, want
     return {("flash_attention" if r == "wgmma" else "flash_attention_simt"):
             dict(route="cuda", kernel=r, source=FLASH_SOURCES[r],
@@ -1427,8 +1671,9 @@ def _leaves(tree):
 def main() -> int:
     import repro_torch as T
     from repro_torch.api import parity
-    from repro_torch.kernels import (_build, flash_attn, gather, masked_agg,
-                                     ops, quantize, ref, sign_align)
+    from repro_torch.kernels import (_build, _launch, flash_attn, gather,
+                                     masked_agg, ops, quantize, ref,
+                                     sign_align)
     from repro_torch.models import api as model_api
 
     if not torch.cuda.is_available():
@@ -1464,8 +1709,9 @@ def main() -> int:
 
     # 3. kernels
     rows = phase_kernels(sign_align, masked_agg, ref)
-    rows.update(phase_quantize(quantize, ref))
-    rows.update(phase_gather(gather, ref))
+    rows.update(phase_quantize(quantize, gather, _launch, ref))
+    rows.update(phase_gather(quantize, gather, _launch, ref))
+    phase_launch(quantize, gather, masked_agg, sign_align, _launch)
     engine_kernels = tuple(rows)      # the five an engine path launches
     rows.update(phase_spmd_kernels(sign_align, masked_agg, ref))
     rows.update(phase_flash(flash_attn, ref))

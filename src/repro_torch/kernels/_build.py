@@ -2,27 +2,36 @@
 
 Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds). Libraries land in ``build/repro_torch/`` at the root of
-the checkout, named by a hash of the source and the compiler flags, so a
-changed source is rebuilt and an unchanged one is loaded as it is.
+takes seconds). ``csrc/pycall.cu`` is built the same way, with the
+interpreter's include directory, into a CPython extension module that
+``load_module`` imports. Libraries land in ``build/repro_torch/`` at the
+root of the checkout, named by a hash of the source and the compiler
+flags, so a changed source is rebuilt and an unchanged one is loaded as
+it is.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import pathlib
 import shutil
 import subprocess
+import sysconfig
+from types import ModuleType
 from typing import Dict
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# flags of one source only: the extension module needs Python.h
+EXTRA_FLAGS = {"pycall": ("-I" + sysconfig.get_paths()["include"],)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_modules: Dict[str, ModuleType] = {}
 
 
 def nvcc() -> str:
@@ -38,9 +47,13 @@ def nvcc() -> str:
     return path
 
 
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
@@ -52,7 +65,7 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+    cmd = [nvcc(), *flags(name), "-Xptxas", "-v", "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -81,13 +94,28 @@ def build_all() -> Dict[str, str]:
             for name, job in jobs.items() if job is not None}
 
 
+def _built(name: str) -> str:
+    job = _start(name)
+    if job is not None:
+        _finish(name, job)
+    return str(library_path(name))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of ``csrc/<name>.cu``, building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        job = _start(name)
-        if job is not None:
-            _finish(name, job)
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+        lib = _loaded[name] = ctypes.CDLL(_built(name))
     return lib
+
+
+def load_module(name: str) -> ModuleType:
+    """``csrc/<name>.cu``, which defines ``PyInit_<name>``, imported as a
+    CPython extension module, building it if needed."""
+    mod = _modules.get(name)
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(name, _built(name))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _modules[name] = mod
+    return mod

@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _launch
 from repro_torch.kernels import ref
 
 TILE = 128                 # S and Sk must be multiples (the TPU contract)
@@ -50,31 +50,17 @@ def route(dtype: torch.dtype, hd: int) -> str:
             else "simt")
 
 
-def _lib(name: str):
-    """``flash_attention`` of csrc/flash_attn.cu ("simt") or
-    ``flash_attention_wgmma`` of csrc/flash_attn_wgmma.cu ("wgmma")."""
-    if name == "simt":
-        fn = _build.load("flash_attn").flash_attention
-        ints = 8                   # in_bf16, out_bf16, B, H, K, S, Sk, hd
-    else:
-        fn = _build.load("flash_attn_wgmma").flash_attention_wgmma
-        ints = 7                   # out_bf16, B, H, K, S, Sk, hd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * ints
-                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                          ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+ENTRY = {"simt": "flash_attention", "wgmma": "flash_attention_wgmma"}
 
 
 def wgmma_smem_bytes(hd: int) -> int:
     """The wgmma kernel's dynamic shared memory a block at head dim hd."""
-    fn = _build.load("flash_attn_wgmma").flash_attention_wgmma_smem_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    return fn(hd)
+    return _launch.query("flash_attention_wgmma_smem_bytes", hd)
 
 
-def _check(q, k, v, causal, sliding_window, out_dtype) -> None:
+def _check(q, k, v, causal, sliding_window, out_dtype) -> int:
+    """Refuse what neither version takes; -1 for CPU tensors, else the
+    index of their card."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("expected q (B, S, H, hd) and k, v (B, Sk, K, hd)")
     B, S, H, hd = q.shape
@@ -106,15 +92,15 @@ def _check(q, k, v, causal, sliding_window, out_dtype) -> None:
         raise RuntimeError("flash_attention has no backward yet (LM training "
                            "comes with ROADMAP.md queue 1 item 14); call it "
                            "under torch.no_grad() or on detached tensors")
-    if not (q.device == k.device == v.device):
-        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    return _launch.device_index("flash_attention", q, k, v)
 
 
-def _launch(q, k, v, out, causal: bool, window: Optional[int],
-            which: Optional[str] = None) -> None:
+def _enqueue(q, k, v, out, causal: bool, window: Optional[int],
+             which: Optional[str] = None) -> None:
     """Launch the kernel of ``route`` (or of ``which``, for measurements
     that hold the two kernels side by side) on q's current stream."""
-    if q.device.type != "cuda":
+    device = _launch.device_index("flash_attention", q, k, v, out)
+    if device < 0:
         raise ValueError(f"no flash_attention kernel for device {q.device}")
     B, S, H, hd = q.shape
     which = which or route(q.dtype, hd)
@@ -123,7 +109,7 @@ def _launch(q, k, v, out, causal: bool, window: Optional[int],
     if which == "wgmma" and S // 128 > 65535:
         raise ValueError(f"S / 128 = {S // 128} exceeds the kernel's grid "
                          f"(65535)")
-    fn = _lib(which)
+    fn = _launch.entries[ENTRY[which]]
     # TMA reads from 16-byte aligned addresses in steps of 16 bytes
     if which == "wgmma" and any(
             t.data_ptr() % 16 or any(st % 8 for st, n in zip(
@@ -134,14 +120,9 @@ def _launch(q, k, v, out, causal: bool, window: Optional[int],
                                          for s in t.stride()[:3]))
     dtypes = ((_DTYPES[q.dtype],) if which == "simt" else ()) + (
         _DTYPES[out.dtype],)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             *dtypes, B, H, k.shape[2], S, k.shape[1], hd, strides,
-             int(causal), window or 0, 1.0 / math.sqrt(hd),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attention {which} kernel launch failed: "
-                           f"error {err} (> 0 a CUDA error, < 0 the "
-                           f"tensor-map encoder's)")
+    fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *dtypes, B,
+       H, k.shape[2], S, k.shape[1], hd, ctypes.addressof(strides),
+       int(causal), window or 0, 1.0 / math.sqrt(hd), _launch.stream(device))
     global launches
     launches += 1
     launches_by_route[which] += 1
@@ -154,8 +135,7 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, S, H, hd), k/v (B, Sk, K, hd) -> (B, S, H, hd) in
     ``out_dtype`` (q's dtype by default)."""
     out_dtype = q.dtype if out_dtype is None else out_dtype
-    _check(q, k, v, causal, sliding_window, out_dtype)
-    if q.device.type == "cpu":
+    if _check(q, k, v, causal, sliding_window, out_dtype) < 0:
         B, S, H, hd = q.shape
         Sk, K = k.shape[1], k.shape[2]
         flat = ref.flash_attention(
@@ -165,7 +145,7 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             sliding_window, kv_groups=H // K, out_dtype=out_dtype)
         return flat.reshape(B, H, S, hd).transpose(1, 2)
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
-    _launch(q, k, v, out, causal, sliding_window)
+    _enqueue(q, k, v, out, causal, sliding_window)
     return out
 
 

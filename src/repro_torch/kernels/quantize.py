@@ -11,11 +11,9 @@ exception. ``launches`` counts each kernel's launches, by function name.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _launch
 from repro_torch.kernels import ref
 
 LANE = 1024
@@ -23,64 +21,55 @@ LANE = 1024
 launches = {"quantize_q8": 0, "dequantize_q8": 0}
 
 
-def _lib(name: str):
-    fn = getattr(_build.load("quantize"), name)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def check_quantize(x: torch.Tensor) -> int:
+    """Refuse what neither version of ``quantize_q8`` takes; -1 for a CPU
+    tensor, else the index of its card."""
+    shape = x.shape
+    if len(shape) != 2 or shape[1] != LANE or shape[0] < 1:
+        raise ValueError(f"x must be (R >= 1, {LANE}); got {tuple(shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"expected x float32; got {x.dtype}")
+    return _launch.device_index("quantize_q8", x)
 
 
-def _check_rows(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
-    if t.dim() != 2 or t.shape[1] != LANE or t.shape[0] < 1:
-        raise ValueError(f"{name} must be (R >= 1, {LANE}); got "
-                         f"{tuple(t.shape)}")
-    if t.dtype != dtype:
-        raise TypeError(f"expected {name} {dtype}; got {t.dtype}")
-
-
-def _check_kernel_args(name: str, *tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"no {name} kernel for device {dev}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"the {name} kernel takes contiguous tensors")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"the {name} kernel takes 16-byte aligned tensors")
-
-
-def _launch(name: str, *tensors: torch.Tensor) -> None:
-    err = _lib(name)(*(t.data_ptr() for t in tensors), tensors[0].shape[0],
-                     torch.cuda.current_stream(tensors[0].device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    launches[name] += 1
+def check_dequantize(q: torch.Tensor, scale: torch.Tensor) -> int:
+    """Refuse what neither version of ``dequantize_q8`` takes; -1 for CPU
+    tensors, else the index of their card."""
+    shape = q.shape
+    if len(shape) != 2 or shape[1] != LANE or shape[0] < 1:
+        raise ValueError(f"q must be (R >= 1, {LANE}); got {tuple(shape)}")
+    if q.dtype != torch.int8:
+        raise TypeError(f"expected q int8; got {q.dtype}")
+    if scale.shape != (shape[0], 1):
+        raise ValueError(f"scale must be ({shape[0]}, 1); got "
+                         f"{tuple(scale.shape)}")
+    if scale.dtype != torch.float32:
+        raise TypeError(f"expected scale float32; got {scale.dtype}")
+    return _launch.device_index("dequantize_q8", q, scale)
 
 
 def quantize_q8(x: torch.Tensor):
-    _check_rows("x", x, torch.float32)
-    if x.device.type == "cpu":
+    device = check_quantize(x)
+    if device < 0:
         return ref.quantize_q8(x)
-    _check_kernel_args("quantize_q8", x)
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    scale = torch.empty((x.shape[0], 1), dtype=torch.float32, device=x.device)
-    _launch("quantize_q8", x, q, scale)
+    px = _launch.aligned_pointer("quantize_q8", x)
+    R = x.shape[0]
+    q = torch.empty_like(x, dtype=torch.int8)
+    scale = x.new_empty(R, 1)
+    _launch.entries["quantize_q8"](px, q.data_ptr(), scale.data_ptr(), R,
+                                 _launch.stream(device))
+    launches["quantize_q8"] += 1
     return q, scale
 
 
 def dequantize_q8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    _check_rows("q", q, torch.int8)
-    if tuple(scale.shape) != (q.shape[0], 1):
-        raise ValueError(f"scale must be ({q.shape[0]}, 1); got "
-                         f"{tuple(scale.shape)}")
-    if scale.dtype != torch.float32:
-        raise TypeError(f"expected scale float32; got {scale.dtype}")
-    if q.device != scale.device:
-        raise ValueError(f"q on {q.device} but scale on {scale.device}")
-    if q.device.type == "cpu":
+    device = check_dequantize(q, scale)
+    if device < 0:
         return ref.dequantize_q8(q, scale)
-    _check_kernel_args("dequantize_q8", q, scale)
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _launch("dequantize_q8", q, scale, out)
+    pq = _launch.aligned_pointer("dequantize_q8", q)
+    ps = _launch.aligned_pointer("dequantize_q8", scale)
+    out = torch.empty_like(q, dtype=torch.float32)
+    _launch.entries["dequantize_q8"](pq, ps, out.data_ptr(), q.shape[0],
+                                   _launch.stream(device))
+    launches["dequantize_q8"] += 1
     return out

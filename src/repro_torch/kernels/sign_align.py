@@ -13,43 +13,19 @@ exception. ``launches`` counts each kernel's launches, by function name.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _launch
 from repro_torch.kernels import ref
 
 LANE = 1024
 
 launches = {"per_client_sign_align": 0, "sign_align_counts": 0}
 
-_ARGTYPES = {
-    "per_client_sign_align": [ctypes.c_void_p, ctypes.c_void_p,
-                              ctypes.c_void_p, ctypes.c_int,
-                              ctypes.c_longlong, ctypes.c_void_p],
-    "sign_align_counts": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                          ctypes.c_void_p, ctypes.c_longlong,
-                          ctypes.c_void_p],
-}
 
-
-def _lib(name: str):
-    fn = getattr(_build.load("sign_align"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _check_card(name: str, *tensors: torch.Tensor) -> None:
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"the {name} kernel takes contiguous tensors")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"the {name} kernel takes 16-byte aligned tensors")
-
-
-def check_args(u: torch.Tensor, r: torch.Tensor) -> None:
+def check_args(u: torch.Tensor, r: torch.Tensor) -> int:
+    """Refuse what neither version of ``per_client_sign_align`` takes; -1
+    for CPU tensors, else the index of their card."""
     if u.dim() != 3 or u.shape[2] != LANE or u.shape[0] < 1:
         raise ValueError(f"u must be (C >= 1, R, {LANE}); got {tuple(u.shape)}")
     if tuple(r.shape) != tuple(u.shape[1:]):
@@ -57,28 +33,26 @@ def check_args(u: torch.Tensor, r: torch.Tensor) -> None:
     if u.dtype != torch.float32 or r.dtype != torch.int8:
         raise TypeError(f"expected u float32 and r int8; got {u.dtype}, "
                         f"{r.dtype}")
-    if u.device != r.device:
-        raise ValueError(f"u on {u.device} but r on {r.device}")
+    return _launch.device_index("per_client_sign_align", u, r)
 
 
 def per_client_sign_align(u: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    check_args(u, r)
-    if u.device.type == "cpu":
+    device = check_args(u, r)
+    if device < 0:
         return ref.per_client_sign_align(u, r)
-    if u.device.type != "cuda":
-        raise ValueError(f"no sign-align kernel for device {u.device}")
-    _check_card("sign-align", u, r)
-    counts = torch.zeros(u.shape[0], dtype=torch.int32, device=u.device)
-    err = _lib("per_client_sign_align")(
-        u.data_ptr(), r.data_ptr(), counts.data_ptr(), u.shape[0], r.numel(),
-        torch.cuda.current_stream(u.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"sign-align kernel launch failed: CUDA error {err}")
+    pu = _launch.aligned_pointer("per_client_sign_align", u)
+    pr = _launch.aligned_pointer("per_client_sign_align", r)
+    counts = u.new_zeros(u.shape[0], dtype=torch.int32)
+    _launch.entries["per_client_sign_align"](
+        pu, pr, counts.data_ptr(), u.shape[0], r.numel(),
+        _launch.stream(device))
     launches["per_client_sign_align"] += 1
     return counts.to(torch.float32)
 
 
-def check_count_args(g: torch.Tensor, r: torch.Tensor) -> None:
+def check_count_args(g: torch.Tensor, r: torch.Tensor) -> int:
+    """Refuse what neither version of ``sign_align_counts`` takes; -1 for
+    CPU tensors, else the index of their card."""
     if g.dim() != 2 or g.shape[1] != LANE or g.shape[0] < 1:
         raise ValueError(f"g must be (R >= 1, {LANE}); got {tuple(g.shape)}")
     if tuple(r.shape) != tuple(g.shape):
@@ -86,24 +60,18 @@ def check_count_args(g: torch.Tensor, r: torch.Tensor) -> None:
     if g.dtype not in (torch.float32, torch.bfloat16) or r.dtype != torch.int8:
         raise TypeError(f"expected g float32 or bfloat16 and r int8; got "
                         f"{g.dtype}, {r.dtype}")
-    if g.device != r.device:
-        raise ValueError(f"g on {g.device} but r on {r.device}")
+    return _launch.device_index("sign_align_counts", g, r)
 
 
 def sign_align_counts(g: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    check_count_args(g, r)
-    if g.device.type == "cpu":
+    device = check_count_args(g, r)
+    if device < 0:
         return ref.sign_align_counts(g, r)
-    if g.device.type != "cuda":
-        raise ValueError(f"no sign_align_counts kernel for device {g.device}")
-    _check_card("sign_align_counts", g, r)
-    count = torch.zeros((), dtype=torch.int32, device=g.device)
-    err = _lib("sign_align_counts")(
-        g.data_ptr(), int(g.dtype == torch.bfloat16), r.data_ptr(),
-        count.data_ptr(), g.numel(),
-        torch.cuda.current_stream(g.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"sign_align_counts kernel launch failed: CUDA "
-                           f"error {err}")
+    pg = _launch.aligned_pointer("sign_align_counts", g)
+    pr = _launch.aligned_pointer("sign_align_counts", r)
+    count = g.new_zeros((), dtype=torch.int32)
+    _launch.entries["sign_align_counts"](
+        pg, int(g.dtype == torch.bfloat16), pr, count.data_ptr(), g.numel(),
+        _launch.stream(device))
     launches["sign_align_counts"] += 1
     return count.to(torch.float32)
