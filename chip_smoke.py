@@ -21,9 +21,21 @@ Phases, each printing JSON lines:
                and 5 clients and at a ragged (7, 3) with -0.0, NaN, Inf and
                subnormal slabs, equal by bits; ``fused_update`` at
                (C, R) = (10, 54), (16, 864), (1, 35) with f32 p and at
-               (10, 54) with bf16 p (f32 within 1e-6 of Σ_c|w_c·u_c| plus one
-               ulp of the larger of |p| and |result|, bf16 within one bf16
-               ulp); ``sign_align_counts`` at 54, 864 and 35 rows, f32 and
+               (10, 54) with bf16 p (within 1e-6 of Σ_c|w_c·u_c| plus one
+               f32 ulp of the larger of |p| and |result|, and for bf16 one
+               bf16 ulp more); ``masked_agg``, and ``fused_update`` in f32
+               and bf16 (bf16 also equal by bits to p − masked_agg rounded
+               once), also at every C in {1, 7, 8, 9, 16, 17, 40} by R in
+               {1, 54, 257}, at C 4 × R 4096 and at C in {257, 300} by R in
+               {1, 54} (the chunks of 16 clients, their tails, many blocks
+               and more than one tile of weights), with ±Inf in a
+               zero-weight client's row, which must give NaN at the same
+               positions as the plain version (0·Inf), the rest
+               within the tolerances above, and at R = 0 (an empty result,
+               no fault); their timed rows carry ``design``: threads a
+               block, blocks, registers a thread and clients a chunk, read
+               from a ``torch.profiler`` trace of one launch at the timed
+               shape; ``sign_align_counts`` at 54, 864 and 35 rows, f32 and
                bf16, counts equal. Times with CUDA events: eager (back to
                back calls) and device (a CUDA graph), each kernel's and,
                where one PyTorch call computes the same function, that
@@ -125,6 +137,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -387,6 +400,144 @@ def bound_ms(nbytes: float, ops: float):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+AGG_GRID = ([(C, R) for C in (1, 7, 8, 9, 16, 17, 40)
+             for R in (1, 54, 257)] + [(4, 4096)]
+            + [(C, R) for C in (257, 300) for R in (1, 54)])   # (C, R)
+
+
+def launch_design(fn, kernel: str, calls: int = 3,
+                  sessions: int = 3) -> dict:
+    """``torch.profiler`` over ``calls`` calls of ``fn``: the launches of
+    the kernel whose name holds ``kernel``, as the trace records them:
+    threads a block, blocks, registers a thread, and the clients a chunk
+    that the kernel's name carries as its first template argument. A
+    session whose trace holds none of them is tried again, up to
+    ``sessions`` times; the launches must agree."""
+    from torch.profiler import ProfilerActivity, profile
+    seen = []
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = pathlib.Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        mine = [e for e in events
+                if e.get("cat") == "kernel" and kernel in e.get("name", "")]
+        if mine:
+            break
+        seen.append(sorted({(e.get("cat"), e.get("name", "")[:60])
+                            for e in events if e.get("ph") == "X"})[:8])
+    else:
+        raise AssertionError(f"no launch of {kernel} in {sessions} traces "
+                             f"of {calls} calls; they held {seen}")
+    found = {(e["name"], tuple(e["args"]["grid"]), tuple(e["args"]["block"]),
+              e["args"].get("registers per thread")) for e in mine}
+    if len(found) != 1:
+        raise AssertionError(f"launches of {kernel} differ: {found}")
+    (name, grid, block, regs), = found
+    chunk = re.search(re.escape(kernel) + r"<(\d+)", name)
+    return dict(kernel=name[:120], threads_per_block=math.prod(block),
+                blocks=math.prod(grid), registers_per_thread=regs,
+                clients_per_chunk=int(chunk.group(1)) if chunk else None,
+                traced_launches=len(mine), sessions=len(seen) + 1)
+
+
+def off_finite_agree(got, want) -> bool:
+    """``got`` and ``want`` are NaN at the same positions, and ±Inf at the
+    same positions with the same signs."""
+    g, w = got.float(), want.float()
+    return torch.equal(torch.isnan(g), torch.isnan(w)) and torch.equal(
+        torch.where(torch.isinf(g), g, 0.0),
+        torch.where(torch.isinf(w), w, 0.0))
+
+
+def finite_max(gap, got, want) -> float:
+    """The largest ``gap`` where ``want`` is finite; +inf unless ``got`` and
+    ``want`` agree off the finite positions (``off_finite_agree``)."""
+    if not off_finite_agree(got, want):
+        return math.inf
+    return float(torch.where(torch.isfinite(want.float()), gap,
+                             -math.inf).max())
+
+
+def agg_excess(got, want, u, w) -> float:
+    """Largest excess of |got − want| over 1e-6 of Σ_c|w_c·u_c| (≤ 0
+    passes), over the positions where the plain version is finite."""
+    scale = (u * w[:, None, None]).abs().sum(dim=0)
+    return finite_max((got - want).abs() - 1e-6 * scale, got, want)
+
+
+def with_inf(u, w):
+    """Inf and -Inf in the row of a client whose weight is 0: its terms
+    0·Inf are NaN in the kernel and in the plain version alike."""
+    u, w = u.clone(), w.clone()
+    w[1] = 0.0
+    u[1, 0, 5] = math.inf
+    u[1, -1, 700] = -math.inf
+    return u, w
+
+
+def held_agg(masked_agg, ref, u, w, where: str) -> tuple:
+    """masked_agg and its plain version on (u, w); raises when they differ
+    beyond ``agg_excess``'s tolerance. Returns (kernel, plain, excess)."""
+    got, want = masked_agg.masked_agg(u, w), ref.masked_agg(u, w)
+    torch.cuda.synchronize()
+    excess = agg_excess(got, want, u, w)
+    if not excess <= 0.0:
+        raise AssertionError(f"masked_agg differs from its plain version "
+                             f"beyond rtol 1e-6 of sum|w*u| at {where} "
+                             f"(excess {excess})")
+    return got, want, excess
+
+
+def has_nans(where: str, want) -> int:
+    """The count of NaNs in the plain version's output, which must hold
+    some (the NaN masks themselves are compared by ``finite_max``)."""
+    nans = int(torch.isnan(want.float()).sum())
+    if nans == 0:
+        raise AssertionError(f"{where}: the plain version gave no NaN")
+    return nans
+
+
+def empty_rows(fn, want_shape, want_dtype) -> list:
+    """``fn`` at R = 0 rows on the card: an empty result of the expected
+    shape and dtype, and no fault (the synchronisation would raise it)."""
+    got = fn()
+    torch.cuda.synchronize()
+    if tuple(got.shape) != want_shape or got.dtype != want_dtype:
+        raise AssertionError(f"R = 0 gave {tuple(got.shape)} {got.dtype}")
+    return list(got.shape)
+
+
+def agg_grid(masked_agg, ref) -> float:
+    """Hold masked_agg to its plain version at every (C, R) of AGG_GRID,
+    within 1e-6 of Σ_c|w_c·u_c|, on the main shape with Inf in a
+    zero-weight client's row (NaN at the same positions), and at R = 0;
+    returns the largest |kernel − plain| over the finite outputs."""
+    err, worst = 0.0, -math.inf
+    for C, R in AGG_GRID:
+        u, _, w = kernel_inputs(C, R, seed=C * 1000 + R)
+        got, want, excess = held_agg(masked_agg, ref, u, w, f"C={C}, R={R}")
+        err, worst = max(err, float((got - want).abs().max())), max(worst,
+                                                                     excess)
+    u, w = with_inf(*kernel_inputs(*MAIN_SHAPE, seed=7)[::2])
+    got, want, excess = held_agg(masked_agg, ref, u, w,
+                                 "Inf in a zero-weight row")
+    nans = has_nans("masked_agg with Inf in a zero-weight row", want)
+    empty = empty_rows(lambda: masked_agg.masked_agg(
+        torch.zeros((16, 0, 1024), device="cuda"),
+        torch.ones(16, device="cuda")), (0, 1024), torch.float32)
+    emit("kernels", name="masked_agg", grid=[list(s) for s in AGG_GRID],
+         worst_excess=worst, max_abs_err=err, non_finite=dict(
+             shape=list(MAIN_SHAPE), nan_positions=nans, same_nans=True,
+             excess=excess), empty=dict(shape=[16, 0], out_shape=empty))
+    return err
+
+
 def phase_kernels(sign_align, masked_agg, ref) -> dict:
     """Hold each kernel to its plain version; time both at the main shape."""
     sa_err = ma_err = 0.0
@@ -399,18 +550,12 @@ def phase_kernels(sign_align, masked_agg, ref) -> dict:
             raise AssertionError(f"sign-align counts differ at C={C}, R={R}: "
                                  f"{got.tolist()} vs {want.tolist()}")
         sa_err = max(sa_err, float((got - want).abs().max()))
-        got = masked_agg.masked_agg(u, w)
-        want = ref.masked_agg(u, w)
-        scale = (u * w[:, None, None]).abs().sum(dim=0)
-        torch.cuda.synchronize()
-        excess = float(((got - want).abs() - 1e-6 * scale).max())
-        if not excess <= 0.0:
-            raise AssertionError(f"masked_agg differs from its plain version "
-                                 f"beyond rtol 1e-6 of sum|w*u| at C={C}, "
-                                 f"R={R} (excess {excess})")
+        got, want, _ = held_agg(masked_agg, ref, u, w, f"C={C}, R={R}")
         ma_err = max(ma_err, float((got - want).abs().max()))
         emit("kernels", shape=[C, R], sign_align="equal",
              masked_agg_max_abs_err=float((got - want).abs().max()))
+
+    ma_err = max(ma_err, agg_grid(masked_agg, ref))
 
     C, R = MAIN_SHAPE
     u, r, w = kernel_inputs(C, R, seed=1)
@@ -437,11 +582,14 @@ def phase_kernels(sign_align, masked_agg, ref) -> dict:
             bound_ms=ma_bound[0], bound_by=ma_bound[1],
             library_ms=time_ms(lambda: torch.einsum("crl,c->rl", u, w)),
             library_device_ms=graph_ms(
-                lambda: torch.einsum("crl,c->rl", u, w))),
+                lambda: torch.einsum("crl,c->rl", u, w)),
+            design=launch_design(lambda: masked_agg.masked_agg(u, w),
+                                 "masked_agg_kernel")),
     }
     for name, row in rows.items():
         emit("kernels", name=name, shape=[C, R],
-             **{k: v for k, v in row.items() if k.endswith("ms")})
+             **{k: v for k, v in row.items()
+                if k.endswith("ms") or k == "design"})
     return rows
 
 
@@ -679,16 +827,90 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 
 def fused_excess(got, want, p, u, w) -> float:
-    """Largest excess of |got − want| over the tolerance: for f32 1e-6 of
-    Σ_c|w_c·u_c| plus one ulp of the larger of |p| and |want| (the
-    subtraction rounds once on each side); for bf16 one bf16 ulp."""
+    """Largest excess of |got − want| over the tolerance: 1e-6 of
+    Σ_c|w_c·u_c| (the kernel adds the products by fmaf, the plain version
+    by a product and a sum) plus one f32 ulp of the larger of |p| and
+    |want| (the subtraction rounds once on each side); for bf16 that plus
+    one bf16 ulp of ``want`` (each side rounds once more, to bf16). Over
+    the positions where ``want`` is finite, and +inf unless ``got`` is NaN
+    and ±Inf where ``want`` is (``finite_max``)."""
     gap = (got.float() - want.float()).abs()
-    if p.dtype == torch.bfloat16:
-        return float((gap - bf16_ulp(want)).max())
     scale = (u * w[:, None, None]).abs().sum(dim=0)
-    big = torch.maximum(p.abs(), want.abs())
+    big = torch.maximum(p.float().abs(), want.float().abs())
     ulp = torch.nextafter(big, torch.full_like(big, math.inf)) - big
-    return float((gap - 1e-6 * scale - ulp).max())
+    tol = 1e-6 * scale + ulp
+    if p.dtype == torch.bfloat16:
+        tol = tol + bf16_ulp(want)
+    return finite_max(gap - tol, got, want)
+
+
+def beyond_one_bf16_ulp(got, want) -> int:
+    """How many finite outputs differ by more than one bf16 ulp of
+    ``want``: where two f32 sums that differ in their last bits round to
+    bf16 values further apart (a result near 0, a binade's edge)."""
+    gap = (got.float() - want.float()).abs()
+    return int(((gap > bf16_ulp(want)) & torch.isfinite(want.float())).sum())
+
+
+def held_fused(masked_agg, ref, p, u, w, where: str) -> tuple:
+    """fused_update and its plain version on (p, u, w); raises unless the
+    kernel keeps p's dtype and agrees within ``fused_excess``'s tolerance.
+    Returns (kernel, plain, excess)."""
+    got, want = masked_agg.fused_update(p, u, w), ref.fused_update(p, u, w)
+    torch.cuda.synchronize()
+    excess = fused_excess(got, want, p, u, w)
+    if got.dtype != p.dtype or not excess <= 0.0:
+        raise AssertionError(f"fused_update differs from its plain version "
+                             f"at {where}, {p.dtype} (excess {excess}, "
+                             f"dtype {got.dtype})")
+    return got, want, excess
+
+
+def fused_grid(masked_agg, ref) -> float:
+    """Hold fused_update to its plain version at every (C, R) of AGG_GRID
+    with p in f32 and in bf16 (``fused_excess``; in bf16 also equal by bits
+    to p − masked_agg rounded once), at (10, 54) in both with Inf in a
+    zero-weight client's row (NaN at the same positions), and at R = 0;
+    returns the largest |kernel − plain| over the finite outputs."""
+    err, worst = 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        beyond = 0
+        for C, R in AGG_GRID:
+            p, u, w = fused_inputs(C, R, dtype, seed=C * 1000 + R)
+            got, want, excess = held_fused(masked_agg, ref, p, u, w,
+                                           f"C={C}, R={R}")
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            worst[name] = max(worst.get(name, -math.inf), excess)
+            if dtype == torch.bfloat16:
+                # the kernel's own sum (masked_agg's fmaf chain), subtracted
+                # and rounded once: equal by bits
+                once = (p.float() - masked_agg.masked_agg(u, w)).to(dtype)
+                if not torch.equal(got.view(torch.int16),
+                                   once.view(torch.int16)):
+                    raise AssertionError(f"fused_update (bf16) is not p − "
+                                         f"masked_agg rounded once at "
+                                         f"C={C}, R={R}")
+                beyond += beyond_one_bf16_ulp(got, want)
+        p, u, w = fused_inputs(10, 54, dtype, seed=7)
+        u, w = with_inf(u, w)
+        got, want, excess = held_fused(masked_agg, ref, p, u, w,
+                                       "Inf in a zero-weight row")
+        nans = has_nans(f"fused_update ({name}) with Inf in a zero-weight "
+                        f"row", want)
+        empty = empty_rows(lambda: masked_agg.fused_update(
+            torch.zeros((0, 1024), dtype=dtype, device="cuda"),
+            torch.zeros((10, 0, 1024), device="cuda"),
+            torch.ones(10, device="cuda")), (0, 1024), dtype)
+        extra = dict(equal_to_agg_rounded_once=True,
+                     elements_beyond_one_bf16_ulp=beyond) \
+            if dtype == torch.bfloat16 else {}
+        emit("kernels", name="fused_update", dtype=name,
+             grid=[list(s) for s in AGG_GRID], worst_excess=worst[name],
+             non_finite=dict(shape=[10, 54], nan_positions=nans,
+                             same_nans=True, excess=excess),
+             empty=dict(shape=[10, 0], out_shape=empty), **extra)
+    return err
 
 
 def phase_spmd_kernels(sign_align, masked_agg, ref) -> dict:
@@ -699,19 +921,13 @@ def phase_spmd_kernels(sign_align, masked_agg, ref) -> dict:
     cases.append((10, 54, torch.bfloat16))
     for C, R, dtype in cases:
         p, u, w = fused_inputs(C, R, dtype, seed=C * R)
-        got = masked_agg.fused_update(p, u, w)
-        want = ref.fused_update(p, u, w)
-        torch.cuda.synchronize()
-        excess = fused_excess(got, want, p, u, w)
-        if got.dtype != dtype or not excess <= 0.0:
-            raise AssertionError(f"fused_update differs from its plain "
-                                 f"version at C={C}, R={R}, {dtype} (excess "
-                                 f"{excess}, dtype {got.dtype})")
+        got, want, _ = held_fused(masked_agg, ref, p, u, w, f"C={C}, R={R}")
         err = float((got.float() - want.float()).abs().max())
         fu_err = max(fu_err, err)
         emit("kernels", shape=[C, R], dtype=str(dtype).split(".")[-1],
              fused_update_max_abs_err=err,
              elements_differing=int((got != want).sum()))
+    fu_err = max(fu_err, fused_grid(masked_agg, ref))
     for R in COUNT_ROWS:
         for dtype in (torch.float32, torch.bfloat16):
             g, r = count_inputs(R, dtype, seed=R)
@@ -748,7 +964,9 @@ def phase_spmd_kernels(sign_align, masked_agg, ref) -> dict:
             library_ms=time_ms(lambda: torch.addmv(
                 p.view(-1), uf.t(), w, alpha=-1)),
             library_device_ms=graph_ms(lambda: torch.addmv(
-                p.view(-1), uf.t(), w, alpha=-1))),
+                p.view(-1), uf.t(), w, alpha=-1)),
+            design=launch_design(lambda: masked_agg.fused_update(p, u, w),
+                                 "fused_update_kernel")),
         "sign_align_counts": dict(
             route="cuda", source="src/repro_torch/csrc/sign_align.cu",
             replaces="src/repro/kernels/sign_align.py:38",
@@ -763,7 +981,7 @@ def phase_spmd_kernels(sign_align, masked_agg, ref) -> dict:
     }
     emit("kernels", name="fused_update", shape=[C, R], dtype="float32",
          **{k: v for k, v in rows["fused_update"].items()
-            if k.endswith("ms")})
+            if k.endswith("ms") or k == "design"})
     emit("kernels", name="sign_align_counts", rows=R, dtype="float32",
          **{k: v for k, v in rows["sign_align_counts"].items()
             if k.endswith("ms")})

@@ -15,7 +15,7 @@ one-hot sum adds 0·src[n] for every other slab, which turns −0.0 into
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import aggregation as jagg
 from repro.core import async_engine as jae

@@ -12,6 +12,7 @@ record; accuracy and loss agree within ACC_TOL and LOSS_RTOL; and the
 test asserts that no θ ratio of the seeds used lies within THETA_BAND of
 θ, where a decision could flip on float noise.
 """
+import ast
 import dataclasses
 import os
 import pathlib
@@ -22,7 +23,7 @@ import sys
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import repro.api as J
 from repro.api import runner as jrunner
@@ -134,6 +135,45 @@ def test_sources_import_neither_jax_nor_repro():
         hits = pattern.findall(f.read_text())
         assert not hits, (f, hits)
     assert len(files) > 20
+
+
+def _asks_for_torch(node) -> bool:
+    """``pytest.importorskip("torch")``, bare or assigned."""
+    call = node.value if isinstance(node, (ast.Expr, ast.Assign)) else None
+    return (isinstance(call, ast.Call)
+            and isinstance(call.func, ast.Attribute)
+            and call.func.attr == "importorskip"
+            and isinstance(call.func.value, ast.Name)
+            and call.func.value.id == "pytest"
+            and [getattr(a, "value", None) for a in call.args] == ["torch"])
+
+
+def _imported_roots(node) -> list:
+    if isinstance(node, ast.Import):
+        return [a.name.split(".")[0] for a in node.names]
+    if isinstance(node, ast.ImportFrom) and not node.level:
+        return [node.module.split(".")[0]]
+    return []
+
+
+def test_port_tests_skip_where_torch_is_absent():
+    """Every tests/test_torch_*.py calls ``pytest.importorskip("torch")`` at
+    module level before its first import of torch, repro_torch, repro or
+    another test module (which may import them), so that where torch is
+    not installed the file is skipped instead of failing to collect."""
+    files = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert len(files) >= 15
+    needs_torch = {"torch", "repro", "repro_torch"}
+    for f in files:
+        body = ast.parse(f.read_text()).body
+        skip = next((n.lineno for n in body if _asks_for_torch(n)), None)
+        first = next((n.lineno for n in body if any(
+            r in needs_torch or r.startswith("test_")
+            for r in _imported_roots(n))), None)
+        assert skip is not None, f"{f.name}: no pytest.importorskip('torch')"
+        assert first is None or skip < first, (
+            f"{f.name}: line {first} imports before the importorskip at "
+            f"line {skip}")
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

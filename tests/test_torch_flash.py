@@ -31,7 +31,7 @@ import pathlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 from test_flash_attn import _naive
 
 from repro.kernels.flash_attn import flash_attention as pallas_flash

@@ -6,6 +6,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 
 from repro.core import aggregation as jagg
 from repro.core import async_engine as jae

@@ -7,13 +7,14 @@ weighted sum is compared elementwise to rtol 1e-6 of Σ_c |w_c·u_c|, the
 scale of the terms being summed: the two sides add the same products in
 different orders (XLA's einsum against a client-by-client loop), and the
 error of an f32 sum is bounded relative to that scale, not to the sum,
-which may cancel to near zero.
+which may cancel to near zero. Where a zero-weight client's row holds
+±Inf, both sides give NaN (0·Inf) at the same positions, and only there.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.configs import anomaly_mlp as jcfg
 from repro.kernels import arena as jarena
@@ -28,6 +29,11 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import sign_align as tsa
 
 SHAPES = [(1, 1), (5, 7), (16, 54)]
+# masked_agg also at a chunk of 16 clients and its tails (C 1, 9, 17, 40)
+# by one row and a ragged 257, and with ±Inf in a zero-weight client's row
+AGG_CASES = [pytest.param(C, R, False, id=f"{C}-{R}") for C, R in SHAPES + [
+    (C, R) for C in (1, 9, 17, 40) for R in (1, 257) if (C, R) != (1, 1)]
+] + [pytest.param(16, 54, True, id="16-54-inf")]
 
 
 def _inputs(C, R, seed=0):
@@ -62,15 +68,40 @@ def test_sign_align_matches_jax_exactly(C, R):
     np.testing.assert_array_equal(got.numpy(), pallas)
 
 
-@pytest.mark.parametrize("C,R", SHAPES)
-def test_masked_agg_matches_jax(C, R):
+def _with_inf(u, w):
+    """+Inf and -Inf in the row of client 1, whose weight is 0."""
+    w[1] = 0.0
+    u[1, 0, 5] = np.inf
+    u[1, -1, 700] = -np.inf
+    return u, w
+
+
+@pytest.mark.parametrize("C,R,inf", AGG_CASES)
+def test_masked_agg_matches_jax(C, R, inf):
     u, _, w = _inputs(C, R, seed=1)
+    if inf:
+        u, w = _with_inf(u, w)
     got = tma.masked_agg(torch.from_numpy(u), torch.from_numpy(w)).numpy()
-    bound = 1e-6 * _sum_scale(u, w)
+    with np.errstate(invalid="ignore"):
+        bound = 1e-6 * _sum_scale(u, w)
+    assert np.isnan(got).sum() == (2 if inf else 0)
     for want in (np.asarray(jref.masked_agg(jnp.asarray(u), jnp.asarray(w))),
                  np.asarray(jma.masked_agg(jnp.asarray(u), jnp.asarray(w)))):
         assert got.shape == want.shape == (R, 1024)
-        assert (np.abs(got - want) <= bound).all()
+        both_nan = np.isnan(got) & np.isnan(want)
+        assert ((np.abs(got - want) <= bound) | both_nan).all()
+
+
+def test_masked_agg_takes_zero_rows():
+    """R = 0 passes the wrapper's checks: an empty (0, 1024) f32 result, as
+    the jnp oracle gives (``chip_smoke.py`` holds the card's kernel to the
+    same, with no fault)."""
+    u, _, w = _inputs(16, 1, seed=2)
+    u = u[:, :0]
+    got = tma.masked_agg(torch.from_numpy(u), torch.from_numpy(w))
+    want = np.asarray(jref.masked_agg(jnp.asarray(u), jnp.asarray(w)))
+    assert got.dtype == torch.float32
+    assert tuple(got.shape) == want.shape == (0, 1024)
 
 
 def test_sign_is_zero_on_signed_zeros_and_never_matches_sentinel():

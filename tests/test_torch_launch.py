@@ -17,7 +17,7 @@ import sysconfig
 import types
 
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import _launch

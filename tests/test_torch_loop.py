@@ -19,7 +19,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import repro.api as J
 from repro.api import runner as jrunner

@@ -5,7 +5,10 @@ its ``repro.kernels.ops`` wrappers, on the same numpy inputs. The CUDA
 kernels are held to the same plain versions on the card by
 ``chip_smoke.py``.
 
-Tolerances, as ``chip_smoke.py`` states them for the card:
+Tolerances, as ``chip_smoke.py`` states them for the card (where it adds
+the f32 terms to the bf16 one: at its C of 257 and 300 the kernel's fmaf
+sums and the plain version's products and sums can round to bf16 values
+more than one bf16 ulp apart):
   * sign-alignment counts are integers and must be equal;
   * ``fused_update`` in f32 within 1e-6 of Σ_c |w_c·u_c| (the scale of the
     summands: both sides add the same products in other orders) plus one
@@ -13,14 +16,16 @@ Tolerances, as ``chip_smoke.py`` states them for the card:
     once more, half an ulp on each side; the result may lie in the binade
     above p's); in bf16 within one bf16 ulp of the result (the f32 value
     is rounded once to bf16, and an f32 difference in its last bits can
-    fall on either side of a rounding boundary);
+    fall on either side of a rounding boundary); with ±Inf in a
+    zero-weight client's row both sides give NaN (0·Inf) at the same
+    positions, and only there;
   * ratios are a count divided by n in f32 and must be equal; weighted
     sums within 1e-6 of Σ_c |w_c·u_c|, as above.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels import arena as jarena
 from repro.kernels import masked_agg as jma
@@ -105,18 +110,32 @@ def _fused_inputs(C: int, R: int, seed: int):
 def _fused_excess(got, want, p, u, w, dtype) -> float:
     """Largest excess of |got − want| over the tolerance (≤ 0 passes)."""
     got, want = _as_f32(got), _as_f32(want)
-    gap = np.abs(got.astype(np.float64) - want)
-    if dtype == "bf16":
-        return float((gap - _bf16_ulp(want)).max())
-    scale = np.abs(u * w[:, None, None]).sum(axis=0)
-    ulp = np.spacing(np.maximum(np.abs(p), np.abs(want)))
-    return float((gap - 1e-6 * scale - ulp).max())
+    both_nan = np.isnan(got) & np.isnan(want)
+    with np.errstate(invalid="ignore"):
+        gap = np.abs(got.astype(np.float64) - want)
+        if dtype == "bf16":
+            excess = gap - _bf16_ulp(want)
+        else:
+            scale = np.abs(u * w[:, None, None]).sum(axis=0)
+            ulp = np.spacing(np.maximum(np.abs(p), np.abs(want)))
+            excess = gap - 1e-6 * scale - ulp
+    return float(np.where(both_nan, -np.inf, excess).max())
+
+
+# also at a chunk of 16 clients and its tails (C 1, 9, 17, 40) by one row
+# and a ragged 257, and with ±Inf in a zero-weight client's row
+FUSED_CASES = [pytest.param(C, R, False, id=f"{C}-{R}") for C, R in [
+    (4, 16), (1, 8), (8, 40)] + [(C, R) for C in (1, 9, 17, 40)
+                                 for R in (1, 257)]] + [
+    pytest.param(10, 54, True, id="10-54-inf")]
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("C,R", [(4, 16), (1, 8), (8, 40)])
-def test_fused_update_matches_pallas_and_oracle(C, R, dtype):
+@pytest.mark.parametrize("C,R,inf", FUSED_CASES)
+def test_fused_update_matches_pallas_and_oracle(C, R, inf, dtype):
     p, u, w = _fused_inputs(C, R, seed=C * R)
+    if inf:                             # w[1] is 0: a filtered client
+        u[1, 0, 5], u[1, -1, 700] = np.inf, -np.inf
     jp, tp = _pair(p, dtype)
     got = tma.fused_update(tp, torch.from_numpy(u), torch.from_numpy(w))
     assert got.dtype == tp.dtype and got.shape == tp.shape
@@ -124,12 +143,28 @@ def test_fused_update_matches_pallas_and_oracle(C, R, dtype):
                               interpret=True)
     oracle = jref.fused_update(jp, jnp.asarray(u), jnp.asarray(w))
     p32 = _as_f32(tp)
+    assert np.isnan(_as_f32(got)).sum() == (2 if inf else 0)
     for want in (pallas, oracle):
         assert _fused_excess(got, want, p32, u, w, dtype) <= 0.0
     # the plain version is p − masked_agg, rounded once into p's dtype
     again = (tp.float() - tref.masked_agg(torch.from_numpy(u),
                                           torch.from_numpy(w))).to(tp.dtype)
-    assert torch.equal(got, again)
+    torch.testing.assert_close(got, again, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_fused_update_takes_zero_rows(dtype):
+    """R = 0 passes the wrapper's checks: an empty result in p's dtype, as
+    the jnp oracle gives (``chip_smoke.py`` holds the card's kernel to the
+    same, with no fault)."""
+    p, u, w = _fused_inputs(10, 1, seed=2)
+    p, u = p[:0], u[:, :0]
+    jp, tp = _pair(p, dtype)
+    got = tma.fused_update(tp, torch.from_numpy(u), torch.from_numpy(w))
+    want = jref.fused_update(jp, jnp.asarray(u), jnp.asarray(w))
+    assert got.dtype == tp.dtype
+    assert tuple(got.shape) == tuple(want.shape) == (0, LANE)
+    assert want.dtype == jp.dtype
 
 
 def test_fused_update_does_not_touch_p():
