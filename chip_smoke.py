@@ -32,12 +32,23 @@ Phases, each printing JSON lines:
                zero-weight client's row, which must give NaN at the same
                positions as the plain version (0·Inf), the rest
                within the tolerances above, and at R = 0 (an empty result,
-               no fault); their timed rows carry ``design``: threads a
-               block, blocks, registers a thread and clients a chunk, read
-               from a ``torch.profiler`` trace of one launch at the timed
-               shape; ``sign_align_counts`` at 54, 864 and 35 rows, f32 and
-               bf16, counts equal. Times with CUDA events: eager (back to
-               back calls) and device (a CUDA graph), each kernel's and,
+               no fault); ``per_client_sign_align`` also at every C in
+               {1, 7, 8, 9, 16, 17, 20, 24, 27, 40, 44, 66, 132, 257} by R
+               in {0, 1, 7, 54} and at C 16 × R 864 (every cluster size
+               from 8 blocks a client down to 1; R = 0 gives C zeros), and
+               both sign kernels on an input with every sign case (±0,
+               NaN, ±Inf, f32 and bf16 subnormals, the -2 padding),
+               counts equal, also to the plain version on the CPU;
+               ``sign_align_counts`` at 54, 864, 35, 1 and 7 rows, f32
+               and bf16, counts equal. The timed rows of the aggregation
+               and sign kernels carry ``design``: threads a block, blocks,
+               registers a thread, the cluster's dimensions if the trace
+               has them and clients a chunk where the kernel's name has
+               them, read from a ``torch.profiler`` trace of three calls
+               at the timed shape, which must hold exactly one device
+               operation (kernel, memset or memcpy) a call. Times with
+               CUDA events: eager (back to back calls) and device (a CUDA
+               graph), each kernel's and,
                where one PyTorch call computes the same function, that
                call's (``library_ms``, ``library_device_ms``). Every
                wrapper launches through ``kernels/_launch.py``; for
@@ -405,14 +416,19 @@ AGG_GRID = ([(C, R) for C in (1, 7, 8, 9, 16, 17, 40)
             + [(C, R) for C in (257, 300) for R in (1, 54)])   # (C, R)
 
 
+DEVICE_OPS = ("kernel", "gpu_memset", "gpu_memcpy")   # trace categories
+
+
 def launch_design(fn, kernel: str, calls: int = 3,
                   sessions: int = 3) -> dict:
     """``torch.profiler`` over ``calls`` calls of ``fn``: the launches of
     the kernel whose name holds ``kernel``, as the trace records them:
-    threads a block, blocks, registers a thread, and the clients a chunk
-    that the kernel's name carries as its first template argument. A
-    session whose trace holds none of them is tried again, up to
-    ``sessions`` times; the launches must agree."""
+    threads a block, blocks, registers a thread, the cluster's dimensions
+    where the trace carries them (else None), and the clients a chunk
+    where the kernel's name carries them as its first template argument.
+    A session whose trace holds none of them is tried again, up to
+    ``sessions`` times; the launches must agree, and each call of ``fn``
+    must be exactly one device operation (kernel, memset or memcpy)."""
     from torch.profiler import ProfilerActivity, profile
     seen = []
     for _ in range(sessions):
@@ -434,16 +450,28 @@ def launch_design(fn, kernel: str, calls: int = 3,
     else:
         raise AssertionError(f"no launch of {kernel} in {sessions} traces "
                              f"of {calls} calls; they held {seen}")
+    ops = [e for e in events if e.get("cat") in DEVICE_OPS]
+    if len(ops) != calls:
+        raise AssertionError(
+            f"{calls} calls around {kernel} made {len(ops)} device "
+            f"operations, not one each: "
+            f"{sorted({(e['cat'], e['name'][:60]) for e in ops})}")
     found = {(e["name"], tuple(e["args"]["grid"]), tuple(e["args"]["block"]),
-              e["args"].get("registers per thread")) for e in mine}
+              e["args"].get("registers per thread"),
+              tuple(sorted((k, str(v)) for k, v in e["args"].items()
+                           if "cluster" in k.lower()))) for e in mine}
     if len(found) != 1:
         raise AssertionError(f"launches of {kernel} differ: {found}")
-    (name, grid, block, regs), = found
+    (name, grid, block, regs, cluster), = found
     chunk = re.search(re.escape(kernel) + r"<(\d+)", name)
-    return dict(kernel=name[:120], threads_per_block=math.prod(block),
-                blocks=math.prod(grid), registers_per_thread=regs,
-                clients_per_chunk=int(chunk.group(1)) if chunk else None,
-                traced_launches=len(mine), sessions=len(seen) + 1)
+    design = dict(kernel=name[:120], threads_per_block=math.prod(block),
+                  blocks=math.prod(grid), registers_per_thread=regs,
+                  cluster=dict(cluster) or None,
+                  device_ops_per_call=len(ops) / calls,
+                  traced_launches=len(mine), sessions=len(seen) + 1)
+    if chunk:
+        design["clients_per_chunk"] = int(chunk.group(1))
+    return design
 
 
 def off_finite_agree(got, want) -> bool:
@@ -538,23 +566,104 @@ def agg_grid(masked_agg, ref) -> float:
     return err
 
 
+# (C, R) at which per_client_sign_align is held to its plain version: the
+# kernel takes clusters of k blocks a client, k = min(8, ceil(132 / C), R)
+# (R·256 float4s, 256 threads a block, at least 1), so these C reach every
+# k from 8 down to 1 at R = 54 (16 and 17: 8, 20: 7, 24: 6, 27: 5, 40: 4,
+# 44: 3, 66: 2, 132 and 257: 1), R = 7 caps k at 7, R = 1 at 1, and R = 0
+# writes C zeros and loads nothing
+SIGN_GRID = ([(C, R) for C in (1, 7, 8, 9, 16, 17, 20, 24, 27, 40, 44, 66,
+                               132, 257) for R in (0, 1, 7, 54)]
+             + [(16, 864)])
+# every sign case as f32 bits: ±0, NaN (and negative ones with payloads),
+# ±Inf, ±1, the smallest and largest f32 subnormals, and the smallest and
+# largest bf16 subnormals; those whose low 16 bits are 0 are bf16 values
+SIGN_CASES_F32 = (0x00000000, 0x80000000, 0x7FC00000, 0xFFC01234, 0xFFC10000,
+                  0x7F800000, 0xFF800000, 0x3F800000, 0xBF800000, 0x00000001,
+                  0x80000001, 0x007FFFFF, 0x807FFFFF, 0x00010000, 0x80010000,
+                  0x007F0000, 0x807F0000)
+
+
+def sign_cases(dtype, rows: int = 3, seed: int = 0):
+    """(x, r) on the CPU: x (rows, 1024) in ``dtype`` whose first row puts
+    every value of SIGN_CASES_F32 (for bf16 those that are bf16 values,
+    bit for bit) against every reference sign -2, -1, 0 and 1; the other
+    rows random, the last row's tail 0 against the -2 padding. Made on
+    the CPU, where nothing flushes subnormals."""
+    g = torch.Generator().manual_seed(seed)
+    bits = torch.tensor(SIGN_CASES_F32, dtype=torch.int64).to(torch.int32)
+    if dtype == torch.bfloat16:
+        values = (bits[(bits & 0xFFFF) == 0] >> 16).to(torch.int16).view(dtype)
+    else:
+        values = bits.view(torch.float32)
+    x = torch.randn((rows, 1024), generator=g).to(dtype)
+    r = torch.randint(-1, 2, (rows, 1024), generator=g, dtype=torch.int8)
+    lanes = torch.arange(1024)
+    x[0] = values[lanes % len(values)]
+    r[0] = torch.tensor([-2, -1, 0, 1], dtype=torch.int8)[
+        (lanes // len(values)) % 4]
+    x[-1, -200:], r[-1, -200:] = 0.0, -2
+    return x, r
+
+
+def held_counts(fn, plain, x, r, where: str) -> tuple:
+    """A sign-count kernel ``fn`` and its plain version on (x, r): f32
+    counts of the plain version's shape on x's device, equal. Returns
+    the kernel's counts and the largest |kernel − plain|."""
+    got, want = fn(x, r), plain(x, r)
+    torch.cuda.synchronize()
+    if got.dtype != torch.float32 or got.shape != want.shape or \
+            got.device != x.device or not torch.equal(got, want):
+        raise AssertionError(f"sign counts differ from the plain version at "
+                             f"{where}: {got} vs {want}")
+    return got, float((got - want).abs().max())
+
+
+def sign_grid(sign_align, ref) -> float:
+    """Hold per_client_sign_align to its plain version, equal, at every
+    (C, R) of SIGN_GRID (at R = 0 the plain version's C zeros) and on
+    every sign case (``sign_cases``, each client's first row rolled by its
+    index), where the plain version on the CPU copy must agree too (the
+    card's could flush subnormals as a kernel might); returns the largest
+    |kernel − plain|."""
+    err = 0.0
+    for C, R in SIGN_GRID:
+        if R == 0:
+            u = torch.zeros((C, 0, 1024), device="cuda")
+            r = torch.zeros((0, 1024), dtype=torch.int8, device="cuda")
+        else:
+            u, r, _ = kernel_inputs(C, R, seed=C * 1000 + R)
+        _, e = held_counts(sign_align.per_client_sign_align,
+                           ref.per_client_sign_align, u, r, f"C={C}, R={R}")
+        err = max(err, e)
+    x, r = sign_cases(torch.float32)
+    u = torch.stack([x.roll(c, dims=1) for c in range(3)])
+    got, e = held_counts(sign_align.per_client_sign_align,
+                         ref.per_client_sign_align, u.cuda(), r.cuda(),
+                         "every sign case")
+    if not torch.equal(got.cpu(), ref.per_client_sign_align(u, r)):
+        raise AssertionError("the plain version on the card and on the CPU "
+                             "differ on the sign cases")
+    emit("kernels", name="per_client_sign_align",
+         grid=[list(s) for s in SIGN_GRID], equal=True,
+         sign_cases=dict(values=len(SIGN_CASES_F32), counts=got.tolist()))
+    return max(err, e)
+
+
 def phase_kernels(sign_align, masked_agg, ref) -> dict:
     """Hold each kernel to its plain version; time both at the main shape."""
     sa_err = ma_err = 0.0
     for C, R in (RAGGED_SHAPE, MAIN_SHAPE):
         u, r, w = kernel_inputs(C, R)
-        got = sign_align.per_client_sign_align(u, r)
-        want = ref.per_client_sign_align(u, r)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"sign-align counts differ at C={C}, R={R}: "
-                                 f"{got.tolist()} vs {want.tolist()}")
-        sa_err = max(sa_err, float((got - want).abs().max()))
+        _, e = held_counts(sign_align.per_client_sign_align,
+                           ref.per_client_sign_align, u, r, f"C={C}, R={R}")
+        sa_err = max(sa_err, e)
         got, want, _ = held_agg(masked_agg, ref, u, w, f"C={C}, R={R}")
         ma_err = max(ma_err, float((got - want).abs().max()))
         emit("kernels", shape=[C, R], sign_align="equal",
              masked_agg_max_abs_err=float((got - want).abs().max()))
 
+    sa_err = max(sa_err, sign_grid(sign_align, ref))
     ma_err = max(ma_err, agg_grid(masked_agg, ref))
 
     C, R = MAIN_SHAPE
@@ -571,7 +680,10 @@ def phase_kernels(sign_align, masked_agg, ref) -> dict:
             device_ms=graph_ms(lambda: sign_align.per_client_sign_align(u, r)),
             plain_ms=time_ms(lambda: ref.per_client_sign_align(u, r)),
             bound_ms=sa_bound[0], bound_by=sa_bound[1], library_ms=None,
-            library_device_ms=None),
+            library_device_ms=None,
+            design=launch_design(
+                lambda: sign_align.per_client_sign_align(u, r),
+                "sign_align_kernel")),
         "masked_agg": dict(
             route="cuda", source="src/repro_torch/csrc/masked_agg.cu",
             replaces="src/repro/kernels/masked_agg.py:37",
@@ -789,7 +901,7 @@ def phase_launch(quantize, gather, masked_agg, sign_align, launch) -> None:
 
 
 FUSED_SHAPES = ((10, 54), (16, 864), (1, 35))   # (C, R)
-COUNT_ROWS = (54, 864, 35)
+COUNT_ROWS = (54, 864, 35, 1, 7)
 
 
 def fused_inputs(C: int, R: int, dtype, seed: int = 0):
@@ -931,16 +1043,23 @@ def phase_spmd_kernels(sign_align, masked_agg, ref) -> dict:
     for R in COUNT_ROWS:
         for dtype in (torch.float32, torch.bfloat16):
             g, r = count_inputs(R, dtype, seed=R)
-            got = sign_align.sign_align_counts(g, r)
-            want = ref.sign_align_counts(g, r)
-            torch.cuda.synchronize()
-            if got.shape != () or got.device.type != "cuda" or \
-                    not torch.equal(got, want):
-                raise AssertionError(f"sign_align_counts differs at R={R}, "
-                                     f"{dtype}: {got} vs {want}")
-            sc_err = max(sc_err, float((got - want).abs()))
+            got, e = held_counts(sign_align.sign_align_counts,
+                                 ref.sign_align_counts, g, r,
+                                 f"R={R}, {dtype}")
+            sc_err = max(sc_err, e)
             emit("kernels", rows=R, dtype=str(dtype).split(".")[-1],
                  sign_align_counts="equal", count=float(got))
+    for dtype in (torch.float32, torch.bfloat16):
+        x, r = sign_cases(dtype)
+        got, e = held_counts(sign_align.sign_align_counts,
+                             ref.sign_align_counts, x.cuda(), r.cuda(),
+                             f"every sign case, {dtype}")
+        sc_err = max(sc_err, e)
+        if not torch.equal(got.cpu(), ref.sign_align_counts(x, r)):
+            raise AssertionError(f"the plain version on the card and on the "
+                                 f"CPU differ on the sign cases, {dtype}")
+        emit("kernels", name="sign_align_counts", sign_cases=dict(
+            dtype=str(dtype).split(".")[-1], count=float(got)))
 
     C, R = FUSED_SHAPES[0]
     n = R * 1024
@@ -977,14 +1096,16 @@ def phase_spmd_kernels(sign_align, masked_agg, ref) -> dict:
             bound_ms=sc_bound[0], bound_by=sc_bound[1],
             # no single PyTorch call counts sign matches against int8
             # reference signs
-            library_ms=None, library_device_ms=None),
+            library_ms=None, library_device_ms=None,
+            design=launch_design(lambda: sign_align.sign_align_counts(g, r),
+                                 "sign_align_kernel")),
     }
     emit("kernels", name="fused_update", shape=[C, R], dtype="float32",
          **{k: v for k, v in rows["fused_update"].items()
             if k.endswith("ms") or k == "design"})
     emit("kernels", name="sign_align_counts", rows=R, dtype="float32",
          **{k: v for k, v in rows["sign_align_counts"].items()
-            if k.endswith("ms")})
+            if k.endswith("ms") or k == "design"})
     return rows
 
 

@@ -9,7 +9,11 @@ f32 or bf16, and returns a 0-dim f32 tensor on g's device (the kernel
 path reads nothing back). The tensor's device decides the
 implementation: on the CPU the plain versions in ``kernels/ref.py``, on a
 CUDA device the hand-written kernels in ``csrc/sign_align.cu`` or an
-exception. ``launches`` counts each kernel's launches, by function name.
+exception. On the card a call is one device operation: the kernel writes
+the f32 counts into the ``torch.empty`` output that the wrapper returns.
+Both versions count exactly and refuse n = R·1024 ≥ 2^31 slots, where
+the kernel's int32 count would wrap. ``launches`` counts each kernel's
+launches, by function name.
 """
 from __future__ import annotations
 
@@ -19,8 +23,15 @@ from repro_torch.kernels import _launch
 from repro_torch.kernels import ref
 
 LANE = 1024
+MAX_SLOTS = 2 ** 31 - 1     # the kernel counts in int32
 
 launches = {"per_client_sign_align": 0, "sign_align_counts": 0}
+
+
+def check_slots(n: int) -> None:
+    """Refuse more slots a count than the kernel's int32 count holds."""
+    if n > MAX_SLOTS:
+        raise ValueError(f"at most {MAX_SLOTS} slots a count; got {n}")
 
 
 def check_args(u: torch.Tensor, r: torch.Tensor) -> int:
@@ -33,6 +44,7 @@ def check_args(u: torch.Tensor, r: torch.Tensor) -> int:
     if u.dtype != torch.float32 or r.dtype != torch.int8:
         raise TypeError(f"expected u float32 and r int8; got {u.dtype}, "
                         f"{r.dtype}")
+    check_slots(r.numel())
     return _launch.device_index("per_client_sign_align", u, r)
 
 
@@ -42,12 +54,12 @@ def per_client_sign_align(u: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         return ref.per_client_sign_align(u, r)
     pu = _launch.aligned_pointer("per_client_sign_align", u)
     pr = _launch.aligned_pointer("per_client_sign_align", r)
-    counts = u.new_zeros(u.shape[0], dtype=torch.int32)
+    counts = u.new_empty(u.shape[0])
     _launch.entries["per_client_sign_align"](
         pu, pr, counts.data_ptr(), u.shape[0], r.numel(),
         _launch.stream(device))
     launches["per_client_sign_align"] += 1
-    return counts.to(torch.float32)
+    return counts
 
 
 def check_count_args(g: torch.Tensor, r: torch.Tensor) -> int:
@@ -60,6 +72,7 @@ def check_count_args(g: torch.Tensor, r: torch.Tensor) -> int:
     if g.dtype not in (torch.float32, torch.bfloat16) or r.dtype != torch.int8:
         raise TypeError(f"expected g float32 or bfloat16 and r int8; got "
                         f"{g.dtype}, {r.dtype}")
+    check_slots(r.numel())
     return _launch.device_index("sign_align_counts", g, r)
 
 
@@ -69,9 +82,9 @@ def sign_align_counts(g: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         return ref.sign_align_counts(g, r)
     pg = _launch.aligned_pointer("sign_align_counts", g)
     pr = _launch.aligned_pointer("sign_align_counts", r)
-    count = g.new_zeros((), dtype=torch.int32)
+    count = g.new_empty((), dtype=torch.float32)
     _launch.entries["sign_align_counts"](
         pg, int(g.dtype == torch.bfloat16), pr, count.data_ptr(), g.numel(),
         _launch.stream(device))
     launches["sign_align_counts"] += 1
-    return count.to(torch.float32)
+    return count

@@ -104,6 +104,33 @@ def test_masked_agg_takes_zero_rows():
     assert tuple(got.shape) == want.shape == (0, 1024)
 
 
+def test_sign_align_takes_zero_rows():
+    """R = 0 passes the wrapper's checks: C zero counts in f32, as the jnp
+    oracle gives (``chip_smoke.py`` holds the card's kernel to the same: it
+    writes the zeros and loads nothing)."""
+    u, r, _ = _inputs(3, 1, seed=2)
+    u, r = u[:, :0], r[:0]
+    got = tsa.per_client_sign_align(torch.from_numpy(u), torch.from_numpy(r))
+    want = np.asarray(jref.per_client_sign_align(jnp.asarray(u),
+                                                 jnp.asarray(r)))
+    assert got.dtype == torch.float32 and got.tolist() == [0.0, 0.0, 0.0]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("R,refused", [(2 ** 21 - 1, False), (2 ** 21, True)])
+def test_sign_align_refuses_counts_past_int32(R, refused):
+    """n = R·1024 ≥ 2^31 slots would wrap the kernel's int32 counts, so
+    ``check_args`` refuses it for either device; one slot row fewer
+    passes. Broadcast views: nothing of that size is allocated."""
+    u = torch.zeros(()).expand(2, R, 1024)
+    r = torch.zeros((), dtype=torch.int8).expand(R, 1024)
+    if refused:
+        with pytest.raises(ValueError, match="slots a count"):
+            tsa.per_client_sign_align(u, r)
+    else:
+        assert tsa.check_args(u, r) == -1
+
+
 def test_sign_is_zero_on_signed_zeros_and_never_matches_sentinel():
     x = torch.tensor([0.0, -0.0, 1e-30, -1e-30, 3.0])
     assert tref.sign(x).tolist() == [0, 0, 1, -1, 1]

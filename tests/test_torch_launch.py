@@ -18,6 +18,7 @@ import types
 
 import pytest
 torch = pytest.importorskip("torch")
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import _launch
@@ -188,14 +189,6 @@ def _agg_inputs():
     return u, w, r
 
 
-class _Pointer:
-    """Equal to any data pointer: a kernel's scratch output that the
-    wrapper converts before returning it."""
-
-    def __eq__(self, other):
-        return isinstance(other, int) and other > 0
-
-
 def _launch_counts():
     return {**tq.launches, "cohort_gather": tgather.launches, **tma.launches,
             **tsa.launches, "flash": tfa.launches,
@@ -231,13 +224,13 @@ def _wrapper_cases():
         "fused_update": (lambda: tma.fused_update(p16, u, w),
                          lambda out: (p16.data_ptr(), 1, *ptrs(u, w, out), 5,
                                       2 * LANE, 77)),
+        # the f32 counts: the kernel writes the tensor the wrapper returns
         "per_client_sign_align": (
             lambda: tsa.per_client_sign_align(u, r),
-            lambda out: (*ptrs(u, r), _Pointer(), 5, 2 * LANE, 77)),
+            lambda out: (*ptrs(u, r, out), 5, 2 * LANE, 77)),
         "sign_align_counts": (
             lambda: tsa.sign_align_counts(p16, r),
-            lambda out: (p16.data_ptr(), 1, r.data_ptr(), _Pointer(),
-                         2 * LANE, 77)),
+            lambda out: (p16.data_ptr(), 1, *ptrs(r, out), 2 * LANE, 77)),
         # f32 takes the SIMT kernel: in_bf16, out_bf16, B, H, K, S, Sk, hd
         "flash_attention": (
             lambda: tfa.flash_attention_gqa(qf, kf, kf, causal=True),
@@ -279,6 +272,33 @@ def test_wrappers_pass_the_c_signature(fake_card):
         assert _launch_counts() == want, name
         for t in out if isinstance(out, tuple) else (out,):
             assert t.is_contiguous(), name
+
+
+class _AtenCalls(TorchDispatchMode):
+    """Records the name of every ATen operation run under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("name", ["per_client_sign_align",
+                                  "sign_align_counts"])
+def test_sign_wrappers_make_no_tensor_op_but_the_output(fake_card, name):
+    """A sign-count call on the kernel path allocates its f32 output
+    uninitialised (no zero fill) and returns it as the kernel wrote it
+    (no cast): on the card the launch is the call's one device operation.
+    ``test_wrappers_pass_the_c_signature`` checks that the entry point
+    gets that output's pointer."""
+    call, _expect = _wrapper_cases()[name]
+    with _AtenCalls() as ops:
+        out = call()
+    assert ops.names == ["aten.new_empty.default"]
+    assert out.dtype == torch.float32 and len(fake_card.calls) == 1
 
 
 def test_wrapper_outputs_have_the_plain_versions_shapes(fake_card):

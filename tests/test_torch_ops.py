@@ -198,6 +198,20 @@ def test_wrappers_check_their_arguments(call, args, err):
             tma.fused_update(p, u, w)
 
 
+@pytest.mark.parametrize("R,refused", [(2 ** 21 - 1, False), (2 ** 21, True)])
+def test_sign_align_counts_refuses_counts_past_int32(R, refused):
+    """n = R·1024 ≥ 2^31 slots would wrap the kernel's int32 count, so
+    ``check_count_args`` refuses it for either device; one row fewer
+    passes. Broadcast views: nothing of that size is allocated."""
+    g = torch.zeros((), dtype=torch.bfloat16).expand(R, LANE)
+    r = torch.zeros((), dtype=torch.int8).expand(R, LANE)
+    if refused:
+        with pytest.raises(ValueError, match="slots a count"):
+            tsa.sign_align_counts(g, r)
+    else:
+        assert tsa.check_count_args(g, r) == -1
+
+
 def test_cpu_tensors_launch_no_kernel():
     before = (dict(tsa.launches), dict(tma.launches))
     g, r = _count_inputs(8, seed=3)
