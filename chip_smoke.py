@@ -10,57 +10,61 @@ Phases, each printing JSON lines:
   2. build   — compile every ``csrc/*.cu`` with nvcc, all at once; the
                wgmma flash source's ptxas report per instantiation
                (registers, spill bytes, which must be 0, shared memory).
-  3. kernels — each hand-written kernel against its plain PyTorch version
-               on the card. Sign-align and masked-agg at the main path's
-               shape (C = 16 clients, R = 54 arena rows) and a ragged one
-               (C = 5, R = 7), with ±0 updates and -2 sentinel padding; the
-               int8 codec at 864 rows (the cohort folded), 54 (one client)
-               and 35, with zero, ±0, exact-tie, 1e30 and subnormal rows,
-               codes, scales and values equal; the cohort gather at the
-               error-feedback arena's shape (11 slabs of 54 rows) for 10
-               and 5 clients and at a ragged (7, 3) with -0.0, NaN, Inf and
-               subnormal slabs, equal by bits; ``fused_update`` at
-               (C, R) = (10, 54), (16, 864), (1, 35) with f32 p and at
-               (10, 54) with bf16 p (within 1e-6 of Σ_c|w_c·u_c| plus one
-               f32 ulp of the larger of |p| and |result|, and for bf16 one
-               bf16 ulp more); ``masked_agg``, and ``fused_update`` in f32
-               and bf16 (bf16 also equal by bits to p − masked_agg rounded
-               once), also at every C in {1, 7, 8, 9, 16, 17, 40} by R in
-               {1, 54, 257}, at C 4 × R 4096 and at C in {257, 300} by R in
-               {1, 54} (the chunks of 16 clients, their tails, many blocks
-               and more than one tile of weights), with ±Inf in a
-               zero-weight client's row, which must give NaN at the same
-               positions as the plain version (0·Inf), the rest
-               within the tolerances above, and at R = 0 (an empty result,
-               no fault); ``per_client_sign_align`` also at every C in
-               {1, 7, 8, 9, 16, 17, 20, 24, 27, 40, 44, 66, 132, 257} by R
-               in {0, 1, 7, 54} and at C 16 × R 864 (every cluster size
-               from 8 blocks a client down to 1; R = 0 gives C zeros), and
-               both sign kernels on an input with every sign case (±0,
-               NaN, ±Inf, f32 and bf16 subnormals, the -2 padding),
-               counts equal, also to the plain version on the CPU;
-               ``sign_align_counts`` at 54, 864, 35, 1 and 7 rows, f32
-               and bf16, counts equal. The timed rows of the aggregation
-               and sign kernels carry ``design``: threads a block, blocks,
-               registers a thread, the cluster's dimensions if the trace
-               has them and clients a chunk where the kernel's name has
-               them, read from a ``torch.profiler`` trace of three calls
-               at the timed shape, which must hold exactly one device
-               operation (kernel, memset or memcpy) a call. Times with
-               CUDA events: eager (back to back calls) and device (a CUDA
-               graph), each kernel's and,
-               where one PyTorch call computes the same function, that
-               call's (``library_ms``, ``library_device_ms``). Every
-               wrapper launches through ``kernels/_launch.py``; for
-               ``quantize_q8``, ``dequantize_q8`` and ``cohort_gather``
-               the split of one call's host time by piece (``host_us``:
-               checks, lookup, stream, alloc, the C call, the whole call)
-               and its eager ms beside its library call's, in turns.
-               Then (``"phase": "launch"``) the launch path's stream must
-               be PyTorch's current one on the default stream, under
-               ``torch.cuda.stream(side)`` and during a graph's capture,
-               and ten non-contiguous or misaligned inputs to the
-               wrappers must be refused with ``ValueError``.
+  3. kernels — each hand-written kernel against its plain PyTorch version on
+               the card. Sign-align and masked-agg at the main path's shape (C
+               = 16 clients, R = 54 arena rows) and a ragged one (C = 5, R =
+               7), with ±0 updates and -2 sentinel padding; the int8 codec at
+               864 rows (the cohort folded), 54 (one client), 35, and 432 and
+               433 (either side of its switch from 512 to 256 threads a row),
+               with zero, ±0, exact-tie, 1e30 and subnormal rows, codes,
+               scales and values equal; the fused error-feedback round trip
+               ``ef_round_trip`` at the same rows with a zero and a random e,
+               restored values and residuals equal by bits to its plain
+               version (the add, the codec's two halves and the subtract);
+               ``quantize_q8`` and ``ef_round_trip`` timed at every row count
+               the main paths give them (54 to 864), the round trip beside
+               that four-op path on the kernels (``today_ms``,
+               ``today_device_ms``); the
+               cohort gather at the error-feedback arena's shape (11 slabs of
+               54 rows) for 10 and 5 clients and at a ragged (7, 3) with -0.0,
+               NaN, Inf and subnormal slabs, equal by bits; ``fused_update`` at
+               (C, R) = (10, 54), (16, 864), (1, 35) with f32 p and at (10, 54)
+               with bf16 p (within 1e-6 of Σ_c|w_c·u_c| plus one f32 ulp of the
+               larger of |p| and |result|, and for bf16 one bf16 ulp more);
+               ``masked_agg``, and ``fused_update`` in f32 and bf16 (bf16 also
+               equal by bits to p − masked_agg rounded once), also at every C
+               in {1, 7, 8, 9, 16, 17, 40} by R in {1, 54, 257}, at C 4 × R
+               4096 and at C in {257, 300} by R in {1, 54} (the chunks of 16
+               clients, their tails, many blocks and more than one tile of
+               weights), with ±Inf in a zero-weight client's row, which must
+               give NaN at the same positions as the plain version (0·Inf), the
+               rest within the tolerances above, and at R = 0 (an empty result,
+               no fault); ``per_client_sign_align`` also at every C in {1, 7,
+               8, 9, 16, 17, 20, 24, 27, 40, 44, 66, 132, 257} by R in {0, 1,
+               7, 54} and at C 16 × R 864 (every cluster size from 8 blocks a
+               client down to 1; R = 0 gives C zeros), and both sign kernels on
+               an input with every sign case (±0, NaN, ±Inf, f32 and bf16
+               subnormals, the -2 padding), counts equal, also to the plain
+               version on the CPU; ``sign_align_counts`` at 54, 864, 35, 1 and
+               7 rows, f32 and bf16, counts equal. The timed rows of the
+               aggregation, sign and quantize kernels carry ``design``: threads
+               a block, blocks, registers a thread, the cluster's dimensions if
+               the trace has them and clients a chunk where the kernel's name
+               has them, read from a ``torch.profiler`` trace of three calls at
+               the timed shape, which must hold exactly one device operation
+               (kernel, memset or memcpy) a call. Times with CUDA events: eager
+               (back to back calls) and device (a CUDA graph), each kernel's
+               and, where one PyTorch call computes the same function, that
+               call's (``library_ms``, ``library_device_ms``). Every wrapper
+               launches through ``kernels/_launch.py``; for ``quantize_q8``,
+               ``dequantize_q8`` and ``cohort_gather`` the split of one call's
+               host time by piece (``host_us``: checks, lookup, stream, alloc,
+               the C call, the whole call) and its eager ms beside its library
+               call's, in turns. Then (``"phase": "launch"``) the launch path's
+               stream must be PyTorch's current one on the default stream,
+               under ``torch.cuda.stream(side)`` and during a graph's capture,
+               and ten non-contiguous or misaligned inputs to the wrappers must
+               be refused with ``ValueError``.
   4. slice   — the paper's quickstart experiment (anomaly-mlp, 10 clients,
                20,000 samples, 8 rounds) through ``repro_torch.run_experiment``
                on the card, from random weights made from a seed: ``fedavg``,
@@ -70,7 +74,12 @@ Phases, each printing JSON lines:
                dispatch: ``ours`` + int8 with fused eval, ``ours`` + int8
                selecting half the clients, and ``fedavg``. Every kernel of
                each path must launch, the gather once a round in the int8
-               scanned runs. One dispatch of 4 rounds runs under
+               scanned runs; on every path each ``compress_cohort`` call
+               launches ``ef_round_trip`` once, the int8 cohort paths
+               (megastep, scanned, spmd) launch no codec kernel, and the
+               per-client loop launches the codec pair; each run's line
+               counts the round trip's and ``quantize_q8``'s calls by rows
+               (``rows_per_call``). One dispatch of 4 rounds runs under
                ``torch.cuda.set_sync_debug_mode("error")``: any host
                synchronisation inside it raises. Then ``torch.profiler``
                traces one warm scanned dispatch and one warm megastep
@@ -80,8 +89,12 @@ Phases, each printing JSON lines:
                and on the CPU from the same weights: selection, dropout,
                bytes, update counts and times equal, accuracy and loss
                within ``repro_torch.api.parity``, the error-feedback arenas
-               after round 0 within its EF tolerances; the int8 codes of
-               round 0 that differ are counted, and per round the
+               after round 0 within its EF tolerances; in round 0 every
+               round trip's restored values and residuals on the card must
+               equal by bits the plain round trip of the same inputs, the
+               int8 codes of the two runs' inputs that differ (the card's
+               d + e against the CPU's, each coded by the plain version) are
+               counted, and per round the
                error-feedback elements beyond its EF_RTOL, card against CPU
                and card against a card run from weights one ulp apart. The
                card's compressed loop is held to its compressed megastep
@@ -140,6 +153,8 @@ around it.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -165,6 +180,9 @@ BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core rate
 MAIN_SHAPE = (16, 54)          # 10 clients padded to 16; 54,602 params
 RAGGED_SHAPE = (5, 7)
 QUANT_ROWS = (16 * 54, 54, 35)  # cohort folded, one client, ragged
+# and the last row count of the codec's 512-thread launch and the first of
+# its 256-thread one (csrc/quantize.cu, kWideRows)
+CODEC_CHECK_ROWS = QUANT_ROWS + (432, 433)
 
 
 def emit(phase: str, **kw) -> None:
@@ -419,13 +437,14 @@ AGG_GRID = ([(C, R) for C in (1, 7, 8, 9, 16, 17, 40)
 DEVICE_OPS = ("kernel", "gpu_memset", "gpu_memcpy")   # trace categories
 
 
-def launch_design(fn, kernel: str, calls: int = 3,
-                  sessions: int = 3) -> dict:
+def launch_design(fn, kernel: str, calls: int = 3, sessions: int = 3,
+                  template_arg: str = "clients_per_chunk") -> dict:
     """``torch.profiler`` over ``calls`` calls of ``fn``: the launches of
     the kernel whose name holds ``kernel``, as the trace records them:
     threads a block, blocks, registers a thread, the cluster's dimensions
-    where the trace carries them (else None), and the clients a chunk
-    where the kernel's name carries them as its first template argument.
+    where the trace carries them (else None), and the kernel's first
+    template argument, where its name carries one, under ``template_arg``
+    (the clients a chunk; the codec kernels' values a thread).
     A session whose trace holds none of them is tried again, up to
     ``sessions`` times; the launches must agree, and each call of ``fn``
     must be exactly one device operation (kernel, memset or memcpy)."""
@@ -470,7 +489,7 @@ def launch_design(fn, kernel: str, calls: int = 3,
                   device_ops_per_call=len(ops) / calls,
                   traced_launches=len(mine), sessions=len(seen) + 1)
     if chunk:
-        design["clients_per_chunk"] = int(chunk.group(1))
+        design[template_arg] = int(chunk.group(1))
     return design
 
 
@@ -706,10 +725,13 @@ def phase_kernels(sign_align, masked_agg, ref) -> dict:
 
 
 def phase_quantize(quantize, gather, launch, ref) -> dict:
-    """Hold the int8 codec kernels to their plain versions, bit for bit;
-    time both at the cohort-folded main shape."""
+    """Hold the int8 codec kernels and the error-feedback round trip to
+    their plain versions, bit for bit, on both sides of the round trip's
+    and ``quantize_q8``'s switch of launch shape; time the two at every
+    row count the main paths give them (``CODEC_SIZES``), ``dequantize_q8``
+    at the cohort-folded 864."""
     q_err = d_err = 0.0
-    for R in QUANT_ROWS:
+    for R in CODEC_CHECK_ROWS:
         x = quant_inputs(R, seed=R)
         q, s = quantize.quantize_q8(x)
         q_ref, s_ref = ref.quantize_q8(x)
@@ -732,6 +754,8 @@ def phase_quantize(quantize, gather, launch, ref) -> dict:
             raise AssertionError(f"special rows coded wrongly at R={R}")
         emit("kernels", rows=R, quantize_q8="equal", dequantize_q8="equal")
 
+    ef_err = round_trip_cases(quantize, ref)
+
     R = QUANT_ROWS[0]
     x = quant_inputs(R, seed=1)
     q, s = quantize.quantize_q8(x)
@@ -740,37 +764,136 @@ def phase_quantize(quantize, gather, launch, ref) -> dict:
     amax = x.abs().amax(dim=-1, keepdim=True)
     emit("kernels", rows=R, scales_off_when_divided_by_a_number=int(
         (amax / 127.0 != amax / amax.new_full((), 127.0)).sum()))
+    sized = {R_: codec_rows(quantize, ref, R_) for R_ in CODEC_SIZES}
+    for R_, pair in sized.items():
+        for name, row in pair.items():
+            emit("kernels", name=name, rows=R_,
+                 **{k: v for k, v in row.items()
+                    if k.endswith("ms") or k == "design"})
+    # each kernel at its main path's shape: the per-client loop codes and
+    # restores one client at a time (54 rows); 25 of the int8 megastep's 44
+    # round trips fold a one-client group (54 rows), the rest 108 to 432
+    R = QUANT_ROWS[1]
+    q, s = quantize.quantize_q8(quant_inputs(R, seed=1))
     n = R * 1024
-    # bytes: f32 in and int8 out (or back) plus one f32 scale per row;
-    # operations: |x|, max, divide, round, clamp (quantize), one multiply
-    q_bound = bound_ms(5 * n + 4 * R, 5 * n)
     d_bound = bound_ms(5 * n + 4 * R, n)
     rows = {
         "quantize_q8": dict(
             route="cuda", source="src/repro_torch/csrc/quantize.cu",
             replaces="src/repro/kernels/quantize.py:34", max_abs_err=q_err,
-            ms=time_ms(lambda: quantize.quantize_q8(x)),
-            device_ms=graph_ms(lambda: quantize.quantize_q8(x)),
-            plain_ms=time_ms(lambda: ref.quantize_q8(x)),
-            bound_ms=q_bound[0], bound_by=q_bound[1],
+            rows=R, **sized[R]["quantize_q8"],
             # torch.quantize_per_channel takes the scales as an input and
             # codes to -128..127: no one-call equivalent
+            library_ms=None, library_device_ms=None),
+        "ef_round_trip": dict(
+            route="cuda", source="src/repro_torch/csrc/quantize.cu",
+            replaces="src/repro/kernels/quantize.py:34", max_abs_err=ef_err,
+            rows=R, **sized[R]["ef_round_trip"],
+            # no one PyTorch call quantizes and restores; the yardstick is
+            # the four operations the main paths ran before, on the kernels
             library_ms=None, library_device_ms=None),
         "dequantize_q8": dict(
             route="cuda", source="src/repro_torch/csrc/quantize.cu",
             replaces="src/repro/kernels/quantize.py:58", max_abs_err=d_err,
-            ms=time_ms(lambda: quantize.dequantize_q8(q, s)),
+            rows=R, ms=time_ms(lambda: quantize.dequantize_q8(q, s)),
             device_ms=graph_ms(lambda: quantize.dequantize_q8(q, s)),
             plain_ms=time_ms(lambda: ref.dequantize_q8(q, s)),
             bound_ms=d_bound[0], bound_by=d_bound[1],
             library_ms=time_ms(lambda: torch.mul(q, s)),
             library_device_ms=graph_ms(lambda: torch.mul(q, s))),
     }
-    for name, row in rows.items():
-        emit("kernels", name=name, rows=R,
-             **{k: v for k, v in row.items() if k.endswith("ms")})
-    host_split(rows, launch, quantize, gather, rows=R)
+    emit("kernels", name="dequantize_q8", rows=R,
+         **{k: v for k, v in rows["dequantize_q8"].items()
+            if k.endswith("ms")})
+    host_split(["quantize_q8", "dequantize_q8"], launch, quantize, gather,
+               rows=QUANT_ROWS[0])
     return rows
+
+
+# the rows the quickstart's int8 paths give the codec kernels (54 rows a
+# client, 10 clients): the loop's 54, the megastep's groups padded to 1, 2,
+# 4 or 8 clients, the scanned and spmd cohorts of 5 or 10 folded; and a
+# 16-client cohort, the shape earlier measurements used. Both launch shapes
+# of csrc/quantize.cu (512 threads a row up to 432 rows, 256 beyond)
+CODEC_SIZES = (54, 108, 216, 270, 432, 540, 864)
+
+
+def codec_rows(quantize, ref, R: int) -> dict:
+    """``quantize_q8`` and ``ef_round_trip`` timed at R rows: eager and
+    device ms, the plain version's ms, the bound, the launch as the trace
+    records it, and for the round trip the four operations it replaces
+    (``today_ms``, ``today_device_ms``)."""
+    x = quant_inputs(R, seed=1)
+    d, e = ef_inputs(R, seed=1, e_kind="random")
+    n = R * 1024
+    # bytes: f32 in and int8 out plus one f32 scale per row; operations:
+    # |x|, max, divide, round, clamp. The round trip: d and e read,
+    # restored and residual written (f32); an add, the five of quantize,
+    # a multiply and a subtract
+    q_bound = bound_ms(5 * n + 4 * R, 5 * n)
+    ef_bound = bound_ms(16 * n, 8 * n)
+
+    def four_ops():
+        c = d + e
+        restored = quantize.dequantize_q8(*quantize.quantize_q8(c))
+        return restored, c - restored
+
+    return {
+        "quantize_q8": dict(
+            ms=time_ms(lambda: quantize.quantize_q8(x)),
+            device_ms=graph_ms(lambda: quantize.quantize_q8(x)),
+            plain_ms=time_ms(lambda: ref.quantize_q8(x)),
+            bound_ms=q_bound[0], bound_by=q_bound[1],
+            design=launch_design(lambda: quantize.quantize_q8(x),
+                                 "quantize_q8_kernel",
+                                 template_arg="values_per_thread")),
+        "ef_round_trip": dict(
+            ms=time_ms(lambda: quantize.ef_round_trip(d, e)),
+            device_ms=graph_ms(lambda: quantize.ef_round_trip(d, e)),
+            plain_ms=time_ms(lambda: ref.ef_round_trip(d, e)),
+            bound_ms=ef_bound[0], bound_by=ef_bound[1],
+            today_ms=time_ms(four_ops), today_device_ms=graph_ms(four_ops),
+            design=launch_design(lambda: quantize.ef_round_trip(d, e),
+                                 "ef_round_trip_kernel",
+                                 template_arg="values_per_thread")),
+    }
+
+
+def ef_inputs(R: int, seed: int, e_kind: str):
+    """(d, e) (R, 1024) f32 on the card: d from ``quant_inputs`` (its
+    special rows included), e zero or random at a thousandth of each
+    row's largest |d| (subnormal on the subnormal row). Made on the CPU."""
+    d = quant_inputs(R, seed=seed)
+    if e_kind == "zero":
+        return d, torch.zeros_like(d)
+    g = torch.Generator().manual_seed(seed + 7)
+    e = (torch.randn((R, 1024), generator=g)
+         * d.cpu().abs().amax(dim=-1, keepdim=True) * 1e-3)
+    return d, e.cuda()
+
+
+def round_trip_cases(quantize, ref) -> float:
+    """Hold ef_round_trip to its plain version (the add, the codec's two
+    halves and the subtract) at every CODEC_CHECK_ROWS with a zero and a
+    random e, ``restored`` and ``residual`` equal by bits; returns the
+    largest |kernel − plain| (0)."""
+    err = 0.0
+    for R in CODEC_CHECK_ROWS:
+        for e_kind in ("zero", "random"):
+            d, e = ef_inputs(R, seed=R, e_kind=e_kind)
+            got = quantize.ef_round_trip(d, e)
+            want = ref.ef_round_trip(d, e)
+            torch.cuda.synchronize()
+            for g, w, what in zip(got, want, ("restored", "residual")):
+                if g.shape != w.shape or not torch.equal(
+                        g.view(torch.int32), w.view(torch.int32)):
+                    raise AssertionError(
+                        f"ef_round_trip {what} differs from its plain "
+                        f"version at R={R}, e {e_kind}: "
+                        f"{int((g != w).sum())} elements")
+                err = max(err, float((g - w).abs().max()))
+            emit("kernels", rows=R, e=e_kind, ef_round_trip="equal by bits")
+    return err
 
 
 def phase_gather(quantize, gather, launch, ref) -> dict:
@@ -1186,7 +1309,7 @@ SPMD_RUNS = {  # name -> (strategy, int8, kernels that must launch)
     "acfl spmd": ("acfl", False, ("masked_agg",)),
     "fedl2p spmd": ("fedl2p", False, ("masked_agg",)),
     "cmfl+int8 spmd": ("cmfl", True, ("per_client_sign_align", "masked_agg",
-                                      "quantize_q8", "dequantize_q8")),
+                                      "ef_round_trip")),
 }
 
 
@@ -1198,14 +1321,18 @@ def spmd_spec(T, strategy: str, quantize: bool = False):
 
 def run_spmd_card(T, spec, params, mods) -> tuple:
     """``spec`` through ``SpmdDriver`` on the card, every launch count set
-    to 0 just before; returns (driver, records, wall seconds, launches)."""
+    to 0 just before; returns (driver, records, wall seconds, launches,
+    the codec's calls by rows from ``rows_per_call``)."""
     torch.cuda.synchronize()
-    reset_launches(mods)
-    t0 = time.perf_counter()
-    driver = T.SpmdDriver(spec, device="cuda", params=params)
-    records = driver.run_rounds(spec.rounds)
-    torch.cuda.synchronize()
-    return driver, records, time.perf_counter() - t0, read_launches(mods)
+    with rows_per_call(mods) as rows:
+        reset_launches(mods)
+        t0 = time.perf_counter()
+        driver = T.SpmdDriver(spec, device="cuda", params=params)
+        records = driver.run_rounds(spec.rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(mods)
+    return driver, records, wall, launches, rows
 
 
 def round_breakdown(driver, rounds: int = 4) -> dict:
@@ -1246,20 +1373,18 @@ def phase_spmd(T, parity, params, mods) -> dict:
     launches, drivers, records = {}, {}, {}
     for run, (strategy, int8, needed) in SPMD_RUNS.items():
         spec = spmd_spec(T, strategy, int8)
-        driver, recs, wall, launches[run] = run_spmd_card(T, spec, params,
-                                                           mods)
+        driver, recs, wall, launches[run], rows = run_spmd_card(
+            T, spec, params, mods)
         for rec in recs:
             emit("slice", run=run, **dataclasses.asdict(rec))
         emit("slice", run=run, engine="spmd", rounds=len(recs), wall_s=wall,
              wall_s_per_round=wall / len(recs), launches=launches[run],
+             rows_per_call=rows_line(rows),
              updates_applied=[r.updates_applied for r in recs])
         if not all(math.isfinite(r.loss) and math.isfinite(r.accuracy)
                    for r in recs):
             raise AssertionError(f"{run}: accuracy or loss not finite")
-        for kname in needed:
-            if launches[run][kname] < 1:
-                raise AssertionError(f"{kname} was never launched on the "
-                                     f"path of '{run}'")
+        held_launches(run, launches[run], needed, rows)
         drivers[run], records[run] = driver, recs
 
     problems = []
@@ -1368,16 +1493,78 @@ def read_launches(mods) -> dict:
             "flash_attention_simt": fa["simt"]}
 
 
+@contextlib.contextmanager
+def rows_per_call(mods):
+    """Within the block, count the calls of ``compression.compress_cohort``
+    (by the rows of its folded (C·rows, 1024) view, what it hands to
+    ``ef_round_trip``) and of ``quantize.quantize_q8`` (by its rows) in the
+    yielded dict of {rows: calls}; the engines look both up on their
+    modules at call time. Both are restored on exit."""
+    compression, quantize = mods["compression"], mods["quantize"]
+    cohort, codec = compression.compress_cohort, quantize.quantize_q8
+    rows = {"compress_cohort": collections.Counter(),
+            "quantize_q8": collections.Counter()}
+
+    def compress_cohort(deltas, err):
+        rows["compress_cohort"][deltas.shape[0] * deltas.shape[1]] += 1
+        return cohort(deltas, err)
+
+    def quantize_q8(x):
+        rows["quantize_q8"][x.shape[0]] += 1
+        return codec(x)
+
+    compression.compress_cohort = compress_cohort
+    quantize.quantize_q8 = quantize_q8
+    try:
+        yield rows
+    finally:
+        compression.compress_cohort = cohort
+        quantize.quantize_q8 = codec
+
+
+def rows_line(rows) -> dict:
+    """``rows_per_call``'s counts as JSON: {name: {rows: calls}}."""
+    return {name: {str(k): v for k, v in sorted(c.items())}
+            for name, c in rows.items()}
+
+
+CODEC = ("quantize_q8", "dequantize_q8")
+
+
+def held_launches(run: str, launches: dict, needed, rows) -> None:
+    """Every kernel in ``needed`` launched on the path of ``run``;
+    ``ef_round_trip`` launched exactly as often as ``compress_cohort`` was
+    called (``rows``, from ``rows_per_call``; 0 where nothing compresses);
+    and a run that needs the round trip launched no codec kernel, the
+    per-client loop being the one int8 path that runs the codec pair."""
+    for kname in needed:
+        if launches[kname] < 1:
+            raise AssertionError(f"{kname} was never launched on the path "
+                                 f"of '{run}'")
+    calls = sum(rows["compress_cohort"].values())
+    if launches["ef_round_trip"] != calls:
+        raise AssertionError(
+            f"{run}: ef_round_trip launched {launches['ef_round_trip']} "
+            f"times in {calls} compress calls")
+    if "ef_round_trip" in needed and any(launches[k] for k in CODEC):
+        raise AssertionError(f"{run}: the cohort path launched the codec "
+                             f"pair: {[launches[k] for k in CODEC]}")
+
+
 def run_card(T, spec, params, mods) -> tuple:
     """Run ``spec`` on the card with every launch count set to 0 just
-    before; returns (simulation, wall seconds, launches)."""
+    before; returns (simulation, wall seconds, launches, the codec's calls
+    by rows from ``rows_per_call``)."""
     torch.cuda.synchronize()
-    reset_launches(mods)
-    t0 = time.perf_counter()
-    sim = T.build_simulation(spec, device="cuda", params=params)
-    sim.run(spec.rounds, eval_final=True)
-    torch.cuda.synchronize()
-    return sim, time.perf_counter() - t0, read_launches(mods)
+    with rows_per_call(mods) as rows:
+        reset_launches(mods)
+        t0 = time.perf_counter()
+        sim = T.build_simulation(spec, device="cuda", params=params)
+        sim.run(spec.rounds, eval_final=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(mods)
+    return sim, wall, launches, rows
 
 
 def sync_free_dispatch(T, spec, params) -> dict:
@@ -1495,23 +1682,33 @@ def scanned_card_cpu(T, parity, spec, params, card_sim) -> dict:
                                                                ef["cpu"]))
 
 
-def run_round0_codes(sim, quantize) -> torch.Tensor:
-    """Run round 0 of ``sim`` and return, on the CPU, every int8 code that
-    ``quantize_q8`` produced in it (padding rows included)."""
-    seen = []
-    wrapped = quantize.quantize_q8
+def run_round0_codes(sim, quantize, ref) -> tuple:
+    """Run round 0 of ``sim``; return, on the CPU, the int8 codes of the
+    d + e of every error-feedback round trip (padding rows included), coded
+    by the plain version, and how many elements of the round trips'
+    restored values and residuals differ by bits from the plain round trip
+    of the same d and e (0 by construction where ``sim`` runs on the CPU;
+    on the card, the kernel's elements off the plain version)."""
+    seen, off = [], 0
+    wrapped = quantize.ef_round_trip
 
-    def recording(x):
-        q, s = wrapped(x)
-        seen.append(q.cpu())
-        return q, s
+    def recording(d, e):
+        nonlocal off
+        got = wrapped(d, e)
+        d, e = d.cpu(), e.cpu()
+        want = ref.ef_round_trip(d, e)
+        off += sum(int((g.cpu().view(torch.int32)
+                        != w.view(torch.int32)).sum())
+                   for g, w in zip(got, want))
+        seen.append(ref.quantize_q8(d + e)[0])
+        return got
 
-    quantize.quantize_q8 = recording
+    quantize.ef_round_trip = recording
     try:
         sim.run(1)
     finally:
-        quantize.quantize_q8 = wrapped
-    return torch.cat(seen)
+        quantize.ef_round_trip = wrapped
+    return torch.cat(seen), off
 
 
 def nudged(params: dict) -> dict:
@@ -1528,7 +1725,8 @@ def ef_rows(sim):
     return sim._ef_arena[:-1].cpu().numpy()
 
 
-def compare_card_cpu(T, parity, spec, params, card_records, quantize):
+def compare_card_cpu(T, parity, spec, params, card_records, quantize,
+                     ref):
     """``spec`` on the card and on the CPU from the same weights; returns
     the comparison line's fields. With compression the runs go round by
     round: the error feedback is held to ``parity.ef_mismatches`` after
@@ -1540,8 +1738,13 @@ def compare_card_cpu(T, parity, spec, params, card_records, quantize):
     card, cpu = sims["cuda"], sims["cpu"]
     problems, out = [], {}
     if spec.resolve_strategy().quantize_updates:
-        codes = {dev: run_round0_codes(sim, quantize)
-                 for dev, sim in sims.items()}
+        codes, off = {}, {}
+        for dev, sim in sims.items():
+            codes[dev], off[dev] = run_round0_codes(sim, quantize, ref)
+        if off["cuda"]:
+            problems.append(f"round 0: {off['cuda']} elements of the card's "
+                            f"round trips differ by bits from the plain "
+                            f"version on the same inputs")
         problems += parity.ef_mismatches(ef_rows(card), ef_rows(cpu))
         twin = T.build_simulation(spec, device="cuda", params=nudged(params))
         twin.run(1)
@@ -1557,6 +1760,7 @@ def compare_card_cpu(T, parity, spec, params, card_records, quantize):
         out = dict(round0_codes=codes["cpu"].numel(),
                    round0_codes_differing=int((codes["cuda"]
                                                != codes["cpu"]).sum()),
+                   round0_kernel_elements_off_plain=off["cuda"],
                    ef_elements=ef_rows(cpu).size,
                    ef_elements_beyond_rtol_per_round=flips)
     else:
@@ -2010,6 +2214,7 @@ def _leaves(tree):
 def main() -> int:
     import repro_torch as T
     from repro_torch.api import parity
+    from repro_torch.core import compression
     from repro_torch.kernels import (_build, _launch, flash_attn, gather,
                                      masked_agg, ops, quantize, ref,
                                      sign_align)
@@ -2051,26 +2256,29 @@ def main() -> int:
     rows.update(phase_quantize(quantize, gather, _launch, ref))
     rows.update(phase_gather(quantize, gather, _launch, ref))
     phase_launch(quantize, gather, masked_agg, sign_align, _launch)
-    engine_kernels = tuple(rows)      # the five an engine path launches
     rows.update(phase_spmd_kernels(sign_align, masked_agg, ref))
     rows.update(phase_flash(flash_attn, ref))
 
     # 4. slice: the quickstart spec on the card. Each run sets every launch
     # count to 0 just before it and reads them just after.
     mods = {"sign_align": sign_align, "masked_agg": masked_agg,
-            "quantize": quantize, "gather": gather, "flash_attn": flash_attn}
+            "quantize": quantize, "gather": gather, "flash_attn": flash_attn,
+            "compression": compression}
     cfg = quickstart_spec(T, "ours").resolve_model()
     params = model_api.init_params(torch.Generator().manual_seed(0), cfg)
-    codec = ("quantize_q8", "dequantize_q8")
     scanned = dict(rounds_per_dispatch=4)
+    # the int8 cohort paths (megastep, scanned, spmd) run the error-feedback
+    # round trip in one kernel; the per-client loop runs the codec pair
+    cohort_int8 = ("per_client_sign_align", "masked_agg", "ef_round_trip")
+    engine_kernels = cohort_int8 + ("cohort_gather",)
     runs = {  # name -> (spec, kernels that must launch)
         "fedavg": (quickstart_spec(T, "fedavg"), ("masked_agg",)),
         "ours": (quickstart_spec(T, "ours"),
                  ("per_client_sign_align", "masked_agg")),
         "ours+int8": (quickstart_spec(T, "ours", quantize=True),
-                      ("per_client_sign_align", "masked_agg") + codec),
+                      cohort_int8),
         "ours+int8 loop": (quickstart_spec(T, "ours", quantize=True,
-                                           megastep=False), codec),
+                                           megastep=False), CODEC),
         "ours+int8 scanned fused": (dataclasses.replace(
             quickstart_spec(T, "ours", quantize=True), fused_eval=True,
             **scanned), engine_kernels),
@@ -2082,7 +2290,8 @@ def main() -> int:
     }
     finals, sims, launches = {}, {}, {}
     for run, (spec, needed) in runs.items():
-        sim, wall, launches[run] = run_card(T, spec, params, mods)
+        sim, wall, launches[run], by_rows = run_card(T, spec, params,
+                                                     mods)
         res = T.result_from_simulation(spec, sim, wall_time=wall)
         for rec in res.records:
             emit("slice", run=run, **dataclasses.asdict(rec))
@@ -2091,7 +2300,7 @@ def main() -> int:
              fused_eval=spec.fused_eval, rounds=len(res.records),
              wall_s=wall, wall_s_per_round=wall / len(res.records),
              dispatches=sim.dispatches, launches=launches[run],
-             cohorts=sim.cohorts or None)
+             rows_per_call=rows_line(by_rows), cohorts=sim.cohorts or None)
         # the scanned path without fused eval evaluates at the end of each
         # dispatch, so its first rounds carry NaN
         first_eval = (spec.rounds_per_dispatch - 1 if
@@ -2099,10 +2308,7 @@ def main() -> int:
         if not (all(math.isfinite(r.loss) for r in res.records) and all(
                 math.isfinite(r.accuracy) for r in res.records[first_eval:])):
             raise AssertionError(f"{run}: accuracy or loss not finite")
-        for kname in needed:
-            if launches[run][kname] < 1:
-                raise AssertionError(f"{kname} was never launched on the "
-                                     f"path of '{run}'")
+        held_launches(run, launches[run], needed, by_rows)
         if "int8 scanned" in run and launches[run]["cohort_gather"] != \
                 spec.rounds:
             raise AssertionError(f"{run}: cohort_gather launched "
@@ -2130,7 +2336,7 @@ def main() -> int:
     problems = []
     for run in ("ours", "ours+int8"):
         line = compare_card_cpu(T, parity, runs[run][0], params,
-                                finals[run].records, quantize)
+                                finals[run].records, quantize, ref)
         emit("card_vs_cpu", run=run, **line)
         problems += [f"{run}: {p}" for p in line["problems"]]
     loop_vs_mega = parity.path_mismatches(finals["ours+int8 loop"].records,
@@ -2142,7 +2348,7 @@ def main() -> int:
     emit("card_vs_cpu", run=run, **line)
     problems += [f"{run}: {p}" for p in line["problems"]]
     run = "ours+int8 scanned fused"
-    single, _wall, _l = run_card(T, dataclasses.replace(
+    single, _wall, _l, _r = run_card(T, dataclasses.replace(
         runs[run][0], rounds_per_dispatch=1), params, mods)
     grouping = [] if single.history == sims[run].history else [
         f"round {a.round}: {a} != {b}"
@@ -2163,11 +2369,13 @@ def main() -> int:
     launches.update(phase_lm(mods))
 
     # launches on each kernel's main path: the megastep int8 run for the
-    # four kernels it runs, the fused scanned int8 run for the gather, the
-    # ops phase for the two kernels that only the ops API reaches, the
-    # blockwise qwen2-1.5b serving run for the wgmma flash kernel and the
-    # 2-layer f32 card run for the SIMT one
+    # three kernels it runs, the per-client int8 loop for the codec pair,
+    # the fused scanned int8 run for the gather, the ops phase for the two
+    # kernels that only the ops API reaches, the blockwise qwen2-1.5b
+    # serving run for the wgmma flash kernel and the 2-layer f32 card run
+    # for the SIMT one
     main_run = dict.fromkeys(rows, "ours+int8")
+    main_run.update(dict.fromkeys(CODEC, "ours+int8 loop"))
     main_run["cohort_gather"] = "ours+int8 scanned fused"
     main_run["fused_update"] = main_run["sign_align_counts"] = "ops"
     main_run["flash_attention"] = "qwen2-1.5b serve blockwise"

@@ -10,9 +10,11 @@ the compression bias vanishes over rounds:
     q_t = Q(g_t + e_{t-1})
     e_t = (g_t + e_{t-1}) − deQ(q_t)
 
-The server aggregates the dequantized updates. The add and the subtract
-around the codec stay plain torch operations, as the JAX package keeps
-them outside its kernels.
+The server aggregates the dequantized updates. On the cohort paths the
+add, the codec's two halves and the subtract are one kernel,
+``ef_round_trip`` (kernels/quantize.py), whose plain version on the CPU
+is those four operations; the per-client loop runs them one by one
+around the codec kernels, as the JAX loop does.
 """
 from __future__ import annotations
 
@@ -20,8 +22,8 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import arena as arena_ops
 from repro_torch.kernels import ops
+from repro_torch.kernels import quantize
 
 
 def init_error_state(params: Dict[str, torch.Tensor]
@@ -51,11 +53,10 @@ def compress_cohort(deltas: torch.Tensor, err: torch.Tensor):
     cohort folds into one (C·rows, lane) call, with the same scales as the
     per-client path.
     """
-    corrected = deltas + err
-    C, R, L = corrected.shape
-    q, s = arena_ops.quantize_rows(corrected.reshape(C * R, L))
-    restored = arena_ops.dequantize_rows(q, s).reshape(C, R, L)
-    return restored, corrected - restored
+    C, R, L = deltas.shape
+    restored, residual = quantize.ef_round_trip(deltas.reshape(C * R, L),
+                                                err.reshape(C * R, L))
+    return restored.reshape(C, R, L), residual.reshape(C, R, L)
 
 
 def arena_wire_bytes(arena) -> int:

@@ -100,6 +100,11 @@ PyObject* ppplp(PyObject*, PyObject* const* args, Py_ssize_t n) {
   return call<P, P, P, L, P>(args, n);
 }
 
+// ef_round_trip
+PyObject* pppplp(PyObject*, PyObject* const* args, Py_ssize_t n) {
+  return call<P, P, P, P, L, P>(args, n);
+}
+
 // cohort_gather
 PyObject* pppllip(PyObject*, PyObject* const* args, Py_ssize_t n) {
   return call<P, P, P, L, L, int, P>(args, n);
@@ -135,9 +140,10 @@ PyObject* ppppiiiiiiipiifp(PyObject*, PyObject* const* args, Py_ssize_t n) {
 #define METHOD(name) \
   {#name, (PyCFunction)(void (*)(void))name, METH_FASTCALL, nullptr}
 
-PyMethodDef methods[] = {METHOD(ppplp),    METHOD(pppllip),
-                         METHOD(pppilp),   METHOD(pipppilp),
-                         METHOD(pipplp),   METHOD(ppppiiiiiiiipiifp),
+PyMethodDef methods[] = {METHOD(ppplp),    METHOD(pppplp),
+                         METHOD(pppllip),  METHOD(pppilp),
+                         METHOD(pipppilp), METHOD(pipplp),
+                         METHOD(ppppiiiiiiiipiifp),
                          METHOD(ppppiiiiiiipiifp),
                          {nullptr, nullptr, 0, nullptr}};
 

@@ -33,6 +33,16 @@
 // once. With n = 0 every block returns before any load or barrier, rank 0
 // having written 0.
 //
+// Two cluster barriers order the shared memory. A block may touch another
+// block's shared memory only once that block has started (CUDA C++
+// Programming Guide, Distributed Shared Memory), so the barrier is split:
+// every thread arrives (barrier.cluster.arrive.relaxed) before its loads
+// and waits (barrier.cluster.wait) after its block's sum, just before the
+// remote store; the wait overlaps the loads, and when it returns every
+// block of the cluster has started. The full cluster.sync() after the
+// stores (arrive with release, wait with acquire) orders them before rank
+// 0 reads its partials, and keeps rank 0 alive until they have landed.
+//
 // Why (one H100 80GB HBM3, 700 W, device time of 50 calls in a CUDA graph,
 // medians of ten alternating turns; PERF.md section 6): at C 16 x R 54
 // this takes 3.57 us where the earlier zero-fill, atomics kernel and cast
@@ -43,7 +53,10 @@
 // are within 0.02 us. Of the 3.57 us, the cluster launch costs about 0.5
 // and the cluster barrier about 0.6 (the same kernel with one-block
 // clusters against a plain launch, and with atomics in place of the
-// barrier). At
+// barrier). The split barrier that orders the remote store costs 0.11 us
+// more at that shape (3.54 -> 3.66) and 0.04-0.05 at C 1 x R 54 and for
+// one count of R 54; keeping each partial in its own block's shared
+// memory, read by rank 0 between two cluster.sync(), cost 0.5-0.7. At
 // R 864, 8 blocks a count read 57 MB in 24.8 us (the earlier kernel 27.7)
 // but one update of 4.4 MB in 11.8 (5.2): the cluster limit holds the
 // count to 8 SMs.
@@ -114,6 +127,18 @@ __device__ __forceinline__ char4 load_signs(const char4* r, long long i,
   return *reinterpret_cast<const char4*>(&bits);
 }
 
+// The split cluster barrier: arrive says only that this thread has started
+// (relaxed: it orders no memory); wait returns once every thread of the
+// cluster has arrived. Every thread of every block calls both, in this
+// order, once (.aligned: all threads of a warp together).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
 __device__ __forceinline__ int matches(float4 v, char4 r) {
   return (sign_of(v.x) == r.x) + (sign_of(v.y) == r.y) +
          (sign_of(v.z) == r.z) + (sign_of(v.w) == r.w);
@@ -150,6 +175,7 @@ sign_align_kernel(const T* __restrict__ x, const char4* __restrict__ r,
     if (rank == 0 && threadIdx.x == 0) counts[c] = 0.0f;
     return;
   }
+  cluster_arrive();
   const T* xc = x + c * n4 * 4;
   const long long stride = (long long)k * kThreads;   // the cluster's threads
   const long long first = (long long)rank * kThreads + threadIdx.x;
@@ -168,6 +194,7 @@ sign_align_kernel(const T* __restrict__ x, const char4* __restrict__ r,
   }
   count = block_sum(count);
   __shared__ int partials[kMaxCluster];
+  cluster_wait();               // every block of the cluster has started
   if (threadIdx.x == 0) *cluster.map_shared_rank(partials + rank, 0) = count;
   cluster.sync();
   if (rank == 0 && threadIdx.x == 0) {

@@ -35,6 +35,7 @@ _FLASH_TAIL = (_PTR, _I32, _I32, _F32, _PTR)    # strides, causal, window,
 ENTRY_POINTS = {
     "quantize_q8": ("quantize", (_PTR, _PTR, _PTR, _I64, _PTR)),
     "dequantize_q8": ("quantize", (_PTR, _PTR, _PTR, _I64, _PTR)),
+    "ef_round_trip": ("quantize", (_PTR, _PTR, _PTR, _PTR, _I64, _PTR)),
     "cohort_gather": ("gather", (_PTR, _PTR, _PTR, _I64, _I64, _I32, _PTR)),
     "masked_agg": ("masked_agg", (_PTR, _PTR, _PTR, _I32, _I64, _PTR)),
     "fused_update": ("masked_agg",

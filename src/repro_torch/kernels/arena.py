@@ -26,7 +26,6 @@ import torch
 
 from repro_torch.kernels import gather as _gather
 from repro_torch.kernels import masked_agg as _agg
-from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sign_align as _sa
 
@@ -149,16 +148,6 @@ def fused_apply(p: torch.Tensor, u: torch.Tensor,
     """p − Σ_c w_lr[c]·u[c] (aggregation and apply in one pass, p's dtype
     kept)."""
     return _agg.fused_update(p, u, w_lr)
-
-
-def quantize_rows(x: torch.Tensor):
-    """x: (R, lane) f32 -> (q int8 (R, lane), scales f32 (R, 1))."""
-    return _qz.quantize_q8(x)
-
-
-def dequantize_rows(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """q: (R, lane) int8, s: (R, 1) f32 -> q·s (R, lane) f32."""
-    return _qz.dequantize_q8(q, s)
 
 
 def cohort_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,10 @@ with error feedback (core/compression.py).
 ``quantize_q8(x)`` takes x (R, LANE) f32 and returns the codes q (R, LANE)
 int8 and the row scales (R, 1) f32, scale = max(max|x|, 1e-12) / 127 and
 q = clip(round_half_even(x / scale), ±127); ``dequantize_q8(q, scale)``
-returns q·scale (R, LANE) f32. The tensor's device decides the
+returns q·scale (R, LANE) f32. ``ef_round_trip(d, e)`` is the error-
+feedback round trip of the int8 main paths in one pass: with c = d + e it
+returns (restored, residual) = (dequantize_q8(*quantize_q8(c)),
+c − restored), each (M, LANE) f32. The tensor's device decides the
 implementation: on the CPU the plain versions in ``kernels/ref.py``, on a
 CUDA device the hand-written kernels in ``csrc/quantize.cu`` or an
 exception. ``launches`` counts each kernel's launches, by function name.
@@ -18,18 +21,34 @@ from repro_torch.kernels import ref
 
 LANE = 1024
 
-launches = {"quantize_q8": 0, "dequantize_q8": 0}
+launches = {"quantize_q8": 0, "dequantize_q8": 0, "ef_round_trip": 0}
+
+
+def _check_rows(name: str, t: torch.Tensor) -> None:
+    shape = t.shape
+    if len(shape) != 2 or shape[1] != LANE or shape[0] < 1:
+        raise ValueError(f"{name} must be (R >= 1, {LANE}); got "
+                         f"{tuple(shape)}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"expected {name} float32; got {t.dtype}")
 
 
 def check_quantize(x: torch.Tensor) -> int:
     """Refuse what neither version of ``quantize_q8`` takes; -1 for a CPU
     tensor, else the index of its card."""
-    shape = x.shape
-    if len(shape) != 2 or shape[1] != LANE or shape[0] < 1:
-        raise ValueError(f"x must be (R >= 1, {LANE}); got {tuple(shape)}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"expected x float32; got {x.dtype}")
+    _check_rows("x", x)
     return _launch.device_index("quantize_q8", x)
+
+
+def check_round_trip(d: torch.Tensor, e: torch.Tensor) -> int:
+    """Refuse what neither version of ``ef_round_trip`` takes; -1 for CPU
+    tensors, else the index of their card."""
+    _check_rows("d", d)
+    _check_rows("e", e)
+    if e.shape != d.shape:
+        raise ValueError(f"e must have d's shape {tuple(d.shape)}; got "
+                         f"{tuple(e.shape)}")
+    return _launch.device_index("ef_round_trip", d, e)
 
 
 def check_dequantize(q: torch.Tensor, scale: torch.Tensor) -> int:
@@ -73,3 +92,18 @@ def dequantize_q8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
                                    _launch.stream(device))
     launches["dequantize_q8"] += 1
     return out
+
+
+def ef_round_trip(d: torch.Tensor, e: torch.Tensor):
+    device = check_round_trip(d, e)
+    if device < 0:
+        return ref.ef_round_trip(d, e)
+    pd = _launch.aligned_pointer("ef_round_trip", d)
+    pe = _launch.aligned_pointer("ef_round_trip", e)
+    restored = torch.empty_like(d)
+    residual = torch.empty_like(d)
+    _launch.entries["ef_round_trip"](pd, pe, restored.data_ptr(),
+                                     residual.data_ptr(), d.shape[0],
+                                     _launch.stream(device))
+    launches["ef_round_trip"] += 1
+    return restored, residual

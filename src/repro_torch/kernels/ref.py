@@ -73,6 +73,16 @@ def dequantize_q8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
+def ef_round_trip(d: torch.Tensor, e: torch.Tensor):
+    """d, e (M, LANE) f32 -> (restored, residual), each (M, LANE) f32: the
+    error-feedback round trip as four operations, c = d + e, the codec's
+    two halves on c, and residual = c − restored."""
+    corrected = d + e
+    q, s = quantize_q8(corrected)
+    restored = dequantize_q8(q, s)
+    return restored, corrected - restored
+
+
 def cohort_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """src (N, R, LANE) f32, idx (K,) int64 -> src[idx], (K, R, LANE): the
     rows copied as they are, as ``jnp.take`` does."""

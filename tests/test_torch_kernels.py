@@ -10,6 +10,8 @@ error of an f32 sum is bounded relative to that scale, not to the sum,
 which may cancel to near zero. Where a zero-weight client's row holds
 ±Inf, both sides give NaN (0·Inf) at the same positions, and only there.
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +25,7 @@ from repro.kernels import ref as jref
 from repro.kernels import sign_align as jsa
 from repro.models import api as japi
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import arena as tarena
 from repro_torch.kernels import masked_agg as tma
 from repro_torch.kernels import ref as tref
@@ -137,6 +140,45 @@ def test_sign_is_zero_on_signed_zeros_and_never_matches_sentinel():
     u = torch.zeros((2, 1, 1024))
     r = torch.full((1, 1024), -2, dtype=torch.int8)
     assert tsa.per_client_sign_align(u, r).tolist() == [0.0, 0.0]
+
+
+def _function_body(text, name):
+    """The body of the first definition of function ``name``, braces
+    included."""
+    at = re.search(r"\b" + name + r"\([^;{]*\)\s*\{", text)
+    assert at, f"no definition of {name}"
+    depth = 0
+    for j in range(at.end() - 1, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[j], 0)
+        if depth == 0:
+            return text[at.end() - 1:j + 1]
+    raise AssertionError(f"{name}: unbalanced braces")
+
+
+def test_sign_kernel_waits_on_the_cluster_before_remote_shared_memory():
+    """Guards the CUDA C++ Programming Guide's rule for distributed shared
+    memory: a block may touch another block's shared memory only once a
+    cluster barrier it has waited on guarantees that block has started.
+    Inside ``sign_align_kernel`` a wait (``cluster.sync()``,
+    ``barrier.cluster.wait`` or a helper that executes it) must come
+    before the first ``map_shared_rank``, and a split barrier's arrive
+    before its wait."""
+    text = re.sub(r"//[^\n]*", "", (_build.CSRC / "sign_align.cu").read_text())
+    helpers = re.findall(r"__device__[^(;]*\b(\w+)\(\)\s*\{", text)
+
+    def calls(ptx, *also):
+        names = [rf"\b{h}\(\)" for h in helpers
+                 if ptx in _function_body(text, h)]
+        return re.compile("|".join([re.escape(ptx), *also, *names]))
+
+    body = _function_body(text, "sign_align_kernel")
+    remote = body.index("map_shared_rank")
+    wait = calls("barrier.cluster.wait", r"\bcluster\.sync\(\)").search(body)
+    assert wait and wait.start() < remote, (
+        "map_shared_rank comes before any cluster barrier wait")
+    arrive = calls("barrier.cluster.arrive").search(body)
+    if arrive:
+        assert arrive.start() < wait.start(), "the wait precedes its arrive"
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "lane"])

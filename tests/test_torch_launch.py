@@ -217,6 +217,8 @@ def _wrapper_cases():
                         lambda out: (*ptrs(x, *out), 3, 77)),
         "dequantize_q8": (lambda: tq.dequantize_q8(q, s),
                           lambda out: (*ptrs(q, s, out), 3, 77)),
+        "ef_round_trip": (lambda: tq.ef_round_trip(x, x),
+                          lambda out: (*ptrs(x, x, *out), 3, 77)),
         "cohort_gather": (lambda: tgather.cohort_gather(src, idx),
                           lambda out: (*ptrs(src, idx, out), 4, 2, 3, 77)),
         "masked_agg": (lambda: tma.masked_agg(u, w),
@@ -301,6 +303,19 @@ def test_sign_wrappers_make_no_tensor_op_but_the_output(fake_card, name):
     assert out.dtype == torch.float32 and len(fake_card.calls) == 1
 
 
+def test_round_trip_wrapper_makes_no_tensor_op_but_its_outputs(fake_card):
+    """An ``ef_round_trip`` call on the kernel path allocates its two f32
+    outputs uninitialised and reads nothing back: on the card the launch
+    is the call's one device operation, and a scanned dispatch that calls
+    it stays free of host synchronisations."""
+    call, _expect = _wrapper_cases()["ef_round_trip"]
+    with _AtenCalls() as ops:
+        restored, residual = call()
+    assert ops.names == ["aten.empty_like.default"] * 2
+    assert restored.dtype == residual.dtype == torch.float32
+    assert len(fake_card.calls) == 1
+
+
 def test_wrapper_outputs_have_the_plain_versions_shapes(fake_card):
     """On the kernel path each wrapper returns what its plain version
     returns on the same inputs, in shape and dtype."""
@@ -310,6 +325,7 @@ def test_wrapper_outputs_have_the_plain_versions_shapes(fake_card):
     calls = {
         "quantize_q8": (tq.quantize_q8, (x,)),
         "dequantize_q8": (tq.dequantize_q8, (q, s)),
+        "ef_round_trip": (tq.ef_round_trip, (x, x)),
         "cohort_gather": (tgather.cohort_gather, (src, idx)),
         "masked_agg": (tma.masked_agg, (u, w)),
         "fused_update": (tma.fused_update, (u[0].bfloat16(), u, w)),
@@ -367,6 +383,10 @@ def _kernel_path_refusals():
             q, torch.zeros((3, 2))[:, :1]),
         "scale misaligned": lambda: tq.dequantize_q8(
             q, _misaligned((3, 1), torch.float32)),
+        "ef_round_trip d non-contiguous": lambda: tq.ef_round_trip(
+            wide[:, ::2], _x),
+        "ef_round_trip e misaligned": lambda: tq.ef_round_trip(
+            _x, _misaligned((3, LANE), torch.float32)),
         "src non-contiguous": lambda: tgather.cohort_gather(
             torch.zeros((4, 2, 2 * LANE))[..., ::2], idx),
         "src misaligned": lambda: tgather.cohort_gather(

@@ -13,6 +13,10 @@ those scales are max(amax, 1e-12)·fl(1/127), one ulp off the true quotient
 in some rows. The tests state that rewrite exactly instead of allowing an
 ulp; the codes agree on these inputs all the same.
 """
+import importlib.util
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,9 +32,11 @@ from repro.kernels import ref as jref
 from repro.models import api as japi
 
 from repro_torch.core import compression as tcomp
+from repro_torch.kernels import _build
 from repro_torch.kernels import arena as tarena
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quantize as tq
+from repro_torch.kernels import ref as tref
 
 LANE = 1024
 
@@ -120,10 +126,86 @@ def test_compress_cohort_matches_jax():
     rng = np.random.default_rng(5)
     deltas = (1e-2 * rng.standard_normal((4, 54, LANE))).astype(np.float32)
     err = (1e-4 * rng.standard_normal((4, 54, LANE))).astype(np.float32)
-    got = tcomp.compress_cohort(torch.from_numpy(deltas), torch.from_numpy(err))
+    got = tcomp.compress_cohort(torch.from_numpy(deltas),
+                                torch.from_numpy(err))
     want = jcomp.compress_cohort(jnp.asarray(deltas), jnp.asarray(err))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _cohort(C, R, e_kind, seed):
+    """(deltas, err) (C, R, LANE) f32: every client's rows from ``_rows``
+    (the special rows included), and err zero or random at a thousandth
+    of each row's largest |delta|."""
+    deltas = np.stack([_rows(R, seed=seed + c) for c in range(C)])
+    if e_kind == "zero":
+        return deltas, np.zeros_like(deltas)
+    rng = np.random.default_rng(seed)
+    err = (rng.standard_normal(deltas.shape)
+           * np.abs(deltas).max(axis=-1, keepdims=True) * 1e-3)
+    return deltas, err.astype(np.float32)
+
+
+@pytest.mark.parametrize("e_kind", ["zero", "random"])
+def test_compress_cohort_is_the_four_op_composition(e_kind):
+    """The fused round trip's plain version is, bit for bit, the add, the
+    codec's two halves and the subtract that the cohort paths ran before
+    it was fused, on the special rows too."""
+    deltas, err = _cohort(4, 54, e_kind, seed=11)
+    got = tcomp.compress_cohort(torch.from_numpy(deltas),
+                                torch.from_numpy(err))
+    corrected = torch.from_numpy(deltas) + torch.from_numpy(err)
+    q, s = tref.quantize_q8(corrected.reshape(-1, LANE))
+    restored = tref.dequantize_q8(q, s).reshape(corrected.shape)
+    for g, w in zip(got, (restored, corrected - restored)):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        np.testing.assert_array_equal(g.view(torch.int32).numpy(),
+                                      w.view(torch.int32).numpy())
+    if e_kind == "zero":
+        # client 0's special rows: zero rows restore to zero, the tie row
+        # (scale exactly 1) rounds half to even and carries the halves
+        r, e = got[0][0].numpy(), got[1][0].numpy()
+        assert not r[:2].any() and not e[:2].any()
+        np.testing.assert_array_equal(r[2], np.round(deltas[0, 2]))
+        np.testing.assert_array_equal(e[2], deltas[0, 2] - np.round(
+            deltas[0, 2]))
+
+
+@pytest.mark.parametrize("e_kind", ["zero", "random"])
+def test_compress_cohort_matches_jax_on_special_rows(e_kind):
+    """Equal to the JAX package on every row but the subnormal ones, where
+    XLA on the CPU flushes subnormals: its residual there is 0, where the
+    port carries d + e exactly (the codes are 0 on both sides)."""
+    deltas, err = _cohort(3, 35, e_kind, seed=21)
+    got = tcomp.compress_cohort(torch.from_numpy(deltas),
+                                torch.from_numpy(err))
+    want = jcomp.compress_cohort(jnp.asarray(deltas), jnp.asarray(err))
+    sub = np.zeros(deltas.shape[:2], dtype=bool)
+    sub[:, 4] = True                               # _rows' subnormal row
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy()[~sub], np.asarray(w)[~sub])
+    assert not got[0].numpy()[sub].any() and not np.asarray(want[0])[sub].any()
+    np.testing.assert_array_equal(np.asarray(want[1])[sub], 0.0)
+    np.testing.assert_array_equal(got[1].numpy()[sub], (deltas + err)[sub])
+
+
+def test_round_trip_refuses_with_the_codecs_messages():
+    """``ef_round_trip`` refuses no rows, a wrong width and a wrong dtype
+    in either input as ``quantize_q8`` refuses them, naming the input."""
+    x = torch.zeros((3, LANE))
+    cases = [(x[:0], ValueError, [("d", (x[:0], x[:0]))])]
+    for bad, exc in ((x[:, :512], ValueError), (x.double(), TypeError)):
+        cases.append((bad, exc, [("d", (bad, x)), ("e", (x, bad))]))
+    for bad, exc, calls in cases:
+        with pytest.raises(exc) as want:
+            tq.quantize_q8(bad)
+        for name, args in calls:
+            with pytest.raises(exc) as got:
+                tq.ef_round_trip(*args)
+            assert str(got.value) == str(want.value).replace(
+                "x ", f"{name} ", 1).replace("expected x", f"expected {name}")
+    with pytest.raises(ValueError, match=r"e must have d's shape \(3, 1024\)"):
+        tq.ef_round_trip(x, x[:2])
 
 
 def test_compress_update_matches_jax(monkeypatch):
@@ -185,6 +267,12 @@ def _bad_calls():
         "scale dtype": (tq.dequantize_q8, (q, s.double())),
         "scale device": (tq.dequantize_q8, (q, s.to("meta"))),
         "q device": (tq.dequantize_q8, (q.to("meta"), s.to("meta"))),
+        "d dtype": (tq.ef_round_trip, (x.double(), x)),
+        "e dtype": (tq.ef_round_trip, (x, x.to(torch.bfloat16))),
+        "d no rows": (tq.ef_round_trip, (x[:0], x[:0])),
+        "e rows": (tq.ef_round_trip, (x, x[:2])),
+        "e lane": (tq.ef_round_trip, (x, x[:, :512])),
+        "e device": (tq.ef_round_trip, (x, x.to("meta"))),
     }
 
 
@@ -200,3 +288,27 @@ def test_cpu_calls_launch_no_kernel():
     q, s = tq.quantize_q8(torch.ones((2, LANE)))
     tq.dequantize_q8(q, s)
     assert tq.launches == before
+
+
+def test_cpu_round_trip_launches_no_kernel():
+    before = dict(tq.launches)
+    tcomp.compress_cohort(torch.ones((2, 3, LANE)), torch.zeros((2, 3, LANE)))
+    tq.ef_round_trip(torch.ones((2, LANE)), torch.ones((2, LANE)))
+    assert tq.launches == before
+
+
+def test_card_cases_straddle_the_codec_launch_switch():
+    """``csrc/quantize.cu`` launches ``quantize_q8`` and ``ef_round_trip``
+    with 512 threads a row up to ``kWideRows`` rows and 256 beyond, so
+    ``chip_smoke.py`` must hold both launch shapes to the plain version
+    (at the switch's last and first row counts among its cases) and time
+    both (``CODEC_SIZES``), or a branch would go unchecked on the card."""
+    text = (_build.CSRC / "quantize.cu").read_text()
+    wide = int(re.search(r"constexpr long long kWideRows = (\d+);",
+                         text).group(1))
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_cases", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert {wide, wide + 1} <= set(smoke.CODEC_CHECK_ROWS)
+    assert min(smoke.CODEC_SIZES) <= wide < max(smoke.CODEC_SIZES)
