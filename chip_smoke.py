@@ -120,6 +120,26 @@ Phases, each printing JSON lines:
                (``"phase": "seed_batch"``), a trace of a warm ``cmfl`` + int8
                and ``fedavg`` spmd round and the host-time split of a warm
                ``cmfl`` + int8 round (``"phase": "round_breakdown"``).
+  6b. scenario — the quickstart spec under the ``dynamic`` and the
+               ``byzantine`` worlds (core/scenario.py) on four paths: ``ours``
+               + int8 on the megastep, the per-client loop and the scanned
+               path (4 rounds a dispatch, fused eval), and ``cmfl`` + int8 on
+               the spmd engine, each beside the same run without a scenario
+               (``"phase": "slice"``, wall s a round with and without beside
+               the card's name and power limit, ``"phase":
+               "scenario_overhead"``). Each scenario run against the CPU from
+               the same weights (``"phase": "card_vs_cpu"``, by the rules of
+               its path above, problems ``[]``); sign-align, masked-agg and
+               the round trip (and the gather on the scanned path; the codec
+               pair on the loop) launched at least as often as the run has
+               rounds (sign-align once fewer on the megastep, which tests no
+               θ in round 0; there masked-agg runs once a shape group in the
+               rounds that apply an update), each run's launches a round
+               printed;
+               the byzantine client 0's every θ test below θ; the dynamic
+               scanned run at 4 rounds per dispatch equal to 1
+               (``"phase": "r4_vs_r1"``) and one of its dispatches under
+               ``set_sync_debug_mode("error")``.
   7. LM serving — ``flash_attention`` against its plain version on the card
                (``"phase": "kernels"``), each case through the kernel that
                ``route(dtype, hd)`` names and launched there once: qwen2-1.5b's
@@ -1366,6 +1386,152 @@ def round_breakdown(driver, rounds: int = 4) -> dict:
     return dict(ms=parts, total_ms=sum(parts.values()), rounds=rounds)
 
 
+SCENARIOS = ("dynamic", "byzantine")
+
+
+def scenario_runs(T) -> dict:
+    """The scenario phase's paths: name -> (spec without a scenario, the
+    kernels that must launch)."""
+    mega = quickstart_spec(T, "ours", quantize=True)
+    cohort_int8 = ("per_client_sign_align", "masked_agg", "ef_round_trip")
+    return {
+        "ours+int8": (mega, cohort_int8),
+        "ours+int8 loop": (quickstart_spec(T, "ours", quantize=True,
+                                           megastep=False), CODEC),
+        "ours+int8 scanned fused": (dataclasses.replace(
+            mega, fused_eval=True, rounds_per_dispatch=4),
+            cohort_int8 + ("cohort_gather",)),
+        "cmfl+int8 spmd": (spmd_spec(T, "cmfl", True), cohort_int8),
+    }
+
+
+def run_path_card(T, spec, params, mods) -> tuple:
+    """``spec`` on the card through its engine, every launch count set to 0
+    just before: (simulation or driver, records, wall s, launches, the
+    codec's calls by rows)."""
+    if spec.engine == "spmd":
+        return run_spmd_card(T, spec, params, mods)
+    sim, wall, launches, rows = run_card(T, spec, params, mods)
+    return (sim, T.result_from_simulation(spec, sim).records, wall,
+            launches, rows)
+
+
+def held_per_round(run: str, spec, launches: dict, needed) -> dict:
+    """Each kernel of ``needed`` launched at least as often as the run has
+    rounds (the megastep's sign-align once fewer: round 0 has no reference
+    to test against); returns the launches a round."""
+    per_round = {k: launches[k] / spec.rounds for k in needed}
+    for k in needed:
+        rounds = spec.rounds - (k == "per_client_sign_align"
+                                and spec.engine == "sim"
+                                and not spec.rounds_per_dispatch)
+        if launches[k] < rounds:
+            raise AssertionError(f"{run}: {k} launched {launches[k]} times "
+                                 f"in {spec.rounds} rounds")
+    return per_round
+
+
+def scenario_card_cpu(T, parity, spec, params, card, card_recs) -> list:
+    """The problems of the card's scenario run ``card`` against the same
+    spec on the CPU from the same weights, by its path's rules."""
+    if spec.rounds_per_dispatch:
+        return scanned_card_cpu(T, parity, spec, params, card)["problems"]
+    if spec.engine == "spmd":
+        cpu = T.SpmdDriver(spec, device="cpu", params=params,
+                           agg_dtype=torch.float32)
+        problems = parity.record_mismatches(card_recs,
+                                            cpu.run_rounds(spec.rounds))
+        problems += parity.control_mismatches(
+            {f: v.cpu().numpy() for f, v in card.state.control._asdict().items()},
+            {f: v.numpy() for f, v in cpu.state.control._asdict().items()})
+    else:
+        cpu = T.build_simulation(spec, device="cpu", params=params)
+        cpu.run(spec.rounds)
+        problems = parity.record_mismatches(
+            card_recs, T.result_from_simulation(spec, cpu).records)
+        if {c: dataclasses.asdict(r) for c, r in card.selector.records.items()} \
+                != {c: dataclasses.asdict(r)
+                    for c, r in cpu.selector.records.items()}:
+            problems.append("selector records differ")
+        if card.failure_log != cpu.failure_log:
+            problems.append("dropout draws differ")
+    return problems + (parity.theta_band_violations(card.theta_ratios, 0.65)
+                       + parity.theta_band_violations(cpu.theta_ratios, 0.65))
+
+
+def byzantine_tests(spec, theta_ratios) -> tuple:
+    """(θ tests of the byzantine clients, those at or above θ)."""
+    n_byz = spec.resolve_scenario().byzantine.n_byz
+    theta = spec.resolve_strategy().theta
+    tests = [t for t in theta_ratios if t[1] < n_byz]
+    return tests, [t for t in tests if t[2] >= theta]
+
+
+def phase_scenario(T, parity, params, mods, smi: str) -> dict:
+    """The scenario phase (module docstring, 6b). Returns each scenario
+    run's launches."""
+    launches, problems, cards = {}, [], {}
+    for run, (base, needed) in scenario_runs(T).items():
+        walls = {}
+        for scn in (None,) + SCENARIOS:
+            spec = dataclasses.replace(base, scenario=scn)
+            name = f"{run} {scn}" if scn else run
+            card, recs, wall, got, rows = run_path_card(T, spec, params,
+                                                         mods)
+            walls[scn or "static"] = wall / spec.rounds
+            if scn is None:
+                continue
+            for rec in recs:
+                emit("slice", run=name, **dataclasses.asdict(rec))
+            if not all(math.isfinite(r.loss) and math.isfinite(r.accuracy)
+                       for r in recs):
+                raise AssertionError(f"{name}: accuracy or loss not finite")
+            held_launches(name, got, needed, rows)
+            line = dict(run=name, scenario=scn, rounds=len(recs),
+                        wall_s=wall, wall_s_per_round=wall / len(recs),
+                        launches=got, launches_per_round=held_per_round(
+                            name, spec, got, needed),
+                        rows_per_call=rows_line(rows),
+                        updates_applied=[r.updates_applied for r in recs])
+            if scn == "byzantine":
+                tests, passed = byzantine_tests(spec, card.theta_ratios)
+                line.update(byzantine_theta_tests=len(tests),
+                            byzantine_accepted=passed,
+                            byzantine_max_ratio=max(t[2] for t in tests)
+                            if tests else None)
+                if not tests or passed:
+                    problems.append(f"{name}: the byzantine client passed θ "
+                                    f"in {passed} of {len(tests)} tests")
+            emit("slice", **line)
+            found = scenario_card_cpu(T, parity, spec, params, card, recs)
+            emit("card_vs_cpu", run=name, problems=found,
+                 theta_tests=len(card.theta_ratios))
+            problems += [f"{name}: {p}" for p in found]
+            launches[name], cards[name] = got, card
+        emit("scenario_overhead", run=run, nvidia_smi=smi,
+             wall_s_per_round=walls,
+             note="host clock around building the run and its 8 rounds, "
+                  "ending in a synchronisation")
+
+    run = "ours+int8 scanned fused dynamic"
+    spec = dataclasses.replace(scenario_runs(T)["ours+int8 scanned fused"][0],
+                               scenario="dynamic")
+    single, _wall, _l, _r = run_card(
+        T, dataclasses.replace(spec, rounds_per_dispatch=1), params, mods)
+    grouping = [] if single.history == cards[run].history else [
+        f"round {a.round}: {a} != {b}"
+        for a, b in zip(cards[run].history, single.history) if a != b]
+    if single.cohorts != cards[run].cohorts:
+        grouping.append("selections differ")
+    emit("r4_vs_r1", run=run, equal=not grouping, problems=grouping)
+    problems += [f"{run} R=4 vs R=1: {p}" for p in grouping]
+    emit("slice", run=run, sync_free_dispatch=sync_free_dispatch(
+        T, spec, params))
+    if problems:
+        raise AssertionError("scenario runs disagree: " + "; ".join(problems))
+    return launches
+
+
 def phase_spmd(T, parity, params, mods) -> dict:
     """The five spmd runs on the card, card against CPU for the two cmfl
     runs, the seed batch against solo runs, and a trace of a warm round.
@@ -2364,6 +2530,9 @@ def main() -> int:
     # 6. the kernel-ops API and the spmd engine
     launches["ops"] = phase_ops(T, ops, params, mods)
     launches.update(phase_spmd(T, parity, params, mods))
+
+    # 6b. dynamic worlds on the four ported paths
+    launches.update(phase_scenario(T, parity, params, mods, smi))
 
     # 7. LM serving at qwen2-1.5b's full width
     launches.update(phase_lm(mods))

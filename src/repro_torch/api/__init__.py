@@ -21,12 +21,16 @@ from repro_torch.api.strategies import (STRATEGY_REGISTRY, Strategy,
 from repro_torch.api.world import World, build_world
 from repro_torch.core.async_engine import (ClientProfile, CommModel,
                                            StrategyConfig)
+from repro_torch.core.scenario import (SCENARIO_PRESETS, ByzantineSpec,
+                                       ChurnSpec, DriftSpec, DropoutSchedule,
+                                       LinkSpec, ScenarioSpec)
 from repro_torch.core.schedule import ScheduleSpec
 
 __all__ = [
-    "ClientProfile", "CommModel", "DataSpec", "ExperimentResult",
-    "ExperimentSpec", "ROUND_FIELDS", "RoundRecord", "STRATEGY_REGISTRY",
-    "ScheduleSpec", "SpecError", "SpecIssue", "SpmdDriver", "Strategy",
+    "ByzantineSpec", "ChurnSpec", "ClientProfile", "CommModel", "DataSpec",
+    "DriftSpec", "DropoutSchedule", "ExperimentResult", "ExperimentSpec",
+    "LinkSpec", "ROUND_FIELDS", "RoundRecord", "SCENARIO_PRESETS",
+    "STRATEGY_REGISTRY", "ScenarioSpec", "ScheduleSpec", "SpecError", "SpecIssue", "SpmdDriver", "Strategy",
     "StrategyConfig", "World", "WorldSpec", "build_simulation",
     "build_spmd_components", "build_world", "get_strategy",
     "list_strategies", "record_from_metrics", "register_strategy",

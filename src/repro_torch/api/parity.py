@@ -29,6 +29,36 @@ So the error feedback is compared after round 0, and the whole run by
 its records: a flipped sign moves a θ ratio by 1/54,602, well inside
 ``THETA_BAND``, and the record tolerances stay as they are.
 
+Even round 0 can part by more than a code flip: the local training itself
+is chaotic where a ReLU pre-activation lies within float noise of 0. Its
+two runs then take the kink on different sides for one sample, and one
+hidden unit's gradient (its incoming and outgoing weights, its bias) moves
+by a whole term of the batch mean. (Seed 2 of the anomaly-mlp parity case:
+client 2's last local step, sample 0, unit 48 of the second hidden layer,
+-6.3e-8 in the JAX package and +4.5e-9 in the port from the same
+parameters; ~90 of 55,296 error-feedback elements then sit beyond
+``EF_RTOL``, with some threading and instruction sets and not others.) So
+an int8 run's round 0 is held in its two parts:
+
+  * the codec, by bits: the port's error-feedback state is the reference
+    codec's residual of the port's own pre-codec deltas;
+  * the local training, step by step from the reference's state (each
+    step's inputs the same in both packages, so nothing compounds): each
+    leaf within ``STEP_RTOL`` of the step's largest movement of that leaf
+    (``step_mismatches``), where the reference step takes the port's side
+    of every ReLU whose pre-activation lies within the rounding band of 0
+    (``relu_kinks``). A weight's gradient sums B products that can cancel
+    to far below their size, so one step from the same state parts by up
+    to 5.1e-5 of the largest movement (observed on the CPU: w0, step 0);
+    a ReLU taken on the other side moves that unit's weights by 8.9e-4 of
+    it (the kink above). STEP_RTOL = 5e-4 lies between. The band is
+    ``PREACT_RTOL`` of Σ|h_i·w_ij| + |b_j|: an f32 sum of n terms in any
+    order is within n·2^-24 of that, so the two packages' values of a fan-
+    in of up to 256 terms are within 2^-15 of each other. A pre-activation
+    that the two put on different sides outside the band is a different
+    function, and ``relu_kinks`` names its client, step, layer, sample
+    and unit.
+
 The megastep and the per-client loop of ONE package compute the same
 round with other reduction orders. ``path_mismatches`` holds them to the
 JAX package's own tolerances for that pair (tests/test_megastep.py):
@@ -67,6 +97,20 @@ staleness, has_ckpt) are equal. What is not:
     evaluation yet) must be NaN in both;
   * the error-feedback arena is chaotic over rounds as above: it is
     compared after one round from the same state (``ef_mismatches``).
+
+A scenario's world (core/scenario.py) is computed on the host by one
+function for every path and copied to the device, so the card and the CPU
+run the same world bit for bit, and every path of one run takes the same
+trajectory. Against the JAX package, given its link normals
+(``world_mismatches``): the churn masks, the linear drift amplitude, the
+dropout regime's scale and the byzantine factors are equal; the link
+walks are a recurrent product of ``exp(σ·z)`` factors, and torch's f32
+``exp`` and XLA's may differ by an ulp, which the walk carries on, so
+round r's walks are within ``WALK_ULPS`` ulps per round walked
+(observed: 4 ulps after 12 rounds); the sine amplitude takes one ``cos``,
+within ``SINE_ULPS`` ulps (observed: equal). The engines are held to the
+reference with its own trajectory fed in (``WorldSource(views=...)``), so
+their records stay under the tolerances above.
 
 The spmd engine (``engine="spmd"``, core/fl_step.py) takes ONE gradient
 step a round at the shared weights, and its accounting is host f64
@@ -108,6 +152,8 @@ EXACT_FIELDS = ("round", "sim_time", "comm_time", "idle_time", "bytes_sent",
                 "updates_applied", "accept_rate")
 EF_RTOL = 0.05            # of the row's largest |residual|
 EF_FLIP_FRAC = 1e-4       # of all elements: codes that took a neighbour
+STEP_RTOL = 5e-4          # of a local step's largest movement of the leaf
+PREACT_RTOL = 2.0 ** -15  # of Σ|h_i·w_ij| + |b_j|: the ReLU's rounding band
 PATH_TIME_RTOL = 1e-9
 PATH_ACC_TOL = 2e-3
 PATH_LOSS_RTOL = 1e-3
@@ -117,6 +163,8 @@ EMA_RTOL = 1e-6
 NORM_RTOL = 1e-4
 CONTROL_EXACT = ("batch", "staleness", "has_ckpt")
 SPMD_PARAM_RTOL = 1e-6
+WALK_ULPS = 2             # per round walked: exp's ulp, carried on
+SINE_ULPS = 2
 SPMD_BF16_MOVE_RTOL = 2.0 ** -8
 CONTROL_RTOL = {"avail": EMA_RTOL, "pass_rate": EMA_RTOL,
                 "round_time": EMA_RTOL, "lr_scale": EMA_RTOL,
@@ -174,6 +222,37 @@ def ef_mismatches(got, want, lane: int = 1024) -> List[str]:
                 f"more than {EF_RTOL} of their row's largest residual "
                 f"(at most {EF_FLIP_FRAC} of them may)"]
     return []
+
+
+def step_mismatches(got, want, start, where: str = "") -> List[str]:
+    """Parameter dicts after one local step from the same ``start``: each
+    leaf of ``got`` within STEP_RTOL of the largest movement of that leaf
+    in ``want``; empty when they agree."""
+    out = []
+    for k in sorted(want):
+        w = np.asarray(want[k], np.float64)
+        tol = STEP_RTOL * np.abs(w - np.asarray(start[k], np.float64)).max()
+        gap = np.abs(np.asarray(got[k], np.float64) - w).max()
+        if not gap <= tol:
+            out.append(f"{where}{k}: largest gap {gap} beyond {tol}")
+    return out
+
+
+def relu_kinks(z_got, z_want, zabs, where: str = ""):
+    """Pre-activations (arrays (B, H) of one shape) that two runs put on
+    different sides of the ReLU's kink: ``(kinks, faults)``, each a list
+    of messages. ``kinks`` lie within PREACT_RTOL·``zabs`` (Σ|h_i·w_ij| +
+    |b_j|, the rounding band) of 0 in ``z_want``; ``faults`` beyond it,
+    where the two runs compute different functions."""
+    z_got, z_want = np.asarray(z_got), np.asarray(z_want)
+    band = PREACT_RTOL * np.asarray(zabs, np.float64)
+    kinks, faults = [], []
+    for b, j in np.argwhere((z_got > 0) != (z_want > 0)):
+        msg = (f"{where}sample {b}, unit {j}: pre-activation "
+               f"{z_got[b, j]:.3e} against {z_want[b, j]:.3e} (band "
+               f"{band[b, j]:.3e})")
+        (kinks if abs(z_want[b, j]) <= band[b, j] else faults).append(msg)
+    return kinks, faults
 
 
 def path_mismatches(got: Sequence, want: Sequence) -> List[str]:
@@ -273,4 +352,36 @@ def spmd_param_mismatches(got, want, start, steps: int,
         gap = np.abs(g - w).max()
         if not gap <= steps * tol:
             out.append(f"{k}: largest gap {gap} beyond {steps} x {tol}")
+    return out
+
+
+def _ulps(got, want) -> np.ndarray:
+    want = np.asarray(want, np.float32)
+    gap = np.abs(np.asarray(got, np.float64) - want.astype(np.float64))
+    return gap / np.spacing(np.abs(want)).astype(np.float64)
+
+
+def world_mismatches(got: Sequence[dict], want: Sequence[dict],
+                     sine: bool = False) -> List[str]:
+    """Two world trajectories (host views, round 0 first) against the rules
+    above: masks, regime scales, byzantine factors and a linear amplitude
+    equal; the walks of round r within WALK_ULPS·(r + 1) ulps; a sine
+    amplitude (``sine``) within SINE_ULPS ulps."""
+    if len(got) != len(want):
+        return [f"{len(got)} rounds against {len(want)}"]
+    out = []
+    for r, (g, w) in enumerate(zip(got, want)):
+        for f in ("live", "dropout_scale", "byz_factor") + (
+                () if sine else ("drift_amp",)):
+            if not np.array_equal(np.asarray(g[f]), np.asarray(w[f])):
+                out.append(f"round {r}: {f} {g[f]!r} != {w[f]!r}")
+        bounds = {"bw_scale": WALK_ULPS * (r + 1),
+                  "lat_scale": WALK_ULPS * (r + 1)}
+        if sine:
+            bounds["drift_amp"] = SINE_ULPS
+        for f, bound in bounds.items():
+            ulps = _ulps(g[f], w[f]).max(initial=0.0)
+            if not ulps <= bound:
+                out.append(f"round {r}: {f} {ulps} ulps apart (at most "
+                           f"{bound})")
     return out

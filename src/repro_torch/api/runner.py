@@ -21,7 +21,9 @@
 All run on the card unless ``device`` names another device, and start
 from ``params`` (a parameter dict, e.g. the JAX package's initial
 parameters as numpy arrays) when given; ``draws`` replaces the port's own
-draw source (core/draws.py), so a test can feed the JAX package's draws.
+draw source (core/draws.py) and ``world_source`` the world trajectory of
+a scenario (core/scenario.py, ``WorldSource``), so a test can feed the
+JAX package's draws and worlds.
 
 Degenerate parity: with uniform profiles, zero latency, theta=None and
 one local step (``max_samples_per_round == batch_size``), the two engines
@@ -43,6 +45,7 @@ from repro_torch.api.result import ExperimentResult, RoundRecord
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.core import async_engine as ae
 from repro_torch.core import compression, fl_step
+from repro_torch.core import scenario as scenario_mod
 from repro_torch.core.draws import SpmdDraws
 from repro_torch.data.loader import ArrayLoader
 from repro_torch.device import resolve_device
@@ -52,10 +55,12 @@ from repro_torch.optim import adamw as optim_mod
 
 
 def build_simulation(spec: ExperimentSpec, *, device=None,
-                     params=None, draws=None) -> "ae.FederatedSimulation":
+                     params=None, draws=None,
+                     world_source=None) -> "ae.FederatedSimulation":
     """The event-driven simulation an ``engine='sim'`` spec describes
-    (``draws``: the scanned path's draw source, core/draws.py; None for the
-    port's own)."""
+    (``draws``: the scanned path's draw source, core/draws.py;
+    ``world_source``: the scenario's world trajectory; None for the port's
+    own)."""
     spec.validate()
     world = spec.build_world()
     return ae.FederatedSimulation(spec.resolve_model(), world.client_arrays,
@@ -67,7 +72,9 @@ def build_simulation(spec: ExperimentSpec, *, device=None,
                                   eval_fn=spec.eval_fn,
                                   megastep=spec.megastep,
                                   rounds_per_dispatch=spec.rounds_per_dispatch,
-                                  fused_eval=spec.fused_eval, draws=draws)
+                                  fused_eval=spec.fused_eval, draws=draws,
+                                  scenario=spec.resolve_scenario(),
+                                  world_source=world_source)
 
 
 def record_from_metrics(m: "ae.RoundMetrics") -> RoundRecord:
@@ -90,13 +97,15 @@ def result_from_simulation(spec: ExperimentSpec, sim, wall_time: float = 0.0
 
 
 def run_experiment(spec: ExperimentSpec, *, device=None, params=None,
-                   draws=None) -> ExperimentResult:
+                   draws=None, world_source=None) -> ExperimentResult:
     t0 = time.time()
     if spec.validate().engine == "spmd":
-        driver = SpmdDriver(spec, device=device, params=params, draws=draws)
+        driver = SpmdDriver(spec, device=device, params=params, draws=draws,
+                            world_source=world_source)
         records = driver.run_rounds(spec.rounds)
         return driver.result(records, wall_time=time.time() - t0)
-    sim = build_simulation(spec, device=device, params=params, draws=draws)
+    sim = build_simulation(spec, device=device, params=params, draws=draws,
+                           world_source=world_source)
     sim.run(spec.rounds, eval_final=True)
     return result_from_simulation(spec, sim, wall_time=time.time() - t0)
 
@@ -204,34 +213,49 @@ def build_spmd_components(spec: ExperimentSpec, world=None,
     comm = spec.resolve_comm()
     opt = _resolve_optimizer(spec, st)
     cp = _spmd_control_plane(spec, st, world, round_time_hint)
+    C = cp.num_clients
     if not cp.active():
         cp = None
+    scn = spec.resolve_scenario()
+    dirs = None
+    if scn is not None and scn.drift is not None:
+        dirs = scenario_mod.drift_directions(scn.drift, cfg.num_classes,
+                                             cfg.num_features)
     gen = torch.Generator().manual_seed(spec.seed)
     state = fl_step.init_state(gen, cfg, opt, control_plane=cp,
-                               params=params, device=device)
+                               scenario=scn, params=params, num_clients=C,
+                               device=device)
     step = fl_step.build_fl_train_step(cfg, opt, theta=st.theta,
                                        lr_schedule=spec.lr_schedule,
                                        beacon_bytes=comm.beacon_bytes,
-                                       control_plane=cp, agg_dtype=agg_dtype)
+                                       control_plane=cp, scenario=scn,
+                                       drift_dirs=dirs, agg_dtype=agg_dtype)
     return cfg, st, opt, state, step
 
 
 def _account_comm_round(profiles, comm, steps, n_samples, mask,
-                        participating, payload_bytes, acc) -> None:
+                        participating, payload_bytes, acc,
+                        lat_scale=None, bw_scale=None) -> None:
     """One sync round's analytic CommModel arithmetic, shared by the
     driver and the seed batch: each participating client pays train time
     + transfer (full payload if its update passed the mask, else the
     1-bit skip beacon); the round advances at the barrier (slowest
-    arrival), and idle time is the spread below it. Accumulates into
+    arrival), and idle time is the spread below it. ``lat_scale`` /
+    ``bw_scale`` are the round's per-client link multipliers (a
+    scenario's link walks; None: static links). Accumulates into
     ``acc``'s sim/comm/idle time entries."""
     arrivals = []
     for cid, prof in enumerate(profiles):
         if not participating[cid]:
-            continue        # unselected or dropped: silent
+            continue        # unselected, dropped or churned: silent
         t_train = (steps * comm.t_launch
                    + n_samples * comm.t_sample) / max(prof.speed, 1e-3)
         payload = payload_bytes if mask[cid] > 0 else comm.beacon_bytes
-        transfer = prof.net_latency + payload / comm.bandwidth
+        lat = prof.net_latency * (float(lat_scale[cid])
+                                  if lat_scale is not None else 1.0)
+        bw = comm.bandwidth * (float(bw_scale[cid])
+                               if bw_scale is not None else 1.0)
+        transfer = lat + payload / bw
         acc["comm_time"] += transfer
         arrivals.append(t_train + transfer)
     barrier = max(arrivals) if arrivals else 0.0
@@ -294,7 +318,8 @@ class SpmdDriver:
     """
 
     def __init__(self, spec: ExperimentSpec, *, device=None, params=None,
-                 draws=None, agg_dtype: torch.dtype = torch.bfloat16):
+                 draws=None, world_source=None,
+                 agg_dtype: torch.dtype = torch.bfloat16):
         spec.validate()
         self.spec = spec
         self.device = resolve_device(device)
@@ -325,6 +350,11 @@ class SpmdDriver:
         if cp.active() and (cp.has_dropout or cp.draws_exploration):
             self.draws = draws if draws is not None else SpmdDraws(
                 spec.seed, self.num_clients, cp.select_k, self.device)
+        scn = spec.resolve_scenario()
+        self.worlds = None           # the scenario's world, round by round
+        if scn is not None:
+            self.worlds = world_source or scenario_mod.WorldSource(
+                scn, self.num_clients, self.device)
         self.evaluate = _build_eval(self.cfg, spec.eval_fn)
         self.eval_dev = ae._to_device(self.world.eval_arrays, self.device)
         self.param_bytes = int(fl_step._update_bytes(self.state.params))
@@ -357,9 +387,16 @@ class SpmdDriver:
             self.theta_ratios += [(rnd, cid, float(m["ratios"][cid]))
                                   for cid in np.flatnonzero(participating)]
         acc = self.acc
+        lat_scale = bw_scale = None
+        if self.worlds is not None:
+            # a link walk re-prices this round's transfers (churned
+            # clients already have delivered = 0)
+            wv = self.worlds.view(rnd)
+            lat_scale, bw_scale = wv["lat_scale"], wv["bw_scale"]
         _account_comm_round(self.world.profiles, self.comm, self.steps,
                             self.n_samples, mask, participating=participating,
-                            payload_bytes=self.payload_bytes, acc=acc)
+                            payload_bytes=self.payload_bytes, acc=acc,
+                            lat_scale=lat_scale, bw_scale=bw_scale)
         acc["bytes_sent"] += float(m["bytes_sent"][0])
         if evaluate:
             self._last_accuracy = float(
@@ -384,7 +421,11 @@ class SpmdDriver:
             batch = self._draw_batch()
             draws = (self.draws.round_draws(rnd) if self.draws is not None
                      else None)
-            self.state, m = self.step(self.state, batch, draws)
+            world = None
+            if self.worlds is not None:
+                self.worlds.prepare(rnd, 1)
+                world = self.worlds.world(rnd)
+            self.state, m = self.step(self.state, batch, draws, world)
             evaluate = ((rnd % self.spec.eval_every == 0)
                         or (eval_final and rnd == last))
             records.append(self._account(rnd, _readback(m), evaluate))
@@ -426,6 +467,8 @@ def seed_vectorizable(spec: ExperimentSpec, st=None) -> bool:
         return False
     if st.quantize_updates or st.per_client_lr:
         return False
+    if spec.resolve_scenario() is not None:
+        return False        # each seed runs its own world
     return spec.world.dropout_p <= 0
 
 

@@ -13,8 +13,9 @@ engine, rounds, seed), with the JAX package's field names, and
                    path of the paper's synchronous baselines, with an
                    optional ``lr_schedule`` and ``optimizer="sgd"``;
 
-each with or without int8 wire compression (``strategy.quantize_updates``)
-and a custom ``eval_fn``.
+each with or without int8 wire compression (``strategy.quantize_updates``),
+a dynamic-world ``scenario`` (core/scenario.py: a preset name or a
+``ScenarioSpec``) and a custom ``eval_fn``.
 
 The spec has every field of the JAX package's spec, and ``validate()``
 refuses each option the port does not run yet, naming the ROADMAP.md
@@ -28,6 +29,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 from repro_torch.api import strategies as strategies_mod
 from repro_torch.api import world as world_mod
 from repro_torch.core.async_engine import CommModel, StrategyConfig
+from repro_torch.core.scenario import ScenarioSpec, resolve_scenario
 from repro_torch.core.schedule import ScheduleSpec, resolve_schedule
 
 ENGINES = ("sim", "spmd")
@@ -88,7 +90,6 @@ class WorldSpec:
 # option -> (the value the port runs, the ROADMAP.md queue 1 item that
 # brings the others)
 _NOT_PORTED = {
-    "scenario": (None, 10, "dynamic-world scenarios"),
     "topology": (None, 10, "hierarchical topologies"),
     "candidate_frac": (None, 10, "two-stage candidate selection"),
 }
@@ -106,7 +107,9 @@ class ExperimentSpec:
     # the server-coordination axis: None derives the schedule from the
     # strategy's legacy ``mode`` field; "sync" | "async" | "semi-async" or
     # a full ScheduleSpec overrides it
-    scenario: Any = None
+    scenario: Union[str, ScenarioSpec, None] = None
+    # the dynamic-world axis (core/scenario.py): None -> the world stays
+    # frozen at round 0; a SCENARIO_PRESETS name or a ScenarioSpec
     topology: Any = None
     engine: str = "sim"
     rounds: int = 5
@@ -147,6 +150,9 @@ class ExperimentSpec:
 
     def resolve_comm(self) -> CommModel:
         return self.comm or CommModel()
+
+    def resolve_scenario(self) -> Optional[ScenarioSpec]:
+        return resolve_scenario(self.scenario)
 
     def strategy_name(self) -> str:
         if isinstance(self.strategy, str):
@@ -243,6 +249,7 @@ class ExperimentSpec:
             issues.append(SpecIssue(
                 "world.profile", self.world.profile,
                 f"unknown profile; expected one of {PROFILES}"))
+        issues.extend(self._validate_scenario())
         strategy = schedule = None
         try:
             strategy = self.resolve_strategy()
@@ -262,6 +269,36 @@ class ExperimentSpec:
         if issues:
             raise SpecError(issues)
         return self
+
+    def _validate_scenario(self) -> List[SpecIssue]:
+        """The JAX package's scenario checks, field for field."""
+        try:
+            scenario = self.resolve_scenario()
+        except ValueError as e:
+            return [SpecIssue("scenario", self.scenario, str(e))]
+        if scenario is None:
+            return []
+        issues = [SpecIssue(f, v, h) for f, v, h in scenario.issues()]
+        if scenario.drift is not None and self.data.factory is None:
+            try:
+                kind = world_mod._dataset_kind(self.data,
+                                               self.resolve_model())
+            except ValueError:
+                kind = None            # model issues surface on their own
+            if kind == "lm":
+                issues.append(SpecIssue(
+                    "scenario.drift", self.data.dataset,
+                    "label-conditional feature drift needs a feature/label "
+                    "dataset ('unsw'/'road'); token datasets are "
+                    "unsupported"))
+        if (scenario.byzantine is not None
+                and scenario.byzantine.n_byz >= self.world.num_clients):
+            issues.append(SpecIssue(
+                "scenario.byzantine.n_byz", scenario.byzantine.n_byz,
+                f"needs at least one honest client (world has "
+                f"{self.world.num_clients}); the θ-filter has no "
+                "honest majority to form a reference otherwise"))
+        return issues
 
     def _validate_optimizer(self) -> List[SpecIssue]:
         opt = self.optimizer

@@ -71,20 +71,25 @@ def _tensors(tree, device, dtype=None):
 
 def fl_state_from_jax(state, device=None):
     """The spmd step's ``FLState`` from the JAX package's (its fields as
-    numpy arrays, e.g. ``jax.device_get(state)``); the JAX state's
-    ``world`` and ``topology`` must be None (not ported)."""
+    numpy arrays, e.g. ``jax.device_get(state)``), its scenario ``world``
+    included; the JAX state's ``topology`` must be None (not ported)."""
     from repro_torch.core.fl_step import FLState
-    if getattr(state, "world", None) is not None or \
-            getattr(state, "topology", None) is not None:
-        raise NotImplementedError("scenario worlds and topologies are not "
-                                  "ported yet; they come with ROADMAP.md "
-                                  "queue 1 item 10")
+    from repro_torch.core.scenario import WorldState
+    if getattr(state, "topology", None) is not None:
+        raise NotImplementedError("topologies are not ported yet; they come "
+                                  "with ROADMAP.md queue 1 item 10")
     dev = resolve_device(device)
     control = (None if state.control is None
                else control_from_jax(state.control._asdict(), dev))
+    world = getattr(state, "world", None)
+    if world is not None:
+        world = WorldState(**{
+            f: torch.tensor(np.asarray(v), device=dev,
+                            dtype=torch.bool if f == "live" else torch.float32)
+            for f, v in world._asdict().items()})
     return FLState(params=params_from_jax(state.params, dev),
                    opt_state=_tensors(state.opt_state, dev),
                    ref_sign=_tensors(state.ref_sign, dev, torch.int8),
                    step=_tensors(state.step, dev, torch.int32),
                    metrics=_tensors(state.metrics, dev, torch.float32),
-                   control=control)
+                   control=control, world=world)

@@ -26,6 +26,13 @@ from a draw source (core/draws.py), not from the host Generators.
 ``quantize_updates`` puts int8 with error feedback on the wire on any
 path (core/compression.py): one error-feedback arena for all clients on
 the megastep and scanned paths, one buffer dict per client on the loop.
+A ``scenario`` (core/scenario.py) changes the world round by round on
+every path: churn takes clients out of selection, link walks re-price
+each transfer, a regime multiplies the dropout probabilities, drift
+shifts the training batches and byzantine clients scale their updates
+before the codec and the θ filter. Every path takes the world of round r
+from one ``WorldSource`` (computed on the host), so they all run the same
+world, on the card as on the CPU.
 On the megastep and the loop, all host randomness (dropout, batch draws,
 selection) comes from the same seeded numpy Generators in the same order
 as the JAX package, so timing, bytes and selection reproduce it exactly;
@@ -49,6 +56,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core import aggregation, alignment, compression
 from repro_torch.core import control as control_mod
 from repro_torch.core import megastep as megastep_mod
+from repro_torch.core import scenario as scenario_mod
 from repro_torch.core.batchsize import BatchSizeController, ClientMetrics
 from repro_torch.core.checkpoint_policy import fit_weibull, optimal_interval
 from repro_torch.core.draws import HostDraws
@@ -142,7 +150,8 @@ class FederatedSimulation:
                  params=None, eval_fn: Optional[Callable] = None,
                  megastep: bool = True,
                  rounds_per_dispatch: Optional[int] = None,
-                 fused_eval: bool = False, draws=None):
+                 fused_eval: bool = False, draws=None, scenario=None,
+                 world_source=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.strategy = strategy
@@ -176,6 +185,28 @@ class FederatedSimulation:
             raise ValueError("fused_eval keeps the accuracy on the device "
                              "inside the dispatch; a custom eval_fn returns "
                              "a host float — drop one of the two")
+        # --- dynamic-world scenario (core/scenario.py) --------------------
+        # None / inactive -> the world stays frozen at round 0 and every
+        # path below runs as it does without one; ``world_source`` replaces
+        # the port's own trajectory (a test feeds the reference's)
+        self.scenario = scenario_mod.resolve_scenario(scenario)
+        self._worlds = None
+        self._world_view = None       # this round's host view (or None)
+        self._drift_dirs = None
+        if self.scenario is not None:
+            self._worlds = world_source or scenario_mod.WorldSource(
+                self.scenario, self.num_clients, self.device)
+            if self.scenario.drift is not None:
+                keys = set(client_arrays[0])
+                if "x" not in keys or "y" not in keys:
+                    raise ValueError(
+                        "scenario.drift needs feature/label client arrays "
+                        f"('x' + 'y'); got {sorted(keys)}")
+                self._drift_dirs = torch.from_numpy(
+                    scenario_mod.drift_directions(
+                        self.scenario.drift, cfg.num_classes,
+                        cfg.num_features)).to(self.device)
+
         # host round trips of the scanned path: one per dispatch of R
         # rounds (its metrics read back once) plus one per host eval
         # readback; the megastep and the loop paths read back several
@@ -309,20 +340,34 @@ class FederatedSimulation:
             return float(self._wire_bytes)
         return float(self.param_bytes)
 
-    def _transfer_time(self, sent: bool, prof: ClientProfile) -> float:
+    def _transfer_time(self, sent: bool, prof: ClientProfile,
+                       cid: Optional[int] = None) -> float:
         lat, bw = prof.net_latency, self.comm.bandwidth
+        wv = self._world_view
+        if wv is not None and cid is not None:
+            # the link walk re-prices this round's transfer
+            lat *= float(wv["lat_scale"][cid])
+            bw *= float(wv["bw_scale"][cid])
         if sent:
             return lat + self._payload_bytes() / bw
         return lat + self.comm.beacon_bytes / bw
 
+    def _drift(self, batch: dict) -> dict:
+        """This round's drift on a batch on the device (none without it)."""
+        if self._drift_dirs is None:
+            return batch
+        return scenario_mod.apply_drift(
+            batch, self._world_view["drift_amp"], self._drift_dirs)
+
     def _train_client(self, cid: int):
         """The loop's local training of one client, as a cohort of one;
-        with compression, the update is the dequantized payload and the
+        a byzantine client's update is scaled before the codec; with
+        compression, the update is the dequantized payload and the
         client's error-feedback buffers advance. Returns (new_params,
         delta, loss, train_time)."""
         batches, steps, n_samples = self._client_batches(cid)
-        batch = _to_device({k: v[None] for k, v in batches.items()},
-                           self.device)
+        batch = self._drift(_to_device({k: v[None] for k, v in
+                                        batches.items()}, self.device))
         lr_scale = torch.tensor([self.client_lr_scale[cid]],
                                 dtype=torch.float32, device=self.device)
         old = self.params
@@ -330,6 +375,12 @@ class FederatedSimulation:
                                                batch, lr_scale)
         new_params = {k: v[0] for k, v in trained.items()}
         delta = {k: new_params[k] - old[k] for k in old}
+        wv = self._world_view
+        if wv is not None and float(wv["byz_factor"][cid]) != 1.0:
+            f = torch.tensor(float(wv["byz_factor"][cid]),
+                             dtype=torch.float32, device=self.device)
+            delta = {k: d * f for k, d in delta.items()}
+            new_params = {k: old[k] + delta[k] for k in old}
         if self.strategy.quantize_updates:
             err = self._ef_state.setdefault(
                 cid, compression.init_error_state(delta))
@@ -354,16 +405,32 @@ class FederatedSimulation:
     # rounds
     # ------------------------------------------------------------------
     def _select_clients(self) -> List[int]:
+        """This round's cohort. Under churn the live roster applies before
+        top-k, as on the scanned and spmd paths: churned clients are
+        absent, never observed and never failed."""
         st = self.strategy
         k = max(1, int(st.select_fraction * self.num_clients))
+        live = (self._world_view["live"] if self._world_view is not None
+                else None)
         if st.grad_norm_selection:
-            return [int(c) for c in np.argsort(-self.grad_norms)[:k]]
+            gn = self.grad_norms if live is None else np.where(
+                live, self.grad_norms, -np.inf)
+            return [int(c) for c in np.argsort(-gn)[:k]
+                    if live is None or live[c]]
         if st.selection and st.select_fraction < 1.0:
-            return self.selector.select(k)
-        return list(range(self.num_clients))
+            return self.selector.select(k, live=live)
+        return [c for c in range(self.num_clients)
+                if live is None or live[c]]
+
+    def _advance_world(self) -> None:
+        """The world of the round now starting (absolute index
+        ``round_idx - 1``), as one host view for its accounting."""
+        if self._worlds is not None:
+            self._world_view = self._worlds.view(self.round_idx - 1)
 
     def run_round(self, rnd: int, evaluate: bool = True) -> RoundMetrics:
         self.round_idx += 1
+        self._advance_world()
         if self.megastep:
             return self._run_round_mega(rnd, evaluate)
         return self._run_round_loop(rnd, evaluate)
@@ -371,7 +438,10 @@ class FederatedSimulation:
     def _draw_dropout(self, cid: int, round_start: float) -> Optional[float]:
         """The client's dropout draw: None if it is lost this round, else
         its restart delay (0 when it did not drop)."""
-        if self.rng.random() < min(1.0, self.profiles[cid].dropout_p):
+        p = self.profiles[cid].dropout_p
+        if self._world_view is not None:
+            p = p * self._world_view["dropout_scale"]
+        if self.rng.random() < min(1.0, p):
             self.failure_log.append(round_start)
             self.selector.observe(cid, delivered=False)
             if not self.strategy.checkpointing:
@@ -386,7 +456,7 @@ class FederatedSimulation:
         transfer, selector, grad-norm EMA, LR scale, bytes, checkpoint.
         Returns its arrival time."""
         st = self.strategy
-        transfer = self._transfer_time(sent, self.profiles[cid])
+        transfer = self._transfer_time(sent, self.profiles[cid], cid)
         arrive = round_start + delay + train_time + transfer
         self.selector.observe(cid, delivered=True, passed=sent,
                               round_time=arrive - round_start)
@@ -505,17 +575,23 @@ class FederatedSimulation:
             C = len(cids)
             padded = 1 << (C - 1).bit_length()
             blist = g["batches"] + [g["batches"][-1]] * (padded - C)
-            batch = _to_device({k: np.stack([b[k] for b in blist])
-                                for k in blist[0]}, self.device)
+            batch = self._drift(_to_device({k: np.stack([b[k] for b in blist])
+                                            for k in blist[0]}, self.device))
             lr_scale = np.ones(padded, np.float32)
             lr_scale[:C] = self.client_lr_scale[cids]
+            byz = None
+            wv = self._world_view
+            if wv is not None and (wv["byz_factor"] != 1.0).any():
+                byz = np.ones(padded, np.float32)
+                byz[:C] = wv["byz_factor"][cids]
+                byz = torch.from_numpy(byz).to(self.device)
             idx = None
             if st.quantize_updates:
                 idx = torch.tensor(cids + [self.num_clients] * (padded - C),
                                    dtype=torch.int64, device=self.device)
             deltas, losses, ratios, norms, self._ef_arena = self._cohort_step(
                 self._params_mat, batch,
-                torch.from_numpy(lr_scale).to(self.device),
+                torch.from_numpy(lr_scale).to(self.device), byz,
                 self._ref_mat if has_ref else None, self._ef_arena, idx,
                 has_ref=has_ref)
             losses, ratios, norms = (losses.cpu().numpy(),
@@ -695,7 +771,8 @@ class FederatedSimulation:
                 recovery_time=self.recovery_time,
                 restart_time=self.restart_time,
                 eval_fn=(self._eval if self.fused_eval else None),
-                eval_every=self.eval_every)
+                eval_every=self.eval_every, scenario=self.scenario,
+                drift_dirs=self._drift_dirs)
         return self._scan_fns[R]
 
     def _scan_args(self, eval_mark: int = -1) -> list:
@@ -704,7 +781,7 @@ class FederatedSimulation:
         data, sizes, speed, latency, dropout_p = self._scan_setup()
         args = [self._params_mat, self._scan_ref, self._scan_ref_valid,
                 self._scan_ctl, data, sizes, speed, latency, dropout_p,
-                self._draws, self._scan_round0, self._scan_acc]
+                self._draws, self._worlds, self._scan_round0, self._scan_acc]
         if self.fused_eval:
             args += [self._scan_prev_acc, eval_mark, self._eval_dev]
         return args

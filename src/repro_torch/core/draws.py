@@ -21,6 +21,13 @@ The spmd step (core/fl_step.py) takes its draws the same way, one call a
 step: ``SpmdDraws.round_draws(step)`` gives (eps_u (k,), pick_u (k,),
 drop_u (C,)), the uniforms of ε-greedy exploration, pool picks and
 dropout that the JAX package draws from ``fold_in(PRNGKey(seed), step)``.
+
+A scenario's link walks (core/scenario.py) take one standard normal a
+client a round for bandwidth and one for latency, which the JAX package
+draws from ``fold_in(PRNGKey(links.seed), r)`` split in two.
+``LinkNormals(seed, n)(r)`` is the port's source of them;
+``scenario.WorldSource`` takes any callable of the same form, so a test can
+give an engine the reference's normals (or its whole world trajectory).
 """
 from __future__ import annotations
 
@@ -95,3 +102,17 @@ class SpmdDraws:
             2 * k + c, dtype=np.float32)
         dev = _to_device(torch.from_numpy(row), self.device)
         return dev[:k], dev[k:2 * k], dev[2 * k:]
+
+
+class LinkNormals:
+    """The link walks' standard normals of round r, ``(bw (n,), lat (n,))``
+    f32 numpy, from a numpy Generator seeded with (seed, absolute round):
+    a round's normals do not depend on the rounds before it."""
+
+    def __init__(self, seed: int, n: int):
+        self.seed, self.n = int(seed), int(n)
+
+    def __call__(self, r: int):
+        z = np.random.default_rng([self.seed, int(r)]).standard_normal(
+            2 * self.n, dtype=np.float32)
+        return z[:self.n], z[self.n:]

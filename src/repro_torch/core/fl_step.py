@@ -35,11 +35,19 @@ bf16): on the CPU the plain ``weighted_sum`` reduces in it, as the JAX
 oracle does; the CUDA kernel reduces in f32 whatever it is asked, as the
 Pallas kernels do (kernels/arena.py).
 
-Not ported yet: dynamic-world scenarios, topologies and two-stage
-candidate selection (ROADMAP.md queue 1 item 10); the JAX ``FLState``'s
-``world`` and ``topology`` fields belong to those and have no counterpart
-here. The prefill and serve steps at the end serve the dense language
-models.
+A dynamic-world ``scenario`` (core/scenario.py) is attached the same way:
+the JAX package transitions ``FLState.world`` inside its compiled step
+from a PRNG key; here the caller passes the round's ``WorldState``
+(``scenario.WorldSource``, computed on the host) as the step's
+``world``, and the step keeps it in ``FLState.world``. Churn gates the
+cohort masks, drift shifts the batch, the regime scales the dropout
+probabilities and byzantine factors scale the updates before the codec
+and the θ test.
+
+Not ported yet: topologies and two-stage candidate selection (ROADMAP.md
+queue 1 item 10); the JAX ``FLState``'s ``topology`` field belongs to
+those and has no counterpart here. The prefill and serve steps at the end
+serve the dense language models.
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ import torch
 from repro_torch.convert import params_from_jax
 from repro_torch.core import alignment, compression
 from repro_torch.core import control as control_mod
+from repro_torch.core import scenario as scenario_mod
 from repro_torch.device import resolve_device
 from repro_torch.kernels import arena as arena_mod
 from repro_torch.kernels import ref as _ref
@@ -64,6 +73,7 @@ class FLState(NamedTuple):
     step: torch.Tensor      # 0-dim int32
     metrics: dict           # running counters (accepted updates, rounds)
     control: Optional[control_mod.ControlState] = None
+    world: Optional[scenario_mod.WorldState] = None   # the last round's
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,12 +125,10 @@ def _not_ported(what: str, item: int):
                                f"ROADMAP.md queue 1 item {item}")
 
 
-def _check_options(optimizer, control_plane, scenario, topology) -> None:
+def _check_options(optimizer, control_plane, topology) -> None:
     if optimizer is None:
         raise _not_ported("the JAX package's default optimizer (adamw, "
                           "optim.for_config)", 14)
-    if scenario is not None:
-        raise _not_ported("a dynamic-world scenario", 10)
     if topology is not None:
         raise _not_ported("a hierarchical topology", 10)
     if control_plane is not None and control_plane.candidate_frac is not None:
@@ -135,11 +143,13 @@ def _template(cfg) -> Dict[str, torch.Tensor]:
 def init_state(generator: Optional[torch.Generator], cfg, optimizer=None,
                control_plane: Optional[ControlPlane] = None,
                scenario=None, topology=None, *, params=None,
-               device=None) -> FLState:
+               num_clients: Optional[int] = None, device=None) -> FLState:
     """The step's initial state on ``device`` (the card unless named):
     weights from ``params`` (a dict of tensors or arrays, e.g. the JAX
-    package's) or drawn from ``generator``."""
-    _check_options(optimizer, control_plane, scenario, topology)
+    package's) or drawn from ``generator``; with an active ``scenario``,
+    the world before round 0 of ``num_clients`` clients (or the control
+    plane's)."""
+    _check_options(optimizer, control_plane, topology)
     dev = resolve_device(device)
     if params is None:
         params = api.init_params(generator, cfg)
@@ -150,12 +160,22 @@ def init_state(generator: Optional[torch.Generator], cfg, optimizer=None,
         ctl = control_mod.init_control(
             control_plane.num_clients, arena=arena_mod.ParamArena(params),
             quantize=control_plane.quantize, device=dev)
+    world = None
+    if scenario_mod.is_active(scenario):
+        n = num_clients if num_clients is not None else (
+            control_plane.num_clients if control_plane is not None
+            else None)
+        if n is None:
+            raise ValueError("init_state(scenario=...) needs num_clients "
+                             "(or a control_plane that names it)")
+        world = scenario_mod.WorldState(*(
+            t.to(dev) for t in scenario_mod.init_world(scenario, n)))
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     return FLState(params, optimizer.init(params),
                    {k: torch.zeros_like(p, dtype=torch.int8)
                     for k, p in params.items()},
                    torch.zeros((), dtype=torch.int32, device=dev),
-                   {"accepted": zero, "rounds": zero.clone()}, ctl)
+                   {"accepted": zero, "rounds": zero.clone()}, ctl, world)
 
 
 def _per_client_grads(params: Dict[str, torch.Tensor], batch, cfg):
@@ -175,8 +195,8 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
                   lr_schedule=None, agg_dtype: torch.dtype = torch.bfloat16,
                   beacon_bytes: float = 0.125,
                   control_plane: Optional[ControlPlane] = None,
-                  scenario=None, topology=None):
-    """``step(state, batch, draws=None) -> (state, metrics)``.
+                  scenario=None, drift_dirs=None, topology=None):
+    """``step(state, batch, draws=None, world=None) -> (state, metrics)``.
 
     batch leaves have leading dims (C, per_client_batch, ...), on the
     state's device. theta=None -> synchronous FedAvg (mask == ones).
@@ -184,8 +204,13 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
     kernel reduces in f32). beacon_bytes: wire cost of a filtered client's
     1-bit skip beacon, charged into ``bytes_sent``. control_plane: the
     device control plane as cohort masking; its draws come in ``draws``.
+    scenario: the dynamic world (a ``ScenarioSpec``), whose round comes in
+    ``world`` (a ``WorldState`` on the state's device); ``drift_dirs``
+    ((classes, features) f32) with a drift.
     """
-    _check_options(optimizer, control_plane, scenario, topology)
+    _check_options(optimizer, control_plane, topology)
+    scn = scenario if scenario_mod.is_active(scenario) else None
+    dirs = {}                        # device -> drift directions
     arena = arena_mod.ParamArena(_template(cfg))
     cp = control_plane if (control_plane is not None
                            and control_plane.active()) else None
@@ -209,8 +234,20 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
         return consts[dev]
 
     @torch.no_grad()
-    def step(state: FLState, batch, draws=None):
+    def step(state: FLState, batch, draws=None, world=None):
         dev = state.step.device
+        # (0) dynamic world: this round's WorldState
+        ws = state.world
+        if scn is not None:
+            if world is None:
+                raise ValueError("this step runs a scenario: pass the "
+                                 "round's world (scenario.WorldSource)")
+            ws = world
+            if scn.drift is not None:
+                if dev not in dirs:
+                    dirs[dev] = torch.as_tensor(drift_dirs).to(dev)
+                batch = scenario_mod.apply_drift(batch, ws.drift_amp,
+                                                 dirs[dev])
         # (1) per-client gradients at the shared weights
         loss, grads = _per_client_grads(state.params, batch, cfg)
         C = loss.shape[0]
@@ -225,27 +262,49 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
                                  "dropout uniforms: pass draws=(eps_u, "
                                  "pick_u, drop_u) (core/draws.py)")
             eps_u, pick_u, drop_u = draws if draws is not None else (None,) * 3
-            delivered = drop_u >= k["drop_p"] if cp.has_dropout else ones
+            if cp.has_dropout:
+                drop_p = k["drop_p"]
+                if scn is not None and scn.dropout is not None:
+                    drop_p = drop_p * ws.dropout_scale
+                delivered = drop_u >= drop_p
+            else:
+                delivered = ones
+            live = None if scn is None else ws.live
             if cp.grad_norm_selection:
-                sel_idx = torch.argsort(-ctl.grad_norm,
-                                        stable=True)[:cp.select_k]
+                gn = ctl.grad_norm if live is None else torch.where(
+                    live, ctl.grad_norm, -torch.inf)
+                sel_idx = torch.argsort(-gn, stable=True)[:cp.select_k]
             elif cp.selecting:
+                scores = control_mod.score(ctl)
+                if live is not None:
+                    scores = torch.where(live, scores, -torch.inf)
                 sel_idx = control_mod.select_topk_epsilon(
-                    control_mod.score(ctl), cp.select_k, cp.epsilon,
-                    eps_u=eps_u, pick_u=pick_u)
+                    scores, cp.select_k, cp.epsilon, eps_u=eps_u,
+                    pick_u=pick_u, live=live)
             else:
                 sel_idx = None
             selected = (ones if sel_idx is None else
                         torch.zeros_like(ones).index_fill(0, sel_idx, True))
+            if live is not None:
+                # churned clients are absent: they deliver nothing and the
+                # reliability EMAs never observe them
+                delivered = delivered & live
             active = selected & delivered
         else:
             selected = delivered = active = ones
+            if scn is not None:
+                delivered = ws.live
+                active = selected & delivered
         f_active = active.to(torch.float32)
 
         # (2)+(3) selective aggregation on the (C, rows, LANE) arena
         u = arena.pack_cohort(grads)
         if cp is not None and cp.per_client_lr:
             u = u * ctl.lr_scale[:, None, None]
+        if scn is not None and scn.byzantine is not None:
+            # corruption before the codec and the θ test: the server
+            # receives (and the filter judges) the corrupted update
+            u = u * ws.byz_factor[:, None, None]
         if cp is not None and cp.quantize:
             # int8 + error feedback on the wire; only participating
             # clients quantize and carry residuals
@@ -289,7 +348,9 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
         if cp is not None:
             cohort = k["cohort"]
             sent = mask > 0
-            ctl = control_mod.observe(ctl, cohort, mask=selected,
+            ctl = control_mod.observe(ctl, cohort,
+                                      mask=(selected if scn is None
+                                            else selected & ws.live),
                                       delivered=delivered, passed=sent,
                                       round_time=k["hint"], ema=cp.ema)
             ctl = control_mod.grad_norm_update(ctl, cohort, norms, active)
@@ -299,7 +360,8 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
 
         update_bytes = wire_bytes if wire_bytes else _update_bytes(
             state.params)
-        n_sel = selected.sum().to(torch.float32)
+        n_sel = (selected if scn is None
+                 else selected & ws.live).sum().to(torch.float32)
         metrics = {
             "loss": loss.mean(),
             # pre-fallback pass fraction over the selected cohort
@@ -322,7 +384,7 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
         run = {"accepted": state.metrics["accepted"] + mask.sum(),
                "rounds": state.metrics["rounds"] + 1.0}
         return FLState(new_params, new_opt, new_ref, state.step + 1, run,
-                       ctl), metrics
+                       ctl, ws), metrics
 
     return step
 
@@ -330,7 +392,7 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
 def build_fl_train_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
                         lr_schedule=None, beacon_bytes: float = 0.125,
                         control_plane: Optional[ControlPlane] = None,
-                        scenario=None, topology=None,
+                        scenario=None, drift_dirs=None, topology=None,
                         agg_dtype: torch.dtype = torch.bfloat16):
     """The trainers' step: ``make_raw_step`` as it is (PyTorch runs
     eagerly; the JAX package jits it here). ``agg_dtype`` stays the JAX
@@ -338,7 +400,7 @@ def build_fl_train_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
     return make_raw_step(cfg, optimizer, theta, lr_schedule,
                          agg_dtype=agg_dtype, beacon_bytes=beacon_bytes,
                          control_plane=control_plane, scenario=scenario,
-                         topology=topology)
+                         drift_dirs=drift_dirs, topology=topology)
 
 
 # ---------------------------------------------------------------------------

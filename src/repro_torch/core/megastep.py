@@ -35,6 +35,7 @@ from typing import Dict, Sequence
 import torch
 
 from repro_torch.core import aggregation, alignment, compression, control
+from repro_torch.core.scenario import apply_drift as _apply_drift
 from repro_torch.kernels import arena as arena_ops
 from repro_torch.models import api
 
@@ -55,32 +56,46 @@ def local_sgd(cfg, opt, params: Dict[str, torch.Tensor],
     """
     C = lr_scale.shape[0]
     steps = batches["x"].shape[1]
-    names = tuple(sorted(params))
-    p = {k: params[k].expand((C,) + params[k].shape).clone() for k in names}
+    p = {k: v.expand((C,) + v.shape).clone() for k, v in params.items()}
     state = opt.init(p)
-    scale = {k: lr_scale.reshape((C,) + (1,) * params[k].dim())
-             for k in names}
     losses = []
     for t in range(steps):
-        q = {k: p[k].requires_grad_(True) for k in names}
-        batch = {k: v[:, t] for k, v in batches.items()}
-        with torch.enable_grad():
-            loss = api.loss_fn(q, batch, cfg)                  # (C,)
-            grads = torch.autograd.grad(loss.sum(), [q[k] for k in names])
-        grads = {k: g * scale[k] for k, g in zip(names, grads)}
-        p, state = opt.update(grads, state, {k: q[k].detach() for k in names})
-        losses.append(loss.detach())
+        p, state, loss = local_step(cfg, opt, p, state,
+                                    {k: v[:, t] for k, v in batches.items()},
+                                    lr_scale)
+        losses.append(loss)
     return p, torch.stack(losses, dim=1).mean(dim=1)
 
 
+@torch.no_grad()
+def local_step(cfg, opt, p, state, batch, lr_scale):
+    """One step of ``local_sgd``: the cohort's parameters ``p`` and
+    optimizer ``state`` (leaves with the client axis C) after one
+    momentum-SGD step on ``batch`` (leaves (C, B, ...)), and the (C,)
+    losses before it."""
+    names = tuple(sorted(p))
+    q = {k: p[k].detach().requires_grad_(True) for k in names}
+    with torch.enable_grad():
+        loss = api.loss_fn(q, batch, cfg)                      # (C,)
+        grads = torch.autograd.grad(loss.sum(), [q[k] for k in names])
+    grads = {k: g * lr_scale.reshape((-1,) + (1,) * (g.dim() - 1))
+             for k, g in zip(names, grads)}
+    p, state = opt.update(grads, state, {k: q[k].detach() for k in names})
+    return p, state, loss.detach()
+
+
 def build_cohort_step(cfg, opt, arena, theta=None, quantize: bool = False):
-    """Returns ``step(params_mat, batches, lr_scale, ref_mat, ef, idx, *,
-    has_ref) -> (deltas, losses, ratios, norms, new_ef)``.
+    """Returns ``step(params_mat, batches, lr_scale, byz, ref_mat, ef, idx,
+    *, has_ref) -> (deltas, losses, ratios, norms, new_ef)``.
 
     params_mat: (rows, lane) f32 arena of the round-start globals.
     batches:    dict, leaves (C, steps, B, ...) — the stacked cohort;
                 labels int64.
     lr_scale:   (C,) f32 per-client LR scaling (FedL2P personalization).
+    byz:        (C,) f32 per-client update multipliers (a scenario's
+                byzantine clients: ±scale; None: everyone honest), applied
+                before the codec and the θ test: the server receives the
+                corrupted update.
     ref_mat:    (rows, lane) int8 reference sign (None until it exists).
     ef, idx:    (N, rows, lane) error-feedback arena and (C,) int64 client
                 ids (quantize only; otherwise None, and ``new_ef`` is
@@ -90,12 +105,14 @@ def build_cohort_step(cfg, opt, arena, theta=None, quantize: bool = False):
     """
 
     @torch.no_grad()
-    def cohort_step(params_mat, batches, lr_scale, ref_mat, ef, idx, *,
+    def cohort_step(params_mat, batches, lr_scale, byz, ref_mat, ef, idx, *,
                     has_ref):
         params = arena.unpack(params_mat)
         trained, losses = local_sgd(cfg, opt, params, batches, lr_scale)
         deltas = arena.pack_cohort({k: trained[k] - params[k]
                                     for k in arena.names})
+        if byz is not None:
+            deltas = deltas * byz[:, None, None]
         new_ef = ef
         if quantize:
             deltas, residual = compression.compress_cohort(deltas, ef[idx])
@@ -144,9 +161,10 @@ def build_scanned_rounds(cfg, opt, arena, st, comm, *, num_clients: int,
                          wire_bytes=None, epsilon: float = 0.1,
                          ema: float = 0.8, recovery_time: float = 0.2,
                          restart_time: float = 1.0, eval_fn=None,
-                         eval_every: int = 1):
+                         eval_every: int = 1, scenario=None,
+                         drift_dirs=None):
     """Returns ``run(params_mat, ref_mat, ref_valid, ctl, data, sizes,
-    speed, latency, dropout_p, draws, round0, acc, prev_acc=None,
+    speed, latency, dropout_p, draws, worlds, round0, acc, prev_acc=None,
     eval_mark=-1, eval_data=None) -> (carry, metrics)``: R full FL rounds
     — {select → train cohort → θ-filter → staleness-weighted arena
     aggregate → control update} — as one dispatch.
@@ -165,7 +183,14 @@ def build_scanned_rounds(cfg, opt, arena, st, comm, *, num_clients: int,
     ``data`` (leaves (N, cap, ...)), ``sizes`` (N,) i32, ``speed``,
     ``latency``, ``dropout_p`` (N,) f32 are the population on the device;
     ``draws`` is a draw source (core/draws.py) and ``round0`` the host
-    index of the dispatch's first round. ``alpha_table`` holds α(τ) for
+    index of the dispatch's first round. With a ``scenario``, ``worlds``
+    is its ``scenario.WorldSource`` (None without one), prepared once a
+    dispatch like the draws: each round's world masks churned clients out
+    of the scores and the live count (fewer than K live leaves the rest of
+    the cohort without weight), scales the dropout probabilities, drifts
+    the gathered batches by ``drift_dirs`` (a (classes, features) tensor),
+    scales the byzantine clients' deltas before the codec and re-prices
+    each transfer. ``alpha_table`` holds α(τ) for
     τ < K on the device (``aggregation.staleness_weights_np``).
 
     Semantics against the event-driven engine are the JAX package's (its
@@ -182,10 +207,11 @@ def build_scanned_rounds(cfg, opt, arena, st, comm, *, num_clients: int,
     theta_on = st.theta is not None
     payload = float(wire_bytes if (st.quantize_updates and wire_bytes)
                     else param_bytes)
+    scn = scenario if (scenario is not None and scenario.active()) else None
 
     @torch.no_grad()
     def run(params_mat, ref_mat, ref_valid, ctl, data, sizes, speed, latency,
-            dropout_p, draws, round0: int, acc, prev_acc=None,
+            dropout_p, draws, worlds, round0: int, acc, prev_acc=None,
             eval_mark: int = -1, eval_data=None):
         dev = params_mat.device
         f32 = dict(dtype=torch.float32, device=dev)
@@ -202,29 +228,45 @@ def build_scanned_rounds(cfg, opt, arena, st, comm, *, num_clients: int,
         arange_k = torch.arange(K, device=dev)
         sim_t, comm_t, idle_t, bytes_s = acc.unbind(0)
         draws.prepare(round0, R)
+        if scn is not None:
+            worlds.prepare(round0, R)
         rows = []
         for r in range(round0, round0 + R):
             eps_u, pick_u, drop_u = draws.round_draws(r)
+            ws = worlds.world(r) if scn is not None else None
 
             # --- selection: fixed-width top-k cohort -------------------
+            # (churned clients score -inf: picked only when fewer than K
+            # are live, and then their slots carry no weight)
             if st.grad_norm_selection:
-                cohort = torch.argsort(-ctl.grad_norm, stable=True)[:K]
+                gn = ctl.grad_norm if scn is None else torch.where(
+                    ws.live, ctl.grad_norm, -torch.inf)
+                cohort = torch.argsort(-gn, stable=True)[:K]
             elif st.selection and K < N:
+                scores = control.score(ctl)
+                if scn is not None:
+                    scores = torch.where(ws.live, scores, -torch.inf)
                 cohort = control.two_stage_select(
-                    control.score(ctl), K, epsilon=epsilon, eps_u=eps_u,
-                    pick_u=pick_u)
+                    scores, K, epsilon=epsilon, eps_u=eps_u, pick_u=pick_u,
+                    live=None if scn is None else ws.live)
             else:
                 cohort = arange_k
+            live_c = all_k if scn is None else ws.live[cohort]
 
             # --- dropout draws (§IV-C fault model) ---------------------
-            failed = drop_u < dropout_p[cohort]
+            drop_p = dropout_p[cohort]
+            if scn is not None and scn.dropout is not None:
+                drop_p = drop_p * ws.dropout_scale
+            failed = drop_u < drop_p
+            if scn is not None:
+                failed = failed & live_c      # absent clients cannot fail
             if st.checkpointing:
-                active = all_k
+                active = live_c
                 delay = torch.where(
                     failed, torch.where(ctl.has_ckpt[cohort], c_rec, c_rst),
                     0.0)
             else:
-                active = ~failed
+                active = ~failed & live_c
                 delay = torch.zeros((K,), **f32)
 
             # --- cohort batches: on-device gather of sampled rows ------
@@ -232,6 +274,8 @@ def build_scanned_rounds(cfg, opt, arena, st, comm, *, num_clients: int,
             idx = draws.batch_index(r, sz)
             batch = {name: leaf[cohort[:, None, None], idx]
                      for name, leaf in data.items()}
+            if scn is not None and scn.drift is not None:
+                batch = _apply_drift(batch, ws.drift_amp, drift_dirs)
 
             # --- local training: the cohort as a batch dimension -------
             params = arena.unpack(params_mat)
@@ -239,6 +283,9 @@ def build_scanned_rounds(cfg, opt, arena, st, comm, *, num_clients: int,
             trained, losses = local_sgd(cfg, opt, params, batch, lr_scale)
             deltas = arena.pack_cohort({k: trained[k] - params[k]
                                         for k in arena.names})
+            if scn is not None and scn.byzantine is not None:
+                # corruption before the codec and the θ test
+                deltas = deltas * ws.byz_factor[cohort][:, None, None]
             if st.quantize_updates:
                 ef_cohort = arena_ops.cohort_gather(ctl.ef, cohort)
                 restored, residual = compression.compress_cohort(
@@ -269,7 +316,12 @@ def build_scanned_rounds(cfg, opt, arena, st, comm, *, num_clients: int,
                         + steps_f * b_eff * comm.t_sample)
                        / torch.clamp_min(speed[cohort], 1e-3))
             msg_bytes = torch.where(sent, c_payload, c_beacon)
-            transfer = latency[cohort] + msg_bytes / c_bw
+            if scn is not None and scn.links is not None:
+                # the link walk re-prices this round's transfer
+                transfer = (latency[cohort] * ws.lat_scale[cohort]
+                            + msg_bytes / (c_bw * ws.bw_scale[cohort]))
+            else:
+                transfer = latency[cohort] + msg_bytes / c_bw
             arrive = delay + train_t + transfer    # rel. to round start
             n_active = active.sum().to(torch.int32)
             n_sent = sent.sum().to(torch.int32)
@@ -332,10 +384,14 @@ def build_scanned_rounds(cfg, opt, arena, st, comm, *, num_clients: int,
 
             loss_mean = (torch.sum(torch.where(active, losses, 0.0))
                          / torch.clamp_min(n_active.to(torch.float32), 1.0))
+            # under churn the accept rate's denominator is the live cohort
+            # (the host paths' len(selected)), not the cohort's width
+            denom = (c_k if scn is None or scn.churn is None else
+                     torch.clamp_min(live_c.sum().to(torch.float32), 1.0))
             row = {
                 "sim_time": sim_t, "comm_time": comm_t, "idle_time": idle_t,
                 "bytes_sent": bytes_s, "updates_applied": updates_applied,
-                "accept_rate": n_sent.to(torch.float32) / c_k,
+                "accept_rate": n_sent.to(torch.float32) / denom,
                 "loss": loss_mean,
                 "n_failures": failed.sum().to(torch.int32),
                 "cohort": cohort,

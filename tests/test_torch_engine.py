@@ -189,7 +189,6 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 REFUSED = {
     "optimizer": dict(engine="spmd", strategy="fedavg", optimizer="adamw"),
-    "scenario": dict(scenario="drift"),
     "topology": dict(topology="two-tier-pods"),
     "candidate_frac": dict(candidate_frac=0.5),
     "world.resident": dict(world=T.WorldSpec(resident=False)),

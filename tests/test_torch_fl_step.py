@@ -145,8 +145,6 @@ def test_step_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 14"):
         tfl.make_raw_step(tcfgs.SMOKE, None)
     with pytest.raises(NotImplementedError, match="item 10"):
-        tfl.make_raw_step(tcfgs.SMOKE, opt, scenario="drift")
-    with pytest.raises(NotImplementedError, match="item 10"):
         tfl.make_raw_step(tcfgs.SMOKE, opt, control_plane=tfl.ControlPlane(
             num_clients=4, select_k=2, candidate_frac=0.5))
     step = tfl.make_raw_step(tcfgs.SMOKE, opt, control_plane=tfl.ControlPlane(

@@ -12,6 +12,7 @@ from repro.core import aggregation as jagg
 from repro.core import async_engine as jae
 from repro.core import batchsize as jbs
 from repro.core import checkpoint_policy as jck
+from repro.core import scenario as jscn
 from repro.core import schedule as jsched
 from repro.core import selection as jsel
 from repro.data import loader as jloader
@@ -22,6 +23,7 @@ from repro_torch.core import aggregation as tagg
 from repro_torch.core import async_engine as tae
 from repro_torch.core import batchsize as tbs
 from repro_torch.core import checkpoint_policy as tck
+from repro_torch.core import scenario as tscn
 from repro_torch.core import schedule as tsched
 from repro_torch.core import selection as tsel
 from repro_torch.data import loader as tloader
@@ -158,3 +160,12 @@ def test_profile_factories_are_identical():
         for st in (dict(), dict(local_epochs=2, max_samples_per_round=512)):
             assert jae.local_step_count(n, bs, jae.StrategyConfig(**st)) == \
                 tae.local_step_count(n, bs, tae.StrategyConfig(**st))
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_drift_directions_are_byte_identical(seed):
+    for classes, features in ((10, 49), (2, 16)):
+        _same(jscn.drift_directions(jscn.DriftSpec(seed=seed), classes,
+                                    features),
+              tscn.drift_directions(tscn.DriftSpec(seed=seed), classes,
+                                    features))

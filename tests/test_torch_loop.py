@@ -6,9 +6,14 @@ and runs, record for record, from the JAX simulation's own initial
 parameters; and the port's two paths against each other.
 
 Tolerances: ``repro_torch.api.parity`` states them, with their reasons.
-Records as in tests/test_torch_engine.py; error-feedback state after
-round 0 within ``ef_mismatches`` (later rounds compound the rare code
-flips, see parity.py); the port's loop against its megastep within
+Records as in tests/test_torch_engine.py. Round 0 of an int8 run in its
+two parts (see parity.py): the codec by bits, on the port's own pre-codec
+deltas, and every local step of every client from the reference's state
+within ``step_mismatches``, the ReLU sides within ``relu_kinks`` (seed 2's
+anomaly-mlp case has one pre-activation within rounding of 0: client 2,
+last local step, sample 0, unit 48 of the second hidden layer, on which
+the two packages' whole error-feedback states part by machine); the
+port's loop against its megastep within
 ``path_mismatches``, the JAX package's own tolerances for that pair. The
 quantized runs use seed 2: on seed 0 one θ ratio of the full-width case
 lies 8.6e-5 from θ, inside the band where the decision is not
@@ -21,14 +26,24 @@ import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp
 import repro.api as J
 from repro.api import runner as jrunner
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.models import api as japi
+from repro.models import layers as jlayers
+from repro.models import mlp_detector as jmlp
+from repro.optim import adamw as jadamw
 
 import repro_torch as T
 from repro_torch.api import parity
-from repro_torch.kernels import ops as tops
+from repro_torch.core import async_engine as tengine
+from repro_torch.core import compression as tcompression
+from repro_torch.core import megastep as tmegastep
 from repro_torch.models import api as tapi
+from repro_torch.models import mlp_detector as tmlp
+from repro_torch.optim import adamw as tadamw
 
 CASES = {
     "smoke": dict(model="anomaly-mlp-smoke", n=1500, ev=300, clients=4,
@@ -91,31 +106,169 @@ def test_loop_matches_jax(case, strategy):
         assert sorted(sim.ref_sign) == sorted(jsim.ref_sign)
 
 
+def _record_round(monkeypatch):
+    """Records the port's local trainings (client ids, start parameters,
+    batches, LR scales) and codec calls (inputs, outputs), in call order."""
+    drawn, trainings, codec = [], [], []
+    draw, train = tengine.FederatedSimulation._client_batches, \
+        tmegastep.local_sgd
+
+    def client_batches(self, cid):
+        out = draw(self, cid)
+        drawn.append((cid, out[1], self.loaders[cid].batch_size))
+        return out
+
+    def local_sgd(cfg, opt, params, batches, lr_scale):
+        shape = tuple(batches["x"].shape[1:3])
+        cids = [c for c, *s in drawn if tuple(s) == shape]
+        drawn[:] = [d for d in drawn if d[0] not in cids]
+        trainings.append((cids, dict(params), dict(batches), lr_scale))
+        return train(cfg, opt, params, batches, lr_scale)
+
+    def recorded(fn):
+        def call(*args):
+            out = fn(*args)
+            codec.append((args, out))
+            return out
+        return call
+
+    monkeypatch.setattr(tengine.FederatedSimulation, "_client_batches",
+                        client_batches)
+    monkeypatch.setattr(tmegastep, "local_sgd", local_sgd)
+    for name in ("compress_update", "compress_cohort"):
+        monkeypatch.setattr(tcompression, name,
+                            recorded(getattr(tcompression, name)))
+    return trainings, codec
+
+
+def _pre_activations(mod, params, x, cfg):
+    """The hidden layers' pre-activations, by the package's own forward on
+    the layers below (its last layer is not rectified)."""
+    return [mod.forward({k: params[k] for k in params if int(k[1:]) <= i}, x,
+                        dataclasses.replace(cfg, mlp_hidden=cfg.mlp_hidden[:i]))
+            for i in range(len(cfg.mlp_hidden))]
+
+
+def _jax_local_step(cfg, lr):
+    """The JAX package's local step (core/megastep._train_cohort) over a
+    cohort, with the ReLU's derivative taken from given masks: its values
+    stay jax.nn.relu's."""
+    opt = jadamw.sgd(lr=lr)
+
+    def loss(p, batch, masks):
+        x = batch["x"]
+        for i in range(len(cfg.mlp_hidden) + 1):
+            x = x @ p[f"w{i}"] + p[f"b{i}"]
+            if i < len(cfg.mlp_hidden):
+                gated = jnp.where(masks[i], x, 0.0)
+                x = gated + jax.lax.stop_gradient(jax.nn.relu(x) - gated)
+        return jlayers.softmax_xent(x, batch["y"])
+
+    def step(p, state, batch, scale, masks):
+        grads = jax.grad(loss)(p, batch, masks)
+        return opt.update(jax.tree.map(lambda g: g * scale, grads), state, p)
+
+    return jax.jit(jax.vmap(step)), opt
+
+
+def _local_steps_vs_jax(trainings, tspec, jspec):
+    """Every local step of every recorded training, the port's from the
+    JAX package's state at that step: (kinks, problems)."""
+    tcfg, jcfg = tspec.resolve_model(), jspec.resolve_model()
+    lr = tspec.strategy_kwargs["lr"]
+    jstep, jopt = _jax_local_step(jcfg, lr)
+    topt = tadamw.sgd(lr=lr)
+    kinks, problems = [], []
+    for cids, params, batches, lr_scale in trainings:
+        C, steps = batches["x"].shape[:2]
+        jp = {k: jnp.broadcast_to(v.numpy(), (C,) + tuple(v.shape))
+              for k, v in params.items()}
+        jstate = jopt.init(jp)
+        scale = jnp.asarray(lr_scale.numpy())
+        for t in range(steps):
+            batch = {k: v[:, t] for k, v in batches.items()}
+            jbatch = {"x": jnp.asarray(batch["x"].numpy()),
+                      "y": jnp.asarray(batch["y"].numpy().astype(np.int32))}
+            tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+            tstate = {"mom": {k: torch.from_numpy(np.array(v))
+                              for k, v in jstate["mom"].items()}}
+            got, _, _ = tmegastep.local_step(tcfg, topt, tp, tstate, batch,
+                                             lr_scale)
+            z_got = [z.numpy() for z in
+                     _pre_activations(tmlp, tp, batch["x"], tcfg)]
+            z_want = [np.asarray(z) for z in jax.vmap(
+                lambda p, x: _pre_activations(jmlp, p, x, jcfg))(
+                    jp, jbatch["x"])]
+            zabs = [np.asarray(z) for z in jax.vmap(
+                lambda p, x: _pre_activations(
+                    jmlp, jax.tree.map(jnp.abs, p), jnp.abs(x), jcfg))(
+                        jp, jbatch["x"])]
+            # |h| of the layers below is their rectified values, not |z|
+            for i in range(1, len(zabs)):
+                h = np.maximum(z_want[i - 1], 0.0)
+                zabs[i] = np.einsum("cbh,chj->cbj", h, np.abs(
+                    np.asarray(jp[f"w{i}"]))) + np.abs(
+                        np.asarray(jp[f"b{i}"]))[:, None]
+            for c, cid in enumerate(cids):
+                for i, (zg, zw, za) in enumerate(zip(z_got, z_want, zabs)):
+                    k, f = parity.relu_kinks(
+                        zg[c], zw[c], za[c],
+                        f"client {cid}, step {t}, layer {i}: ")
+                    kinks += k
+                    problems += f
+            want, _ = jstep(jp, jstate, jbatch, scale,
+                            [jnp.asarray(z > 0) for z in z_got])
+            for c, cid in enumerate(cids):
+                problems += parity.step_mismatches(
+                    {k: v[c] for k, v in got.items()},
+                    {k: np.asarray(v[c]) for k, v in want.items()},
+                    {k: np.asarray(v[c]) for k, v in jp.items()},
+                    f"client {cid}, step {t}: ")
+            jp, jstate = jstep(jp, jstate, jbatch, scale,
+                               [jnp.asarray(z > 0) for z in z_want])
+    return kinks, problems
+
+
 @pytest.mark.parametrize("megastep", [True, False], ids=["megastep", "loop"])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_quantized_matches_jax(case, megastep):
+def test_quantized_matches_jax(case, megastep, monkeypatch):
     tspec = _spec(T, case, "ours", seed=2, quantize=True, megastep=megastep)
-    sim, jsim = _run_both(tspec, _spec(J, case, "ours", seed=2,
-                                       quantize=True, megastep=megastep),
-                          rounds=1)
+    jspec = _spec(J, case, "ours", seed=2, quantize=True, megastep=megastep)
+    trainings, codec = _record_round(monkeypatch)
+    sim, jsim = _run_both(tspec, jspec, rounds=1)
+    monkeypatch.undo()
     assert sim._wire_bytes == jsim._wire_bytes == \
         sim._arena.rows * (1024 + 4)
-    if megastep:
-        # row N takes the padding rows' residuals; no result reads it
-        assert sim._ef_arena.shape == tuple(jsim._ef_arena.shape)
-        problems = parity.ef_mismatches(sim._ef_arena[:-1].numpy(),
-                                        np.asarray(jsim._ef_arena)[:-1])
-        assert not problems, problems
-        assert sim._ef_arena[:-1].any()
-    else:
-        assert sorted(sim._ef_state) == sorted(jsim._ef_state)
-        for cid, err in sim._ef_state.items():
-            want = {k: torch.from_numpy(np.array(v))
-                    for k, v in jsim._ef_state[cid].items()}
-            assert sorted(err) == sorted(want)
-            problems = parity.ef_mismatches(tops.flatten_to_lanes(err)[0],
-                                            tops.flatten_to_lanes(want)[0])
-            assert not problems, (cid, problems)
+    # round 0's codec, by bits: the JAX package's plain codec
+    # (kernels/ref.py) on the port's own pre-codec deltas gives the port's
+    # wire payload and residuals
+    assert len(codec) == len(trainings)
+    for (cids, *_), (args, out) in zip(trainings, codec):
+        if megastep:
+            corrected = (args[0] + args[1]).numpy()
+            q, s = jref.quantize_q8(corrected.reshape(-1, corrected.shape[-1]))
+            restored = np.asarray(jref.dequantize_q8(q, s)).reshape(
+                corrected.shape)
+            want = (restored, corrected - restored)
+            assert torch.equal(sim._ef_arena[torch.tensor(cids)],
+                               out[1][:len(cids)])
+        else:
+            corrected = {k: jnp.asarray((v + args[1][k]).numpy())
+                         for k, v in args[0].items()}
+            mat, _n = jops.flatten_to_lanes(corrected)
+            q, s = jref.quantize_q8(mat)
+            restored = jops.unflatten_from_lanes(jref.dequantize_q8(q, s),
+                                                 corrected)
+            want = (q, s) + tuple(corrected[k] - restored[k]
+                                  for k in sorted(corrected))
+            assert sim._ef_state[cids[0]] is out[3]
+            out = out[:2] + tuple(out[3][k] for k in sorted(out[3]))
+        for g, w in zip(out, want):
+            assert np.array_equal(g.numpy(), np.asarray(w))
+    assert sim._ef_arena[:-1].any() if megastep else sim._ef_state
+    # round 0's local training, step by step from the reference's state
+    kinks, problems = _local_steps_vs_jax(trainings, tspec, jspec)
+    assert not problems, (problems, kinks)
     jsim.run(tspec.rounds - 1, eval_final=True)
     sim.run(tspec.rounds - 1)
     _assert_same_run(sim, jsim, tspec)

@@ -72,7 +72,7 @@ def test_cohort_step_matches_jax(name, has_ref):
                               None, None, has_ref=has_ref)
     tstep = tmega.build_cohort_step(tc, topt.sgd(lr=3e-2), ta, theta=0.65)
     td, tl, tr, tn, _ = tstep(torch.from_numpy(pmat), _tbatch(x, y),
-                              torch.from_numpy(lr_scale),
+                              torch.from_numpy(lr_scale), None,
                               torch.from_numpy(ref) if has_ref else None,
                               None, None, has_ref=has_ref)
     _close(td.numpy(), jd)
@@ -103,7 +103,7 @@ def test_quantized_cohort_step_matches_jax(name):
     tstep = tmega.build_cohort_step(tc, topt.sgd(lr=3e-2), ta, theta=0.65,
                                     quantize=True)
     td, tl, tr, tn, tef = tstep(torch.from_numpy(pmat), _tbatch(x, y),
-                                torch.from_numpy(lr_scale),
+                                torch.from_numpy(lr_scale), None,
                                 torch.from_numpy(ref), torch.from_numpy(ef),
                                 torch.from_numpy(idx), has_ref=True)
     assert tef.shape == ef.shape
@@ -126,7 +126,8 @@ def test_cohort_step_scales_each_clients_gradient():
     x[1], y[1] = x[0], y[0]
     tstep = tmega.build_cohort_step(tc, topt.sgd(lr=3e-2), ta)
     td, *_ = tstep(torch.from_numpy(pmat), _tbatch(x, y),
-                   torch.tensor([1.0, 0.25]), None, None, None, has_ref=False)
+                   torch.tensor([1.0, 0.25]), None, None, None, None,
+                   has_ref=False)
     np.testing.assert_allclose(td[1].numpy(), 0.25 * td[0].numpy(), rtol=0,
                                atol=2.0 ** -22 * np.abs(pmat).max())
 

@@ -216,6 +216,7 @@ ACCEPTED = {
     "per_client_lr": dict(strategy="fedl2p"),
     "lr_schedule": dict(strategy="fedavg", lr_schedule=lambda s: 0.01),
     "optimizer-sgd": dict(strategy="fedavg", optimizer="sgd"),
+    "scenario": dict(strategy="cmfl", scenario="dynamic"),
 }
 REFUSED_LIKE_JAX = {
     "async": (dict(strategy="ours", dynamic_batch=False), "schedule.kind"),
@@ -228,7 +229,6 @@ REFUSED_LIKE_JAX = {
 NOT_PORTED = {
     "adamw": (dict(optimizer="adamw"), "optimizer", 14),
     "adafactor": (dict(optimizer="adafactor"), "optimizer", 14),
-    "scenario": (dict(scenario="drift"), "scenario", 10),
     "topology": (dict(topology="two-tier-pods"), "topology", 10),
     "candidate_frac": (dict(candidate_frac=0.5), "candidate_frac", 10),
 }
