@@ -140,6 +140,37 @@ Phases, each printing JSON lines:
                scanned run at 4 rounds per dispatch equal to 1
                (``"phase": "r4_vs_r1"``) and one of its dispatches under
                ``set_sync_debug_mode("error")``.
+  6c. topology — hierarchical topologies (repro_torch/topology). The
+               grouped ``per_client_sign_align`` (P references, client c
+               against reference c // (C / P), one launch) against its
+               plain version, counts equal, at P in {1, 2, 8} by clients a
+               reference in {1, 2, 4, 8} by R in {54, 864}, each case's last
+               group all zeros, and on every sign case; at P = 1 (C 16 × R
+               54) the reference as (R, 1024) and as (1, R, 1024), counts
+               equal, eager and device ms of each in five alternating turns;
+               and the full-width sync's shape (8 pods into 2 regions, R 54)
+               timed beside its bound and plain version (``"phase":
+               "kernels"``). Then
+               examples/hierarchical_federation.py's spec at full width
+               (``anomaly-mlp``, 64 clients, pods [8, 2, 1], ``drift``, 16
+               rounds, scanned R = 4): records equal by bits to the same run
+               without the topology, the topology state equal by bits to a
+               second run and to R = 1, one grouped sign-align launch a θ
+               sync, its ``topology_summary()`` and wall s a round with and
+               without beside nvidia-smi's name and power limit (``"phase":
+               "topology_overhead"``), one of its dispatches under
+               ``set_sync_debug_mode("error")``. Then the quickstart under
+               ``two-tier-pods`` and ``edge-region-global`` on the paths of
+               6b: records equal by bits to the run without a topology, and
+               card against CPU (``"phase": "card_vs_cpu"``, the records by
+               the rules of their path, the summaries by
+               ``parity.topology_problems`` from each boundary's closest θ
+               test, problems ``[]``; the control state after the run held
+               as in 6b, except on the scanned path the update-norm EMA's
+               gap of ROADMAP queue 3 item 6, printed as ``exempt_control``
+               and exempt only where the run's control state equals by bits
+               that of the card's run without the topology), and the phase's
+               own seconds (``"phase": "topology_phase"``).
   7. LM serving — ``flash_attention`` against its plain version on the card
                (``"phase": "kernels"``), each case through the kernel that
                ``route(dtype, hd)`` names and launched there once: qwen2-1.5b's
@@ -170,6 +201,12 @@ Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It needs a CUDA device and the repository
 around it.
+
+    python3 chip_smoke.py --sign-eager
+
+times only the sign-align wrappers' eager calls (``sign_eager``): run a
+copy of the script from another checkout's root to compare its wrappers
+with this one's in the same call.
 """
 from __future__ import annotations
 
@@ -465,7 +502,8 @@ def launch_design(fn, kernel: str, calls: int = 3, sessions: int = 3,
     where the trace carries them (else None), and the kernel's first
     template argument, where its name carries one, under ``template_arg``
     (the clients a chunk; the codec kernels' values a thread).
-    A session whose trace holds none of them is tried again, up to
+    A session whose trace holds none of them, or fewer device operations
+    than calls (the profiler can drop an event), is tried again, up to
     ``sessions`` times; the launches must agree, and each call of ``fn``
     must be exactly one device operation (kernel, memset or memcpy)."""
     from torch.profiler import ProfilerActivity, profile
@@ -482,14 +520,17 @@ def launch_design(fn, kernel: str, calls: int = 3, sessions: int = 3,
             events = json.loads(path.read_text())["traceEvents"]
         mine = [e for e in events
                 if e.get("cat") == "kernel" and kernel in e.get("name", "")]
-        if mine:
+        ops = [e for e in events if e.get("cat") in DEVICE_OPS]
+        if mine and len(ops) >= calls:
             break
-        seen.append(sorted({(e.get("cat"), e.get("name", "")[:60])
-                            for e in events if e.get("ph") == "X"})[:8])
+        seen.append((len(ops), sorted({(e.get("cat"), e.get("name", "")[:60])
+                                       for e in events
+                                       if e.get("ph") == "X"})[:8]))
     else:
-        raise AssertionError(f"no launch of {kernel} in {sessions} traces "
-                             f"of {calls} calls; they held {seen}")
-    ops = [e for e in events if e.get("cat") in DEVICE_OPS]
+        raise AssertionError(f"no trace of {calls} calls holding a launch "
+                             f"of {kernel} and a device operation a call "
+                             f"in {sessions} sessions; they held (device "
+                             f"operations, events) {seen}")
     if len(ops) != calls:
         raise AssertionError(
             f"{calls} calls around {kernel} made {len(ops)} device "
@@ -1431,11 +1472,15 @@ def held_per_round(run: str, spec, launches: dict, needed) -> dict:
     return per_round
 
 
-def scenario_card_cpu(T, parity, spec, params, card, card_recs) -> list:
-    """The problems of the card's scenario run ``card`` against the same
-    spec on the CPU from the same weights, by its path's rules."""
+def scenario_card_cpu(T, parity, spec, params, card, card_recs,
+                      exempt=()) -> tuple:
+    """(the problems of the card's run ``card`` against the same spec on
+    the CPU from the same weights, by its path's rules; the CPU run; the
+    mismatches of the control-state fields named in ``exempt``, which on
+    the scanned path are returned here and not held)."""
     if spec.rounds_per_dispatch:
-        return scanned_card_cpu(T, parity, spec, params, card)["problems"]
+        line, cpu = scanned_card_cpu(T, parity, spec, params, card, exempt)
+        return line["problems"], cpu, line["exempt_control"]
     if spec.engine == "spmd":
         cpu = T.SpmdDriver(spec, device="cpu", params=params,
                            agg_dtype=torch.float32)
@@ -1456,7 +1501,8 @@ def scenario_card_cpu(T, parity, spec, params, card, card_recs) -> list:
         if card.failure_log != cpu.failure_log:
             problems.append("dropout draws differ")
     return problems + (parity.theta_band_violations(card.theta_ratios, 0.65)
-                       + parity.theta_band_violations(cpu.theta_ratios, 0.65))
+                       + parity.theta_band_violations(cpu.theta_ratios,
+                                                      0.65)), cpu, []
 
 
 def byzantine_tests(spec, theta_ratios) -> tuple:
@@ -1503,7 +1549,8 @@ def phase_scenario(T, parity, params, mods, smi: str) -> dict:
                     problems.append(f"{name}: the byzantine client passed θ "
                                     f"in {passed} of {len(tests)} tests")
             emit("slice", **line)
-            found = scenario_card_cpu(T, parity, spec, params, card, recs)
+            found, _cpu, _exempt = scenario_card_cpu(T, parity, spec,
+                                                     params, card, recs)
             emit("card_vs_cpu", run=name, problems=found,
                  theta_tests=len(card.theta_ratios))
             problems += [f"{name}: {p}" for p in found]
@@ -1529,6 +1576,277 @@ def phase_scenario(T, parity, params, mods, smi: str) -> dict:
         T, spec, params))
     if problems:
         raise AssertionError("scenario runs disagree: " + "; ".join(problems))
+    return launches
+
+
+# (P references, clients a reference, R rows) at which the grouped
+# per_client_sign_align is held to its plain version: one reference (the
+# flat θ filter), the full-width hierarchical sync's 2 of 4, and 8 of up to
+# 8; the last group of every case all zeros (a parent's padding slots)
+GROUPED_GRID = [(P, g, R) for P in (1, 2, 8) for g in (1, 2, 4, 8)
+                for R in (54, 864)]
+
+
+def grouped_inputs(P: int, g: int, R: int, seed: int = 0):
+    """u (P·g, R, 1024) f32 with ±0 columns and its last group all zero,
+    r (P, R, 1024) int8 with -2 padding, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randn((P * g, R, 1024), generator=gen, device="cuda")
+    u[:, :, :16] = 0.0
+    u[:, :, 16:32] = -0.0
+    u[-g:] = 0.0
+    r = torch.randint(-1, 2, (P, R, 1024), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    r[:, -1, -200:] = -2
+    u[:, -1, -200:] = 0.0
+    return u, r
+
+
+def grouped_sign_kernel(sign_align, ref, smi: str) -> None:
+    """The grouped per_client_sign_align against its plain version, counts
+    equal, over GROUPED_GRID and every sign case; at P = 1 (C 16 × R 54)
+    the reference given as (R, 1024) and as (1, R, 1024), counts equal,
+    each timed eager and on the device in five alternating turns; and its
+    times at the full-width sync's shape."""
+    for P, g, R in GROUPED_GRID:
+        u, r = grouped_inputs(P, g, R, seed=P * 1000 + g * 10 + R)
+        held_counts(sign_align.per_client_sign_align,
+                    ref.per_client_sign_align, u, r, f"P={P}, g={g}, R={R}")
+    x, r = sign_cases(torch.float32)
+    u = torch.stack([x.roll(c, dims=1) for c in range(8)])
+    refs = torch.stack([r.roll(p, dims=1) for p in range(2)])
+    got, _ = held_counts(sign_align.per_client_sign_align,
+                         ref.per_client_sign_align, u.cuda(), refs.cuda(),
+                         "every sign case, P=2, g=4")
+    if not torch.equal(got.cpu(), ref.per_client_sign_align(u, refs)):
+        raise AssertionError("grouped sign cases: the card's plain version "
+                             "and the CPU's differ")
+    u, r, _ = kernel_inputs(*MAIN_SHAPE, seed=1)
+    r1 = r[None].contiguous()
+    if not torch.equal(sign_align.per_client_sign_align(u, r),
+                       sign_align.per_client_sign_align(u, r1)):
+        raise AssertionError("P = 1 as (R, 1024) and (1, R, 1024) differ")
+    p1 = {"r (R, 1024)": lambda: sign_align.per_client_sign_align(u, r),
+          "r (1, R, 1024)": lambda: sign_align.per_client_sign_align(u, r1)}
+    turns = {k: dict(ms=[], device_ms=[]) for k in p1}
+    for turn in range(5):
+        for k in (list(p1) if turn % 2 == 0 else list(p1)[::-1]):
+            turns[k]["ms"].append(time_ms(p1[k]))
+            turns[k]["device_ms"].append(graph_ms(p1[k]))
+    C, P, R = 8, 2, 54                  # edge -> region, 64 clients
+    ug, rg = grouped_inputs(P, C // P, R, seed=5)
+    n = R * 1024
+    bound = bound_ms(C * n * 4 + P * n + C * 4, 2 * C * n)
+    emit("kernels", name="per_client_sign_align", grouped=dict(
+        grid=[list(c) for c in GROUPED_GRID], equal=True,
+        sign_cases=got.tolist(), all_zero_group=True),
+        p1_shape=list(MAIN_SHAPE), p1_turns=turns,
+        p1_median={k: {m: sorted(v)[2] for m, v in t.items()}
+                   for k, t in turns.items()},
+        full_width_sync=dict(
+            clients=C, references=P, rows=R,
+            ms=time_ms(lambda: sign_align.per_client_sign_align(ug, rg)),
+            device_ms=graph_ms(lambda: sign_align.per_client_sign_align(
+                ug, rg)),
+            plain_ms=time_ms(lambda: ref.per_client_sign_align(ug, rg)),
+            bound_ms=bound[0], bound_by=bound[1]),
+        nvidia_smi=smi)
+
+
+def sign_eager(sign_align, smi: str, turns: int = 7) -> None:
+    """``python3 chip_smoke.py --sign-eager``: the eager ms (back-to-back
+    calls, by CUDA events: the wrapper's host path) of
+    per_client_sign_align at C 16 × R 54 with one (R, 1024) reference, and
+    of sign_align_counts at R 54 beside it, in alternating turns. A copy
+    of this script in another checkout's root times that checkout's
+    wrappers, so two checkouts compare within one call."""
+    u, r, _ = kernel_inputs(*MAIN_SHAPE, seed=1)
+    g, rg = count_inputs(MAIN_SHAPE[1], torch.float32, seed=1)
+    calls = {"per_client_sign_align": lambda: sign_align.per_client_sign_align(
+        u, r), "sign_align_counts": lambda: sign_align.sign_align_counts(
+            g, rg)}
+    ms = {k: [] for k in calls}
+    for turn in range(turns):
+        for k in (list(calls) if turn % 2 == 0 else list(calls)[::-1]):
+            ms[k].append(time_ms(calls[k]))
+    emit("sign_eager", root=str(ROOT), shape=list(MAIN_SHAPE), ms=ms,
+         median={k: sorted(v)[turns // 2] for k, v in ms.items()},
+         nvidia_smi=smi)
+
+
+def hierarchical_spec(T, R: int = 4, topology=True):
+    """examples/hierarchical_federation.py's spec at full width: 64 clients
+    in edge pods of 8, regions of 4 pods syncing every 2 rounds under θ
+    0.5, the global tier every 4; drift; scanned, R rounds a dispatch."""
+    tree = T.TopologySpec(tiers=(
+        T.TierSpec("edge", fanout=8),
+        T.TierSpec("region", fanout=4, sync_every=2, theta=0.5),
+        T.TierSpec("global", sync_every=4)))
+    return T.ExperimentSpec(
+        model="anomaly-mlp",
+        data=T.DataSpec(n_samples=12000, eval_samples=2000),
+        world=T.WorldSpec(num_clients=64), strategy="ours",
+        strategy_kwargs=dict(batch_size=64, dynamic_batch=False),
+        scenario="drift", rounds=16, rounds_per_dispatch=R,
+        topology=tree if topology else None, seed=0)
+
+
+def theta_syncs(spec) -> int:
+    """The θ syncs of ``spec``'s run: one grouped count each on the host
+    round index paths."""
+    tiers = spec.resolve_topology().tiers
+    return sum(spec.rounds // t.sync_every for t in tiers[1:]
+               if t.theta is not None)
+
+
+def topology_view(run) -> tuple:
+    """(summary, closest θ tests, θ tests a boundary) of a simulation's or
+    a ``SpmdDriver``'s topology."""
+    if hasattr(run, "topology_summary"):
+        rt, summary = run._topo, run.topology_summary()
+    else:
+        (rt,) = run.step.topology_runtimes.values()
+        summary = rt.summary(run.state.topology, rounds=run.round_idx)
+    return summary, rt.closest_theta_tests(), rt.theta_test_counts()
+
+
+def same_records(a, b) -> bool:
+    """Two runs' records (RoundMetrics or RoundRecords) equal by bits, NaN
+    (a round not evaluated) equal to NaN."""
+    return [repr(dataclasses.astuple(x)) for x in a] == \
+        [repr(dataclasses.astuple(x)) for x in b]
+
+
+def state_bits_equal(a, b) -> bool:
+    """Two TopologyStates equal by bits, leaf by leaf."""
+    return all(torch.equal(x, y) for x, y in zip(_state_leaves(a),
+                                                 _state_leaves(b)))
+
+
+def _state_leaves(state):
+    for f in state:
+        yield from (f if isinstance(f, tuple) else (f,))
+
+
+def full_width_topology(T, params, mods, smi: str) -> dict:
+    """The hierarchical example's spec on the card (module docstring, 6c).
+    Returns its launches."""
+    spec = hierarchical_spec(T)
+    flat = hierarchical_spec(T, topology=False)
+    runs = {}
+    for name, s in (("flat", flat), ("topology", spec),
+                    ("topology again", spec),
+                    ("topology R=1", dataclasses.replace(
+                        spec, rounds_per_dispatch=1))):
+        runs[name] = run_card(T, s, params, mods)
+    problems = []
+    sim, wall, launches, _rows = runs["topology"]
+    equal_to_flat = same_records(sim.history, runs["flat"][0].history)
+    if not equal_to_flat:
+        problems.append("records differ from the run without the topology")
+    for other in ("topology again", "topology R=1"):
+        if not state_bits_equal(sim._topo_state, runs[other][0]._topo_state):
+            problems.append(f"topology state differs from '{other}'")
+    extra = (launches["per_client_sign_align"]
+             - runs["flat"][2]["per_client_sign_align"])
+    predicted = theta_syncs(spec)
+    if extra != predicted:
+        problems.append(f"{extra} grouped sign-align launches, not one a "
+                        f"θ sync ({predicted})")
+    summary = sim.topology_summary()
+    emit("slice", run="hierarchical scanned R=4", clients=64, rounds=16,
+         pods=summary["pods"], equal_to_flat=equal_to_flat,
+         r4_equal_r1=state_bits_equal(
+             sim._topo_state, runs["topology R=1"][0]._topo_state),
+         two_runs_equal=state_bits_equal(
+             sim._topo_state, runs["topology again"][0]._topo_state),
+         sign_align_launches=dict(flat=runs["flat"][2][
+             "per_client_sign_align"], topology=launches[
+             "per_client_sign_align"], per_theta_sync=extra / predicted,
+             theta_syncs=predicted),
+         launches=launches, topology_summary=summary,
+         final_accuracy=sim.history[-1].accuracy)
+    emit("topology_overhead", run="hierarchical scanned R=4",
+         nvidia_smi=smi, wall_s_per_round=dict(
+             flat=runs["flat"][1] / 16, topology=wall / 16,
+             topology_again=runs["topology again"][1] / 16),
+         note="host clock around building the run and its 16 rounds, "
+              "ending in a synchronisation")
+    emit("slice", run="hierarchical scanned R=4",
+         sync_free_dispatch=sync_free_dispatch(T, spec, params))
+    if problems:
+        raise AssertionError("hierarchical run: " + "; ".join(problems))
+    return launches
+
+
+TOPOLOGY_PRESETS_RUN = ("two-tier-pods", "edge-region-global")
+
+
+# the control-state field whose card-against-CPU gap on the scanned
+# quickstart is ROADMAP queue 3 item 6's, the flat spec's own: exempt there
+# only where the topology run's control state equals the flat card run's
+SCANNED_OPEN_GAP = ("grad_norm",)
+
+
+def same_control(a, b) -> bool:
+    """Two ControlStates equal by bits, field by field."""
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_topology(T, parity, sign_align, ref, params, mods,
+                   smi: str) -> dict:
+    """The topology phase (module docstring, 6c). Returns each run's
+    launches."""
+    t0 = time.perf_counter()
+    grouped_sign_kernel(sign_align, ref, smi)
+    launches = {"hierarchical": full_width_topology(T, params, mods, smi)}
+    problems = []
+    for run, (base, needed) in scenario_runs(T).items():
+        flat, flat_recs, flat_wall, flat_launches, _ = run_path_card(
+            T, base, params, mods)
+        for preset in TOPOLOGY_PRESETS_RUN:
+            spec = dataclasses.replace(base, topology=preset)
+            name = f"{run} {preset}"
+            card, recs, wall, got, rows = run_path_card(T, spec, params,
+                                                         mods)
+            held_launches(name, got, needed, rows)
+            equal_to_flat = same_records(recs, flat_recs)
+            found = [] if equal_to_flat else [
+                "records differ from the run without the topology"]
+            exempt = ()
+            if spec.rounds_per_dispatch:
+                if same_control(card._scan_ctl, flat._scan_ctl):
+                    exempt = SCANNED_OPEN_GAP
+                else:
+                    found.append("control state differs from the run "
+                                 "without the topology")
+            problems_cpu, cpu, exempted = scenario_card_cpu(
+                T, parity, spec, params, card, recs, exempt)
+            found += problems_cpu
+            summary, tests, n_tests = topology_view(card)
+            cpu_summary, cpu_tests, _n = topology_view(cpu)
+            thetas = [t.theta for t in spec.resolve_topology().tiers[1:]]
+            found += parity.topology_problems(summary, cpu_summary,
+                                              tests + cpu_tests, thetas)
+            extra = (got["per_client_sign_align"]
+                     - flat_launches["per_client_sign_align"])
+            emit("card_vs_cpu", run=name, problems=found,
+                 equal_to_flat=equal_to_flat, theta_tests=n_tests,
+                 min_theta_distance=min((abs(x - thetas[b])
+                                         for b, _r, _j, x in tests),
+                                        default=None),
+                 topology_summary=summary, grouped_launches=extra,
+                 control_equal_to_flat=bool(exempt) if
+                 spec.rounds_per_dispatch else None,
+                 exempt_control=exempted,
+                 wall_s_per_round=dict(flat=flat_wall / spec.rounds,
+                                       topology=wall / spec.rounds),
+                 nvidia_smi=smi)
+            problems += [f"{name}: {p}" for p in found]
+            launches[name] = got
+    emit("topology_phase", seconds=time.perf_counter() - t0)
+    if problems:
+        raise AssertionError("topology runs disagree: " + "; ".join(problems))
     return launches
 
 
@@ -1807,10 +2125,13 @@ def phase_trace(T, spec_scanned, spec_mega, params) -> None:
          device_events_per_round=line["device_events"], **line)
 
 
-def scanned_card_cpu(T, parity, spec, params, card_sim) -> dict:
+def scanned_card_cpu(T, parity, spec, params, card_sim,
+                     exempt=()) -> tuple:
     """``spec`` (scanned) on the CPU from the same weights and draws as the
     card's run ``card_sim``; then both for one round again, for the error
-    feedback after round 0. Returns the comparison line's fields."""
+    feedback after round 0. Returns the comparison line's fields and the
+    CPU run; the control state's mismatches in a field of ``exempt`` go to
+    the line's ``exempt_control``, not its problems."""
     cpu = T.build_simulation(spec, device="cpu", params=params)
     cpu.run(spec.rounds)
     card_recs = T.result_from_simulation(spec, card_sim).records
@@ -1819,9 +2140,11 @@ def scanned_card_cpu(T, parity, spec, params, card_sim) -> dict:
     if card_sim.cohorts != cpu.cohorts:
         problems.append(f"selections differ: {card_sim.cohorts} vs "
                         f"{cpu.cohorts}")
-    problems += parity.control_mismatches(
+    control = parity.control_mismatches(
         {f: v.cpu().numpy() for f, v in card_sim._scan_ctl._asdict().items()},
         {f: v.numpy() for f, v in cpu._scan_ctl._asdict().items()})
+    exempted = [p for p in control if p.split(":")[0] in exempt]
+    problems += [p for p in control if p not in exempted]
     problems += (parity.theta_band_violations(card_sim.theta_ratios, 0.65)
                  + parity.theta_band_violations(cpu.theta_ratios, 0.65))
     one = dataclasses.replace(spec, rounds=1)
@@ -1836,7 +2159,8 @@ def scanned_card_cpu(T, parity, spec, params, card_sim) -> dict:
                    for a, b in zip(card_recs, cpu_recs))
             for f in ("sim_time", "comm_time", "idle_time", "bytes_sent",
                       "loss")}
-    return dict(problems=problems, cohorts=card_sim.cohorts,
+    return dict(problems=problems, exempt_control=exempted,
+                cohorts=card_sim.cohorts,
                 theta_tests=len(card_sim.theta_ratios),
                 max_ratio_gap=max((abs(a[2] - b[2]) for a, b in zip(
                     card_sim.theta_ratios, cpu.theta_ratios)), default=0.0),
@@ -1845,7 +2169,7 @@ def scanned_card_cpu(T, parity, spec, params, card_sim) -> dict:
                                  for a, b in zip(card_recs, cpu_recs)
                                  if math.isfinite(b.accuracy)), default=0.0),
                 ef_round0_elements_beyond_rtol=parity.ef_flips(ef["cuda"],
-                                                               ef["cpu"]))
+                                                               ef["cpu"])), cpu
 
 
 def run_round0_codes(sim, quantize, ref) -> tuple:
@@ -2396,6 +2720,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     name = torch.cuda.get_device_name(0)
+    if sys.argv[1:] == ["--sign-eager"]:
+        sign_eager(sign_align, smi)
+        return 0
     emit("device", nvidia_smi=smi, kind=name,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
@@ -2510,7 +2837,8 @@ def main() -> int:
     emit("loop_vs_megastep", run="ours+int8", problems=loop_vs_mega)
     problems += [f"loop vs megastep: {p}" for p in loop_vs_mega]
     run = "ours+int8 scanned half"
-    line = scanned_card_cpu(T, parity, runs[run][0], params, sims[run])
+    line, _cpu = scanned_card_cpu(T, parity, runs[run][0], params,
+                                  sims[run])
     emit("card_vs_cpu", run=run, **line)
     problems += [f"{run}: {p}" for p in line["problems"]]
     run = "ours+int8 scanned fused"
@@ -2533,6 +2861,10 @@ def main() -> int:
 
     # 6b. dynamic worlds on the four ported paths
     launches.update(phase_scenario(T, parity, params, mods, smi))
+
+    # 6c. hierarchical topologies on the four ported paths
+    launches.update(phase_topology(T, parity, sign_align, ref, params, mods,
+                                   smi))
 
     # 7. LM serving at qwen2-1.5b's full width
     launches.update(phase_lm(mods))

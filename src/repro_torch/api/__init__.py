@@ -25,15 +25,19 @@ from repro_torch.core.scenario import (SCENARIO_PRESETS, ByzantineSpec,
                                        ChurnSpec, DriftSpec, DropoutSchedule,
                                        LinkSpec, ScenarioSpec)
 from repro_torch.core.schedule import ScheduleSpec
+from repro_torch.topology.spec import (TOPOLOGY_PRESETS, TierSpec,
+                                       TopologySpec, resolve_topology)
 
 __all__ = [
     "ByzantineSpec", "ChurnSpec", "ClientProfile", "CommModel", "DataSpec",
     "DriftSpec", "DropoutSchedule", "ExperimentResult", "ExperimentSpec",
     "LinkSpec", "ROUND_FIELDS", "RoundRecord", "SCENARIO_PRESETS",
-    "STRATEGY_REGISTRY", "ScenarioSpec", "ScheduleSpec", "SpecError", "SpecIssue", "SpmdDriver", "Strategy",
-    "StrategyConfig", "World", "WorldSpec", "build_simulation",
-    "build_spmd_components", "build_world", "get_strategy",
-    "list_strategies", "record_from_metrics", "register_strategy",
-    "resolve_strategy", "result_from_simulation", "run_experiment",
-    "run_scanned_seed_batch", "run_spmd_seed_batch", "seed_vectorizable",
+    "STRATEGY_REGISTRY", "ScenarioSpec", "ScheduleSpec", "SpecError",
+    "SpecIssue", "SpmdDriver", "Strategy", "StrategyConfig",
+    "TOPOLOGY_PRESETS", "TierSpec", "TopologySpec", "World", "WorldSpec",
+    "build_simulation", "build_spmd_components", "build_world",
+    "get_strategy", "list_strategies", "record_from_metrics",
+    "register_strategy", "resolve_strategy", "resolve_topology",
+    "result_from_simulation", "run_experiment", "run_scanned_seed_batch",
+    "run_spmd_seed_batch", "seed_vectorizable",
 ]

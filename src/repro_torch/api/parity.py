@@ -138,6 +138,21 @@ port, or the port's on card and CPU), so:
   * loss and accuracy as above (``LOSS_RTOL``, ``ACC_TOL``); the control
     state within ``control_mismatches``; θ decisions reproducible only
     outside ``THETA_BAND``, as everywhere.
+
+A hierarchical topology (repro_torch/topology) is measurement only: a
+run's records with it equal the same run's without it, bit for bit. Two
+runs' topology summaries (``topology_problems``) are equal: the sync
+counts follow the absolute round index; the link accounting adds the
+same f32 values in the same order; and the accepts and vetoes are the
+same as long as no θ test of a sync lies within ``THETA_BAND`` of its
+boundary's θ (the margin is asserted, naming boundary, round and child
+slot). Two topology states from the same inputs: each accumulator within
+``TOPO_ACCUM_RTOL`` of Σ_c |w_c·u_c| (the ROADMAP's rule for a reduction
+over clients: the JAX package scatter-adds client by client, the port
+takes one product of a one-hot matrix, and f32 sums of up to a few dozen
+terms in any order lie within a few 2^-24 of that scale), the reference
+signs equal except where |agg| lies within that band of 0, where a sign
+taken of rounding noise may differ.
 """
 from __future__ import annotations
 
@@ -166,6 +181,7 @@ SPMD_PARAM_RTOL = 1e-6
 WALK_ULPS = 2             # per round walked: exp's ulp, carried on
 SINE_ULPS = 2
 SPMD_BF16_MOVE_RTOL = 2.0 ** -8
+TOPO_ACCUM_RTOL = 1e-6    # of Σ_c |w_c·u_c|: a reduction over clients
 CONTROL_RTOL = {"avail": EMA_RTOL, "pass_rate": EMA_RTOL,
                 "round_time": EMA_RTOL, "lr_scale": EMA_RTOL,
                 "grad_norm": NORM_RTOL}
@@ -384,4 +400,50 @@ def world_mismatches(got: Sequence[dict], want: Sequence[dict],
             if not ulps <= bound:
                 out.append(f"round {r}: {f} {ulps} ulps apart (at most "
                            f"{bound})")
+    return out
+
+
+def topology_problems(got: dict, want: dict, theta_tests=(), thetas=(),
+                      states=None, scale=None, ref_band=None) -> List[str]:
+    """Two topology summaries (``topology_summary()``) against the rules
+    above; empty when they agree.
+
+    theta_tests: (boundary, round, child slot, ratio) of θ tests of either
+    run (``TopologyRuntime.closest_theta_tests()``: each boundary's
+    closest, which is within the band if any test is), thetas: each
+    boundary's θ (None: no veto); a test within THETA_BAND of its θ is a
+    problem, since the two runs' accepts may then part. With ``states``
+    (got, want ``TopologyState``s, fields numpy-convertible) also: each
+    accumulator ``accum[b]`` within TOPO_ACCUM_RTOL of ``scale[b]`` (an
+    array of accum[b]'s shape: Σ_c |w_c·u_c| accumulated into it), the
+    reference signs equal except where ``ref_band[b]`` (bool, ref[b]'s
+    shape, or None) marks |agg| within that band of 0, ``has_ref`` equal.
+    """
+    out = [f"boundary {b}, round {r}, child {j}: ratio {x} within "
+           f"{THETA_BAND} of θ={thetas[b]}" for b, r, j, x in theta_tests
+           if thetas[b] is not None and abs(x - thetas[b]) <= THETA_BAND]
+    for k in sorted(set(got) | set(want)):
+        if got.get(k) != want.get(k):
+            out.append(f"{k}: {got.get(k)!r} != {want.get(k)!r}")
+    if states is None:
+        return out
+    g, w = states
+    for b in range(len(w.accum)):
+        a, e = np.asarray(g.accum[b], np.float64), np.asarray(w.accum[b],
+                                                              np.float64)
+        beyond = np.abs(a - e) > TOPO_ACCUM_RTOL * np.asarray(scale[b])
+        if beyond.any():
+            out.append(f"accum[{b}]: {int(beyond.sum())} elements beyond "
+                       f"{TOPO_ACCUM_RTOL} of Σ|w·u| (largest gap "
+                       f"{np.abs(a - e).max()})")
+        differ = np.asarray(g.ref[b]) != np.asarray(w.ref[b])
+        if ref_band is not None and ref_band[b] is not None:
+            differ &= ~np.asarray(ref_band[b])
+        if differ.any():
+            out.append(f"ref[{b}]: {int(differ.sum())} signs differ outside "
+                       f"the rounding band")
+        if not np.array_equal(np.asarray(g.has_ref[b]),
+                              np.asarray(w.has_ref[b])):
+            out.append(f"has_ref[{b}]: {np.asarray(g.has_ref[b]).tolist()} "
+                       f"!= {np.asarray(w.has_ref[b]).tolist()}")
     return out

@@ -74,7 +74,8 @@ def build_simulation(spec: ExperimentSpec, *, device=None,
                                   rounds_per_dispatch=spec.rounds_per_dispatch,
                                   fused_eval=spec.fused_eval, draws=draws,
                                   scenario=spec.resolve_scenario(),
-                                  world_source=world_source)
+                                  world_source=world_source,
+                                  topology=spec.resolve_topology())
 
 
 def record_from_metrics(m: "ae.RoundMetrics") -> RoundRecord:
@@ -221,15 +222,18 @@ def build_spmd_components(spec: ExperimentSpec, world=None,
     if scn is not None and scn.drift is not None:
         dirs = scenario_mod.drift_directions(scn.drift, cfg.num_classes,
                                              cfg.num_features)
+    topo = spec.resolve_topology()
     gen = torch.Generator().manual_seed(spec.seed)
     state = fl_step.init_state(gen, cfg, opt, control_plane=cp,
-                               scenario=scn, params=params, num_clients=C,
-                               device=device)
+                               scenario=scn, topology=topo, params=params,
+                               num_clients=C, device=device, comm=comm)
     step = fl_step.build_fl_train_step(cfg, opt, theta=st.theta,
                                        lr_schedule=spec.lr_schedule,
                                        beacon_bytes=comm.beacon_bytes,
                                        control_plane=cp, scenario=scn,
-                                       drift_dirs=dirs, agg_dtype=agg_dtype)
+                                       drift_dirs=dirs, agg_dtype=agg_dtype,
+                                       topology=topo, comm=comm,
+                                       num_clients=C)
     return cfg, st, opt, state, step
 
 
@@ -469,6 +473,8 @@ def seed_vectorizable(spec: ExperimentSpec, st=None) -> bool:
         return False
     if spec.resolve_scenario() is not None:
         return False        # each seed runs its own world
+    if spec.resolve_topology() is not None:
+        return False        # each seed its own TopologyState
     return spec.world.dropout_p <= 0
 
 

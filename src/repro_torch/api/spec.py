@@ -15,7 +15,8 @@ engine, rounds, seed), with the JAX package's field names, and
 
 each with or without int8 wire compression (``strategy.quantize_updates``),
 a dynamic-world ``scenario`` (core/scenario.py: a preset name or a
-``ScenarioSpec``) and a custom ``eval_fn``.
+``ScenarioSpec``), a hierarchical ``topology`` (repro_torch/topology: a
+preset name or a ``TopologySpec``) and a custom ``eval_fn``.
 
 The spec has every field of the JAX package's spec, and ``validate()``
 refuses each option the port does not run yet, naming the ROADMAP.md
@@ -31,6 +32,7 @@ from repro_torch.api import world as world_mod
 from repro_torch.core.async_engine import CommModel, StrategyConfig
 from repro_torch.core.scenario import ScenarioSpec, resolve_scenario
 from repro_torch.core.schedule import ScheduleSpec, resolve_schedule
+from repro_torch.topology.spec import TopologySpec, resolve_topology
 
 ENGINES = ("sim", "spmd")
 OPTIMIZERS = ("sgd",)                 # strings the port runs
@@ -90,7 +92,6 @@ class WorldSpec:
 # option -> (the value the port runs, the ROADMAP.md queue 1 item that
 # brings the others)
 _NOT_PORTED = {
-    "topology": (None, 10, "hierarchical topologies"),
     "candidate_frac": (None, 10, "two-stage candidate selection"),
 }
 
@@ -110,7 +111,10 @@ class ExperimentSpec:
     scenario: Union[str, ScenarioSpec, None] = None
     # the dynamic-world axis (core/scenario.py): None -> the world stays
     # frozen at round 0; a SCENARIO_PRESETS name or a ScenarioSpec
-    topology: Any = None
+    topology: Union[str, TopologySpec, None] = None
+    # the hierarchical-federation axis (repro_torch/topology): None (or a
+    # single-tier tree) -> the flat star; a TOPOLOGY_PRESETS name or a
+    # TopologySpec
     engine: str = "sim"
     rounds: int = 5
     seed: int = 0
@@ -153,6 +157,9 @@ class ExperimentSpec:
 
     def resolve_scenario(self) -> Optional[ScenarioSpec]:
         return resolve_scenario(self.scenario)
+
+    def resolve_topology(self) -> Optional[TopologySpec]:
+        return resolve_topology(self.topology)
 
     def strategy_name(self) -> str:
         if isinstance(self.strategy, str):
@@ -250,6 +257,14 @@ class ExperimentSpec:
                 "world.profile", self.world.profile,
                 f"unknown profile; expected one of {PROFILES}"))
         issues.extend(self._validate_scenario())
+        topology = None
+        try:
+            topology = self.resolve_topology()
+        except (ValueError, TypeError) as e:
+            issues.append(SpecIssue("topology", self.topology, str(e)))
+        if topology is not None:
+            issues.extend(SpecIssue(f, v, h)
+                          for f, v, h in topology.issues())
         strategy = schedule = None
         try:
             strategy = self.resolve_strategy()

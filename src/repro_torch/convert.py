@@ -7,7 +7,8 @@ arrays, into the port's dict of f32 tensors (same names, same layouts).
 ``control_from_jax`` does the same for a scanned run's ``ControlState``,
 so both packages can step one round from the same mid-run state, and
 ``fl_state_from_jax`` for the spmd step's whole ``FLState`` (parameters,
-optimizer state, reference sign, control state, step and counters), and
+optimizer state, reference sign, control state, step, counters, scenario
+world and topology state; ``topology_from_jax`` for the last alone), and
 ``lm_params_from_jax`` for a language model's nested parameter tree.
 """
 from __future__ import annotations
@@ -69,16 +70,37 @@ def _tensors(tree, device, dtype=None):
     return torch.tensor(a, dtype=dt, device=device)
 
 
+def topology_from_jax(state, device=None):
+    """A ``TopologyState`` from the JAX package's (its fields as numpy
+    arrays): f32 accumulators and accounting, int8 reference signs, bool
+    ``has_ref``, int32 sync counts."""
+    from repro_torch.topology.engine import TopologyState
+    dev = resolve_device(device)
+
+    def t(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    return TopologyState(
+        accum=tuple(t(a, torch.float32) for a in state.accum),
+        ref=tuple(t(a, torch.int8) for a in state.ref),
+        has_ref=tuple(t(a, torch.bool) for a in state.has_ref),
+        tier_bytes=t(state.tier_bytes, torch.float32),
+        tier_time=t(state.tier_time, torch.float32),
+        syncs=t(state.syncs, torch.int32),
+        accepts=t(state.accepts, torch.float32),
+        vetoes=t(state.vetoes, torch.float32))
+
+
 def fl_state_from_jax(state, device=None):
     """The spmd step's ``FLState`` from the JAX package's (its fields as
     numpy arrays, e.g. ``jax.device_get(state)``), its scenario ``world``
-    included; the JAX state's ``topology`` must be None (not ported)."""
+    and ``topology`` included."""
     from repro_torch.core.fl_step import FLState
     from repro_torch.core.scenario import WorldState
-    if getattr(state, "topology", None) is not None:
-        raise NotImplementedError("topologies are not ported yet; they come "
-                                  "with ROADMAP.md queue 1 item 10")
     dev = resolve_device(device)
+    topology = getattr(state, "topology", None)
+    if topology is not None:
+        topology = topology_from_jax(topology, dev)
     control = (None if state.control is None
                else control_from_jax(state.control._asdict(), dev))
     world = getattr(state, "world", None)
@@ -92,4 +114,4 @@ def fl_state_from_jax(state, device=None):
                    ref_sign=_tensors(state.ref_sign, dev, torch.int8),
                    step=_tensors(state.step, dev, torch.int32),
                    metrics=_tensors(state.metrics, dev, torch.float32),
-                   control=control, world=world)
+                   control=control, world=world, topology=topology)

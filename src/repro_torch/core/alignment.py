@@ -6,7 +6,9 @@ global-update sign) / (# params)``. Clients with relevance ≥ θ (0.65)
 transmit; others are filtered at the source. ``cohort_alignment`` scores
 all C clients of the packed (C, rows, LANE) arena in one kernel launch;
 ``alignment_ratio`` scores one client's parameter dict, leaf by leaf, for
-the per-client reference loop (plain torch, as the JAX package's).
+the per-client reference loop, and ``per_client_alignment`` a dict with a
+leading client axis, for ``core/hierarchy.py`` (plain torch, as the JAX
+package's).
 """
 from __future__ import annotations
 
@@ -32,6 +34,24 @@ def alignment_ratio(local: Dict[str, torch.Tensor],
                   for k in sorted(local))
     total = sum(v.numel() for v in local.values())
     return aligned.to(torch.float32) / float(max(total, 1))
+
+
+def per_client_alignment(client_trees: Dict[str, torch.Tensor],
+                         ref_sign: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """(C,) f32 relevance of each client of a parameter dict with a leading
+    client axis C, leaf by leaf in sorted name order (the JAX package's
+    pytree oracle): f32 counts of exact integers, summed over leaves,
+    over the f32 element count."""
+    names = sorted(client_trees)
+    C = client_trees[names[0]].shape[0]
+    aligned = torch.zeros((C,), dtype=torch.float32,
+                          device=client_trees[names[0]].device)
+    total = 0
+    for k in names:
+        eq = _ref.sign(client_trees[k].to(torch.float32)) == ref_sign[k][None]
+        aligned = aligned + eq.reshape(C, -1).sum(dim=1).to(torch.float32)
+        total += ref_sign[k].numel()
+    return aligned / aligned.new_tensor(max(float(total), 1.0))
 
 
 def cohort_alignment(u_mat: torch.Tensor, ref_mat: torch.Tensor,

@@ -33,6 +33,13 @@ shifts the training batches and byzantine clients scale their updates
 before the codec and the θ filter. Every path takes the world of round r
 from one ``WorldSource`` (computed on the host), so they all run the same
 world, on the card as on the CPU.
+A hierarchical ``topology`` (repro_torch/topology) is a measurement layer
+over the flat round on every path: each round the leaf pods accumulate
+exactly the weighted deltas the aggregation consumed and the due
+inter-tier syncs run (the loop and the megastep once a round on the host
+round index, the scanned path inside the dispatch), so the records are
+those of the same run without it; ``topology_summary()`` reads its
+accounting.
 On the megastep and the loop, all host randomness (dropout, batch draws,
 selection) comes from the same seeded numpy Generators in the same order
 as the JAX package, so timing, bytes and selection reproduce it exactly;
@@ -67,6 +74,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import arena as arena_mod
 from repro_torch.models import api
 from repro_torch.optim import adamw as optim_mod
+from repro_torch.topology import engine as topology_mod
+from repro_torch.topology.spec import resolve_topology
 
 
 @dataclasses.dataclass
@@ -151,7 +160,7 @@ class FederatedSimulation:
                  megastep: bool = True,
                  rounds_per_dispatch: Optional[int] = None,
                  fused_eval: bool = False, draws=None, scenario=None,
-                 world_source=None):
+                 world_source=None, topology=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.strategy = strategy
@@ -252,6 +261,20 @@ class FederatedSimulation:
         self._wire_bytes = (compression.arena_wire_bytes(self._arena)
                             if self.megastep and strategy.quantize_updates
                             else None)
+
+        # --- hierarchical topology (repro_torch/topology) -----------------
+        # an accumulate-and-sync measurement layer over the flat round:
+        # the training trajectory is untouched; its state advances EVERY
+        # round on every path, so the absolute-round sync cadence does not
+        # depend on how rounds are grouped
+        self.topology = resolve_topology(topology)
+        self._topo = None
+        self._topo_state = None
+        if self.topology is not None:
+            self._topo = topology_mod.TopologyRuntime(
+                self.topology, self.num_clients, self._arena, self.comm,
+                self.device)
+            self._topo_state = self._topo.init()
 
         # --- per-client state --------------------------------------------
         self.batch_ctrl = BatchSizeController()
@@ -507,6 +530,42 @@ class FederatedSimulation:
                 self.server_step += 1
         return applied
 
+    def _topology_host_round(self, deltas, cids, weights) -> None:
+        """Advance the topology state for the round that just ran on the
+        loop or the megastep: leaf-pod accumulation of exactly the
+        weighted deltas the aggregation consumed, and the due syncs, on
+        the absolute round index ``round_idx - 1``. Called every round,
+        empty rounds too.
+
+        deltas: a list of (rows, lane) arena rows (the loop) with their
+        client ids ``cids``, or the megastep's (cids, padded, deltas) shape
+        groups (their real rows, in group order); weights: cid -> weight.
+        """
+        if self._topo is None:
+            return
+        if deltas and isinstance(deltas[0], tuple):
+            d = torch.cat([g[2][:len(g[0])] for g in deltas])
+            cids = [c for g in deltas for c in g[0]]
+        elif deltas:
+            d = torch.stack(deltas)
+        else:                              # empty round: cadence still ticks
+            d = torch.zeros((1, self._arena.rows, self._arena.lane),
+                            dtype=torch.float32, device=self.device)
+            cids = [0]
+        w = torch.tensor([float(weights.get(c, 0.0)) for c in cids],
+                         dtype=torch.float32).to(self.device)
+        pods = self._topo.pod_of[torch.tensor(cids, dtype=torch.int64)
+                                 .to(self.device)]
+        self._topo_state = self._topo.step(self._topo_state,
+                                           self.round_idx - 1, d, w, pods)
+
+    def topology_summary(self) -> Optional[dict]:
+        """Per-tier inter-tier bytes, seconds, syncs, accepts and vetoes and
+        the flat-star comparison (None without a topology)."""
+        if self._topo is None:
+            return None
+        return self._topo.summary(self._topo_state, rounds=self.round_idx)
+
     def _finish_round(self, rnd: int, evaluate: bool, n_selected: int,
                       losses: List[float], n_sent: int, updates_applied: int,
                       round_times: Dict[int, float]) -> RoundMetrics:
@@ -623,6 +682,7 @@ class FederatedSimulation:
         updates_applied = len(applied)
 
         # server aggregation: one weighted arena sum per shape group
+        weights: Dict[int, float] = {}
         if applied:
             inv = 1.0 / len(applied)
             weights = {cid: alpha * inv for cid, alpha in applied}
@@ -638,6 +698,7 @@ class FederatedSimulation:
             # reference direction = sign of the global movement this round
             if st.theta is not None:
                 self._ref_mat = ref_mat
+        self._topology_host_round(group_results, None, weights)
 
         return self._finish_round(rnd, evaluate, len(selected), losses_all,
                                   n_sent, updates_applied, round_times)
@@ -655,11 +716,15 @@ class FederatedSimulation:
         round_times: Dict[int, float] = {}
         losses: List[float] = []
         n_sent = 0
+        topo_deltas, topo_cids = [], []   # arena rows (topology only)
         for cid in selected:
             delay = self._draw_dropout(cid, round_start)
             if delay is None:
                 continue
             new_params, delta, loss, train_time = self._train_client(cid)
+            if self._topo is not None:
+                topo_deltas.append(self._arena.pack(delta))
+                topo_cids.append(cid)
             losses.append(loss)
             sent = self._filter_update(rnd, cid, delta)
             gn = math.sqrt(sum(float(torch.dot(g.reshape(-1), g.reshape(-1)))
@@ -672,6 +737,9 @@ class FederatedSimulation:
 
         applied = self._schedule(arrivals)
         updates_applied = len(applied)
+        inv = 1.0 / max(len(applied), 1)
+        self._topology_host_round(topo_deltas, topo_cids,
+                                  {c: alpha * inv for c, alpha in applied})
         if applied:
             sent_params = {a[1]: a[3] for a in arrivals if a[2]}
             if self.schedule.is_sync:
@@ -772,7 +840,7 @@ class FederatedSimulation:
                 restart_time=self.restart_time,
                 eval_fn=(self._eval if self.fused_eval else None),
                 eval_every=self.eval_every, scenario=self.scenario,
-                drift_dirs=self._drift_dirs)
+                drift_dirs=self._drift_dirs, topology=self._topo)
         return self._scan_fns[R]
 
     def _scan_args(self, eval_mark: int = -1) -> list:
@@ -781,7 +849,8 @@ class FederatedSimulation:
         data, sizes, speed, latency, dropout_p = self._scan_setup()
         args = [self._params_mat, self._scan_ref, self._scan_ref_valid,
                 self._scan_ctl, data, sizes, speed, latency, dropout_p,
-                self._draws, self._worlds, self._scan_round0, self._scan_acc]
+                self._draws, self._worlds, self._topo_state,
+                self._scan_round0, self._scan_acc]
         if self.fused_eval:
             args += [self._scan_prev_acc, eval_mark, self._eval_dev]
         return args
@@ -791,7 +860,7 @@ class FederatedSimulation:
         the per-round metrics, still on the device."""
         carry, ms = self._scan_fn(R)(*self._scan_args(eval_mark))
         (self._params_mat, self._scan_ref, self._scan_ref_valid,
-         self._scan_ctl, self._scan_acc, prev_acc) = carry
+         self._scan_ctl, self._topo_state, self._scan_acc, prev_acc) = carry
         if self.fused_eval:
             self._scan_prev_acc = prev_acc
         self._scan_round0 += R

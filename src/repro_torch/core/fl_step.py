@@ -44,10 +44,16 @@ cohort masks, drift shifts the batch, the regime scales the dropout
 probabilities and byzantine factors scale the updates before the codec
 and the θ test.
 
-Not ported yet: topologies and two-stage candidate selection (ROADMAP.md
-queue 1 item 10); the JAX ``FLState``'s ``topology`` field belongs to
-those and has no counterpart here. The prefill and serve steps at the end
-serve the dense language models.
+A hierarchical ``topology`` (repro_torch/topology) rides in
+``FLState.topology``: step (4b) accumulates the same weighted cohort
+updates the aggregation consumed into the leaf pods and runs the due
+inter-tier syncs, the cadence keyed off the absolute ``step`` counter and
+selected by ``torch.where`` (nothing read back). The parameters, masks
+and metrics are those of the same step without it.
+
+Not ported yet: two-stage candidate selection (ROADMAP.md queue 1 item
+10). The prefill and serve steps at the end serve the dense language
+models.
 """
 from __future__ import annotations
 
@@ -64,6 +70,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import arena as arena_mod
 from repro_torch.kernels import ref as _ref
 from repro_torch.models import api
+from repro_torch.topology import engine as topology_engine
+from repro_torch.topology.spec import resolve_topology
 
 
 class FLState(NamedTuple):
@@ -74,6 +82,9 @@ class FLState(NamedTuple):
     metrics: dict           # running counters (accepted updates, rounds)
     control: Optional[control_mod.ControlState] = None
     world: Optional[scenario_mod.WorldState] = None   # the last round's
+    topology: Optional[topology_engine.TopologyState] = None
+    # hierarchical topology state: per-tier pod accumulators and reference
+    # signs, advanced inside the step every round
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,12 +136,10 @@ def _not_ported(what: str, item: int):
                                f"ROADMAP.md queue 1 item {item}")
 
 
-def _check_options(optimizer, control_plane, topology) -> None:
+def _check_options(optimizer, control_plane) -> None:
     if optimizer is None:
         raise _not_ported("the JAX package's default optimizer (adamw, "
                           "optim.for_config)", 14)
-    if topology is not None:
-        raise _not_ported("a hierarchical topology", 10)
     if control_plane is not None and control_plane.candidate_frac is not None:
         raise _not_ported("two-stage candidate selection", 10)
 
@@ -143,13 +152,15 @@ def _template(cfg) -> Dict[str, torch.Tensor]:
 def init_state(generator: Optional[torch.Generator], cfg, optimizer=None,
                control_plane: Optional[ControlPlane] = None,
                scenario=None, topology=None, *, params=None,
-               num_clients: Optional[int] = None, device=None) -> FLState:
+               num_clients: Optional[int] = None, device=None,
+               comm=None) -> FLState:
     """The step's initial state on ``device`` (the card unless named):
     weights from ``params`` (a dict of tensors or arrays, e.g. the JAX
     package's) or drawn from ``generator``; with an active ``scenario``,
-    the world before round 0 of ``num_clients`` clients (or the control
-    plane's)."""
-    _check_options(optimizer, control_plane, topology)
+    the world before round 0, and with a ``topology`` its empty tier
+    state (links priced off ``comm``), of ``num_clients`` clients (or
+    the control plane's)."""
+    _check_options(optimizer, control_plane)
     dev = resolve_device(device)
     if params is None:
         params = api.init_params(generator, cfg)
@@ -160,22 +171,30 @@ def init_state(generator: Optional[torch.Generator], cfg, optimizer=None,
         ctl = control_mod.init_control(
             control_plane.num_clients, arena=arena_mod.ParamArena(params),
             quantize=control_plane.quantize, device=dev)
+    n = num_clients if num_clients is not None else (
+        control_plane.num_clients if control_plane is not None else None)
     world = None
     if scenario_mod.is_active(scenario):
-        n = num_clients if num_clients is not None else (
-            control_plane.num_clients if control_plane is not None
-            else None)
         if n is None:
             raise ValueError("init_state(scenario=...) needs num_clients "
                              "(or a control_plane that names it)")
         world = scenario_mod.WorldState(*(
             t.to(dev) for t in scenario_mod.init_world(scenario, n)))
+    topo = None
+    topology = resolve_topology(topology)
+    if topology is not None:
+        if n is None:
+            raise ValueError("init_state(topology=...) needs num_clients "
+                             "(or a control_plane that names it)")
+        topo = topology_engine.TopologyRuntime(
+            topology, n, arena_mod.ParamArena(params), comm, dev).init()
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     return FLState(params, optimizer.init(params),
                    {k: torch.zeros_like(p, dtype=torch.int8)
                     for k, p in params.items()},
                    torch.zeros((), dtype=torch.int32, device=dev),
-                   {"accepted": zero, "rounds": zero.clone()}, ctl, world)
+                   {"accepted": zero, "rounds": zero.clone()}, ctl, world,
+                   topo)
 
 
 def _per_client_grads(params: Dict[str, torch.Tensor], batch, cfg):
@@ -195,7 +214,8 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
                   lr_schedule=None, agg_dtype: torch.dtype = torch.bfloat16,
                   beacon_bytes: float = 0.125,
                   control_plane: Optional[ControlPlane] = None,
-                  scenario=None, drift_dirs=None, topology=None):
+                  scenario=None, drift_dirs=None, topology=None, comm=None,
+                  num_clients: Optional[int] = None):
     """``step(state, batch, draws=None, world=None) -> (state, metrics)``.
 
     batch leaves have leading dims (C, per_client_batch, ...), on the
@@ -206,9 +226,11 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
     device control plane as cohort masking; its draws come in ``draws``.
     scenario: the dynamic world (a ``ScenarioSpec``), whose round comes in
     ``world`` (a ``WorldState`` on the state's device); ``drift_dirs``
-    ((classes, features) f32) with a drift.
+    ((classes, features) f32) with a drift. topology: a hierarchical
+    topology of ``num_clients`` clients (or the control plane's), links
+    priced off ``comm``, advanced in ``FLState.topology``.
     """
-    _check_options(optimizer, control_plane, topology)
+    _check_options(optimizer, control_plane)
     scn = scenario if scenario_mod.is_active(scenario) else None
     dirs = {}                        # device -> drift directions
     arena = arena_mod.ParamArena(_template(cfg))
@@ -216,6 +238,13 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
                            and control_plane.active()) else None
     wire_bytes = (float(compression.arena_wire_bytes(arena))
                   if (cp and cp.quantize) else None)
+    topology = resolve_topology(topology)
+    n_top = num_clients if num_clients is not None else (
+        cp.num_clients if cp is not None else None)
+    if topology is not None and n_top is None:
+        raise ValueError("make_raw_step(topology=...) needs num_clients "
+                         "(or an active control_plane)")
+    runtimes: Dict[torch.device, topology_engine.TopologyRuntime] = {}
     consts: Dict[torch.device, dict] = {}
 
     def constants(dev: torch.device, C: int) -> dict:
@@ -344,6 +373,15 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
         new_ref = {n: torch.where(any_accepted, _ref.sign(a), state.ref_sign[n])
                    for n, a in agg.items()}
 
+        # (4b) hierarchical topology: leaf-pod accumulation of the SAME
+        # weighted cohort updates the aggregation consumed + due syncs
+        topo = state.topology
+        if topology is not None:
+            if dev not in runtimes:
+                runtimes[dev] = topology_engine.TopologyRuntime(
+                    topology, n_top, arena, comm, dev)
+            topo = runtimes[dev].step(topo, state.step, u, w)
+
         # (5) control-plane statistics for the next round's selection
         if cp is not None:
             cohort = k["cohort"]
@@ -384,8 +422,11 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
         run = {"accepted": state.metrics["accepted"] + mask.sum(),
                "rounds": state.metrics["rounds"] + 1.0}
         return FLState(new_params, new_opt, new_ref, state.step + 1, run,
-                       ctl, ws), metrics
+                       ctl, ws, topo), metrics
 
+    # device -> the topology's runtime there: its summary() and
+    # closest_theta_tests() read a run's FLState.topology and θ tests
+    step.topology_runtimes = runtimes
     return step
 
 
@@ -393,14 +434,16 @@ def build_fl_train_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
                         lr_schedule=None, beacon_bytes: float = 0.125,
                         control_plane: Optional[ControlPlane] = None,
                         scenario=None, drift_dirs=None, topology=None,
-                        agg_dtype: torch.dtype = torch.bfloat16):
+                        agg_dtype: torch.dtype = torch.bfloat16, comm=None,
+                        num_clients: Optional[int] = None):
     """The trainers' step: ``make_raw_step`` as it is (PyTorch runs
     eagerly; the JAX package jits it here). ``agg_dtype`` stays the JAX
     package's bf16 unless named, as its builder never overrides it."""
     return make_raw_step(cfg, optimizer, theta, lr_schedule,
                          agg_dtype=agg_dtype, beacon_bytes=beacon_bytes,
                          control_plane=control_plane, scenario=scenario,
-                         drift_dirs=drift_dirs, topology=topology)
+                         drift_dirs=drift_dirs, topology=topology, comm=comm,
+                         num_clients=num_clients)
 
 
 # ---------------------------------------------------------------------------

@@ -162,16 +162,20 @@ def build_scanned_rounds(cfg, opt, arena, st, comm, *, num_clients: int,
                          ema: float = 0.8, recovery_time: float = 0.2,
                          restart_time: float = 1.0, eval_fn=None,
                          eval_every: int = 1, scenario=None,
-                         drift_dirs=None):
+                         drift_dirs=None, topology=None):
     """Returns ``run(params_mat, ref_mat, ref_valid, ctl, data, sizes,
-    speed, latency, dropout_p, draws, worlds, round0, acc, prev_acc=None,
-    eval_mark=-1, eval_data=None) -> (carry, metrics)``: R full FL rounds
-    — {select → train cohort → θ-filter → staleness-weighted arena
-    aggregate → control update} — as one dispatch.
+    speed, latency, dropout_p, draws, worlds, topo, round0, acc,
+    prev_acc=None, eval_mark=-1, eval_data=None) -> (carry, metrics)``: R
+    full FL rounds — {select → train cohort → θ-filter → staleness-weighted
+    arena aggregate → topology step → control update} — as one dispatch.
 
-    The carry is ``(params_mat, ref_mat, ref_valid, ctl, acc, prev_acc)``:
-    the (rows, lane) arena, the int8 reference sign, a 0-dim bool (whether
-    a reference exists), the ``ControlState``, the (sim_time, comm_time,
+    The carry is ``(params_mat, ref_mat, ref_valid, ctl, topo, acc,
+    prev_acc)``: the (rows, lane) arena, the int8 reference sign, a 0-dim
+    bool (whether a reference exists), the ``ControlState``, the
+    ``TopologyState`` of ``topology`` (a ``TopologyRuntime``; None
+    without one: each round its leaf pods ``topology.pod_of[cohort]``
+    accumulate the round's deltas by their aggregation weights and the due
+    syncs run, on the host round index), the (sim_time, comm_time,
     idle_time, bytes_sent) f32 accumulator and, with ``eval_fn``, the
     0-dim f32 accuracy carried forward (NaN before the first eval).
     ``metrics`` maps sim_time, comm_time, idle_time, bytes_sent,
@@ -211,7 +215,7 @@ def build_scanned_rounds(cfg, opt, arena, st, comm, *, num_clients: int,
 
     @torch.no_grad()
     def run(params_mat, ref_mat, ref_valid, ctl, data, sizes, speed, latency,
-            dropout_p, draws, worlds, round0: int, acc, prev_acc=None,
+            dropout_p, draws, worlds, topo, round0: int, acc, prev_acc=None,
             eval_mark: int = -1, eval_data=None):
         dev = params_mat.device
         f32 = dict(dtype=torch.float32, device=dev)
@@ -369,6 +373,11 @@ def build_scanned_rounds(cfg, opt, arena, st, comm, *, num_clients: int,
                 ref_valid = ref_valid | applied
             params_mat = new_mat
 
+            # --- hierarchical topology: leaf accumulation + due syncs ---
+            if topology is not None:
+                topo = topology.step(topo, r, deltas, w,
+                                     topology.pod_of[cohort])
+
             # --- control-plane transitions -----------------------------
             ctl = control.observe_round(ctl, cohort, failed=failed,
                                         active=active, passed=sent,
@@ -410,6 +419,7 @@ def build_scanned_rounds(cfg, opt, arena, st, comm, *, num_clients: int,
         acc = torch.stack([sim_t, comm_t, idle_t, bytes_s])
         metrics = {name: torch.stack([row[name] for row in rows])
                    for name in rows[0]}
-        return (params_mat, ref_mat, ref_valid, ctl, acc, prev_acc), metrics
+        return (params_mat, ref_mat, ref_valid, ctl, topo, acc,
+                prev_acc), metrics
 
     return run

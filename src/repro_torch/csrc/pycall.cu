@@ -110,9 +110,14 @@ PyObject* pppllip(PyObject*, PyObject* const* args, Py_ssize_t n) {
   return call<P, P, P, L, L, int, P>(args, n);
 }
 
-// masked_agg, per_client_sign_align
+// masked_agg
 PyObject* pppilp(PyObject*, PyObject* const* args, Py_ssize_t n) {
   return call<P, P, P, int, L, P>(args, n);
+}
+
+// per_client_sign_align
+PyObject* pppiilp(PyObject*, PyObject* const* args, Py_ssize_t n) {
+  return call<P, P, P, int, int, L, P>(args, n);
 }
 
 // fused_update
@@ -142,6 +147,7 @@ PyObject* ppppiiiiiiipiifp(PyObject*, PyObject* const* args, Py_ssize_t n) {
 
 PyMethodDef methods[] = {METHOD(ppplp),    METHOD(pppplp),
                          METHOD(pppllip),  METHOD(pppilp),
+                         METHOD(pppiilp),
                          METHOD(pipppilp), METHOD(pipplp),
                          METHOD(ppppiiiiiiiipiifp),
                          METHOD(ppppiiiiiiipiifp),

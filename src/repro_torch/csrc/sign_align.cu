@@ -8,6 +8,17 @@
 // and their Triton-lowered twins in src/repro/kernels/gpu.py. r carries -2
 // on padding, which no sign in {-1, 0, 1} matches.
 //
+// per_client_sign_align also takes P references at once: r (P, n) with
+// group = C / P clients a reference, client c counted against r[c / group].
+// That is the topology sync's jax.vmap of the Pallas kernel over parents
+// (src/repro/topology/engine.py:158) as one launch: the grid's y index is
+// the reference (grid (k * group, P)), so a cluster finds its reference
+// row with no division. P = 1 (group = C) launches the kernel's ungrouped
+// instantiation, the flat θ filter's code unchanged: every address
+// computation added to the grouped form (first a 64-bit division of the
+// client index on the loads' address path, then the y index) made the
+// P = 1 launch slower than the earlier kernel in every turn of one call.
+//
 // Bound on the H100: memory. per_client_sign_align reads C*n*4 bytes of
 // updates and n bytes of reference signs (n = R*1024) and does a compare
 // and an add per slot, far below the card's integer rate. On the main path
@@ -19,13 +30,14 @@
 // Design: one launch a call, which writes the final f32 counts into an
 // output the caller allocates uninitialised; nothing is carried between
 // calls (no zeroed counter, no atomics into the output, no second launch).
-// Each count is taken by one thread-block cluster of k blocks (grid k*C,
-// cluster (k, 1, 1)), k <= 8, the portable limit, chosen on the host so
-// that about 132 blocks or more work where C and n allow it: 8 at the
-// main shape, 128 blocks. The threads of a cluster stride over the slab
-// together; each issues a batch of kBatch read-only loads of four values
-// (16 bytes of f32, 8 of bf16) and four signs before it counts any of
-// them, the predicate of a slot past the end inside the load instruction.
+// Each count is taken by one thread-block cluster of k blocks (grid
+// (k*C/P, P), cluster (k, 1, 1)), k <= 8, the portable limit, chosen on
+// the host so that about 132 blocks or more work where C and n allow it:
+// 8 at the main shape, 128 blocks. The threads of a cluster stride over
+// the slab together; each issues a batch of kBatch read-only loads of four
+// values (16 bytes of f32, 8 of bf16) and four signs before it counts any
+// of them, the predicate of a slot past the end inside the load
+// instruction.
 // Warp shuffles and the block's shared memory reduce the threads' counts;
 // thread 0 of each block writes the block's count into rank 0's shared
 // memory through distributed shared memory, and after the cluster's
@@ -161,22 +173,26 @@ __device__ __forceinline__ int block_sum(int count) {
   return count;
 }
 
-// counts[c] = the matches of x[c][0 .. 4*n4) against r, for the cluster
-// c = blockIdx.x / k of k blocks.
-template <typename T>
+// counts[c] = the matches of x[c][0 .. 4*n4) against the reference, for
+// the cluster c of k blocks: grouped, r[blockIdx.y] and c = (blockIdx.y *
+// gridDim.x + blockIdx.x) / k (gridDim.x = k * clients a reference);
+// otherwise r and c = blockIdx.x / k (gridDim.y = 1).
+template <typename T, bool kGrouped>
 __global__ void __launch_bounds__(kThreads)
 sign_align_kernel(const T* __restrict__ x, const char4* __restrict__ r,
                   float* __restrict__ counts, long long n4) {
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned k = cluster.num_blocks();
   const unsigned rank = cluster.block_rank();
-  const long long c = blockIdx.x / k;
+  const long long c = kGrouped ? (blockIdx.y * gridDim.x + blockIdx.x) / k
+                               : blockIdx.x / k;
   if (n4 == 0) {
     if (rank == 0 && threadIdx.x == 0) counts[c] = 0.0f;
     return;
   }
   cluster_arrive();
   const T* xc = x + c * n4 * 4;
+  const char4* rc = kGrouped ? r + blockIdx.y * n4 : r;
   const long long stride = (long long)k * kThreads;   // the cluster's threads
   const long long first = (long long)rank * kThreads + threadIdx.x;
   int count = 0;
@@ -187,7 +203,7 @@ sign_align_kernel(const T* __restrict__ x, const char4* __restrict__ r,
     for (int j = 0; j < kBatch; ++j) {
       const long long i = i0 + first + j * stride;
       v[j] = load4(xc, i, i < n4);
-      s[j] = load_signs(r, i, i < n4);
+      s[j] = load_signs(rc, i, i < n4);
     }
 #pragma unroll
     for (int j = 0; j < kBatch; ++j) count += matches(v[j], s[j]);
@@ -218,7 +234,7 @@ int cluster_size(int clients, long long n4) {
 // launch's error or, if it has none, cudaGetLastError(), as an int.
 template <typename T>
 int launch(const void* x, const void* r, void* counts, int clients,
-           long long n, void* stream) {
+           int group, long long n, void* stream) {
   const long long n4 = n / 4;
   const int k = cluster_size(clients, n4);
   cudaLaunchAttribute cluster;
@@ -227,28 +243,35 @@ int launch(const void* x, const void* r, void* counts, int clients,
   cluster.val.clusterDim.y = 1;
   cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3((unsigned)k * (unsigned)clients);
+  config.gridDim = dim3((unsigned)k * (unsigned)group,
+                        (unsigned)(clients / group));
   config.blockDim = dim3(kThreads);
   config.stream = (cudaStream_t)stream;
   config.attrs = &cluster;
   config.numAttrs = 1;
-  const cudaError_t launched = cudaLaunchKernelEx(
-      &config, sign_align_kernel<T>, (const T*)x, (const char4*)r,
-      (float*)counts, n4);
+  const cudaError_t launched =
+      group == clients
+          ? cudaLaunchKernelEx(&config, sign_align_kernel<T, false>,
+                               (const T*)x, (const char4*)r, (float*)counts,
+                               n4)
+          : cudaLaunchKernelEx(&config, sign_align_kernel<T, true>,
+                               (const T*)x, (const char4*)r, (float*)counts,
+                               n4);
   const cudaError_t last = cudaGetLastError();
   return (int)(launched != cudaSuccess ? launched : last);
 }
 
 }  // namespace
 
-// u: (C, n) f32, r: (n,) int8, counts: (C,) f32, written whole; n is a
+// u: (C, n) f32, r: (C / group, n) int8, counts: (C,) f32, written whole;
+// client c is counted against r[c / group] (group >= 1 divides C); n is a
 // multiple of 4 below 2^31 (0 writes C zeros and loads nothing) and u, r
 // are 16-byte aligned. Launches on `stream` and returns the launch's CUDA
 // error as an int.
 extern "C" int per_client_sign_align(const void* u, const void* r,
-                                     void* counts, int clients,
+                                     void* counts, int clients, int group,
                                      long long n, void* stream) {
-  return launch<float>(u, r, counts, clients, n, stream);
+  return launch<float>(u, r, counts, clients, group, n, stream);
 }
 
 // g: (n,) f32 (g_bf16 == 0) or bf16 (g_bf16 != 0), r: (n,) int8, count:
@@ -257,6 +280,6 @@ extern "C" int per_client_sign_align(const void* u, const void* r,
 // int.
 extern "C" int sign_align_counts(const void* g, int g_bf16, const void* r,
                                  void* count, long long n, void* stream) {
-  return g_bf16 ? launch<__nv_bfloat16>(g, r, count, 1, n, stream)
-                : launch<float>(g, r, count, 1, n, stream);
+  return g_bf16 ? launch<__nv_bfloat16>(g, r, count, 1, 1, n, stream)
+                : launch<float>(g, r, count, 1, 1, n, stream);
 }

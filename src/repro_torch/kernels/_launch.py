@@ -40,8 +40,9 @@ ENTRY_POINTS = {
     "masked_agg": ("masked_agg", (_PTR, _PTR, _PTR, _I32, _I64, _PTR)),
     "fused_update": ("masked_agg",
                      (_PTR, _I32, _PTR, _PTR, _PTR, _I32, _I64, _PTR)),
+    # u, r, counts, clients, clients a reference, n, stream
     "per_client_sign_align": ("sign_align",
-                              (_PTR, _PTR, _PTR, _I32, _I64, _PTR)),
+                              (_PTR, _PTR, _PTR, _I32, _I32, _I64, _PTR)),
     "sign_align_counts": ("sign_align",
                           (_PTR, _I32, _PTR, _PTR, _I64, _PTR)),
     # in_bf16, out_bf16, B, H, K, S, Sk, hd

@@ -27,12 +27,16 @@ def sign_align_counts(g: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 
 def per_client_sign_align(u: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """u: (C, R, LANE) f32; r: (R, LANE) int8 -> (C,) f32 aligned counts.
+    """u: (C, R, LANE) f32; r: (R, LANE) int8, or (P, R, LANE) with P
+    dividing C, client c counted against r[c // (C / P)] -> (C,) f32
+    aligned counts.
 
     Counts are taken in int64 and converted once, so they are exact at
     any arena size (the -2 padding sentinel never matches a sign)."""
-    eq = sign(u) == r[None]
-    return eq.reshape(u.shape[0], -1).sum(dim=1).to(torch.float32)
+    refs = r[None] if r.dim() == 2 else r
+    C, P, n = u.shape[0], refs.shape[0], u.shape[1] * u.shape[2]
+    eq = sign(u).reshape(P, C // P, n) == refs.reshape(P, 1, n)
+    return eq.reshape(C, n).sum(dim=1).to(torch.float32)
 
 
 def masked_agg(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -4,6 +4,9 @@ CALCULATE-RELEVANCE).
 ``per_client_sign_align(u, r)`` takes the cohort's packed updates
 u (C, R, LANE) f32 and the reference signs r (R, LANE) int8 (-2 on
 padding) and returns the (C,) f32 counts of slots where sign(u[c]) == r.
+It also takes P references r (P, R, LANE) with C % P == 0: client c is
+then counted against r[c // (C / P)], in the same one launch (a topology
+sync scores every parent's children against that parent's signs).
 ``sign_align_counts(g, r)`` counts the same for one update g (R, LANE),
 f32 or bf16, and returns a 0-dim f32 tensor on g's device (the kernel
 path reads nothing back). The tensor's device decides the
@@ -37,14 +40,19 @@ def check_slots(n: int) -> None:
 def check_args(u: torch.Tensor, r: torch.Tensor) -> int:
     """Refuse what neither version of ``per_client_sign_align`` takes; -1
     for CPU tensors, else the index of their card."""
-    if u.dim() != 3 or u.shape[2] != LANE or u.shape[0] < 1:
-        raise ValueError(f"u must be (C >= 1, R, {LANE}); got {tuple(u.shape)}")
-    if tuple(r.shape) != tuple(u.shape[1:]):
-        raise ValueError(f"r must be {tuple(u.shape[1:])}; got {tuple(r.shape)}")
+    shape = u.shape
+    if len(shape) != 3 or shape[2] != LANE or shape[0] < 1:
+        raise ValueError(f"u must be (C >= 1, R, {LANE}); got {tuple(shape)}")
+    if r.shape != shape[1:] and not (
+            r.dim() == 3 and r.shape[1:] == shape[1:] and r.shape[0] >= 1
+            and shape[0] % r.shape[0] == 0):
+        raise ValueError(f"r must be {tuple(shape[1:])} or (P, "
+                         f"*{tuple(shape[1:])}) with P dividing C = "
+                         f"{shape[0]}; got {tuple(r.shape)}")
     if u.dtype != torch.float32 or r.dtype != torch.int8:
         raise TypeError(f"expected u float32 and r int8; got {u.dtype}, "
                         f"{r.dtype}")
-    check_slots(r.numel())
+    check_slots(shape[1] * LANE)
     return _launch.device_index("per_client_sign_align", u, r)
 
 
@@ -54,9 +62,11 @@ def per_client_sign_align(u: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         return ref.per_client_sign_align(u, r)
     pu = _launch.aligned_pointer("per_client_sign_align", u)
     pr = _launch.aligned_pointer("per_client_sign_align", r)
-    counts = u.new_empty(u.shape[0])
+    C, R, _ = u.shape
+    counts = u.new_empty(C)
     _launch.entries["per_client_sign_align"](
-        pu, pr, counts.data_ptr(), u.shape[0], r.numel(),
+        pu, pr, counts.data_ptr(), C,
+        C if r.dim() == 2 else C // r.shape[0], R * LANE,
         _launch.stream(device))
     launches["per_client_sign_align"] += 1
     return counts

@@ -189,7 +189,6 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 REFUSED = {
     "optimizer": dict(engine="spmd", strategy="fedavg", optimizer="adamw"),
-    "topology": dict(topology="two-tier-pods"),
     "candidate_frac": dict(candidate_frac=0.5),
     "world.resident": dict(world=T.WorldSpec(resident=False)),
     "model": dict(model="qwen2-1.5b"),
@@ -204,6 +203,25 @@ def test_spec_refuses_what_is_not_ported(field):
     issues = [i for i in err.value.issues if i.field == field]
     assert issues, err.value
     assert re.search(r"ROADMAP\.md queue 1 item \d+", issues[0].hint)
+
+
+# options the port refused before it ran them, now accepted and run
+ACCEPTED = {
+    "topology": dict(topology="two-tier-pods"),
+}
+
+
+@pytest.mark.parametrize("field", sorted(ACCEPTED))
+def test_spec_accepts_and_runs_what_is_ported(field):
+    """A spec with the option validates as the JAX package's does and runs
+    on the CPU; a topology leaves the records of the run without it."""
+    base = dataclasses.replace(_spec(T, "smoke", "ours"), rounds=2)
+    spec = dataclasses.replace(base, **ACCEPTED[field])
+    jspec = dataclasses.replace(_spec(J, "smoke", "ours"), rounds=2,
+                                **ACCEPTED[field])
+    assert spec.validate() is spec and jspec.validate() is jspec
+    got = T.run_experiment(spec, device="cpu")
+    assert got.records == T.run_experiment(base, device="cpu").records
 
 
 def test_chip_smoke_fails_without_a_card():

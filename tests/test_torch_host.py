@@ -169,3 +169,20 @@ def test_drift_directions_are_byte_identical(seed):
                                     features),
               tscn.drift_directions(tscn.DriftSpec(seed=seed), classes,
                                     features))
+
+
+def test_topology_copies_are_the_reference_sources():
+    """``topology/spec.py`` is a byte-identical copy; ``tree.py`` and
+    ``comm.py`` differ only in their import of ``spec``."""
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1] / "src"
+    ref, port = root / "repro" / "topology", root / "repro_torch" / "topology"
+    assert (port / "spec.py").read_bytes() == (ref / "spec.py").read_bytes()
+    for name in ("tree.py", "comm.py"):
+        got = (port / name).read_text().splitlines()
+        want = (ref / name).read_text().splitlines()
+        assert len(got) == len(want)
+        differ = [(g, w) for g, w in zip(got, want) if g != w]
+        assert differ == [("from repro_torch.topology.spec import "
+                           "TopologySpec",
+                           "from repro.topology.spec import TopologySpec")]

@@ -227,9 +227,10 @@ def _wrapper_cases():
                          lambda out: (p16.data_ptr(), 1, *ptrs(u, w, out), 5,
                                       2 * LANE, 77)),
         # the f32 counts: the kernel writes the tensor the wrapper returns
+        # clients, clients a reference (one reference: all of them), n
         "per_client_sign_align": (
             lambda: tsa.per_client_sign_align(u, r),
-            lambda out: (*ptrs(u, r, out), 5, 2 * LANE, 77)),
+            lambda out: (*ptrs(u, r, out), 5, 5, 2 * LANE, 77)),
         "sign_align_counts": (
             lambda: tsa.sign_align_counts(p16, r),
             lambda out: (p16.data_ptr(), 1, *ptrs(r, out), 2 * LANE, 77)),
@@ -274,6 +275,22 @@ def test_wrappers_pass_the_c_signature(fake_card):
         assert _launch_counts() == want, name
         for t in out if isinstance(out, tuple) else (out,):
             assert t.is_contiguous(), name
+
+
+@pytest.mark.parametrize("P", [1, 2, 3, 6])
+def test_grouped_sign_align_passes_clients_a_reference(fake_card, P):
+    """With P references (P, R, LANE), the one launch gets C / P clients a
+    reference, and the wrapper refuses P that do not divide C."""
+    g = torch.Generator().manual_seed(2)
+    u = torch.randn((6, 2, LANE), generator=g)
+    r = torch.randint(-1, 2, (P, 2, LANE), generator=g, dtype=torch.int8)
+    out = tsa.per_client_sign_align(u, r)
+    assert fake_card.calls == [("per_client_sign_align", "pppiilp",
+                                (u.data_ptr(), r.data_ptr(), out.data_ptr(),
+                                 6, 6 // P, 2 * LANE, 77))]
+    for bad in ((4, 2, LANE), (0, 2, LANE), (2, 3, LANE), (1, 1, 2, LANE)):
+        with pytest.raises(ValueError, match="r must be"):
+            tsa.per_client_sign_align(u, torch.zeros(bad, dtype=torch.int8))
 
 
 class _AtenCalls(TorchDispatchMode):

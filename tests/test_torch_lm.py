@@ -6,7 +6,9 @@ decode, ``serve_lm``, and what the port refuses.
 Tolerances, with their reasons:
   * f32 logits within 1e-4 of max|logit|: matmuls sum in another order
     in XLA and torch, and each layer passes the difference on.
-  * f32 v caches within 1e-5; k caches within 1e-5 plus max|k| times one
+  * f32 v caches within the bound of their projection's reduction
+    (``_v_bound``: 2·γ_n of Σ_k |x_k·W_kj| + |b_j| element by element,
+    n the fan-in); k caches within 1e-5 plus max|k| times one
     f32 ulp of the largest rotary angle (S − 1 radians). XLA's fused
     rotary (the prefill runs under ``lax.scan``) is about one ulp of the
     angle off: 2.6e-5 from an f64 reference at S = 512, where JAX's eager
@@ -43,6 +45,7 @@ from repro_torch.core import fl_step as tfl
 from repro_torch.kernels import flash_attn as tfa
 from repro_torch.launch import serve as tserve
 from repro_torch.models import api as tapi
+from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer
 
 DENSE = ["qwen2-1.5b", "stablelm-1.6b", "phi3-mini-3.8b", "granite-34b"]
@@ -74,13 +77,55 @@ def _close_logits(got, want, rel):
     assert gap <= rel * np.abs(want).max(), (gap, np.abs(want).max())
 
 
-def _close_cache(got, want, seq):
+def _v_bound(cfg, params, tokens):
+    """The largest |v − v'| two f32 evaluations of the prefill may put
+    between their v caches, element by element: (L, B, S, K, hd).
+
+    Each element is v_j = Σ_{k<n} x_k·W_kj + b_j over the fan-in n =
+    d_model, x the layer's normed input. A sum of n terms evaluated in
+    f32 in any order (XLA's and MKL's blocked GEMMs, with or without FMA)
+    is within γ_n·Σ_k |x_k·W_kj| of the exact sum, γ_n = n·u / (1 − n·u)
+    and u = 2^-24 (Higham, Accuracy and Stability of Numerical
+    Algorithms, 2nd ed., §3.1), and the bias adds one rounding more: so
+    two evaluations lie within 2·γ_{n+1}·(Σ_k |x_k·W_kj| + |b_j|) of each
+    other. The scale is taken from the port's own forward. From the second
+    layer on, x itself carries the earlier layers' roundings; on the four
+    smoke configs the gap is at most 19 u of the scale there (4 u in the
+    first layer), far inside 2·γ_{n+1} (514 u at n = 256), and a weight
+    of W_v moved by 1e-3 moves v by |x_k|·1e-3, beyond it."""
+    x = params["embed"][tokens]
+    S = x.shape[1]
+    positions = torch.arange(S)[None, :]
+    n = cfg.d_model + 1
+    gamma = n * 2.0 ** -24 / (1 - n * 2.0 ** -24)
+    out = []
+    for i in range(cfg.num_layers):
+        lp = transformer._layer(params["layers"], i)
+        a_in = tlayers.apply_norm(cfg, x, lp["ln1"])
+        scale = a_in.abs() @ lp["attn"]["wv"].abs()
+        if "bv" in lp["attn"]:
+            scale = scale + lp["attn"]["bv"].abs()
+        out.append(2 * gamma * scale.reshape(
+            x.shape[0], S, cfg.num_kv_heads, cfg.hd))
+        a_out, _ = tlayers.full_attention(
+            cfg, lp["attn"], a_in, positions=positions, causal=True,
+            sliding_window=cfg.sliding_window)
+        x = x + a_out
+        x = x + tlayers.ffn(cfg, lp["ffn"],
+                            tlayers.apply_norm(cfg, x, lp["ln2"]))
+    return torch.stack(out).numpy()
+
+
+def _close_cache(got, want, seq, v_bound):
+    g, w = got["v"].numpy(), np.asarray(want["v"])
+    assert g.shape == w.shape == v_bound.shape
+    beyond = np.abs(g - w) > v_bound
+    assert not beyond.any(), ("v", int(beyond.sum()), np.abs(g - w).max())
     angle_ulp = 2.0 ** (math.floor(math.log2(seq - 1)) - 23)
-    for name, extra in (("v", 0.0), ("k", angle_ulp)):
-        g, w = got[name].numpy(), np.asarray(want[name])
-        assert g.shape == w.shape
-        tol = 1e-5 + extra * np.abs(w).max()
-        assert np.abs(g - w).max() <= tol, (name, np.abs(g - w).max(), tol)
+    g, w = got["k"].numpy(), np.asarray(want["k"])
+    assert g.shape == w.shape
+    tol = 1e-5 + angle_ulp * np.abs(w).max()
+    assert np.abs(g - w).max() <= tol, ("k", np.abs(g - w).max(), tol)
 
 
 @functools.lru_cache(maxsize=None)
@@ -155,7 +200,7 @@ def test_prefill_matches_jax(arch, impl):
     assert logits.shape == (B, S, tc.padded_vocab)
     assert cache["step"] == S
     _close_logits(logits, want_logits, 1e-4)
-    _close_cache(cache, want_cache, S)
+    _close_cache(cache, want_cache, S, _v_bound(tc, params, toks))
 
 
 def test_prefill_matches_jax_bf16():

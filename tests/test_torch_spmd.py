@@ -217,6 +217,7 @@ ACCEPTED = {
     "lr_schedule": dict(strategy="fedavg", lr_schedule=lambda s: 0.01),
     "optimizer-sgd": dict(strategy="fedavg", optimizer="sgd"),
     "scenario": dict(strategy="cmfl", scenario="dynamic"),
+    "topology": dict(strategy="cmfl", topology="two-tier-pods"),
 }
 REFUSED_LIKE_JAX = {
     "async": (dict(strategy="ours", dynamic_batch=False), "schedule.kind"),
@@ -229,7 +230,6 @@ REFUSED_LIKE_JAX = {
 NOT_PORTED = {
     "adamw": (dict(optimizer="adamw"), "optimizer", 14),
     "adafactor": (dict(optimizer="adafactor"), "optimizer", 14),
-    "topology": (dict(topology="two-tier-pods"), "topology", 10),
     "candidate_frac": (dict(candidate_frac=0.5), "candidate_frac", 10),
 }
 _SPEC_FIELDS = ("rounds_per_dispatch", "fused_eval", "lr_schedule",
