@@ -102,7 +102,11 @@ Phases, each printing JSON lines:
                half-selection run on the card and on the CPU from the same
                weights and draws: selections, integer control state, update
                counts and accept rates equal, the f32 accumulators, EMAs,
-               accuracy and loss within ``parity``'s scanned tolerances, the
+               accuracy and loss within ``parity``'s scanned tolerances (the
+               update-norm EMA over the run within NORM_RUN_RTOL, and each
+               round of the card's run replayed on the CPU from the card's
+               carry before it within NORM_RTOL: ``grad_norm_gap``; every
+               scanned card-vs-CPU line below does the same), the
                error feedback after round 0 within its EF tolerances; and the
                card's fused scanned run at 4 rounds per dispatch against 1,
                which must be equal.
@@ -166,11 +170,39 @@ Phases, each printing JSON lines:
                the rules of their path, the summaries by
                ``parity.topology_problems`` from each boundary's closest θ
                test, problems ``[]``; the control state after the run held
-               as in 6b, except on the scanned path the update-norm EMA's
-               gap of ROADMAP queue 3 item 6, printed as ``exempt_control``
-               and exempt only where the run's control state equals by bits
-               that of the card's run without the topology), and the phase's
-               own seconds (``"phase": "topology_phase"``).
+               as in 6b, on the scanned path also equal by bits to the card's
+               run without the topology), and the phase's own seconds
+               (``"phase": "topology_phase"``).
+  6d. world scale — (a) benchmarks/fig3_scaling.py --population's cells:
+               population-only rounds (``core/population.py``,
+               ``build_population_round``: score, selection, synthetic
+               observations, the control round update) at 1,000, 10,000,
+               100,000 and 1,000,000 clients, cohort 64, ``candidate_frac``
+               0.02 over 8 logical shards, from fig3_scaling's seeded state;
+               ms a round single- and two-stage (CUDA events over 20 rounds
+               after a warm-up), ``round_update_logical`` equal to
+               ``round_update`` by bits over 3 rounds, the ``frac = 1.0``
+               cohorts and state equal to single-stage by bits, a round of
+               each under ``set_sync_debug_mode("error")``; at 1M card
+               against CPU over 3 rounds with the same draws (cohorts and
+               integer fields equal, f32 fields within ``parity.EMA_RTOL``,
+               and whether equal by bits) (``"phase": "population"``).
+               (b) Sign-align and masked-agg at C 64 × R 54 and the
+               error-feedback round trip at 3,456 rows against their plain
+               versions, timed (``"phase": "kernels"``); then a non-resident
+               world at full width: ``ours`` + int8 on the megastep,
+               100,000 clients of 256 samples, K 64, ``candidate_frac`` 0.02
+               over 8 shards, 4 rounds (``"run": "ours+int8 lazy 100k"``:
+               wall s a round, each kernel's launches a round, at least one
+               of each from round 1 on, loaders resident within the pool's
+               256, peak device memory, and the same spec at ``frac`` 1.0
+               and None equal by bits). (c) Card against CPU, problems
+               ``[]``: a 200-client lazy world (K 16, 256 samples,
+               ``candidate_frac`` 0.5 over 4) on the megastep and the loop,
+               two-stage selection (0.5 over 2) on the quickstart's
+               half-selection scanned R = 4 and on a synchronous selecting
+               spmd spec; the phase's seconds (``"phase":
+               "population_phase"``).
   7. LM serving — ``flash_attention`` against its plain version on the card
                (``"phase": "kernels"``), each case through the kernel that
                ``route(dtype, hd)`` names and launched there once: qwen2-1.5b's
@@ -204,9 +236,14 @@ around it.
 
     python3 chip_smoke.py --sign-eager
 
-times only the sign-align wrappers' eager calls (``sign_eager``): run a
-copy of the script from another checkout's root to compare its wrappers
-with this one's in the same call.
+times only the sign-align wrappers' eager calls (``sign_eager``), and
+
+    python3 chip_smoke.py --lazy-world
+
+only the 100,000-client non-resident world's four timed rounds of 6d (b)
+with its peak device memory (``"phase": "lazy_world"``): run a copy of the
+script from another checkout's root to compare that checkout with this one
+in the same call.
 """
 from __future__ import annotations
 
@@ -1472,15 +1509,14 @@ def held_per_round(run: str, spec, launches: dict, needed) -> dict:
     return per_round
 
 
-def scenario_card_cpu(T, parity, spec, params, card, card_recs,
-                      exempt=()) -> tuple:
+def scenario_card_cpu(T, parity, spec, params, card, card_recs) -> tuple:
     """(the problems of the card's run ``card`` against the same spec on
     the CPU from the same weights, by its path's rules; the CPU run; the
-    mismatches of the control-state fields named in ``exempt``, which on
-    the scanned path are returned here and not held)."""
+    comparison line's other fields: a scanned run's ``grad_norm_gap``)."""
     if spec.rounds_per_dispatch:
-        line, cpu = scanned_card_cpu(T, parity, spec, params, card, exempt)
-        return line["problems"], cpu, line["exempt_control"]
+        line, cpu = scanned_card_cpu(T, parity, spec, params, card)
+        return line["problems"], cpu, dict(
+            grad_norm_gap=line["grad_norm_gap"])
     if spec.engine == "spmd":
         cpu = T.SpmdDriver(spec, device="cpu", params=params,
                            agg_dtype=torch.float32)
@@ -1502,7 +1538,7 @@ def scenario_card_cpu(T, parity, spec, params, card, card_recs,
             problems.append("dropout draws differ")
     return problems + (parity.theta_band_violations(card.theta_ratios, 0.65)
                        + parity.theta_band_violations(cpu.theta_ratios,
-                                                      0.65)), cpu, []
+                                                      0.65)), cpu, {}
 
 
 def byzantine_tests(spec, theta_ratios) -> tuple:
@@ -1549,10 +1585,10 @@ def phase_scenario(T, parity, params, mods, smi: str) -> dict:
                     problems.append(f"{name}: the byzantine client passed θ "
                                     f"in {passed} of {len(tests)} tests")
             emit("slice", **line)
-            found, _cpu, _exempt = scenario_card_cpu(T, parity, spec,
-                                                     params, card, recs)
+            found, _cpu, extra = scenario_card_cpu(T, parity, spec, params,
+                                                   card, recs)
             emit("card_vs_cpu", run=name, problems=found,
-                 theta_tests=len(card.theta_ratios))
+                 theta_tests=len(card.theta_ratios), **extra)
             problems += [f"{name}: {p}" for p in found]
             launches[name], cards[name] = got, card
         emit("scenario_overhead", run=run, nvidia_smi=smi,
@@ -1782,12 +1818,6 @@ def full_width_topology(T, params, mods, smi: str) -> dict:
 TOPOLOGY_PRESETS_RUN = ("two-tier-pods", "edge-region-global")
 
 
-# the control-state field whose card-against-CPU gap on the scanned
-# quickstart is ROADMAP queue 3 item 6's, the flat spec's own: exempt there
-# only where the topology run's control state equals the flat card run's
-SCANNED_OPEN_GAP = ("grad_norm",)
-
-
 def same_control(a, b) -> bool:
     """Two ControlStates equal by bits, field by field."""
     return all(torch.equal(x, y) for x, y in zip(a, b))
@@ -1813,15 +1843,14 @@ def phase_topology(T, parity, sign_align, ref, params, mods,
             equal_to_flat = same_records(recs, flat_recs)
             found = [] if equal_to_flat else [
                 "records differ from the run without the topology"]
-            exempt = ()
+            control_equal = None
             if spec.rounds_per_dispatch:
-                if same_control(card._scan_ctl, flat._scan_ctl):
-                    exempt = SCANNED_OPEN_GAP
-                else:
+                control_equal = same_control(card._scan_ctl, flat._scan_ctl)
+                if not control_equal:
                     found.append("control state differs from the run "
                                  "without the topology")
-            problems_cpu, cpu, exempted = scenario_card_cpu(
-                T, parity, spec, params, card, recs, exempt)
+            problems_cpu, cpu, norm_gap = scenario_card_cpu(
+                T, parity, spec, params, card, recs)
             found += problems_cpu
             summary, tests, n_tests = topology_view(card)
             cpu_summary, cpu_tests, _n = topology_view(cpu)
@@ -1836,9 +1865,7 @@ def phase_topology(T, parity, sign_align, ref, params, mods,
                                          for b, _r, _j, x in tests),
                                         default=None),
                  topology_summary=summary, grouped_launches=extra,
-                 control_equal_to_flat=bool(exempt) if
-                 spec.rounds_per_dispatch else None,
-                 exempt_control=exempted,
+                 control_equal_to_flat=control_equal, **norm_gap,
                  wall_s_per_round=dict(flat=flat_wall / spec.rounds,
                                        topology=wall / spec.rounds),
                  nvidia_smi=smi)
@@ -1847,6 +1874,330 @@ def phase_topology(T, parity, sign_align, ref, params, mods,
     emit("topology_phase", seconds=time.perf_counter() - t0)
     if problems:
         raise AssertionError("topology runs disagree: " + "; ".join(problems))
+    return launches
+
+
+# benchmarks/fig3_scaling.py --population's cells: populations, cohort,
+# candidate_frac, logical shards, rounds
+POP_CLIENTS = (1_000, 10_000, 100_000, 1_000_000)
+POP_K, POP_FRAC, POP_SHARDS, POP_ROUNDS = 64, 0.02, 8, 20
+
+
+def seeded_state(control, n: int, device):
+    """fig3_scaling._seeded_state on ``device``: numpy rng 7, uniform
+    availability, pass rate and round time (a fresh state scores every
+    client the same)."""
+    rng = np.random.default_rng(7)
+    arrays = dict(avail=rng.uniform(0.2, 1.0, n),
+                  pass_rate=rng.uniform(0.5, 1.0, n),
+                  round_time=rng.uniform(0.5, 2.0, n))
+    return control.init_control(n, device=device)._replace(**{
+        f: torch.from_numpy(a.astype(np.float32)).to(device)
+        for f, a in arrays.items()})
+
+
+def pop_observations(draws, r: int) -> dict:
+    """A population round's observations (build_population_round's)."""
+    failed, passed, rt, norms = draws.round(r)
+    active = ~failed
+    return dict(failed=failed, active=active, passed=passed & active,
+                round_time=rt, sent=active, norms=norms)
+
+
+def pop_rounds(fn, state, rounds: int, first: int = 0):
+    """``rounds`` population rounds from ``state``; (state, cohorts)."""
+    cohorts = []
+    for r in range(first, first + rounds):
+        state, cohort = fn(state, r)
+        cohorts.append(cohort)
+    return state, cohorts
+
+
+def pop_ms(fn, state, rounds: int) -> float:
+    """ms a round over ``rounds`` rounds after a warm-up, by CUDA events
+    (the host's draws and launches included)."""
+    pop_rounds(fn, state, 2)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    pop_rounds(fn, state, rounds)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / rounds
+
+
+def population_sweep(T, parity, smi: str) -> None:
+    """Population-only rounds at fig3_scaling's cells (module docstring,
+    6d a)."""
+    from repro_torch.core import control, population, selection
+    from repro_torch.core.draws import PopulationDraws
+    problems = []
+    for n in POP_CLIENTS:
+        fns = {name: population.build_population_round(
+            n, POP_K, candidate_frac=frac, candidate_shards=POP_SHARDS,
+            device="cuda") for name, frac in (
+                ("single", None), ("two_stage", POP_FRAC), ("frac1", 1.0))}
+        state = seeded_state(control, n, "cuda")
+        ms = {name: pop_ms(fns[name], state, POP_ROUNDS)
+              for name in ("single", "two_stage")}
+        # no host synchronisation inside a round, single- or two-stage
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for name in ("single", "two_stage"):
+                fns[name](state, 0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        # round_update_logical against round_update, 3 rounds, by bits
+        draws = PopulationDraws(0, POP_K, "cuda")
+        glob = logi = state
+        for r in range(3):
+            cohort = fns["two_stage"](glob, r)[1]
+            obs = pop_observations(draws, r)
+            glob = population.round_update(glob, cohort, **obs)
+            logi = population.round_update_logical(
+                logi, cohort, shards=POP_SHARDS, **obs)
+        logical_equal = same_control(glob, logi)
+        # candidate_frac = 1.0 against single-stage, 3 rounds, by bits
+        a, ca = pop_rounds(fns["single"], state, 3)
+        b, cb = pop_rounds(fns["frac1"], state, 3)
+        frac1_equal = (all(torch.equal(x, y) for x, y in zip(ca, cb))
+                       and same_control(a, b))
+        line = dict(clients=n, cohort=POP_K, candidate_frac=POP_FRAC,
+                    shards=POP_SHARDS, rounds=POP_ROUNDS,
+                    quota=selection.candidate_quota(n, POP_K, POP_FRAC,
+                                                    POP_SHARDS),
+                    per=-(-n // POP_SHARDS), ms_per_round=ms,
+                    logical_equal_global=logical_equal,
+                    frac1_equal_single=frac1_equal, sync_free=True,
+                    nvidia_smi=smi)
+        if n == POP_CLIENTS[-1]:
+            line["card_vs_cpu"] = population_card_cpu(T, parity, n)
+            problems += line["card_vs_cpu"]["problems"]
+        emit("population", **line)
+        if not (logical_equal and frac1_equal):
+            problems.append(f"{n} clients: logical equal to global "
+                            f"{logical_equal}, frac 1.0 equal to "
+                            f"single-stage {frac1_equal}")
+        del fns, state, glob, logi, a, b
+    if problems:
+        raise AssertionError("population rounds: " + "; ".join(problems))
+
+
+def population_card_cpu(T, parity, n: int) -> dict:
+    """Three population rounds at ``n`` clients on the card and on the CPU
+    from the same state with the same draws, single- and two-stage:
+    cohorts equal, batch, staleness and has_ckpt equal, the f32 fields
+    within ``parity.EMA_RTOL`` (and whether they are equal by bits)."""
+    from repro_torch.core import control, population
+    problems, by_bits = [], {}
+    for name, frac in (("single", None), ("two_stage", POP_FRAC)):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            fn = population.build_population_round(
+                n, POP_K, candidate_frac=frac, candidate_shards=POP_SHARDS,
+                device=dev)
+            runs[dev] = pop_rounds(fn, seeded_state(control, n, dev), 3)
+        (card, c_card), (cpu, c_cpu) = runs["cuda"], runs["cpu"]
+        if [c.tolist() for c in c_card] != [c.tolist() for c in c_cpu]:
+            problems.append(f"{name}: cohorts differ")
+        state = {f: getattr(card, f).cpu().numpy()
+                 for f in population._FIELDS}
+        want = {f: getattr(cpu, f).numpy() for f in population._FIELDS}
+        problems += [f"{name}: {p}" for p in parity.population_mismatches(
+            state, want, population._FIELDS)]
+        by_bits[name] = all(np.array_equal(state[f], want[f])
+                            for f in population._FIELDS)
+    return dict(rounds=3, problems=problems, equal_by_bits=by_bits)
+
+
+def lazy_spec(T, clients: int, k: int, frac: float, shards: int,
+              rounds: int, **strategy_kwargs):
+    """The quickstart's model, links and int8 ``ours`` on a non-resident
+    world of ``clients`` clients, 256 samples each, selecting ``k``."""
+    return dataclasses.replace(
+        quickstart_spec(T, "ours", quantize=True,
+                        select_fraction=k / clients, **strategy_kwargs),
+        data=T.DataSpec(samples_per_client=256, eval_samples=4000),
+        world=T.WorldSpec(num_clients=clients, dropout_p=0.1,
+                          resident=False),
+        rounds=rounds, candidate_frac=frac, candidate_shards=shards)
+
+
+def free_card() -> None:
+    """Return a finished run's memory to the card (its tensors die with
+    the last reference to the run)."""
+    torch.cuda.empty_cache()
+
+
+def lazy_timed(T, params, mods, smi: str) -> tuple:
+    """The 100,000-client non-resident world on the int8 megastep, 4 rounds
+    timed one by one: (its ``slice`` line, its launches, its spec)."""
+    spec = lazy_spec(T, 100_000, 64, 0.02, 8, 4, dynamic_batch=False)
+    needed = ("per_client_sign_align", "masked_agg", "ef_round_trip")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = T.build_simulation(spec, device="cuda", params=params)
+    build_s = time.perf_counter() - t0
+    per_round, walls, total = [], [], collections.Counter()
+    with rows_per_call(mods) as rows:
+        for r in range(spec.rounds):
+            torch.cuda.synchronize()
+            reset_launches(mods)
+            t0 = time.perf_counter()
+            sim.run(1)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            got = read_launches(mods)
+            per_round.append({k: got[k] for k in needed})
+            total.update(got)
+            for k in needed:
+                if got[k] < 1 and (r or k != "per_client_sign_align"):
+                    raise AssertionError(f"lazy world, round {r}: {k} "
+                                         f"launched {got[k]} times")
+    held_launches("lazy 100k", dict(total), needed, rows)
+    recs = T.result_from_simulation(spec, sim).records
+    if not all(math.isfinite(r.loss) and math.isfinite(r.accuracy)
+               for r in recs):
+        raise AssertionError("lazy world: accuracy or loss not finite")
+    resident, capacity = sim.loaders.resident, sim.loaders.capacity
+    if not (sim.loaders.lazy and resident <= capacity == 256):
+        raise AssertionError(f"lazy world: {resident} loaders resident, "
+                             f"capacity {capacity}")
+    line = dict(run="ours+int8 lazy 100k", clients=100_000, cohort=64,
+                samples_per_client=256, candidate_frac=0.02, shards=8,
+                rounds=spec.rounds, build_s=build_s, wall_s_per_round=walls,
+                launches_per_round=per_round, rows_per_call=rows_line(rows),
+                loaders_resident=resident, loaders_capacity=capacity,
+                ef_arena_gb=sim._ef_arena.numel() * 4 / 1e9,
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                / 1e9,
+                updates_applied=[r.updates_applied for r in recs],
+                accuracy=[r.accuracy for r in recs], nvidia_smi=smi)
+    return line, dict(total), spec
+
+
+def lazy_full_width(T, params, mods, smi: str) -> dict:
+    """The 100,000-client non-resident world on the int8 megastep (module
+    docstring, 6d b); returns its launches."""
+    line, total, spec = lazy_timed(T, params, mods, smi)
+    # each run holds a 22.1 GB arena: free one before the next
+    free_card()
+    # candidate_frac = 1.0 against single-stage on the same world
+    same = {}
+    for frac in (1.0, None):
+        one = dataclasses.replace(spec, candidate_frac=frac)
+        run = T.build_simulation(one, device="cuda", params=params)
+        run.run(one.rounds)
+        same[frac] = (T.result_from_simulation(one, run).records,
+                      run.failure_log)
+        del run
+        free_card()
+    line["frac1_equal_single"] = same[1.0] == same[None]
+    emit("slice", **line)
+    if not line["frac1_equal_single"]:
+        raise AssertionError("lazy world: candidate_frac=1.0 records differ "
+                             "from single-stage")
+    return total
+
+
+def scale_kernels(sign_align, masked_agg, quantize, ref) -> None:
+    """The kernels at the lazy world's shapes, against their plain versions
+    by the rules of phase 3: sign-align and masked-agg at C 64 × R 54, the
+    error-feedback round trip at 64 × 54 = 3,456 rows; timed beside their
+    bounds, plain versions and library calls."""
+    C, R = 64, 54
+    u, r, w = kernel_inputs(C, R, seed=64)
+    _, sa_err = held_counts(sign_align.per_client_sign_align,
+                            ref.per_client_sign_align, u, r,
+                            f"C={C}, R={R}")
+    got, want, _ = held_agg(masked_agg, ref, u, w, f"C={C}, R={R}")
+    n = R * 1024
+    sa_bound = bound_ms(C * n * 4 + n + C * 4, 2 * C * n)
+    ma_bound = bound_ms(C * n * 4 + C * 4 + n * 4, 2 * C * n)
+    emit("kernels", name="per_client_sign_align", shape=[C, R],
+         equal=True, max_abs_err=sa_err,
+         ms=time_ms(lambda: sign_align.per_client_sign_align(u, r)),
+         device_ms=graph_ms(lambda: sign_align.per_client_sign_align(u, r)),
+         plain_ms=time_ms(lambda: ref.per_client_sign_align(u, r)),
+         bound_ms=sa_bound[0], bound_by=sa_bound[1], library_ms=None)
+    emit("kernels", name="masked_agg", shape=[C, R],
+         max_abs_err=float((got - want).abs().max()),
+         ms=time_ms(lambda: masked_agg.masked_agg(u, w)),
+         device_ms=graph_ms(lambda: masked_agg.masked_agg(u, w)),
+         plain_ms=time_ms(lambda: ref.masked_agg(u, w)),
+         bound_ms=ma_bound[0], bound_by=ma_bound[1],
+         library_ms=time_ms(lambda: torch.einsum("crl,c->rl", u, w)),
+         library_device_ms=graph_ms(lambda: torch.einsum("crl,c->rl", u,
+                                                         w)))
+    rows = C * R
+    for e_kind in ("zero", "random"):
+        d, e = ef_inputs(rows, seed=rows, e_kind=e_kind)
+        for g, wnt in zip(quantize.ef_round_trip(d, e),
+                          ref.ef_round_trip(d, e)):
+            if not torch.equal(g.view(torch.int32), wnt.view(torch.int32)):
+                raise AssertionError(f"ef_round_trip differs from its plain "
+                                     f"version at {rows} rows, e {e_kind}")
+    # d and e read, restored and residual written; an add, the five
+    # operations of quantize, a multiply and a subtract (codec_rows)
+    ef_bound = bound_ms(16 * rows * 1024, 8 * rows * 1024)
+    emit("kernels", name="ef_round_trip", rows=rows,
+         ef_round_trip="equal by bits",
+         ms=time_ms(lambda: quantize.ef_round_trip(d, e)),
+         device_ms=graph_ms(lambda: quantize.ef_round_trip(d, e)),
+         plain_ms=time_ms(lambda: ref.ef_round_trip(d, e)),
+         bound_ms=ef_bound[0], bound_by=ef_bound[1], library_ms=None)
+
+
+def phase_population(T, parity, sign_align, masked_agg, quantize, ref,
+                     params, mods, smi: str) -> dict:
+    """World scale (module docstring, 6d). Returns each run's launches."""
+    t0 = time.perf_counter()
+    population_sweep(T, parity, smi)
+    scale_kernels(sign_align, masked_agg, quantize, ref)
+    launches = {"ours+int8 lazy 100k": lazy_full_width(T, params, mods,
+                                                      smi)}
+    problems = []
+    small = lazy_spec(T, 200, 16, 0.5, 4, 4)
+    half = quickstart_spec(T, "ours", quantize=True, select_fraction=0.5)
+    cells = {
+        "lazy megastep": (small, ("per_client_sign_align", "masked_agg",
+                                  "ef_round_trip")),
+        "lazy loop": (dataclasses.replace(small, megastep=False), CODEC),
+        "two-stage scanned": (dataclasses.replace(
+            half, rounds_per_dispatch=4, candidate_frac=0.5,
+            candidate_shards=2), ("per_client_sign_align", "masked_agg",
+                                  "ef_round_trip", "cohort_gather")),
+        "two-stage spmd": (dataclasses.replace(
+            quickstart_spec(T, "ours", quantize=True, select_fraction=0.5,
+                            mode="sync", dynamic_batch=False),
+            engine="spmd", candidate_frac=0.5, candidate_shards=2),
+            ("per_client_sign_align", "masked_agg", "ef_round_trip")),
+    }
+    for run, (spec, needed) in cells.items():
+        card, recs, wall, got, rows = run_path_card(T, spec, params, mods)
+        held_launches(run, got, needed, rows)
+        found, cpu, extra = scenario_card_cpu(T, parity, spec, params, card,
+                                              recs)
+        line = dict(run=run, rounds=len(recs), problems=found, **extra,
+                    wall_s_per_round=wall / len(recs), launches=got,
+                    updates_applied=[r.updates_applied for r in recs])
+        if not spec.world.resident:
+            line.update(loaders_resident=card.loaders.resident,
+                        loaders_capacity=card.loaders.capacity)
+            if card.loaders.state_dict() != cpu.loaders.state_dict():
+                found.append("loader streams differ")
+        if spec.rounds_per_dispatch:
+            line["cohorts"] = card.cohorts
+        emit("card_vs_cpu", **line)
+        problems += [f"{run}: {p}" for p in found]
+        launches[run] = got
+    emit("population_phase", seconds=time.perf_counter() - t0)
+    if problems:
+        raise AssertionError("world-scale runs disagree: "
+                             + "; ".join(problems))
     return launches
 
 
@@ -2125,13 +2476,45 @@ def phase_trace(T, spec_scanned, spec_mega, params) -> None:
          device_events_per_round=line["device_events"], **line)
 
 
-def scanned_card_cpu(T, parity, spec, params, card_sim,
-                     exempt=()) -> tuple:
+def norm_replay(T, parity, spec, params, card_sim) -> tuple:
+    """Each round of ``spec`` (scanned) run on the card one round a
+    dispatch, and replayed on the CPU from the card's carry before it
+    (parameters, control state, error feedback, reference sign, the same
+    draws): the card's update-norm EMA after the round within
+    ``parity.NORM_RTOL`` of the CPU's (one round from one state). The
+    card's one-round-a-dispatch run must equal ``card_sim`` by bits.
+    Returns (problems, the largest relative gap of each round)."""
+    one = dataclasses.replace(spec, rounds_per_dispatch=1)
+    card = T.build_simulation(one, device="cuda", params=params)
+    cpu = T.build_simulation(one, device="cpu", params=params)
+    problems, gaps = [], []
+    for r in range(spec.rounds):
+        carry = card.scan_carry()
+        card.run(1)
+        cpu.load_scan_carry(carry)
+        cpu._scan_dispatch(1)
+        got = card._scan_ctl.grad_norm.cpu().numpy()
+        want = cpu._scan_ctl.grad_norm.numpy()
+        problems += parity.norm_mismatches(got, want, where=f"round {r}: ")
+        gaps.append(float(np.max(np.abs(got.astype(np.float64) - want)
+                                 / np.abs(want))))
+    if not (same_control(card._scan_ctl, card_sim._scan_ctl)
+            and torch.equal(card._params_mat, card_sim._params_mat)
+            and card.cohorts == card_sim.cohorts):
+        problems.append("the card's run at one round a dispatch differs "
+                        "from its run at "
+                        f"{spec.rounds_per_dispatch}")
+    return problems, gaps
+
+
+def scanned_card_cpu(T, parity, spec, params, card_sim) -> tuple:
     """``spec`` (scanned) on the CPU from the same weights and draws as the
-    card's run ``card_sim``; then both for one round again, for the error
+    card's run ``card_sim``: the control state after the run (the
+    update-norm EMA within ``parity.NORM_RUN_RTOL``), each
+    round's update-norm EMA replayed from the card's carry
+    (``norm_replay``); then both for one round again, for the error
     feedback after round 0. Returns the comparison line's fields and the
-    CPU run; the control state's mismatches in a field of ``exempt`` go to
-    the line's ``exempt_control``, not its problems."""
+    CPU run."""
     cpu = T.build_simulation(spec, device="cpu", params=params)
     cpu.run(spec.rounds)
     card_recs = T.result_from_simulation(spec, card_sim).records
@@ -2140,11 +2523,13 @@ def scanned_card_cpu(T, parity, spec, params, card_sim,
     if card_sim.cohorts != cpu.cohorts:
         problems.append(f"selections differ: {card_sim.cohorts} vs "
                         f"{cpu.cohorts}")
-    control = parity.control_mismatches(
-        {f: v.cpu().numpy() for f, v in card_sim._scan_ctl._asdict().items()},
-        {f: v.numpy() for f, v in cpu._scan_ctl._asdict().items()})
-    exempted = [p for p in control if p.split(":")[0] in exempt]
-    problems += [p for p in control if p not in exempted]
+    card_ctl = card_sim._scan_ctl._asdict()
+    problems += parity.control_mismatches(
+        {f: v.cpu().numpy() for f, v in card_ctl.items()},
+        {f: v.numpy() for f, v in cpu._scan_ctl._asdict().items()},
+        norm_rtol=parity.NORM_RUN_RTOL)
+    replay, replay_gaps = norm_replay(T, parity, spec, params, card_sim)
+    problems += replay
     problems += (parity.theta_band_violations(card_sim.theta_ratios, 0.65)
                  + parity.theta_band_violations(cpu.theta_ratios, 0.65))
     one = dataclasses.replace(spec, rounds=1)
@@ -2159,8 +2544,14 @@ def scanned_card_cpu(T, parity, spec, params, card_sim,
                    for a, b in zip(card_recs, cpu_recs))
             for f in ("sim_time", "comm_time", "idle_time", "bytes_sent",
                       "loss")}
-    return dict(problems=problems, exempt_control=exempted,
-                cohorts=card_sim.cohorts,
+    run_gap = float(np.max(np.abs(
+        card_ctl["grad_norm"].cpu().numpy().astype(np.float64)
+        - cpu._scan_ctl.grad_norm.numpy()) / cpu._scan_ctl.grad_norm.numpy()))
+    return dict(problems=problems, cohorts=card_sim.cohorts,
+                grad_norm_gap=dict(
+                    run=run_gap, run_bound=parity.NORM_RUN_RTOL,
+                    replay_per_round=replay_gaps,
+                    replay_bound=parity.NORM_RTOL),
                 theta_tests=len(card_sim.theta_ratios),
                 max_ratio_gap=max((abs(a[2] - b[2]) for a, b in zip(
                     card_sim.theta_ratios, cpu.theta_ratios)), default=0.0),
@@ -2720,8 +3111,17 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     name = torch.cuda.get_device_name(0)
+    mods = {"sign_align": sign_align, "masked_agg": masked_agg,
+            "quantize": quantize, "gather": gather, "flash_attn": flash_attn,
+            "compression": compression}
     if sys.argv[1:] == ["--sign-eager"]:
         sign_eager(sign_align, smi)
+        return 0
+    if sys.argv[1:] == ["--lazy-world"]:
+        _build.build_all()
+        cfg = quickstart_spec(T, "ours").resolve_model()
+        params = model_api.init_params(torch.Generator().manual_seed(0), cfg)
+        emit("lazy_world", **lazy_timed(T, params, mods, smi)[0])
         return 0
     emit("device", nvidia_smi=smi, kind=name,
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -2754,9 +3154,6 @@ def main() -> int:
 
     # 4. slice: the quickstart spec on the card. Each run sets every launch
     # count to 0 just before it and reads them just after.
-    mods = {"sign_align": sign_align, "masked_agg": masked_agg,
-            "quantize": quantize, "gather": gather, "flash_attn": flash_attn,
-            "compression": compression}
     cfg = quickstart_spec(T, "ours").resolve_model()
     params = model_api.init_params(torch.Generator().manual_seed(0), cfg)
     scanned = dict(rounds_per_dispatch=4)
@@ -2865,6 +3262,11 @@ def main() -> int:
     # 6c. hierarchical topologies on the four ported paths
     launches.update(phase_topology(T, parity, sign_align, ref, params, mods,
                                    smi))
+
+    # 6d. world scale: the population plane, two-stage selection and
+    # non-resident worlds
+    launches.update(phase_population(T, parity, sign_align, masked_agg,
+                                     quantize, ref, params, mods, smi))
 
     # 7. LM serving at qwen2-1.5b's full width
     launches.update(phase_lm(mods))

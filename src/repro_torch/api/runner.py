@@ -75,7 +75,9 @@ def build_simulation(spec: ExperimentSpec, *, device=None,
                                   fused_eval=spec.fused_eval, draws=draws,
                                   scenario=spec.resolve_scenario(),
                                   world_source=world_source,
-                                  topology=spec.resolve_topology())
+                                  topology=spec.resolve_topology(),
+                                  candidate_frac=spec.candidate_frac,
+                                  candidate_shards=spec.candidate_shards)
 
 
 def record_from_metrics(m: "ae.RoundMetrics") -> RoundRecord:

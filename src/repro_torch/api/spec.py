@@ -14,7 +14,10 @@ engine, rounds, seed), with the JAX package's field names, and
                    optional ``lr_schedule`` and ``optimizer="sgd"``;
 
 each with or without int8 wire compression (``strategy.quantize_updates``),
-a dynamic-world ``scenario`` (core/scenario.py: a preset name or a
+two-stage client selection (``candidate_frac``, ``candidate_shards``), a
+non-resident world (``WorldSpec(resident=False)`` with
+``DataSpec(samples_per_client)``, sim engine without
+``rounds_per_dispatch``), a dynamic-world ``scenario`` (core/scenario.py: a preset name or a
 ``ScenarioSpec``), a hierarchical ``topology`` (repro_torch/topology: a
 preset name or a ``TopologySpec``) and a custom ``eval_fn``.
 
@@ -86,14 +89,9 @@ class WorldSpec:
     dropout_p: float = 0.0
     speed_sigma: float = 0.6          # lognormal speed spread (stragglers)
     profile_seed_offset: int = 1      # profiles seeded at seed + offset
-    resident: bool = True             # False (lazy worlds) is not ported
-
-
-# option -> (the value the port runs, the ROADMAP.md queue 1 item that
-# brings the others)
-_NOT_PORTED = {
-    "candidate_frac": (None, 10, "two-stage candidate selection"),
-}
+    resident: bool = True             # False -> client shards are
+                                      # synthesized per cohort (needs
+                                      # data.samples_per_client)
 
 
 @dataclasses.dataclass
@@ -125,7 +123,12 @@ class ExperimentSpec:
     fused_eval: bool = False
     eval_fn: Optional[Callable] = None
     lr_schedule: Optional[Callable] = None     # spmd engine only: step -> lr
-    candidate_frac: Optional[float] = None
+    candidate_frac: Optional[float] = None     # two-stage selection: each
+                                               # of `candidate_shards`
+                                               # logical shards keeps its
+                                               # top ceil(frac·size); None
+                                               # is single-stage, 1.0 equal
+                                               # to it by bits
     candidate_shards: int = 8
     optimizer: Union[str, Any, None] = None
     # spmd engine only: None or "sgd" (momentum 0), or an Optimizer pair
@@ -166,7 +169,7 @@ class ExperimentSpec:
             return self.strategy
         return getattr(self.strategy, "name", "<custom>")
 
-    def build_world(self) -> world_mod.World:
+    def build_world(self) -> Union[world_mod.World, world_mod.LazyWorld]:
         return world_mod.build_world(self)
 
     # ------------------------------------------------------------------
@@ -181,22 +184,6 @@ class ExperimentSpec:
                 "engine", self.engine,
                 f"unknown engine; expected one of {ENGINES}"))
         issues.extend(self._validate_optimizer())
-        for name, (ported, item, what) in _NOT_PORTED.items():
-            value = getattr(self, name)
-            if value != ported:
-                issues.append(SpecIssue(
-                    name, value, f"{what} is not ported yet; it comes with "
-                                 f"ROADMAP.md queue 1 item {item}"))
-        if not self.world.resident:
-            issues.append(SpecIssue(
-                "world.resident", self.world.resident,
-                "non-resident (lazy) worlds are not ported yet; they come "
-                "with ROADMAP.md queue 1 item 10"))
-        if self.data.samples_per_client is not None:
-            issues.append(SpecIssue(
-                "data.samples_per_client", self.data.samples_per_client,
-                "only non-resident worlds read it; they come with "
-                "ROADMAP.md queue 1 item 10"))
         if self.rounds < 1:
             issues.append(SpecIssue("rounds", self.rounds,
                                     "rounds must be >= 1"))
@@ -239,6 +226,7 @@ class ExperimentSpec:
             issues.append(SpecIssue("world.num_clients",
                                     self.world.num_clients,
                                     "world.num_clients must be >= 1"))
+        issues.extend(self._validate_scale())
         try:
             self.resolve_model()
         except ValueError as e:
@@ -284,6 +272,53 @@ class ExperimentSpec:
         if issues:
             raise SpecError(issues)
         return self
+
+    def _validate_scale(self) -> List[SpecIssue]:
+        """The JAX package's checks of two-stage selection and of
+        non-resident worlds, with its hints."""
+        issues = []
+        if self.candidate_frac is not None and not (
+                0.0 < self.candidate_frac <= 1.0):
+            issues.append(SpecIssue(
+                "candidate_frac", self.candidate_frac,
+                "candidate_frac must be in (0, 1] (1.0 reproduces "
+                "single-stage selection bit-exactly; None disables the "
+                "pre-filter)"))
+        if self.candidate_shards < 1:
+            issues.append(SpecIssue(
+                "candidate_shards", self.candidate_shards,
+                "candidate_shards must be >= 1"))
+        if self.world.resident:
+            return issues
+        if self.data.samples_per_client is None:
+            issues.append(SpecIssue(
+                "world.resident", self.world.resident,
+                "non-resident worlds need data.samples_per_client "
+                "(each client's shard is synthesized lazily at a "
+                "fixed size)"))
+        elif self.data.samples_per_client < 1:
+            issues.append(SpecIssue(
+                "data.samples_per_client", self.data.samples_per_client,
+                "samples_per_client must be >= 1"))
+        if self.engine == "spmd":
+            issues.append(SpecIssue(
+                "world.resident", self.world.resident,
+                "engine='spmd' stacks every client's batch into one "
+                "compiled step — non-resident data needs the sim "
+                "engine's cohort dispatch"))
+        if self.rounds_per_dispatch is not None:
+            issues.append(SpecIssue(
+                "world.resident", self.world.resident,
+                "the scanned control plane gathers client data "
+                "device-side, so the population must be resident — "
+                "drop rounds_per_dispatch for lazy worlds"))
+        if self.data.factory is not None:
+            issues.append(SpecIssue(
+                "data.factory", self.data.factory,
+                "non-resident worlds synthesize per-client shards "
+                "from the seeded generators; a whole-population "
+                "factory cannot be materialized lazily"))
+        return issues
 
     def _validate_scenario(self) -> List[SpecIssue]:
         """The JAX package's scenario checks, field for field."""

@@ -2,17 +2,23 @@
 
 Synthetic UNSW-NB15 / ROAD surrogates (or a user factory), non-IID
 Dirichlet or IID partitioning, and heterogeneous/uniform client
-profiles — the resident world of the JAX package's ``api/world.py``,
-with its seeding: data uses ``seed``, the eval split ``seed + 1``,
-profiles ``seed + profile_seed_offset`` (default 1).
+profiles — the JAX package's ``api/world.py``, with its seeding: data
+uses ``seed``, the eval split ``seed + 1``, profiles ``seed +
+profile_seed_offset`` (default 1). ``WorldSpec(resident=False)`` builds a
+``LazyWorld`` instead: each client's shard is synthesized on first touch
+from ``partition.client_seed(seed, cid)``, so host memory follows the
+cohort, not the population.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List
+from collections import OrderedDict
+from typing import Any, Callable, Dict, List
 
-from repro_torch.core.async_engine import (ClientProfile,
+from repro_torch.core.async_engine import (ClientProfile, ProfileView,
+                                           heterogeneous_profile_arrays,
                                            heterogeneous_profiles,
+                                           uniform_profile_arrays,
                                            uniform_profiles)
 from repro_torch.data import partition, synthetic
 
@@ -22,6 +28,59 @@ class World:
     client_arrays: List[Dict[str, Any]]
     eval_arrays: Dict[str, Any]
     profiles: List[ClientProfile]
+
+    @property
+    def num_clients(self) -> int:
+        return len(self.client_arrays)
+
+
+class LazyClientData:
+    """Sequence of per-client array dicts, synthesized on demand.
+
+    ``data[cid]`` calls the materializer (seeded by
+    ``partition.client_seed``, so cohort membership never perturbs other
+    clients' shards) and keeps a small LRU cache; the engine's
+    ``LoaderPool`` holds the cohort's arrays itself."""
+
+    lazy = True
+
+    def __init__(self, make: Callable[[int], Dict[str, Any]],
+                 num_clients: int, cache_size: int = 8):
+        self._make = make
+        self._n = int(num_clients)
+        self._cache: "OrderedDict[int, Dict[str, Any]]" = OrderedDict()
+        self.cache_size = max(1, int(cache_size))
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, cid: int) -> Dict[str, Any]:
+        cid = int(cid)
+        if not 0 <= cid < self._n:
+            raise IndexError(f"client {cid} outside population "
+                             f"[0, {self._n})")
+        hit = self._cache.get(cid)
+        if hit is not None:
+            self._cache.move_to_end(cid)
+            return hit
+        arrays = self._make(cid)
+        self._cache[cid] = arrays
+        while len(self._cache) > self.cache_size:
+            self._cache.popitem(last=False)
+        return arrays
+
+
+@dataclasses.dataclass
+class LazyWorld:
+    """Non-resident client world (``WorldSpec.resident=False``): the duck
+    type of :class:`World`, with ``client_arrays`` synthesizing each
+    client's shard on first touch and ``profiles`` an array-backed view."""
+    client_arrays: LazyClientData
+    eval_arrays: Dict[str, Any]
+    profiles: ProfileView
+    partition: partition.LazyPartition
+
+    lazy = True
 
     @property
     def num_clients(self) -> int:
@@ -58,11 +117,53 @@ def _as_arrays(split) -> Dict[str, Any]:
     return {"x": X, "y": y}
 
 
+def build_lazy_world(spec) -> LazyWorld:
+    """Non-resident world: per-client shards come from the seeded
+    generators via ``LazyPartition.shard(cid)``; nothing population-sized
+    is materialized but the four profile arrays. Lazy shards are
+    independent per-client draws (IID across clients): Dirichlet label
+    skew needs the global label table, hence a resident world."""
+    cfg = spec.resolve_model()
+    d, w = spec.data, spec.world
+    kind = _dataset_kind(d, cfg)
+    if d.factory is not None:
+        raise ValueError("non-resident worlds synthesize per-client "
+                         "shards from the seeded generators; a "
+                         "whole-population factory cannot be "
+                         "materialized lazily")
+    if d.samples_per_client is None:
+        raise ValueError("non-resident worlds need "
+                         "data.samples_per_client")
+    part = partition.LazyPartition(w.num_clients, d.samples_per_client,
+                                   seed=spec.seed)
+
+    def make(cid: int) -> Dict[str, Any]:
+        shard_seed, m = part.shard(cid)
+        return _as_arrays(_make_split(kind, d, cfg, shard_seed, m))
+
+    eval_arrays = _as_arrays(
+        _make_split(kind, d, cfg, spec.seed + 1, d.eval_samples))
+    if w.profile == "heterogeneous":
+        prof_arrays = heterogeneous_profile_arrays(
+            w.num_clients, seed=spec.seed + w.profile_seed_offset,
+            dropout_p=w.dropout_p, speed_sigma=w.speed_sigma)
+    elif w.profile == "uniform":
+        prof_arrays = uniform_profile_arrays(w.num_clients,
+                                             dropout_p=w.dropout_p)
+    else:
+        raise ValueError(f"unknown profile {w.profile!r} "
+                         "(expected 'heterogeneous' or 'uniform')")
+    return LazyWorld(LazyClientData(make, w.num_clients), eval_arrays,
+                     ProfileView(prof_arrays), part)
+
+
 def build_world(spec) -> World:
     """Build (client shards, eval split, client profiles) from a spec."""
     cfg = spec.resolve_model()
     d, w = spec.data, spec.world
     kind = _dataset_kind(d, cfg)
+    if not w.resident:
+        return build_lazy_world(spec)
     train = _as_arrays(_make_split(kind, d, cfg, spec.seed, d.n_samples))
     n = len(train["y"])
 

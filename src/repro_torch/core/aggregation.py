@@ -75,8 +75,10 @@ def staleness_weights_np(taus, alpha0: float = 0.6) -> np.ndarray:
                      or tau.max() >= xla_pow.MAX_TAU):
         raise ValueError(
             f"staleness τ must be integers in [0, 2^20); the α table is "
-            f"bit-equal to the JAX package's only there (larger worlds "
-            f"are ROADMAP.md queue 1 item 10); got {tau.dtype} in "
+            f"bit-equal to the JAX package's only there (τ stays below the "
+            f"cohort size, so a cohort of 2^20 or more clients needs a "
+            f"longer table from tests/gen_xla_pow_table.py); got "
+            f"{tau.dtype} in "
             f"[{tau.min()}, {tau.max()}]")
     power = (1.0 / np.sqrt(1.0 + tau.astype(np.float64))).astype(np.float32)
     bits = power.view(np.int32)

@@ -68,8 +68,9 @@ from repro_torch.core.batchsize import BatchSizeController, ClientMetrics
 from repro_torch.core.checkpoint_policy import fit_weibull, optimal_interval
 from repro_torch.core.draws import HostDraws
 from repro_torch.core.schedule import ScheduleSpec
-from repro_torch.core.selection import AdaptiveClientSelector
-from repro_torch.data.loader import ArrayLoader
+from repro_torch.core.selection import (AdaptiveClientSelector,
+                                        candidate_mask_np)
+from repro_torch.data.loader import ArrayLoader, LoaderPool
 from repro_torch.device import resolve_device
 from repro_torch.kernels import arena as arena_mod
 from repro_torch.models import api
@@ -139,6 +140,17 @@ class RoundMetrics:
     loss: float
 
 
+def _moved(tree, device):
+    """A copy of a tuple tree of tensors (NamedTuples, tuples, None) on
+    ``device``."""
+    if torch.is_tensor(tree):
+        return tree.to(device, copy=True)
+    if tree is None:
+        return None
+    parts = [_moved(t, device) for t in tree]
+    return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+
+
 def _to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """numpy batch -> device tensors; integer labels become int64 here, at
     the device boundary, so the numpy layer stays the JAX package's."""
@@ -160,7 +172,9 @@ class FederatedSimulation:
                  megastep: bool = True,
                  rounds_per_dispatch: Optional[int] = None,
                  fused_eval: bool = False, draws=None, scenario=None,
-                 world_source=None, topology=None):
+                 world_source=None, topology=None,
+                 candidate_frac: Optional[float] = None,
+                 candidate_shards: int = 8):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.strategy = strategy
@@ -194,6 +208,19 @@ class FederatedSimulation:
             raise ValueError("fused_eval keeps the accuracy on the device "
                              "inside the dispatch; a custom eval_fn returns "
                              "a host float — drop one of the two")
+        # two-stage selection: None -> single-stage; 1.0 equals it by bits
+        # (an all-True candidate mask) on every path
+        self.candidate_frac = (None if candidate_frac is None
+                               else float(candidate_frac))
+        self.candidate_shards = max(1, int(candidate_shards))
+        # a non-resident world (api/world.LazyWorld) materializes loaders
+        # per selected cohort; the scanned path stacks the population
+        self._lazy_world = bool(getattr(client_arrays, "lazy", False))
+        if self._lazy_world and self.rounds_per_dispatch:
+            raise ValueError(
+                "the scanned control plane gathers client data "
+                "device-side, so the population must be resident — drop "
+                "rounds_per_dispatch for lazy worlds")
         # --- dynamic-world scenario (core/scenario.py) --------------------
         # None / inactive -> the world stays frozen at round 0 and every
         # path below runs as it does without one; ``world_source`` replaces
@@ -277,19 +304,31 @@ class FederatedSimulation:
             self._topo_state = self._topo.init()
 
         # --- per-client state --------------------------------------------
-        self.batch_ctrl = BatchSizeController()
+        # the closure holds the controller, not ``self``: the lazy
+        # world's LoaderPool keeps it, and a reference back to the
+        # simulation would keep a finished run's device arrays alive until
+        # the cycle collector happened to run
+        batch_ctrl = self.batch_ctrl = BatchSizeController()
 
         def initial_bs(cid: int) -> int:
             bs = strategy.batch_size
             if strategy.dynamic_batch:
                 p = profiles[cid]
-                bs = self.batch_ctrl.initial(cid, ClientMetrics(
+                bs = batch_ctrl.initial(cid, ClientMetrics(
                     compute=p.speed, memory=p.memory,
                     latency=p.net_latency))
             return bs
 
-        self.loaders = [ArrayLoader(arrays, initial_bs(cid), seed=seed + cid)
-                        for cid, arrays in enumerate(client_arrays)]
+        if self._lazy_world:
+            # loaders (and the shards behind them) materialize per selected
+            # cohort, LRU-bounded: host memory follows the cohort size
+            k = max(1, int(strategy.select_fraction * self.num_clients))
+            self.loaders = LoaderPool(client_arrays, initial_bs, seed=seed,
+                                      capacity=max(4 * k, 64))
+        else:
+            self.loaders = [ArrayLoader(arrays, initial_bs(cid),
+                                        seed=seed + cid)
+                            for cid, arrays in enumerate(client_arrays)]
         self.selector = AdaptiveClientSelector(self.num_clients, seed=seed)
         self.client_lr_scale = np.ones(self.num_clients)
         self.grad_norms = np.ones(self.num_clients)
@@ -301,9 +340,9 @@ class FederatedSimulation:
         self.recovery_time = 0.2      # restore from checkpoint
         self.restart_time = 1.0       # cold restart without one
 
-        # τ < #arrivals <= N: one table lookup per arrival
+        # τ < #arrivals <= the cohort size: one table lookup per arrival
         self._alpha_table = aggregation.staleness_weights_np(
-            np.arange(self.num_clients + 1), self.schedule.alpha0)
+            np.arange(self._cohort_size() + 1), self.schedule.alpha0)
 
         # --- device-resident control plane (scanned path, built lazily) ---
         self._draws = draws           # None -> HostDraws at _scan_setup
@@ -427,10 +466,20 @@ class FederatedSimulation:
     # ------------------------------------------------------------------
     # rounds
     # ------------------------------------------------------------------
+    def _cohort_size(self) -> int:
+        """The most clients a round selects: K under selection, else N."""
+        st = self.strategy
+        if st.grad_norm_selection or (st.selection
+                                      and st.select_fraction < 1.0):
+            return max(1, int(st.select_fraction * self.num_clients))
+        return self.num_clients
+
     def _select_clients(self) -> List[int]:
         """This round's cohort. Under churn the live roster applies before
         top-k, as on the scanned and spmd paths: churned clients are
-        absent, never observed and never failed."""
+        absent, never observed and never failed. With ``candidate_frac``
+        the top-k and the ε pool are restricted to the candidate union of
+        the same live-masked scores the device paths rank."""
         st = self.strategy
         k = max(1, int(st.select_fraction * self.num_clients))
         live = (self._world_view["live"] if self._world_view is not None
@@ -441,7 +490,17 @@ class FederatedSimulation:
             return [int(c) for c in np.argsort(-gn)[:k]
                     if live is None or live[c]]
         if st.selection and st.select_fraction < 1.0:
-            return self.selector.select(k, live=live)
+            candidates = None
+            if self.candidate_frac is not None:
+                scores = np.array([self.selector.score(c)
+                                   for c in range(self.num_clients)])
+                if live is not None:
+                    scores = np.where(np.asarray(live, bool), scores,
+                                      -np.inf)
+                candidates = candidate_mask_np(scores, k,
+                                               self.candidate_frac,
+                                               self.candidate_shards)
+            return self.selector.select(k, live=live, candidates=candidates)
         return [c for c in range(self.num_clients)
                 if live is None or live[c]]
 
@@ -769,6 +828,11 @@ class FederatedSimulation:
         """Build the device world and the scanned carry once (lazy)."""
         if self._scan_world is not None:
             return self._scan_world
+        if self._lazy_world:
+            raise RuntimeError(
+                "the scanned control plane stacks the full population "
+                "device-side; non-resident worlds run the loop/megastep "
+                "paths")
         cap = max(l.n for l in self.loaders)
         stacked = {}
         for k in self.loaders[0].arrays:
@@ -815,10 +879,7 @@ class FederatedSimulation:
     def _scan_shapes(self):
         """Static (select_k, steps_phys, batch_phys) of the scanned rounds."""
         st = self.strategy
-        k = max(1, int(st.select_fraction * self.num_clients))
-        if not (st.grad_norm_selection
-                or (st.selection and st.select_fraction < 1.0)):
-            k = self.num_clients
+        k = self._cohort_size()
         batch_phys = min(l.batch_size for l in self.loaders)
         steps_phys = min(local_step_count(l.n, batch_phys, st)
                          for l in self.loaders)
@@ -840,7 +901,9 @@ class FederatedSimulation:
                 restart_time=self.restart_time,
                 eval_fn=(self._eval if self.fused_eval else None),
                 eval_every=self.eval_every, scenario=self.scenario,
-                drift_dirs=self._drift_dirs, topology=self._topo)
+                drift_dirs=self._drift_dirs, topology=self._topo,
+                candidate_frac=self.candidate_frac,
+                candidate_shards=self.candidate_shards)
         return self._scan_fns[R]
 
     def _scan_args(self, eval_mark: int = -1) -> list:
@@ -854,6 +917,29 @@ class FederatedSimulation:
         if self.fused_eval:
             args += [self._scan_prev_acc, eval_mark, self._eval_dev]
         return args
+
+    def scan_carry(self) -> tuple:
+        """A copy of the scanned path's carry before its next round:
+        (parameters, reference sign, its flag, ControlState with the error
+        feedback, topology state, accumulators, carried accuracy, the next
+        round's index), for ``load_scan_carry`` of a simulation of the
+        same spec on any device."""
+        self._scan_setup()
+        return _moved((self._params_mat, self._scan_ref,
+                       self._scan_ref_valid, self._scan_ctl,
+                       self._topo_state, self._scan_acc,
+                       self._scan_prev_acc), self.device) + (
+                           self._scan_round0,)
+
+    def load_scan_carry(self, carry: tuple) -> None:
+        """Continue the scanned path from ``carry`` (``scan_carry`` of a
+        simulation of the same spec): the next dispatch runs round
+        ``carry[-1]`` from that state, with that round's draws."""
+        self._scan_setup()
+        (self._params_mat, self._scan_ref, self._scan_ref_valid,
+         self._scan_ctl, self._topo_state, self._scan_acc,
+         self._scan_prev_acc) = _moved(carry[:-1], self.device)
+        self._scan_round0 = int(carry[-1])
 
     def _scan_dispatch(self, R: int, eval_mark: int = -1) -> dict:
         """Run the next R rounds as one dispatch and keep its carry; returns
@@ -994,6 +1080,31 @@ def uniform_profile_arrays(n: int, dropout_p: float = 0.0) -> dict:
     return {"speed": np.ones(n), "net_latency": np.zeros(n),
             "dropout_p": np.full(n, float(dropout_p)),
             "memory": np.ones(n)}
+
+
+class ProfileView:
+    """Sequence[ClientProfile] over per-field arrays: ``view[cid]`` builds
+    one dataclass per access instead of holding one per client (at 1M
+    clients a list is hundreds of MB of Python objects, the four float
+    arrays 32 MB), as the JAX package's."""
+
+    def __init__(self, arrays: dict):
+        self._a = arrays
+
+    def __len__(self) -> int:
+        return len(self._a["speed"])
+
+    def field(self, name: str) -> np.ndarray:
+        return self._a[name]
+
+    def __getitem__(self, cid):
+        if isinstance(cid, slice):
+            return [self[i] for i in range(*cid.indices(len(self)))]
+        a = self._a
+        return ClientProfile(speed=float(a["speed"][cid]),
+                             net_latency=float(a["net_latency"][cid]),
+                             dropout_p=float(a["dropout_p"][cid]),
+                             memory=float(a["memory"][cid]))
 
 
 def heterogeneous_profiles(n: int, seed: int = 0, dropout_p: float = 0.0,

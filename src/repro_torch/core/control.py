@@ -12,6 +12,8 @@ host, so R rounds of them run as one dispatch with no synchronisation
   ``score``                 — reliability × timeliness selection score
   ``select_topk_epsilon``   — stable top-k + ε-greedy pool swaps given the
                               uniform draws
+  ``two_stage_select``      — the sharded candidate pre-filter
+                              (``candidate_mask``) before that top-k
   ``batch_feedback``        — straggler demote / fast-client promote over
                               power-of-two batch assignments (§IV-A)
   ``local_steps``           — device twin of
@@ -30,6 +32,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from repro_torch.core import selection
 
 _POW2_MIN, _POW2_MAX = 64, 1024
 
@@ -202,15 +206,57 @@ def select_topk_epsilon(scores: torch.Tensor, k: int,
 def select_topk(scores: torch.Tensor, k: int,
                 generator: Optional[torch.Generator] = None,
                 epsilon: float = 0.0,
-                live: Optional[torch.Tensor] = None) -> torch.Tensor:
+                live: Optional[torch.Tensor] = None,
+                candidate_frac: Optional[float] = None,
+                candidate_shards: int = 8) -> torch.Tensor:
     """Convenience wrapper drawing the exploration uniforms, (k,) each, from
-    a CPU ``torch.Generator`` (the JAX package's takes a PRNG key)."""
+    a CPU ``torch.Generator`` (the JAX package's takes a PRNG key), through
+    ``two_stage_select``."""
+    stage = dict(candidate_frac=candidate_frac,
+                 candidate_shards=candidate_shards, live=live)
     if generator is None or epsilon <= 0.0:
-        return two_stage_select(scores, k, live=live)
+        return two_stage_select(scores, k, **stage)
     eps_u = torch.rand((int(k),), generator=generator).to(scores.device)
     pick_u = torch.rand((int(k),), generator=generator).to(scores.device)
     return two_stage_select(scores, k, epsilon=epsilon, eps_u=eps_u,
-                            pick_u=pick_u, live=live)
+                            pick_u=pick_u, **stage)
+
+
+def shard_view(scores: torch.Tensor, shards: int) -> torch.Tensor:
+    """(shards, per) view of (N,) scores as contiguous logical shards, the
+    last one −inf-padded up to ``per = ceil(N / shards)``."""
+    n = scores.shape[0]
+    per = -(-n // shards)
+    pad = shards * per - n
+    if pad:
+        scores = torch.cat([scores, torch.full((pad,), -torch.inf,
+                                               dtype=scores.dtype,
+                                               device=scores.device)])
+    return scores.reshape(shards, per)
+
+
+def shard_top(view: torch.Tensor, quota: int):
+    """(values, indices) of each row's first ``quota`` entries in a stable
+    descending sort: ties go to the lower index, as ``jax.lax.top_k``
+    sends them (``torch.topk`` promises no order among equal values)."""
+    v, i = torch.sort(view, dim=1, descending=True, stable=True)
+    return v[:, :quota], i[:, :quota]
+
+
+def candidate_mask(scores: torch.Tensor, k: int, frac: float,
+                   shards: int) -> torch.Tensor:
+    """(N,) bool — stage 1 of two-stage selection: each of ``shards``
+    contiguous logical shards of the scores keeps its top-``quota``
+    (``selection.candidate_quota``; ties to the lower index). With quota
+    >= k (always at ``frac=1.0``, where the mask is all-True) every global
+    top-k member survives its own shard's cut."""
+    n = scores.shape[0]
+    shards = max(1, min(int(shards), int(n)))
+    quota = selection.candidate_quota(n, k, frac, shards)
+    view = shard_view(scores, shards)
+    _, keep = shard_top(view, quota)
+    mask = torch.zeros(view.shape, dtype=torch.bool, device=scores.device)
+    return mask.scatter(1, keep, True).reshape(-1)[:n]
 
 
 def two_stage_select(scores: torch.Tensor, k: int, *,
@@ -220,14 +266,20 @@ def two_stage_select(scores: torch.Tensor, k: int, *,
                      eps_u: Optional[torch.Tensor] = None,
                      pick_u: Optional[torch.Tensor] = None,
                      live: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Single-stage selection (``candidate_frac=None``); the sharded
-    candidate pre-filter is not ported yet."""
-    if candidate_frac is not None:
-        raise NotImplementedError(
-            "two-stage candidate selection is not ported yet; it comes with "
-            "ROADMAP.md queue 1 item 10")
-    return select_topk_epsilon(scores, k, epsilon, eps_u=eps_u,
-                               pick_u=pick_u, live=live)
+    """Candidate pre-filter + the exact masked top-k.
+
+    ``candidate_frac=None`` is single-stage selection. Otherwise
+    non-candidates score −inf for the top-k AND leave the ε-exploration
+    pool, as in the JAX package; at ``frac=1.0`` the mask is all-True, so
+    both equal single-stage by bits."""
+    if candidate_frac is None:
+        return select_topk_epsilon(scores, k, epsilon, eps_u=eps_u,
+                                   pick_u=pick_u, live=live)
+    cand = candidate_mask(scores, k, candidate_frac, candidate_shards)
+    masked = torch.where(cand, scores, -torch.inf)
+    pool_live = cand if live is None else (live & cand)
+    return select_topk_epsilon(masked, k, epsilon, eps_u=eps_u,
+                               pick_u=pick_u, live=pool_live)
 
 
 # ---------------------------------------------------------------------------
@@ -272,21 +324,31 @@ def batch_rule(b: torch.Tensor, round_times: torch.Tensor,
 def grad_norm_update(state: ControlState, cohort: torch.Tensor,
                      norms: torch.Tensor, valid: torch.Tensor) -> ControlState:
     """0.5/0.5 EMA of update L2 norms (the ACFL critical-period proxy)."""
-    g = state.grad_norm[cohort]
-    new_g = torch.where(valid, 0.5 * g + 0.5 * norms, g)
+    new_g = grad_norm_rule(state.grad_norm[cohort], norms, valid)
     return state._replace(grad_norm=state.grad_norm.index_copy(0, cohort,
                                                                new_g))
+
+
+def grad_norm_rule(g: torch.Tensor, norms: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """``grad_norm_update``'s EMA on gathered values."""
+    return torch.where(valid, 0.5 * g + 0.5 * norms, g)
 
 
 def lr_scale_update(state: ControlState, cohort: torch.Tensor,
                     norms: torch.Tensor, valid: torch.Tensor) -> ControlState:
     """FedL2P-style meta-rule: grow the scale while updates are small,
     shrink while they are large; clipped to [0.25, 2]."""
-    s = state.lr_scale[cohort]
-    factor = torch.where(norms < 1.0, _f32(1.05, s), _f32(0.9, s))
-    new_s = torch.where(valid, torch.clamp(s * factor, 0.25, 2.0), s)
+    new_s = lr_scale_rule(state.lr_scale[cohort], norms, valid)
     return state._replace(lr_scale=state.lr_scale.index_copy(0, cohort,
                                                              new_s))
+
+
+def lr_scale_rule(s: torch.Tensor, norms: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """``lr_scale_update``'s decision on gathered scales."""
+    factor = torch.where(norms < 1.0, _f32(1.05, s), _f32(0.9, s))
+    return torch.where(valid, torch.clamp(s * factor, 0.25, 2.0), s)
 
 
 def staleness_update(state: ControlState, cohort: torch.Tensor,

@@ -22,6 +22,14 @@ step: ``SpmdDraws.round_draws(step)`` gives (eps_u (k,), pick_u (k,),
 drop_u (C,)), the uniforms of ε-greedy exploration, pool picks and
 dropout that the JAX package draws from ``fold_in(PRNGKey(seed), step)``.
 
+The population plane's round (core/population.py,
+``build_population_round``) observes synthetic cohort outcomes, which the
+JAX package draws from ``fold_in(PRNGKey(seed), r)`` split in four:
+failed ~ Bernoulli(0.05), passed ~ Bernoulli(0.9), round time ~ U(0.5,
+1.5) and update norm ~ U(0.1, 2.0), K each. ``PopulationDraws(seed, k,
+device).round(r)`` is the port's source of them; a test feeds the
+reference's through any object with the same ``round``.
+
 A scenario's link walks (core/scenario.py) take one standard normal a
 client a round for bandwidth and one for latency, which the JAX package
 draws from ``fold_in(PRNGKey(links.seed), r)`` split in two.
@@ -116,3 +124,27 @@ class LinkNormals:
         z = np.random.default_rng([self.seed, int(r)]).standard_normal(
             2 * self.n, dtype=np.float32)
         return z[:self.n], z[self.n:]
+
+
+class PopulationDraws:
+    """The population round's synthetic observations of round r, (failed,
+    passed, round_time, norms) of the K slots on the device, from a numpy
+    Generator seeded with (seed, absolute round): bool, bool, f32 in [0.5,
+    1.5) and f32 in [0.1, 2.0), copied in one pinned, non-blocking copy."""
+
+    def __init__(self, seed: int, k: int, device):
+        self.seed, self.k = int(seed), int(k)
+        self.device = torch.device(device)
+
+    def round(self, r: int):
+        k = self.k
+        u = np.random.default_rng([self.seed, int(r)]).random(
+            4 * k, dtype=np.float32)
+        row = np.concatenate([u[:k] < 0.05, u[k:2 * k] < 0.9]).astype(
+            np.float32)
+        vals = np.concatenate([row, np.float32(0.5) + u[2 * k:3 * k],
+                               np.float32(0.1) + np.float32(1.9)
+                               * u[3 * k:]])
+        dev = _to_device(torch.from_numpy(vals), self.device)
+        return (dev[:k] != 0, dev[k:2 * k] != 0, dev[2 * k:3 * k],
+                dev[3 * k:])

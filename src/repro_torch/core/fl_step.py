@@ -51,8 +51,8 @@ inter-tier syncs, the cadence keyed off the absolute ``step`` counter and
 selected by ``torch.where`` (nothing read back). The parameters, masks
 and metrics are those of the same step without it.
 
-Not ported yet: two-stage candidate selection (ROADMAP.md queue 1 item
-10). The prefill and serve steps at the end serve the dense language
+With ``ControlPlane.candidate_frac`` selection is two-stage
+(``control.two_stage_select``) on the same draws. The prefill and serve steps at the end serve the dense language
 models.
 """
 from __future__ import annotations
@@ -94,8 +94,9 @@ class ControlPlane:
     ``select_k == num_clients`` disables selection; an empty
     ``dropout_p`` disables dropout draws. ``round_time_hint`` is the
     analytic per-client round time (train + transfer at the CommModel's
-    rates) that the reliability EMAs observe. ``candidate_frac`` must be
-    None (two-stage selection is ROADMAP.md queue 1 item 10).
+    rates) that the reliability EMAs observe. ``candidate_frac`` adds the
+    per-shard candidate pre-filter before the exact masked top-k (None:
+    single-stage; 1.0 equals it by bits).
     """
     num_clients: int
     select_k: int
@@ -131,17 +132,11 @@ class ControlPlane:
                 or self.per_client_lr)
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(f"{what} is not ported yet; it comes with "
-                               f"ROADMAP.md queue 1 item {item}")
-
-
-def _check_options(optimizer, control_plane) -> None:
+def _check_optimizer(optimizer) -> None:
     if optimizer is None:
-        raise _not_ported("the JAX package's default optimizer (adamw, "
-                          "optim.for_config)", 14)
-    if control_plane is not None and control_plane.candidate_frac is not None:
-        raise _not_ported("two-stage candidate selection", 10)
+        raise NotImplementedError(
+            "the JAX package's default optimizer (adamw, optim.for_config) "
+            "is not ported yet; it comes with ROADMAP.md queue 1 item 14")
 
 
 def _template(cfg) -> Dict[str, torch.Tensor]:
@@ -160,7 +155,7 @@ def init_state(generator: Optional[torch.Generator], cfg, optimizer=None,
     the world before round 0, and with a ``topology`` its empty tier
     state (links priced off ``comm``), of ``num_clients`` clients (or
     the control plane's)."""
-    _check_options(optimizer, control_plane)
+    _check_optimizer(optimizer)
     dev = resolve_device(device)
     if params is None:
         params = api.init_params(generator, cfg)
@@ -230,7 +225,7 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
     topology of ``num_clients`` clients (or the control plane's), links
     priced off ``comm``, advanced in ``FLState.topology``.
     """
-    _check_options(optimizer, control_plane)
+    _check_optimizer(optimizer)
     scn = scenario if scenario_mod.is_active(scenario) else None
     dirs = {}                        # device -> drift directions
     arena = arena_mod.ParamArena(_template(cfg))
@@ -307,9 +302,11 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
                 scores = control_mod.score(ctl)
                 if live is not None:
                     scores = torch.where(live, scores, -torch.inf)
-                sel_idx = control_mod.select_topk_epsilon(
-                    scores, cp.select_k, cp.epsilon, eps_u=eps_u,
-                    pick_u=pick_u, live=live)
+                sel_idx = control_mod.two_stage_select(
+                    scores, cp.select_k, candidate_frac=cp.candidate_frac,
+                    candidate_shards=cp.candidate_shards,
+                    epsilon=cp.epsilon, eps_u=eps_u, pick_u=pick_u,
+                    live=live)
             else:
                 sel_idx = None
             selected = (ones if sel_idx is None else

@@ -98,9 +98,10 @@ def build_cohort_step(cfg, opt, arena, theta=None, quantize: bool = False):
                 corrupted update.
     ref_mat:    (rows, lane) int8 reference sign (None until it exists).
     ef, idx:    (N, rows, lane) error-feedback arena and (C,) int64 client
-                ids (quantize only; otherwise None, and ``new_ef`` is
-                ``ef``). The deltas returned are then the dequantized wire
-                payload, and the norms and ratios are taken of it.
+                ids (quantize only; otherwise None). ``ef`` is updated in
+                place and returned as ``new_ef``. The deltas returned are
+                then the dequantized wire payload, and the norms and ratios
+                are taken of it.
     has_ref:    round 0 has no reference direction; ratios are then 1.
     """
 
@@ -116,7 +117,10 @@ def build_cohort_step(cfg, opt, arena, theta=None, quantize: bool = False):
         new_ef = ef
         if quantize:
             deltas, residual = compression.compress_cohort(deltas, ef[idx])
-            new_ef = ef.index_put((idx,), residual)
+            # in place: a copy would write the whole (N, rows, lane) arena
+            # every round; the client ids are unique, and only padding rows
+            # share the spare row that nothing reads
+            ef.index_put_((idx,), residual)
         norms = torch.sqrt(torch.sum(deltas * deltas, dim=(1, 2)))
         if has_ref and theta is not None:
             ratios = alignment.cohort_alignment(deltas, ref_mat, arena.n)
@@ -162,7 +166,8 @@ def build_scanned_rounds(cfg, opt, arena, st, comm, *, num_clients: int,
                          ema: float = 0.8, recovery_time: float = 0.2,
                          restart_time: float = 1.0, eval_fn=None,
                          eval_every: int = 1, scenario=None,
-                         drift_dirs=None, topology=None):
+                         drift_dirs=None, topology=None,
+                         candidate_frac=None, candidate_shards: int = 8):
     """Returns ``run(params_mat, ref_mat, ref_valid, ctl, data, sizes,
     speed, latency, dropout_p, draws, worlds, topo, round0, acc,
     prev_acc=None, eval_mark=-1, eval_data=None) -> (carry, metrics)``: R
@@ -194,7 +199,11 @@ def build_scanned_rounds(cfg, opt, arena, st, comm, *, num_clients: int,
     the cohort without weight), scales the dropout probabilities, drifts
     the gathered batches by ``drift_dirs`` (a (classes, features) tensor),
     scales the byzantine clients' deltas before the codec and re-prices
-    each transfer. ``alpha_table`` holds α(τ) for
+    each transfer. With ``candidate_frac`` selection is two-stage
+    (``control.two_stage_select``: each of ``candidate_shards`` logical
+    shards of the live-masked scores keeps its top quota before the
+    masked top-k; 1.0 equals single-stage by bits). ``alpha_table`` holds
+    α(τ) for
     τ < K on the device (``aggregation.staleness_weights_np``).
 
     Semantics against the event-driven engine are the JAX package's (its
@@ -251,7 +260,9 @@ def build_scanned_rounds(cfg, opt, arena, st, comm, *, num_clients: int,
                 if scn is not None:
                     scores = torch.where(ws.live, scores, -torch.inf)
                 cohort = control.two_stage_select(
-                    scores, K, epsilon=epsilon, eps_u=eps_u, pick_u=pick_u,
+                    scores, K, candidate_frac=candidate_frac,
+                    candidate_shards=candidate_shards, epsilon=epsilon,
+                    eps_u=eps_u, pick_u=pick_u,
                     live=None if scn is None else ws.live)
             else:
                 cohort = arange_k

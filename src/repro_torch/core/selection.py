@@ -8,9 +8,9 @@ the θ filter), (iii) round time. The selector scores clients as
 ε-greedy floor keeps exploring unreliable clients so slow-but-unique data
 is not permanently excluded (the bias concern in §II-A).
 
-A copy of the JAX package's ``core/selection.py`` (single-stage
-selection; the two-stage candidate pre-filter comes with ROADMAP.md
-queue 1 item 10), kept identical in its draws.
+A copy of the JAX package's ``core/selection.py`` (the selector and the
+two-stage candidate pre-filter's quota and numpy mask), kept identical
+in its draws.
 """
 from __future__ import annotations
 
@@ -18,6 +18,49 @@ import dataclasses
 from typing import Dict, List
 
 import numpy as np
+
+
+# ---------------------------------------------------------------------------
+# two-stage selection, stage 1: the sharded candidate pre-filter
+# ---------------------------------------------------------------------------
+
+def candidate_quota(n: int, k: int, frac: float, shards: int) -> int:
+    """Per-shard candidate quota for the two-stage pre-filter.
+
+    ``ceil(frac * shard_size)`` floored so the union of per-shard top-
+    quota sets always holds >= k REAL clients even when the last logical
+    shard is padding-partial (each of the ``pad`` padding positions can
+    displace at most one real candidate, hence the ``(k + pad) /
+    shards`` floor). With ``quota >= k`` the two-stage top-k is EXACTLY
+    the single-stage top-k: every member of the global top-k is inside
+    its own shard's top-k (ties break toward lower index in both)."""
+    import math
+    n, k, shards = int(n), int(k), max(1, min(int(shards), int(n)))
+    per = -(-n // shards)
+    pad = shards * per - n
+    quota = max(math.ceil(float(frac) * per), -(-(k + pad) // shards), 1)
+    return min(quota, per)
+
+
+def candidate_mask_np(scores: np.ndarray, k: int, frac: float,
+                      shards: int) -> np.ndarray:
+    """(N,) bool numpy oracle of ``control.candidate_mask``: split the
+    score vector into ``shards`` contiguous logical shards, keep each
+    shard's top-``quota`` (ties -> lower index, matching both
+    ``jax.lax.top_k`` and stable descending argsort)."""
+    scores = np.asarray(scores)
+    n = scores.shape[0]
+    shards = max(1, min(int(shards), n))
+    per = -(-n // shards)
+    quota = candidate_quota(n, k, frac, shards)
+    pad = shards * per - n
+    s = np.concatenate([scores, np.full((pad,), -np.inf, scores.dtype)]) \
+        if pad else scores
+    s = s.reshape(shards, per)
+    keep = np.argsort(-s, axis=1, kind="stable")[:, :quota]
+    mask = np.zeros((shards, per), bool)
+    np.put_along_axis(mask, keep, True, axis=1)
+    return mask.reshape(-1)[:n]
 
 
 @dataclasses.dataclass

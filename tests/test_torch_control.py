@@ -145,8 +145,18 @@ def test_select_topk_draws_from_a_generator():
     a = tctl.select_topk(scores, 2, torch.Generator().manual_seed(3), 1.0)
     b = tctl.select_topk(scores, 2, torch.Generator().manual_seed(3), 1.0)
     assert a.tolist() == b.tolist() and len(set(a.tolist())) == 2
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tctl.two_stage_select(scores, 2, candidate_frac=0.5)
+    # two-stage: shards [0.1, 0.9, 0.5] and [0.7, 0.3] keep their top 2
+    # (quota = max(ceil(0.5·3), ceil((2 + 1)/2)) = 2), so the union is
+    # {1, 2, 3, 4} and the top 2 of it are 1 and 3
+    assert tctl.candidate_mask(scores, 2, 0.5, 2).tolist() == \
+        [False, True, True, True, True]
+    assert tctl.two_stage_select(scores, 2, candidate_frac=0.5,
+                                 candidate_shards=2).tolist() == [1, 3]
+    # with exploration the swaps stay inside the union
+    for seed in range(8):
+        got = tctl.select_topk(scores, 2, torch.Generator().manual_seed(seed),
+                               1.0, candidate_frac=0.5, candidate_shards=2)
+        assert 0 not in got.tolist() and len(set(got.tolist())) == 2
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -189,8 +189,6 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 REFUSED = {
     "optimizer": dict(engine="spmd", strategy="fedavg", optimizer="adamw"),
-    "candidate_frac": dict(candidate_frac=0.5),
-    "world.resident": dict(world=T.WorldSpec(resident=False)),
     "model": dict(model="qwen2-1.5b"),
 }
 
@@ -205,23 +203,39 @@ def test_spec_refuses_what_is_not_ported(field):
     assert re.search(r"ROADMAP\.md queue 1 item \d+", issues[0].hint)
 
 
-# options the port refused before it ran them, now accepted and run
+# options the port refused before it ran them, now accepted and run:
+# spec -> the fields that set the option (a non-resident world also needs
+# data.samples_per_client, by the JAX package's rule)
 ACCEPTED = {
-    "topology": dict(topology="two-tier-pods"),
+    "topology": lambda s: dict(topology="two-tier-pods"),
+    "candidate_frac": lambda s: dict(candidate_frac=0.5, candidate_shards=2),
+    "world.resident": lambda s: dict(
+        world=dataclasses.replace(s.world, resident=False),
+        data=dataclasses.replace(s.data, samples_per_client=96)),
 }
+# options that leave the records of the run without them: a topology is
+# measurement only
+SAME_RECORDS = ("topology",)
 
 
 @pytest.mark.parametrize("field", sorted(ACCEPTED))
 def test_spec_accepts_and_runs_what_is_ported(field):
     """A spec with the option validates as the JAX package's does and runs
-    on the CPU; a topology leaves the records of the run without it."""
-    base = dataclasses.replace(_spec(T, "smoke", "ours"), rounds=2)
-    spec = dataclasses.replace(base, **ACCEPTED[field])
-    jspec = dataclasses.replace(_spec(J, "smoke", "ours"), rounds=2,
-                                **ACCEPTED[field])
+    on the CPU (selecting half the clients, so two-stage selection bites);
+    a topology leaves the records of the run without it."""
+    def smoke(mod):
+        s = dataclasses.replace(_spec(mod, "smoke", "ours"), rounds=2)
+        return dataclasses.replace(s, strategy_kwargs=dict(
+            s.strategy_kwargs, select_fraction=0.5))
+    base, jbase = smoke(T), smoke(J)
+    spec = dataclasses.replace(base, **ACCEPTED[field](base))
+    jspec = dataclasses.replace(jbase, **ACCEPTED[field](jbase))
     assert spec.validate() is spec and jspec.validate() is jspec
     got = T.run_experiment(spec, device="cpu")
-    assert got.records == T.run_experiment(base, device="cpu").records
+    assert len(got.records) == 2
+    assert all(np.isfinite(r.loss) for r in got.records)
+    if field in SAME_RECORDS:
+        assert got.records == T.run_experiment(base, device="cpu").records
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -35,7 +35,9 @@ from repro.optim import adamw as jopt
 from repro_torch.api import parity
 from repro_torch.configs import anomaly_mlp as tcfgs
 from repro_torch.convert import fl_state_from_jax
+from repro_torch.core import control as tctl
 from repro_torch.core import fl_step as tfl
+from repro_torch.core.draws import SpmdDraws
 from repro_torch.optim import adamw as topt
 
 C, B, LR = 4, 64, 3e-2
@@ -69,6 +71,8 @@ CASES = {
     "per_client_lr": (None, dict(select_k=C, per_client_lr=True)),
     "quantize": (0.65, dict(select_k=C, quantize=True)),
     "dropout": (0.65, dict(select_k=3, dropout_p=(0.3,) * C)),
+    "two_stage": (0.65, dict(select_k=2, candidate_frac=0.5,
+                             candidate_shards=2, dropout_p=(0.3,) * C)),
 }
 AGG = {"bf16": (jnp.bfloat16, torch.bfloat16),
        "f32": (jnp.float32, torch.float32)}
@@ -144,9 +148,22 @@ def test_step_refuses_what_is_not_ported():
     opt = topt.sgd(LR)
     with pytest.raises(NotImplementedError, match="item 14"):
         tfl.make_raw_step(tcfgs.SMOKE, None)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tfl.make_raw_step(tcfgs.SMOKE, opt, control_plane=tfl.ControlPlane(
-            num_clients=4, select_k=2, candidate_frac=0.5))
+    # two-stage selection is run, not refused
+    two = tfl.ControlPlane(num_clients=C, select_k=2, candidate_frac=0.5,
+                           candidate_shards=2)
+    state2 = tfl.init_state(torch.Generator().manual_seed(0), tcfgs.SMOKE,
+                            opt, control_plane=two, device="cpu")
+    step2 = tfl.make_raw_step(tcfgs.SMOKE, opt, control_plane=two)
+    b = _batch(0, tcfgs.SMOKE)
+    draws = SpmdDraws(0, C, 2, "cpu").round_draws(0)
+    want = tctl.two_stage_select(
+        tctl.score(state2.control), 2, candidate_frac=0.5,
+        candidate_shards=2, epsilon=two.epsilon, eps_u=draws[0],
+        pick_u=draws[1])
+    _, m = step2(state2, {"x": torch.from_numpy(b["x"]),
+                          "y": torch.from_numpy(b["y"])}, draws)
+    assert torch.nonzero(m["selected"]).reshape(-1).tolist() == \
+        sorted(want.tolist())
     step = tfl.make_raw_step(tcfgs.SMOKE, opt, control_plane=tfl.ControlPlane(
         num_clients=C, select_k=2))
     state = tfl.init_state(torch.Generator().manual_seed(0), tcfgs.SMOKE, opt,

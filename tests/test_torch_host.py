@@ -133,12 +133,13 @@ def test_schedule_spec_is_identical():
 @pytest.mark.parametrize("alpha0", [0.5, 0.6, 0.9, 1.0])
 def test_alpha_table_equals_xla_f32(alpha0):
     """Bit-equal for every τ < 2^20, where XLA's f32 power is one ulp off
-    the correctly rounded value at 631 τ; the port refuses τ beyond."""
+    the correctly rounded value at 631 τ; the port refuses τ beyond, which
+    only a cohort of 2^20 or more clients reaches (τ < the cohort size)."""
     taus = np.arange(1 << 20)
     _same(jagg.staleness_weights_np(taus, alpha0),
           tagg.staleness_weights_np(taus, alpha0))
     for bad in ([1 << 20], [-1], [2.0]):
-        with pytest.raises(ValueError, match="queue 1 item 10"):
+        with pytest.raises(ValueError, match="cohort size"):
             tagg.staleness_weights_np(np.asarray(bad), alpha0)
 
 
@@ -186,3 +187,32 @@ def test_topology_copies_are_the_reference_sources():
         assert differ == [("from repro_torch.topology.spec import "
                            "TopologySpec",
                            "from repro.topology.spec import TopologySpec")]
+
+
+def test_population_copies_are_identical():
+    """The copies of ``selection.candidate_quota`` / ``candidate_mask_np``,
+    ``partition.client_seed`` / ``LazyPartition``, ``loader.LoaderPool``
+    and ``async_engine.ProfileView`` give the reference's outputs."""
+    rng = np.random.default_rng(6)
+    for n, k, frac, shards in [(10, 3, 0.5, 4), (33, 5, 0.3, 8),
+                               (9, 9, 0.01, 4), (1000, 64, 0.02, 8)]:
+        s = np.round(rng.normal(size=n), 1).astype(np.float32) + 0.0
+        assert tsel.candidate_quota(n, k, frac, shards) == \
+            jsel.candidate_quota(n, k, frac, shards)
+        _same(tsel.candidate_mask_np(s, k, frac, shards),
+              jsel.candidate_mask_np(s, k, frac, shards))
+    for seed, cid in [(0, 0), (0, 5), (5, 0), (3, 999_999)]:
+        assert tpart.client_seed(seed, cid) == jpart.client_seed(seed, cid)
+        assert tpart.LazyPartition(1_000_000, 256, seed).shard(cid) == \
+            jpart.LazyPartition(1_000_000, 256, seed).shard(cid)
+    data = [dict(zip(("x", "y"), jsyn.make_unsw_like(c, 40)))
+            for c in range(5)]
+    pools = [mod.LoaderPool(data, lambda c: 8 + c, seed=2, capacity=2)
+             for mod in (tloader, jloader)]
+    for cid in (0, 1, 2, 0, 3, 4, 1):
+        for a, b in zip(*(p[cid].sample().values() for p in pools)):
+            _same(a, b)
+    assert pools[0].state_dict() == pools[1].state_dict()
+    arrays = jae.heterogeneous_profile_arrays(7, seed=2, dropout_p=0.1)
+    assert [dataclasses.asdict(p) for p in tae.ProfileView(arrays)[:]] == \
+        [dataclasses.asdict(p) for p in jae.ProfileView(arrays)[:]]

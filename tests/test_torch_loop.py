@@ -45,6 +45,17 @@ from repro_torch.models import api as tapi
 from repro_torch.models import mlp_detector as tmlp
 from repro_torch.optim import adamw as tadamw
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: these cases run many tiny operations, and where
+    several test workers share the machine, more threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CASES = {
     "smoke": dict(model="anomaly-mlp-smoke", n=1500, ev=300, clients=4,
                   rounds=3),

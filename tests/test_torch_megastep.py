@@ -104,7 +104,8 @@ def test_quantized_cohort_step_matches_jax(name):
                                     quantize=True)
     td, tl, tr, tn, tef = tstep(torch.from_numpy(pmat), _tbatch(x, y),
                                 torch.from_numpy(lr_scale), None,
-                                torch.from_numpy(ref), torch.from_numpy(ef),
+                                torch.from_numpy(ref),
+                                torch.from_numpy(ef.copy()),
                                 torch.from_numpy(idx), has_ref=True)
     assert tef.shape == ef.shape
     np.testing.assert_array_equal(tef.numpy()[[1, 3]], ef[[1, 3]])

@@ -219,6 +219,42 @@ def test_grouping_of_rounds_changes_nothing(R, rounds):
     assert single.dispatches == rounds
 
 
+def test_update_norm_replay_holds_each_round_and_bites():
+    """The scanned path's update-norm EMA check (parity.py): each round
+    replayed by a second simulation from the run's carry before it gives
+    the run's control state (equal by bits on one device, so within
+    NORM_RTOL), and a grad_norm moved by 1e-3 relative in one client fails
+    both the round's check and the whole run's empirical limit
+    (NORM_RUN_RTOL, whatever the number of rounds)."""
+    spec = _spec(T, "ours", rounds=8, R=1, fused=True, quantize_updates=True,
+                 select_fraction=0.6, dropout=0.2)
+    run = T.build_simulation(spec, device="cpu")
+    replay = T.build_simulation(spec, device="cpu")
+    for r in range(spec.rounds):
+        carry = run.scan_carry()
+        run.run(1)
+        replay.load_scan_carry(carry)
+        replay._scan_dispatch(1)
+        for a, b in zip(run._scan_ctl, replay._scan_ctl):
+            assert torch.equal(a, b), r
+        got = run._scan_ctl.grad_norm.numpy()
+        want = replay._scan_ctl.grad_norm.numpy()
+        assert not parity.norm_mismatches(got, want)
+        moved = got.copy()
+        c = int(np.argmax(np.abs(got - 1.0)))
+        moved[c] *= np.float32(1.001)
+        found = parity.norm_mismatches(moved, want, where=f"round {r}: ")
+        assert len(found) == 1 and f"client {c}:" in found[0], found
+    state = {f: v.numpy() for f, v in run._scan_ctl._asdict().items()}
+    run_rtol = parity.NORM_RUN_RTOL
+    assert not parity.control_mismatches(state, state, norm_rtol=run_rtol)
+    moved = dict(state, grad_norm=state["grad_norm"].copy())
+    moved["grad_norm"][c] *= np.float32(1.001)
+    found = parity.control_mismatches(moved, state, norm_rtol=run_rtol)
+    assert [p.split(":")[0] for p in found] == ["grad_norm"]
+    assert parity.NORM_RTOL < run_rtol < 1e-3
+
+
 def _batch_spec(**over):
     return dataclasses.replace(
         _spec(T, "ours", rounds=5, R=3, fused=True, partition="iid",
@@ -258,6 +294,10 @@ REFUSALS = {
     "fused_eval refuses a custom eval_fn": (
         dict(fused_eval=True, eval_fn=lambda params, batch: 0.0),
         "fused_eval"),
+    "a non-resident world refuses rounds_per_dispatch": (
+        dict(world=T.WorldSpec(num_clients=5, resident=False),
+             data=T.DataSpec(samples_per_client=96, eval_samples=64)),
+        "world.resident"),
 }
 
 

@@ -38,6 +38,17 @@ from repro_torch.core import scenario as tscn
 from test_torch_scanned import JaxDraws
 from test_torch_spmd import JaxSpmdDraws
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: these cases run many tiny operations, and where
+    several test workers share the machine, more threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 PRESETS = sorted(tscn.SCENARIO_PRESETS)
 # two points of tests/test_scenarios.py's random grid, one with a sine drift
 RANDOM = {

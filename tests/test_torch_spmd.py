@@ -218,6 +218,8 @@ ACCEPTED = {
     "optimizer-sgd": dict(strategy="fedavg", optimizer="sgd"),
     "scenario": dict(strategy="cmfl", scenario="dynamic"),
     "topology": dict(strategy="cmfl", topology="two-tier-pods"),
+    "candidate_frac": dict(strategy="cmfl", candidate_frac=0.5,
+                           candidate_shards=2),
 }
 REFUSED_LIKE_JAX = {
     "async": (dict(strategy="ours", dynamic_batch=False), "schedule.kind"),
@@ -226,14 +228,18 @@ REFUSED_LIKE_JAX = {
     "rounds_per_dispatch": (dict(strategy="fedavg", rounds_per_dispatch=4),
                             "rounds_per_dispatch"),
     "fused_eval": (dict(strategy="fedavg", fused_eval=True), "fused_eval"),
+    "resident": (dict(strategy="cmfl", world=dict(resident=False)),
+                 "world.resident"),
 }
+# refusals whose hints are the JAX package's own, word for word
+SAME_HINT = ("resident",)
 NOT_PORTED = {
     "adamw": (dict(optimizer="adamw"), "optimizer", 14),
     "adafactor": (dict(optimizer="adafactor"), "optimizer", 14),
-    "candidate_frac": (dict(candidate_frac=0.5), "candidate_frac", 10),
 }
 _SPEC_FIELDS = ("rounds_per_dispatch", "fused_eval", "lr_schedule",
-                "optimizer", "scenario", "topology", "candidate_frac")
+                "optimizer", "scenario", "topology", "candidate_frac",
+                "candidate_shards")
 
 
 def _make(mod, options):
@@ -265,6 +271,9 @@ def test_spec_refuses_as_jax_does(name):
     options, field = REFUSED_LIKE_JAX[name]
     assert field in [i.field for i in _fields(J, options)]
     assert field in [i.field for i in _fields(T, options)]
+    if name in SAME_HINT:
+        assert [i.hint for i in _fields(T, options) if i.field == field] == \
+            [i.hint for i in _fields(J, options) if i.field == field]
 
 
 @pytest.mark.parametrize("name", sorted(NOT_PORTED))
