@@ -203,6 +203,33 @@ Phases, each printing JSON lines:
                half-selection scanned R = 4 and on a synchronous selecting
                spmd spec; the phase's seconds (``"phase":
                "population_phase"``).
+  6e. sessions — ``ExperimentSession`` (api/session.py) on the card at
+               the quickstart's full width, on four paths: ``ours`` + int8
+               on the megastep (6 rounds, checkpointed after 3), fused on
+               the scanned path at R = 4 (8 rounds, checkpointed after 2,
+               inside a dispatch), ``cmfl`` + int8 on the spmd engine (6,
+               after 3) and on the per-client loop (3, after 1). Each path
+               checkpoints to a temporary directory, restores into a new
+               session on the card and runs the rest: records, θ tests and
+               final parameters equal by bits to one uninterrupted session;
+               each kernel of the path launched at least once a resumed
+               round (counted from 0 just before the restore; the gather
+               once a round); the payload's bytes, its CUDA tensors (must
+               be 0), and ms to checkpoint and to restore (the restore
+               builds the world) (``"phase": "session"``). The megastep's
+               and the spmd engine's card checkpoints restored with
+               ``device="cpu"`` (spmd aggregating in f32) run one round,
+               held to the card's same round by ``parity.record_mismatches``
+               (``"phase": "card_vs_cpu"``, problems ``[]``). Whether
+               ``msgpack`` is installed (if so, the checkpoint I/O's round
+               trip of the weights on the card, equal by bits);
+               ``run_experiment`` equal by bits to the simulation driven
+               directly; a ``run_sweep`` of ``ours`` (its synchronous form)
+               against ``fedavg`` on the spmd engine, 3 seeds of 4 rounds,
+               with its ``report()``, the Mann-Whitney U and p and its wall
+               seconds; the phase's seconds with the checkpoint costs
+               beside nvidia-smi's name and power limit (``"phase":
+               "session_phase"``).
   7. LM serving — ``flash_attention`` against its plain version on the card
                (``"phase": "kernels"``), each case through the kernel that
                ``route(dtype, hd)`` names and launched there once: qwen2-1.5b's
@@ -243,7 +270,11 @@ times only the sign-align wrappers' eager calls (``sign_eager``), and
 only the 100,000-client non-resident world's four timed rounds of 6d (b)
 with its peak device memory (``"phase": "lazy_world"``): run a copy of the
 script from another checkout's root to compare that checkout with this one
-in the same call.
+in the same call; and
+
+    python3 chip_smoke.py --session
+
+only the session phase (6e), after the build.
 """
 from __future__ import annotations
 
@@ -253,7 +284,9 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import pathlib
+import pickle
 import re
 import subprocess
 import sys
@@ -3084,6 +3117,191 @@ def phase_lm(mods) -> dict:
             "qwen2-1.5b 2-layer f32": f32_launches}
 
 
+SESSION_PATHS = {  # name -> (spec maker, rounds, checkpoint after, kernels)
+    "ours+int8 megastep": (
+        lambda T: dataclasses.replace(
+            quickstart_spec(T, "ours", quantize=True), rounds=6),
+        6, 3, ("per_client_sign_align", "masked_agg", "ef_round_trip")),
+    "ours+int8 scanned fused R=4": (
+        lambda T: dataclasses.replace(
+            quickstart_spec(T, "ours", quantize=True), fused_eval=True,
+            rounds_per_dispatch=4),
+        8, 2, ("per_client_sign_align", "masked_agg", "ef_round_trip",
+               "cohort_gather")),
+    "cmfl+int8 spmd": (
+        lambda T: dataclasses.replace(spmd_spec(T, "cmfl", True), rounds=6),
+        6, 3, ("per_client_sign_align", "masked_agg", "ef_round_trip")),
+    "ours+int8 loop": (
+        lambda T: dataclasses.replace(
+            quickstart_spec(T, "ours", quantize=True, megastep=False),
+            rounds=3),
+        3, 1, CODEC),
+}
+
+
+def cuda_tensors(tree) -> int:
+    """How many tensors of a nested state (dicts, lists, tuples,
+    NamedTuples) live on a CUDA device."""
+    if torch.is_tensor(tree):
+        return int(tree.is_cuda)
+    if isinstance(tree, dict):
+        return sum(cuda_tensors(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(cuda_tensors(v) for v in tree)
+    return 0
+
+
+def same_params(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+
+
+def resumed_launches(run: str, spec, launches: dict, needed,
+                     rounds: int) -> dict:
+    """Each kernel of ``needed`` launched at least once a resumed round
+    (the scanned gather exactly once a round); returns launches a round."""
+    for k in needed:
+        if launches[k] < rounds:
+            raise AssertionError(f"{run}: {k} launched {launches[k]} times "
+                                 f"in {rounds} resumed rounds")
+    if spec.rounds_per_dispatch and launches["cohort_gather"] != rounds:
+        raise AssertionError(f"{run}: cohort_gather launched "
+                             f"{launches['cohort_gather']} times in "
+                             f"{rounds} resumed rounds")
+    return {k: launches[k] / rounds for k in needed}
+
+
+def session_path(T, parity, run: str, params, mods, tmp: str) -> dict:
+    """One path of the session phase (module docstring, 6e): an
+    uninterrupted session against one checkpointed after k rounds and
+    restored on the card, equal by bits; the kernels' launches in the
+    resumed rounds; the checkpoint's bytes and ms; on the megastep and
+    spmd paths the card's checkpoint restored on the CPU for one round,
+    held to the card's same round by ``parity.record_mismatches``."""
+    make, rounds, k, needed = SESSION_PATHS[run]
+    spec = make(T)
+    S = T.ExperimentSession
+    full = S.open(spec, device="cuda", params=params)
+    full.run(rounds)
+    part = S.open(spec, device="cuda", params=params)
+    part.run(k)
+    path = f"{tmp}/{run.replace(' ', '_')}.ckpt"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    part.checkpoint(path)
+    ckpt_ms = (time.perf_counter() - t0) * 1e3
+    payload = pickle.loads(open(path, "rb").read())
+    torch.cuda.synchronize()
+    with rows_per_call(mods):
+        reset_launches(mods)
+        t0 = time.perf_counter()
+        resumed = S.restore(path, device="cuda")
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        resumed.run(rounds - k)
+        torch.cuda.synchronize()
+        launches = read_launches(mods)
+    problems = []
+    if not same_records(full.records, resumed.records):
+        problems.append("records differ: " + "; ".join(
+            f"{a} != {b}" for a, b in zip(full.records, resumed.records)
+            if repr(dataclasses.astuple(a)) != repr(dataclasses.astuple(b))))
+    if not same_params(full.result().params, resumed.result().params):
+        problems.append("final parameters differ")
+    if resumed.engine.theta_ratios != full.engine.theta_ratios:
+        problems.append("θ tests differ")
+    line = dict(run=run, rounds=rounds, checkpoint_after=k,
+                equal_by_bits=not problems, problems=problems,
+                payload_bytes=os.path.getsize(path),
+                cuda_tensors_in_payload=cuda_tensors(payload),
+                checkpoint_ms=ckpt_ms, restore_ms=restore_ms,
+                resumed_launches=launches,
+                launches_per_resumed_round=resumed_launches(
+                    run, spec, launches, needed, rounds - k))
+    if not all(math.isfinite(r.loss) and math.isfinite(r.accuracy)
+               for r in resumed.records):
+        problems.append("accuracy or loss not finite")
+    if line["cuda_tensors_in_payload"]:
+        problems.append("the payload holds CUDA tensors")
+    if run in ("ours+int8 megastep", "cmfl+int8 spmd"):
+        kw = ({"agg_dtype": torch.float32} if spec.engine == "spmd"
+              else {})
+        cpu = S.restore(path, device="cpu", **kw)
+        got = cpu.run(1)
+        cpu_problems = parity.record_mismatches(
+            got, full.records[k:k + 1]) + parity.theta_band_violations(
+                [t for t in full.engine.theta_ratios if t[0] == k]
+                + [t for t in cpu.engine.theta_ratios if t[0] == k], 0.65)
+        emit("card_vs_cpu", run=f"{run} restored on the CPU", round=k,
+             problems=cpu_problems)
+        problems += [f"card to CPU: {p}" for p in cpu_problems]
+    emit("session", **line)
+    if problems:
+        raise AssertionError(f"session {run}: " + "; ".join(problems))
+    return dict(payload_bytes=line["payload_bytes"], checkpoint_ms=ckpt_ms,
+                restore_ms=restore_ms)
+
+
+def phase_session(T, parity, params, mods, smi: str) -> None:
+    """The session phase (module docstring, 6e)."""
+    import importlib.util
+    t_phase = time.perf_counter()
+    cost = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for run in SESSION_PATHS:
+            cost[run] = session_path(T, parity, run, params, mods, tmp)
+        has_msgpack = importlib.util.find_spec("msgpack") is not None
+        io_line = dict(msgpack_installed=has_msgpack)
+        if has_msgpack:
+            from repro_torch.checkpoint import io as ckpt_io
+            on_card = {k: v.to("cuda") for k, v in params.items()}
+            ckpt_io.save(f"{tmp}/params.msgpack", on_card)
+            back = ckpt_io.restore(f"{tmp}/params.msgpack", on_card)
+            io_line["io_round_trip_equal"] = same_params(back, on_card)
+            if not io_line["io_round_trip_equal"]:
+                raise AssertionError("checkpoint io round trip differs")
+        emit("session", **io_line)
+
+    # run_experiment goes through a session: equal by bits to the engine
+    # driven directly
+    spec = dataclasses.replace(quickstart_spec(T, "ours", quantize=True),
+                               rounds=4)
+    res = T.run_experiment(spec, device="cuda", params=params)
+    sim = T.build_simulation(spec, device="cuda", params=params)
+    sim.run(spec.rounds, eval_final=True)
+    direct = T.result_from_simulation(spec, sim)
+    equal = (same_records(res.records, direct.records)
+             and same_params(res.params, direct.params))
+    emit("session", run="run_experiment vs direct drive", rounds=4,
+         equal_by_bits=equal)
+    if not equal:
+        raise AssertionError("run_experiment differs from the direct drive")
+
+    # a small sweep on the spmd engine: ours (its synchronous form, as the
+    # spmd engine runs no quorum clock) against fedavg, 3 seeds each
+    base = dataclasses.replace(
+        spmd_spec(T, "ours"), rounds=4,
+        strategy_kwargs=dict(batch_size=64, lr=3e-2, local_epochs=2,
+                             mode="sync", dynamic_batch=False))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep = T.run_sweep(base, axes={"strategy": ["ours", "fedavg"],
+                                    "seed": range(3)}, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cmp = sweep.mann_whitney_u("strategy", "ours", "fedavg",
+                               metric="accuracy", alternative="greater")
+    report = sweep.report("accuracy", baseline="fedavg")
+    print(report, flush=True)
+    emit("session", run="run_sweep spmd ours vs fedavg", seeds=3, rounds=4,
+         wall_s=wall, u=cmp.u, p_value=cmp.p_value, n=[cmp.n_a, cmp.n_b],
+         accuracy={g: v.tolist() for g, v in sweep.groups().items()})
+    if not (0.0 <= cmp.p_value <= 1.0 and cmp.n_a == cmp.n_b == 3):
+        raise AssertionError(f"sweep: {cmp}")
+    emit("session_phase", seconds=time.perf_counter() - t_phase,
+         checkpoint_cost=cost, nvidia_smi=smi)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3116,6 +3334,12 @@ def main() -> int:
             "compression": compression}
     if sys.argv[1:] == ["--sign-eager"]:
         sign_eager(sign_align, smi)
+        return 0
+    if sys.argv[1:] == ["--session"]:
+        _build.build_all()
+        cfg = quickstart_spec(T, "ours").resolve_model()
+        params = model_api.init_params(torch.Generator().manual_seed(0), cfg)
+        phase_session(T, parity, params, mods, smi)
         return 0
     if sys.argv[1:] == ["--lazy-world"]:
         _build.build_all()
@@ -3267,6 +3491,9 @@ def main() -> int:
     # non-resident worlds
     launches.update(phase_population(T, parity, sign_align, masked_agg,
                                      quantize, ref, params, mods, smi))
+
+    # 6e. sessions: checkpoint, restore and resume on the four paths
+    phase_session(T, parity, params, mods, smi)
 
     # 7. LM serving at qwen2-1.5b's full width
     launches.update(phase_lm(mods))

@@ -14,6 +14,10 @@ keeps its module layout and public names, imports neither JAX nor
     base = repro_torch.run_experiment(repro_torch.ExperimentSpec(
         model="anomaly-mlp", strategy="fedavg", engine="spmd", rounds=8))
 
+``run_experiment`` opens an ``ExperimentSession``, which also streams,
+checkpoints and resumes a run; ``run_sweep`` runs seeds × strategies and
+gives the paper's Mann-Whitney U test.
+
 It also serves the dense language models (``repro_torch.launch.serve``:
 prefill and greedy decode, with the flash-attention kernel on the
 blockwise attention path).
@@ -21,7 +25,9 @@ blockwise attention path).
 from repro_torch.api import *  # noqa: F401,F403
 from repro_torch.api import __all__ as _api_all
 from repro_torch.convert import (control_from_jax, fl_state_from_jax,
-                                 lm_params_from_jax, params_from_jax)
+                                 lm_params_from_jax, params_from_jax,
+                                 sim_state_from_jax, spmd_state_from_jax)
 
 __all__ = list(_api_all) + ["control_from_jax", "fl_state_from_jax",
-                            "lm_params_from_jax", "params_from_jax"]
+                            "lm_params_from_jax", "params_from_jax",
+                            "sim_state_from_jax", "spmd_state_from_jax"]

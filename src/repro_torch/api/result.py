@@ -17,6 +17,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, List, Optional
 
+import torch
+
+from repro_torch.models import mlp_detector
+
 
 @dataclasses.dataclass
 class RoundRecord:
@@ -63,3 +67,14 @@ class ExperimentResult:
     def bytes_baseline(self) -> float:
         """Full-participation upload volume for the same world/rounds."""
         return float(self.num_clients) * self.param_bytes * self.rounds
+
+    def auc_roc(self) -> float:
+        """Binary AUC-ROC on the eval split (attack against Normal), on the
+        parameters' device. Only meaningful for the mlp detector family."""
+        dev = next(iter(self.params.values())).device
+        x = torch.as_tensor(self.eval_arrays["x"], device=dev)
+        y = torch.as_tensor(self.eval_arrays["y"], device=dev)
+        probs = mlp_detector.predict(self.params, x, self.cfg)
+        scores = 1.0 - probs[:, 0]                 # P(not Normal)
+        labels = (y != 0).to(torch.float32)
+        return float(mlp_detector.auc_roc(scores, labels))

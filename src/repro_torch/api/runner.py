@@ -1,10 +1,10 @@
 """Run an ``ExperimentSpec`` on the port.
 
-``run_experiment(spec)``  — run ``spec.rounds`` on the spec's engine and
-    return the normalized result. The JAX package drives this through an
-    ``ExperimentSession``; sessions are not ported yet (ROADMAP.md queue 1
-    item 11), so the port drives the engine directly, with the same rule
-    for the final round: it is always evaluated.
+``run_experiment(spec)``  — a thin wrapper over ``ExperimentSession``
+    (api/session.py): open, run ``spec.rounds`` as one batch (its final
+    round always evaluated), collect the normalized result. For streaming,
+    callbacks, checkpoint and resume, or sweeps, use ``ExperimentSession``
+    or ``run_sweep`` (api/sweep.py) directly.
 
 ``build_simulation(spec)`` — the event-driven ``FederatedSimulation`` an
     ``engine='sim'`` spec describes.
@@ -12,7 +12,9 @@
 ``SpmdDriver(spec)``       — the stepping driver of ``engine='spmd'``: one
     step per round over a (C, B, ...) cohort batch (core/fl_step.py), with
     the same CommModel applied analytically for sync-barrier timing and
-    byte accounting, so both engines emit the same ``RoundRecord``s.
+    byte accounting, so both engines emit the same ``RoundRecord``s; its
+    ``run_rounds`` / ``state_dict`` / ``load_state_dict`` serve session
+    streaming and checkpoint/resume.
 
 ``run_scanned_seed_batch(spec, seeds)`` / ``run_spmd_seed_batch(spec,
     seeds)`` — the scanned sim path or the spmd engine at several seeds,
@@ -101,16 +103,14 @@ def result_from_simulation(spec: ExperimentSpec, sim, wall_time: float = 0.0
 
 def run_experiment(spec: ExperimentSpec, *, device=None, params=None,
                    draws=None, world_source=None) -> ExperimentResult:
-    t0 = time.time()
-    if spec.validate().engine == "spmd":
-        driver = SpmdDriver(spec, device=device, params=params, draws=draws,
-                            world_source=world_source)
-        records = driver.run_rounds(spec.rounds)
-        return driver.result(records, wall_time=time.time() - t0)
-    sim = build_simulation(spec, device=device, params=params, draws=draws,
-                           world_source=world_source)
-    sim.run(spec.rounds, eval_final=True)
-    return result_from_simulation(spec, sim, wall_time=time.time() - t0)
+    """One-shot facade: open a session (the keywords go to the engine),
+    run ``spec.rounds``, return the normalized result."""
+    from repro_torch.api.session import ExperimentSession
+
+    session = ExperimentSession.open(spec, device=device, params=params,
+                                     draws=draws, world_source=world_source)
+    session.run(spec.rounds)
+    return session.result()
 
 
 def run_scanned_seed_batch(spec: ExperimentSpec, seeds: Sequence[int], *,
@@ -319,8 +319,11 @@ class SpmdDriver:
     and the analytic CommModel accounting. ``run_rounds(n)`` advances n
     rounds and returns their ``RoundRecord``s; each round reads its
     metrics back in one copy. ``theta_ratios`` keeps every θ test as
-    (round, client, ratio), as the simulation does. Checkpointing
-    (``state_dict``) comes with sessions, ROADMAP.md queue 1 item 11.
+    (round, client, ratio), as the simulation does.
+    ``state_dict`` / ``load_state_dict`` serialize the ``FLState`` (as CPU
+    tensors), the loaders' Generator positions, the accumulators, the last
+    accuracy and ``theta_ratios``, so a restored driver (on any device)
+    continues as the uninterrupted one would (api/session.py).
     """
 
     def __init__(self, spec: ExperimentSpec, *, device=None, params=None,
@@ -446,6 +449,57 @@ class SpmdDriver:
                 "dropout / quantize / per-client LR), so no pass-rate "
                 "EMAs are tracked")
         return self.state.control.pass_rate.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # serialization (ExperimentSession.checkpoint / restore)
+    # ------------------------------------------------------------------
+    def state_dict(self) -> dict:
+        """Everything a resume equal by bits needs, as picklable host
+        values; every tensor a CPU copy. The draws hold no state (seeded
+        by (seed, absolute step), core/draws.py) and the world rebuilds
+        from the spec."""
+        return {
+            "round_idx": self.round_idx,
+            "fl_state": ae._moved(self.state, "cpu"),
+            "loaders": [l.rng.bit_generator.state for l in self.loaders],
+            "acc": dict(self.acc),
+            "last_accuracy": self._last_accuracy,
+            "theta_ratios": list(self.theta_ratios),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict` output into a freshly built driver of
+        the same spec, on this driver's device. The scenario's world of
+        the last round run, recomputed from round 0, must equal the saved
+        ``FLState.world`` by bits, or this raises."""
+        if len(state["loaders"]) != len(self.loaders):
+            raise ValueError(
+                f"checkpoint has {len(state['loaders'])} client loaders, "
+                f"this world has {len(self.loaders)}")
+        fl = state["fl_state"]
+        if (fl.control is None) != (self.state.control is None) or (
+                fl.topology is None) != (self.state.topology is None):
+            raise ValueError("checkpoint and driver disagree on the "
+                             "control plane or the topology")
+        self.round_idx = state["round_idx"]
+        self.state = ae._moved(fl, self.device)
+        if self.worlds is not None and self.round_idx > 0:
+            differ = scenario_mod.view_differences(
+                scenario_mod.host_view(self.state.world),
+                self.worlds.view(self.round_idx - 1))
+            if differ:
+                raise ValueError(
+                    f"the world of round {self.round_idx - 1} recomputed "
+                    f"from the scenario differs from the checkpoint's in "
+                    f"{differ}")
+            self.worlds.reset()
+        for l, s in zip(self.loaders, state["loaders"]):
+            g = np.random.default_rng(0)
+            g.bit_generator.state = s
+            l.rng = g
+        self.acc = dict(state["acc"])
+        self._last_accuracy = state["last_accuracy"]
+        self.theta_ratios = list(state["theta_ratios"])
 
     def result(self, records, wall_time: float = 0.0) -> ExperimentResult:
         return ExperimentResult(

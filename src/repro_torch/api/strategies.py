@@ -184,3 +184,8 @@ def ours(batch_size=64, lr=5e-3, theta=0.65, local_epochs=1,
                                   checkpointing=True, batch_size=batch_size,
                                   lr=lr, local_epochs=local_epochs),
                    overrides)
+
+
+# legacy name -> factory mapping (core/baselines.py re-exports it)
+PRESETS = {"fedavg": fedavg, "cmfl": cmfl, "acfl": acfl,
+           "fedl2p": fedl2p, "ours": ours}

@@ -10,6 +10,13 @@ so both packages can step one round from the same mid-run state, and
 optimizer state, reference sign, control state, step, counters, scenario
 world and topology state; ``topology_from_jax`` for the last alone), and
 ``lm_params_from_jax`` for a language model's nested parameter tree.
+
+A JAX run's mid-run state continues in the port: ``sim_state_from_jax``
+turns the JAX ``FederatedSimulation.state_dict()`` of the loop or the
+megastep path into the port's ``load_state_dict`` input, and
+``spmd_state_from_jax`` the JAX ``SpmdDriver.state_dict()``. The numpy
+Generator positions carry over as they are, so selection, dropout and
+batch draws go on as in the JAX run.
 """
 from __future__ import annotations
 
@@ -115,3 +122,86 @@ def fl_state_from_jax(state, device=None):
                    step=_tensors(state.step, dev, torch.int32),
                    metrics=_tensors(state.metrics, dev, torch.float32),
                    control=control, world=world, topology=topology)
+
+
+def _scalar(x):
+    """A numpy or JAX scalar as the Python number it holds."""
+    return x.item() if hasattr(x, "item") else x
+
+
+def _world_view(ws) -> dict:
+    """The JAX package's ``WorldState`` (numpy fields) as the port's host
+    view of it (``scenario.host_view``'s dict)."""
+    return {"live": np.asarray(ws.live, bool),
+            "bw_scale": np.asarray(ws.bw_scale, np.float32),
+            "lat_scale": np.asarray(ws.lat_scale, np.float32),
+            "drift_amp": float(ws.drift_amp),
+            "dropout_scale": float(ws.dropout_scale),
+            "byz_factor": np.asarray(ws.byz_factor, np.float32)}
+
+
+def sim_state_from_jax(state: dict, device=None) -> dict:
+    """The port's ``FederatedSimulation.load_state_dict`` input from the JAX
+    package's ``state_dict()`` of a loop or megastep run (its arrays as
+    numpy, as ``jax.device_get`` gives them).
+
+    The scanned path cannot carry over: the JAX package draws its rounds
+    from a PRNG key the port cannot replay (core/draws.py), so a state with
+    a scanned ``ctl`` is refused and the key is dropped. A scanned run's
+    control state crosses with ``control_from_jax`` and
+    ``FederatedSimulation.load_scan_carry`` instead. The port's own θ-test
+    log and cohort list start empty."""
+    dev = resolve_device(device)
+    scan = state.get("scan") or {}
+    if scan.get("ctl") is not None:
+        raise ValueError(
+            "the JAX state comes from the scanned path (its scan carry has "
+            "a ControlState); its draws come from a PRNG key the port cannot "
+            "replay. Carry the control state with control_from_jax and "
+            "FederatedSimulation.load_scan_carry instead")
+
+    def t(a, dtype):
+        return None if a is None else torch.tensor(np.asarray(a),
+                                                   dtype=dtype, device=dev)
+
+    def tree(d, dtype):
+        return None if d is None else {k: t(v, dtype) for k, v in d.items()}
+
+    wire = state["wire_bytes"]
+    return {
+        **{k: state[k] for k in (
+            "round_idx", "rng", "loaders", "selector", "batch_assignment",
+            "failure_log", "checkpoints", "ckpt_interval", "sim_time",
+            "comm_time", "idle_time", "bytes_sent", "server_step",
+            "dispatches", "history")},
+        "client_lr_scale": np.array(state["client_lr_scale"]),
+        "grad_norms": np.array(state["grad_norms"]),
+        "ef_state": {int(cid): tree(e, torch.float32)
+                     for cid, e in state["ef_state"].items()},
+        "ef_arena": t(state["ef_arena"], torch.float32),
+        "wire_bytes": None if wire is None else int(_scalar(wire)),
+        "params_mat": t(state["params_mat"], torch.float32),
+        "params_tree": tree(state["params_tree"], torch.float32),
+        "ref_mat": t(state["ref_mat"], torch.int8),
+        "ref_sign": tree(state["ref_sign"], torch.int8),
+        "world_state": (None if state.get("world_state") is None
+                        else _world_view(state["world_state"])),
+        "topology": (None if state.get("topology") is None
+                     else topology_from_jax(state["topology"], dev)),
+        "scan": None,
+        "theta_ratios": [],
+        "cohorts": [],
+    }
+
+
+def spmd_state_from_jax(state: dict, device=None) -> dict:
+    """The port's ``SpmdDriver.load_state_dict`` input from the JAX
+    package's ``SpmdDriver.state_dict()`` (its ``FLState`` as numpy, through
+    ``fl_state_from_jax``; the loaders' Generator positions as they are).
+    The port's own θ-test log starts empty."""
+    return {"round_idx": int(state["round_idx"]),
+            "fl_state": fl_state_from_jax(state["fl_state"], device),
+            "loaders": list(state["loaders"]),
+            "acc": dict(state["acc"]),
+            "last_accuracy": float(state["last_accuracy"]),
+            "theta_ratios": []}

@@ -53,6 +53,7 @@ Simulated time model (recorded separately from real wall time):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, List, Optional
 
@@ -141,12 +142,14 @@ class RoundMetrics:
 
 
 def _moved(tree, device):
-    """A copy of a tuple tree of tensors (NamedTuples, tuples, None) on
+    """A copy of a tree of tensors (dicts, NamedTuples, tuples, None) on
     ``device``."""
     if torch.is_tensor(tree):
         return tree.to(device, copy=True)
     if tree is None:
         return None
+    if isinstance(tree, dict):
+        return {k: _moved(t, device) for k, t in tree.items()}
     parts = [_moved(t, device) for t in tree]
     return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
 
@@ -1036,6 +1039,174 @@ class FederatedSimulation:
             self._record_scanned(ms, eval_acc)
             done += Rg
         return self.history
+
+    # ------------------------------------------------------------------
+    # full-state serialization (api/session.py's checkpoint and restore)
+    # ------------------------------------------------------------------
+    def state_dict(self) -> dict:
+        """Everything a resume equal by bits needs, as picklable host
+        values: the round index; the engine's, the loaders' (a lazy
+        world's ``LoaderPool`` keeps only the streams that advanced) and
+        the selector's Generator positions; the selector records, batch
+        assignment, LR scales and update norms; the failure log and the
+        simulated checkpoints; the loop's error-feedback buffers and the
+        cohort paths' error-feedback arena; the wire bytes; the parameters
+        (arena matrix or dict) and the θ reference (arena signs or sign
+        dict); the world of the last round run and the topology state; the
+        scanned path's carry (reference sign and its flag, ControlState,
+        accumulators, carried accuracy, absolute round); the accounting,
+        server step, dispatch count and history.
+
+        Every tensor is a CPU copy, so a checkpoint written on the card
+        unpickles and restores where there is no CUDA. The training data
+        is not stored: the world rebuilds from the spec's seed. Nor is a
+        PRNG key: the draw sources (``HostDraws``, ``SpmdDraws``,
+        ``LinkNormals``, ``PopulationDraws``, core/draws.py) are seeded by
+        (seed, absolute round) and hold no state."""
+        host = functools.partial(_moved, device="cpu")
+        scan = None
+        if self._scan_world is not None:
+            scan = {"carry": host((self._scan_ref, self._scan_ref_valid,
+                                   self._scan_ctl, self._scan_acc,
+                                   self._scan_prev_acc)),
+                    "round0": int(self._scan_round0)}
+        world = None
+        if self._worlds is not None and self.round_idx > 0:
+            view = self._worlds.view(self.round_idx - 1)
+            world = {k: (v.copy() if isinstance(v, np.ndarray) else v)
+                     for k, v in view.items()}
+        return {
+            "round_idx": self.round_idx,
+            "rng": self.rng.bit_generator.state,
+            "loaders": (self.loaders.state_dict() if self._lazy_world
+                        else [{"batch_size": l.batch_size,
+                               "rng": l.rng.bit_generator.state}
+                              for l in self.loaders]),
+            "selector": {
+                "rng": self.selector.rng.bit_generator.state,
+                "records": {cid: dataclasses.asdict(r)
+                            for cid, r in self.selector.records.items()}},
+            "batch_assignment": dict(self.batch_ctrl.assignment),
+            "client_lr_scale": np.array(self.client_lr_scale),
+            "grad_norms": np.array(self.grad_norms),
+            "failure_log": list(self.failure_log),
+            "checkpoints": dict(self.checkpoints),
+            "ckpt_interval": float(self.ckpt_interval),
+            "ef_state": host(self._ef_state),
+            "ef_arena": host(self._ef_arena),
+            "wire_bytes": self._wire_bytes,
+            "params_mat": host(self._params_mat),
+            "params_tree": host(self._params_tree),
+            "ref_mat": host(self._ref_mat),
+            "ref_sign": host(self.ref_sign),
+            "world_state": world,
+            "topology": host(self._topo_state),
+            "scan": scan,
+            "sim_time": self.sim_time, "comm_time": self.comm_time,
+            "idle_time": self.idle_time, "bytes_sent": self.bytes_sent,
+            "server_step": self.server_step,
+            "dispatches": self.dispatches,
+            "history": [dataclasses.asdict(m) for m in self.history],
+            "theta_ratios": list(self.theta_ratios),
+            "cohorts": [list(c) for c in self.cohorts],
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict` output into a freshly built
+        simulation of the same spec, on this simulation's device.
+
+        The world is not taken from the checkpoint: the ``WorldSource``
+        recomputes its trajectory from round 0, and the world of the last
+        round run must equal the saved one by bits, or this raises."""
+        from repro_torch.core.selection import ClientRecord
+
+        def gen(saved):
+            g = np.random.default_rng(0)
+            g.bit_generator.state = saved
+            return g
+
+        on = functools.partial(_moved, device=self.device)
+        saved_loaders = state["loaders"]
+        saved_lazy = (isinstance(saved_loaders, dict)
+                      and saved_loaders.get("lazy"))
+        if self._lazy_world != bool(saved_lazy):
+            raise ValueError(
+                "checkpoint world residency mismatch: saved "
+                f"{'lazy' if saved_lazy else 'eager'} loaders, this "
+                f"world is {'lazy' if self._lazy_world else 'eager'}")
+        if self._lazy_world:
+            self.loaders.load_state_dict(saved_loaders)
+        else:
+            if len(saved_loaders) != len(self.loaders):
+                raise ValueError(
+                    f"checkpoint has {len(saved_loaders)} client loaders, "
+                    f"this world has {len(self.loaders)}")
+            for l, s in zip(self.loaders, saved_loaders):
+                l.batch_size = s["batch_size"]
+                l.rng = gen(s["rng"])
+        if (state["topology"] is None) != (self._topo is None):
+            raise ValueError("checkpoint and simulation disagree on "
+                             "whether a topology runs")
+        self.round_idx = state["round_idx"]
+        self.rng = gen(state["rng"])
+        self.selector.rng = gen(state["selector"]["rng"])
+        self.selector.records = {
+            cid: ClientRecord(**r)
+            for cid, r in state["selector"]["records"].items()}
+        self.batch_ctrl.assignment = dict(state["batch_assignment"])
+        self.client_lr_scale = np.array(state["client_lr_scale"])
+        self.grad_norms = np.array(state["grad_norms"])
+        self.failure_log = list(state["failure_log"])
+        self.checkpoints = dict(state["checkpoints"])
+        self.ckpt_interval = state["ckpt_interval"]
+        self._ef_state = on(state["ef_state"])
+        self._ef_arena = on(state["ef_arena"])
+        self._wire_bytes = state["wire_bytes"]
+        self._params_mat = on(state["params_mat"])
+        self._params_tree = on(state["params_tree"])
+        self._ref_mat = on(state["ref_mat"])
+        self.ref_sign = on(state["ref_sign"])
+        self._topo_state = on(state["topology"])
+        self._load_world(state["world_state"])
+        # a prepared dispatch's device buffers belong to the run that
+        # prepared them; the next dispatch prepares its own
+        for src in (self._draws, self._worlds):
+            if hasattr(src, "reset"):
+                src.reset()
+        scan = state["scan"]
+        if scan is not None:
+            self._scan_setup()       # the device world and the shapes
+            (self._scan_ref, self._scan_ref_valid, self._scan_ctl,
+             self._scan_acc, self._scan_prev_acc) = on(scan["carry"])
+            self._scan_round0 = scan["round0"]
+        self.sim_time = state["sim_time"]
+        self.comm_time = state["comm_time"]
+        self.idle_time = state["idle_time"]
+        self.bytes_sent = state["bytes_sent"]
+        self.server_step = state["server_step"]
+        self.dispatches = state["dispatches"]
+        self.history = [RoundMetrics(**m) for m in state["history"]]
+        self.theta_ratios = list(state["theta_ratios"])
+        self.cohorts = [list(c) for c in state["cohorts"]]
+
+    def _load_world(self, saved: Optional[dict]) -> None:
+        """Hold this simulation's world of the last round run to the saved
+        one, by bits."""
+        if saved is None:
+            if self._worlds is not None and self.round_idx > 0:
+                raise ValueError("checkpoint has no world, but this "
+                                 "simulation runs a scenario")
+            return
+        if self._worlds is None:
+            raise ValueError("checkpoint carries a world, but this "
+                             "simulation runs no scenario")
+        got = self._worlds.view(self.round_idx - 1)
+        differ = scenario_mod.view_differences(got, saved)
+        if differ:
+            raise ValueError(
+                f"the world of round {self.round_idx - 1} recomputed from "
+                f"the scenario differs from the checkpoint's in {differ}")
+        self._world_view = got
 
     def client_pass_rates(self) -> np.ndarray:
         """(num_clients,) θ pass-rate EMAs the server has learned: the

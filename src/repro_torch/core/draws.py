@@ -70,6 +70,11 @@ class HostDraws:
         self._buf = _to_device(torch.from_numpy(rows), self.device)
         self._round0 = int(round0)
 
+    def reset(self) -> None:
+        """Drop the prepared dispatch's buffer (a restored run prepares
+        its own)."""
+        self._buf = None
+
     def _row(self, r: int) -> torch.Tensor:
         return self._buf[int(r) - self._round0]
 

@@ -438,6 +438,11 @@ class WorldSource:
         self._buf = _to_device(torch.from_numpy(rows), self.device)
         self._round0 = int(round0)
 
+    def reset(self) -> None:
+        """Drop the prepared rounds' device buffer (a restored run
+        prepares its own); the host trajectory stays."""
+        self._buf = None
+
     def world(self, r: int) -> WorldState:
         row, n = self._buf[int(r) - self._round0], self.n
         return WorldState(live=row[:n] > 0, bw_scale=row[n:2 * n],
@@ -532,6 +537,15 @@ def host_view(ws: WorldState) -> dict:
             "drift_amp": float(ws.drift_amp),
             "dropout_scale": float(ws.dropout_scale),
             "byz_factor": ws.byz_factor.cpu().numpy()}
+
+
+def view_differences(got: dict, want: dict) -> List[str]:
+    """The fields in which two host views differ, by dtype or bits."""
+    return sorted(k for k in set(got) | set(want)
+                  if k not in got or k not in want
+                  or np.asarray(got[k]).dtype != np.asarray(want[k]).dtype
+                  or np.asarray(got[k]).tobytes()
+                  != np.asarray(want[k]).tobytes())
 
 
 def replay(scn: Optional[ScenarioSpec], num_clients: int, rounds: int,

@@ -52,3 +52,25 @@ def accuracy(params, batch, cfg) -> torch.Tensor:
     logits = forward(params, batch["x"], cfg)
     return (torch.argmax(logits, dim=-1) == batch["y"]).to(
         torch.float32).mean(dim=-1)
+
+
+def predict(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    return torch.softmax(forward(params, x, cfg), dim=-1)
+
+
+def auc_roc(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Binary AUC via the Mann-Whitney identity (rank statistic).
+
+    scores: (N,) anomaly score; labels: (N,) in {0, 1}. Ranks are ordinal,
+    from a stable sort, as the JAX package's code computes them (its
+    ``jnp.argsort`` is stable): tied scores take consecutive ranks in index
+    order, not their average."""
+    order = torch.argsort(scores, stable=True)
+    ranks = torch.empty_like(scores)
+    ranks[order] = torch.arange(1, scores.shape[0] + 1, dtype=scores.dtype,
+                                device=scores.device)
+    pos = labels.to(scores.dtype)
+    n_pos = pos.sum()
+    n_neg = pos.shape[0] - n_pos
+    u = ranks @ pos - n_pos * (n_pos + 1) / 2.0
+    return u / torch.clamp_min(n_pos * n_neg, 1.0)

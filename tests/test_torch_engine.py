@@ -117,7 +117,10 @@ def test_import_leaves_jax_out():
             "repro_torch.api.runner, repro_torch.api.parity,"
             "repro_torch.convert, repro_torch.launch.serve,"
             "repro_torch.models.transformer, repro_torch.kernels.flash_attn,"
-            "repro_torch.configs.registry;"
+            "repro_torch.configs.registry, repro_torch.api.session,"
+            "repro_torch.api.sweep, repro_torch.api.stats,"
+            "repro_torch.checkpoint.io, repro_torch.checkpoint.manager,"
+            "repro_torch.faults, repro_torch.core.baselines;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             "assert not bad, bad")
@@ -135,6 +138,12 @@ def test_sources_import_neither_jax_nor_repro():
         hits = pattern.findall(f.read_text())
         assert not hits, (f, hits)
     assert len(files) > 20
+    scanned = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"src/repro_torch/api/session.py", "src/repro_torch/api/sweep.py",
+            "src/repro_torch/api/stats.py", "src/repro_torch/faults.py",
+            "src/repro_torch/checkpoint/io.py",
+            "src/repro_torch/checkpoint/manager.py",
+            "src/repro_torch/core/baselines.py"} <= scanned
 
 
 def _asks_for_torch(node) -> bool:

@@ -216,3 +216,36 @@ def test_population_copies_are_identical():
     arrays = jae.heterogeneous_profile_arrays(7, seed=2, dropout_p=0.1)
     assert [dataclasses.asdict(p) for p in tae.ProfileView(arrays)[:]] == \
         [dataclasses.asdict(p) for p in jae.ProfileView(arrays)[:]]
+
+
+def test_numpy_only_copies_are_the_reference_sources():
+    """``api/stats.py`` (Mann-Whitney U, rank and median summaries) is a
+    byte-identical copy; ``faults.py`` (the seeded fault injector, with
+    its own ambient injector) differs only in its docstring's first line,
+    which names the port's module."""
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1] / "src"
+    port, ref = root / "repro_torch", root / "repro"
+    assert (port / "api" / "stats.py").read_bytes() == \
+        (ref / "api" / "stats.py").read_bytes()
+    got = (port / "faults.py").read_text().splitlines()
+    want = (ref / "faults.py").read_text().splitlines()
+    assert len(got) == len(want) and got[1:] == want[1:]
+    assert got[0] == ('"""repro_torch.faults — seeded, deterministic fault '
+                      'injection.')
+
+
+def test_fault_injector_copy_draws_the_reference_schedule():
+    """The copied injector fires at the same calls as the reference's for
+    the same spec, and the two ambient injectors are separate."""
+    from repro import faults as jfaults
+    from repro_torch import faults as tfaults
+    spec = dict(seed=3, ckpt_write_p=0.4, scorer_p=0.7, at={"publish": (1,)})
+    tinj = tfaults.FaultInjector(tfaults.FaultSpec(**spec))
+    jinj = jfaults.FaultInjector(jfaults.FaultSpec(**spec))
+    for site in ("ckpt_write", "scorer", "publish") * 6:
+        assert tinj.poll(site) == jinj.poll(site)
+    assert tinj.counts() == jinj.counts()
+    with jinj.scoped():
+        assert tfaults.active() is None
+        tfaults.check_active("ckpt_write")      # the port's: no-op
