@@ -230,6 +230,47 @@ Phases, each printing JSON lines:
                seconds; the phase's seconds with the checkpoint costs
                beside nvidia-smi's name and power limit (``"phase":
                "session_phase"``).
+  6f. serving — the detector behind ``repro_torch.serve`` on the card,
+               after examples/continuous_federation.py at full width
+               (``anomaly-mlp``; 8 heterogeneous clients, 12,000 samples,
+               ``ours`` at batch 64, lr 3e-2, 2 local epochs, 6 rounds;
+               windows of 256 flows, ``max_batch`` 256; masquerade drift
+               at amplitude 0.7 along make_unsw_like(2024, 8192)'s class
+               means; a monitor at threshold 0.25, patience 2). The
+               initial detector federated by a session on the card (its
+               launches a round: sign-align from round 1, masked-agg in
+               every round that applies an update). A 4,096-flow stream
+               through a card engine and a CPU engine holding the same
+               weights, each with its monitor, on one step clock (expired
+               and shed flows included): probabilities, ids, versions and
+               counts by ``parity.serve_mismatches``, each pump's drift
+               statistic within ``parity.drift_stat_bound``, the same
+               trigger pump (``"phase": "card_vs_cpu"``). p50 / p99 ms and
+               flows/s overall and a bucket (1 to 256 rows) after a warm
+               pass and ``reset_stats()``, with and without the monitor,
+               beside nvidia-smi's name and power limit, and a traced warm
+               256-row pump (``"phase": "trace"``: device operations, busy
+               µs, idle share). A thread publishing a card checkpoint three
+               times while the main thread pumps: nothing dropped, one
+               version a batch, versions monotone. The example's loop under
+               its fault schedule (a scorer fault, a failed first
+               re-federation attempt, a ×16 burst against a queue limit of
+               2,048): clean windows, the burst, drifted windows until the
+               background ``Refederator`` (a 6-round session on the card on
+               drifted data) publishes, recovery windows; at least one
+               trigger, retry, completed re-federation and swap, the
+               breaker closed, dropped 0, deadline misses 0, exactly one
+               absorbed scorer error; the AUC of the clean, drifted-stale
+               and recovered windows (printed, not gated), p99 during the
+               overlap with the background session, the health snapshot,
+               and the re-federation's launches a round (counted from 0
+               just before the loop; held as the initial federation's).
+               The re-federated card checkpoint published into a CPU slot
+               and a card slot, their scores by ``parity.serve_mismatches``;
+               ``python -m repro_torch.launch.serve --arch anomaly-mlp
+               --batch 256 --requests 2048`` in a subprocess (exit 0, its
+               two lines); the phase's seconds (``"phase":
+               "serve_phase"``).
   7. LM serving — ``flash_attention`` against its plain version on the card
                (``"phase": "kernels"``), each case through the kernel that
                ``route(dtype, hd)`` names and launched there once: qwen2-1.5b's
@@ -274,7 +315,11 @@ in the same call; and
 
     python3 chip_smoke.py --session
 
-only the session phase (6e), after the build.
+only the session phase (6e), after the build; and
+
+    python3 chip_smoke.py --serve
+
+only the serving phase (6f), after the build.
 """
 from __future__ import annotations
 
@@ -3302,6 +3347,481 @@ def phase_session(T, parity, params, mods, smi: str) -> None:
          checkpoint_cost=cost, nvidia_smi=smi)
 
 
+# 6f. serving the detector: examples/continuous_federation.py at full width
+SERVE_WINDOW = 256              # flows a window, and the engine's max_batch
+SERVE_AMP = 0.7                 # the masquerade drift's amplitude
+SERVE_ROUNDS = 6                # the initial federation's and each re-run's
+SERVE_MONITOR = dict(threshold=0.25, patience=2)
+
+
+class StepClock:
+    """An injectable clock that moves only when told: two engines on it
+    expire the same requests."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def serve_dirs(cfg) -> np.ndarray:
+    """The masquerade field: each attack class's cloud moves toward the
+    Normal class's mean (class means of make_unsw_like(2024, 8192))."""
+    from repro_torch.data import synthetic
+    X, y = synthetic.make_unsw_like(2024, 8192, cfg.num_features,
+                                    cfg.num_classes)
+    mu = np.stack([X[y == c].mean(0) for c in range(cfg.num_classes)])
+    dirs = mu[0][None, :] - mu
+    dirs[0] = 0.0
+    return dirs.astype(np.float32)
+
+
+def serve_traffic(cfg, dirs, seed: int, n: int, amp: float) -> tuple:
+    """One window of live flows, drifted by ``amp`` along ``dirs``
+    (``core/scenario.apply_drift`` on the host)."""
+    from repro_torch.core import scenario
+    from repro_torch.data import synthetic
+    X, y = synthetic.make_unsw_like(seed, n, cfg.num_features,
+                                    cfg.num_classes)
+    if amp:
+        X = scenario.apply_drift(
+            {"x": torch.from_numpy(X), "y": torch.from_numpy(y).long()},
+            amp, torch.from_numpy(dirs))["x"].numpy()
+    return X, y
+
+
+def serve_spec(T, cfg, dirs, amp: float, seed: int):
+    """The example's federation spec at full width: 8 heterogeneous
+    clients, 12,000 samples drawn from the traffic at ``amp``, ``ours``,
+    batch 64, lr 3e-2, 2 local epochs, SERVE_ROUNDS rounds."""
+    return T.ExperimentSpec(
+        model="anomaly-mlp",
+        data=T.DataSpec(n_samples=12000, eval_samples=2400,
+                        factory=lambda s, n: serve_traffic(cfg, dirs, s, n,
+                                                           amp)),
+        world=T.WorldSpec(num_clients=8, profile="heterogeneous"),
+        strategy="ours",
+        strategy_kwargs=dict(batch_size=64, lr=3e-2, local_epochs=2),
+        rounds=SERVE_ROUNDS, seed=seed)
+
+
+def served_scores(mlp, params, X, cfg) -> np.ndarray:
+    """1 - P(Normal) of ``X`` under ``params``, on the params' device."""
+    dev = next(iter(params.values())).device
+    with torch.no_grad():
+        return (1.0 - mlp.predict(params, torch.from_numpy(X).to(dev),
+                                  cfg)[:, 0]).cpu().numpy()
+
+
+def held_refederation(run: str, launches: dict, records) -> dict:
+    """The megastep session's kernels: sign-align at least once a round
+    from round 1 (round 0 has no reference to test against) and
+    masked-agg at least once a round that applied an update; returns the
+    launches a round."""
+    rounds = len(records)
+    applied = sum(r["updates_applied"] > 0 for r in records)
+    need = {"per_client_sign_align": rounds - 1, "masked_agg": applied}
+    for k, n in need.items():
+        if launches[k] < n:
+            raise AssertionError(f"{run}: {k} launched {launches[k]} times "
+                                 f"in {rounds} rounds ({n} needed)")
+    return {k: launches[k] / rounds for k in need}
+
+
+def drive_serve(engine, monitor, clock, arrivals) -> tuple:
+    """Feed ``arrivals`` ((flows, deadline_ms, seconds the clock moves
+    after the submit), each drained before the next) to ``engine``: the
+    responses, each monitored pump's statistic and the flows it fed."""
+    out, stats, rows, flows = [], [], [], {}
+    for X, deadline, advance in arrivals:
+        ids = engine.submit_many(X, best_effort=True, deadline_ms=deadline)
+        flows.update(zip(ids, X))       # a full queue sheds the tail
+        clock.t += advance
+        while engine.pending:
+            before = len(monitor.history)
+            got = engine.pump()
+            out.extend(got)
+            if len(monitor.history) > before:
+                stats.append(monitor.history[-1])
+                rows.append([flows[r.request_id] for r in got
+                             if not r.expired])
+        clock.t += 1e-3
+    return out, stats, rows
+
+
+def serve_card_cpu(parity, serve, mlp, cfg, dirs, params) -> dict:
+    """A 4,096-flow stream (8 clean windows, then 8 drifted; window 2's
+    flows expire in the queue; windows 4-8 arrive as one burst of 1,280
+    against a queue limit of 1,024) through a card engine and a CPU
+    engine holding the same weights, each with its own monitor, on one
+    step clock: ``parity.serve_mismatches``, equal counts, each pump's
+    statistic within ``parity.drift_stat_bound`` and the same trigger
+    window."""
+    Xref, _ = serve_traffic(cfg, dirs, 123, 1024, 0.0)
+    wins = [serve_traffic(cfg, dirs, 2000 + w, SERVE_WINDOW,
+                          0.0 if w < 8 else SERVE_AMP)[0] for w in range(16)]
+    arrivals = ([(wins[0], None, 0.0), (wins[1], None, 0.0),
+                 (wins[2], 5.0, 0.01), (wins[3], None, 0.0),
+                 (np.concatenate(wins[4:9]), None, 0.0)]
+                + [(w, None, 0.0) for w in wins[9:]])
+    runs, ref_scores = {}, {}
+    for dev in ("cuda", "cpu"):
+        slot = serve.ModelSlot(params, model=cfg.name, round_idx=SERVE_ROUNDS,
+                               device=dev)
+        ref_scores[dev] = served_scores(mlp, slot.acquire()[0], Xref, cfg)
+        mon = serve.DriftMonitor.from_sample(Xref, ref_scores[dev],
+                                             device=dev, **SERVE_MONITOR)
+        clock = StepClock()
+        eng = serve.ServeEngine(slot, cfg, max_batch=SERVE_WINDOW,
+                                monitor=mon, now=clock, queue_limit=1024)
+        fired = []
+        eng.on_trigger = lambda f=fired, m=mon: f.append(len(m.history) - 1)
+        out, stats, rows = drive_serve(eng, mon, clock, arrivals)
+        runs[dev] = (out, stats, rows, eng.shutdown(), fired)
+    (out, stats, rows, st, fired), (c_out, c_stats, c_rows, c_st, c_fired) \
+        = runs["cuda"], runs["cpu"]
+    problems = parity.serve_mismatches(out, c_out)
+    for f in ("submitted", "served", "shed", "deadline_miss", "errors",
+              "dropped"):
+        if getattr(st, f) != getattr(c_st, f):
+            problems.append(f"{f} {getattr(st, f)} != {getattr(c_st, f)}")
+    if [len(r) for r in rows] != [len(r) for r in c_rows]:
+        problems.append("the monitored pumps differ")
+    seen, bounds = [], []
+    for w, pumped in enumerate(c_rows):
+        seen.extend(pumped)
+        bounds.append(parity.drift_stat_bound(
+            np.stack(seen), Xref, ref_scores["cpu"],
+            1 << (len(pumped) - 1).bit_length(), w + 1, c_stats[w]))
+    problems += parity.drift_problems(stats, c_stats, bounds,
+                                      SERVE_MONITOR["threshold"])
+    if fired != c_fired or not fired:
+        problems.append(f"trigger pumps {fired} (card) and {c_fired} (CPU)")
+    scored = [(a, b) for a, b in zip(out, c_out) if not a.expired]
+    line = dict(
+        run="serve 4096 flows", flows=4096, pumps=len(stats),
+        problems=problems, shed=st.shed, deadline_miss=st.deadline_miss,
+        served=st.served, trigger_pump=fired,
+        max_prob_gap=max(float(np.abs(a.probs - b.probs).max())
+                         for a, b in scored),
+        max_score_gap=max(abs(a.score - b.score) for a, b in scored),
+        max_stat_gap=max(abs(a - b) for a, b in zip(stats, c_stats)),
+        min_stat_bound=min(bounds), max_stat_bound=max(bounds),
+        statistics=stats)
+    emit("card_vs_cpu", **line)
+    if problems:
+        raise AssertionError("serve card vs CPU: " + "; ".join(problems))
+    return line
+
+
+def serve_latency(serve, mlp, cfg, dirs, params, smi: str,
+                  reps: int = 50) -> dict:
+    """p50 / p99 ms and flows/s overall and a bucket (1 to 256 rows, each
+    bucket ``reps`` pumps in turns) on the card, with and without the
+    monitor, after a warm pass and ``reset_stats()``; then one traced
+    warm 256-row pump with the monitor."""
+    Xref, _ = serve_traffic(cfg, dirs, 123, 1024, 0.0)
+    X, _ = serve_traffic(cfg, dirs, 4242, SERVE_WINDOW, 0.0)
+    buckets = [1 << k for k in range(SERVE_WINDOW.bit_length())]
+    lines = {}
+    for monitored in (True, False):
+        slot = serve.ModelSlot(params, model=cfg.name, device="cuda")
+        mon = serve.DriftMonitor.from_sample(
+            Xref, served_scores(mlp, slot.acquire()[0], Xref, cfg),
+            device="cuda", **SERVE_MONITOR) if monitored else None
+        eng = serve.ServeEngine(slot, cfg, max_batch=SERVE_WINDOW,
+                                monitor=mon)
+        for b in buckets:
+            eng.submit_many(X[:b])
+            eng.pump()
+        torch.cuda.synchronize()
+        eng.reset_stats()
+        for _ in range(reps):
+            for b in buckets:
+                eng.submit_many(X[:b])
+                eng.pump()
+        st = eng.stats()
+        lines[monitored] = dict(p50_ms=st.p50_ms, p99_ms=st.p99_ms,
+                                flows_per_sec=st.flows_per_sec,
+                                by_bucket=st.by_bucket)
+        emit("serve", run="latency", monitor=monitored, pumps_a_bucket=reps,
+             **lines[monitored], nvidia_smi=smi)
+        if monitored:
+            def pump_256(eng=eng):
+                eng.submit_many(X)
+                eng.pump()
+            emit("trace", run="serve pump 256 monitored",
+                 **trace(pump_256))
+    return lines
+
+
+def serve_hot_swap(serve, cfg, dirs, params, ckpt: str, spec) -> dict:
+    """A thread publishes the card checkpoint ``ckpt`` three times
+    (``round_base`` 0, 6, 12) into a card slot while the main thread
+    pumps 256-flow windows: nothing dropped, one version a batch,
+    versions monotone over request ids."""
+    import threading
+    slot = serve.ModelSlot(params, model=cfg.name, device="cuda")
+    eng = serve.ServeEngine(slot, cfg, max_batch=SERVE_WINDOW)
+    wins = [serve_traffic(cfg, dirs, 3000 + w, SERVE_WINDOW, 0.0)[0]
+            for w in range(8)]
+    errors, published = [], []
+
+    def publisher():
+        try:
+            for k in range(3):
+                published.append(slot.publish_checkpoint(
+                    ckpt, spec=spec, round_base=SERVE_ROUNDS * k).version)
+        except Exception as e:          # reported below, then raised
+            errors.append(e)
+
+    t = threading.Thread(target=publisher, daemon=True, name="publisher")
+    batches = []
+    t0 = time.perf_counter()
+    t.start()
+    w = 0
+    while (t.is_alive() or w < 8) and w < 4000:
+        eng.submit_many(wins[w % len(wins)])
+        while eng.pending:
+            batches.append(eng.pump())
+        w += 1
+    t.join(120)
+    eng.submit_many(wins[0])            # flips in the last publish
+    batches.append(eng.pump())
+    wall = time.perf_counter() - t0
+    stats = eng.shutdown()
+    if t.is_alive() or errors:
+        raise AssertionError(f"hot swap: publisher alive={t.is_alive()} "
+                             f"errors={errors!r}")
+    mixed = [sorted({r.model_version for r in b}) for b in batches
+             if len({r.model_version for r in b}) > 1]
+    by_id = [r.model_version for b in batches
+             for r in sorted(b, key=lambda r: r.request_id)]
+    line = dict(run="hot swap under load", windows=w + 1,
+                published=published, swaps=slot.swaps,
+                versions=eng.versions_served, served=stats.served,
+                submitted=stats.submitted, dropped=stats.dropped,
+                mixed_batches=mixed, monotone=by_id == sorted(by_id),
+                wall_s=wall, p50_ms=stats.p50_ms, p99_ms=stats.p99_ms)
+    emit("serve", **line)
+    if (stats.dropped or stats.served != stats.submitted or mixed
+            or by_id != sorted(by_id) or slot.swaps < 1
+            or eng.versions_served[-1] != 3):
+        raise AssertionError(f"hot swap: {line}")
+    return line
+
+
+def serve_chaos(T, serve, faults, mlp, cfg, dirs, session, mods,
+                tmp: str) -> tuple:
+    """examples/continuous_federation.py's loop at full width on the
+    card, under its fault schedule (a scorer fault at call 1, a
+    refederate fault at attempt 0, a ×16 burst against a queue limit of
+    2,048): clean windows, the burst, drifted windows until the
+    background re-federation (6 rounds on the card) publishes, recovery
+    windows; the example's assertions. Launch counts are set to 0 just
+    before the loop and read after it: the re-federation's session is
+    the only thing in it that launches a hand-written kernel."""
+    params = session.result().params
+    slot = serve.ModelSlot(params, model=cfg.name, round_idx=SERVE_ROUNDS,
+                           device="cuda")
+    Xref, _ = serve_traffic(cfg, dirs, 123, 1024, 0.0)
+    monitor = serve.DriftMonitor.from_sample(
+        Xref, served_scores(mlp, slot.acquire()[0], Xref, cfg),
+        device="cuda", **SERVE_MONITOR)
+    spec = faults.FaultSpec(seed=7, at={"scorer": (1,), "refederate": (0,)},
+                            burst=faults.BurstSpec(period=1, mult=16)
+                            ).validate()
+    injector = faults.FaultInjector(spec)
+    refed = serve.Refederator(
+        slot, lambda k: serve_spec(T, cfg, dirs, SERVE_AMP, 100 + k),
+        ckpt_dir=tmp, monitor=monitor, background=True, max_retries=2,
+        backoff_base=0.05, seed=spec.seed, injector=injector,
+        device="cuda")
+    engine = serve.ServeEngine(slot, cfg, max_batch=SERVE_WINDOW,
+                               monitor=monitor, queue_limit=8 * SERVE_WINDOW,
+                               deadline_ms=60_000.0, injector=injector)
+    engine.on_trigger = refed.fire
+    overlap_lat = []
+
+    def stream(w, amp):
+        X, y = serve_traffic(cfg, dirs, 1000 + w, SERVE_WINDOW, amp)
+        busy = refed.busy
+        engine.submit_many(X)
+        responses = engine.drain()
+        if busy:
+            overlap_lat.extend(r.latency for r in responses)
+        auc = float(mlp.auc_roc(torch.tensor([r.score for r in responses]),
+                                torch.from_numpy((y != 0).astype(
+                                    np.float32))))
+        return auc, responses[-1].model_version
+
+    torch.cuda.synchronize()
+    reset_launches(mods)
+    t0 = time.perf_counter()
+    w, clean = 0, []
+    for _ in range(3):
+        clean.append(stream(w, 0.0)[0])
+        w += 1
+    if monitor.triggered:
+        raise AssertionError("the monitor fired on clean traffic")
+    offered = spec.burst.size(0, SERVE_WINDOW)
+    Xb, _ = serve_traffic(cfg, dirs, 555, offered, 0.0)
+    accepted = engine.submit_many(Xb, best_effort=True)
+    answered = engine.drain()
+    burst = dict(offered=offered, accepted=len(accepted),
+                 answered=len(answered), shed=engine.stats().shed)
+    if not (len(answered) == len(accepted) == 8 * SERVE_WINDOW
+            and burst["shed"] == offered - 8 * SERVE_WINDOW):
+        raise AssertionError(f"burst: {burst}")
+    drifted, recovered, overlap_windows = [], [], 0
+    for _ in range(40):
+        auc, v = stream(w, SERVE_AMP)
+        w += 1
+        if v > 0:
+            recovered = [auc]
+            break
+        drifted.append(auc)
+        if refed.last_outcome == "failed":
+            raise refed.last_error
+        if refed.busy:
+            overlap_windows += 1
+        if refed.fired and refed.busy and len(drifted) >= 4:
+            refed.join(timeout=600)
+    else:
+        raise AssertionError(
+            f"no hot swap after {len(drifted)} drifted windows (triggers "
+            f"{monitor.trigger_count}, completed {refed.completed})")
+    # re-reference the monitor under the new model's own scores
+    Xr2, _ = serve_traffic(cfg, dirs, 777, 1024, SERVE_AMP)
+    p_new, _meta = slot.acquire()
+    from repro_torch.core import scenario
+    monitor.rearm(reference=scenario.reference_snapshot(
+        torch.from_numpy(Xr2).cuda(),
+        torch.from_numpy(served_scores(mlp, p_new, Xr2, cfg)).cuda()))
+    for _ in range(4):
+        recovered.append(stream(w, SERVE_AMP)[0])
+        w += 1
+    refed.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(mods)
+    health = serve.health_snapshot(engine, refederator=refed)
+    stats = engine.shutdown()
+    path = refed.last_checkpoint
+    records = pickle.loads(open(path, "rb").read())["records"]
+    line = dict(
+        run="continuous federation under chaos", windows=w,
+        wall_s=wall, burst=burst,
+        auc_clean=float(np.mean(clean)), auc_drifted=float(np.mean(drifted)),
+        auc_recovered=float(np.mean(recovered)),
+        recovered_above_drifted=float(np.mean(recovered))
+        > float(np.mean(drifted)),
+        drift_statistics=monitor.history, triggers=monitor.trigger_count,
+        fired=refed.fired, completed=refed.completed,
+        retries=refed.retries, breaker=refed.breaker_state,
+        swaps=slot.swaps, versions=engine.versions_served,
+        served=stats.served, submitted=stats.submitted,
+        dropped=stats.dropped, deadline_miss=stats.deadline_miss,
+        errors=stats.errors, overlap_windows=overlap_windows,
+        p99_overlap_ms=float(np.percentile(overlap_lat, 99) * 1e3)
+        if overlap_lat else None,
+        p50_ms=stats.p50_ms, p99_ms=stats.p99_ms,
+        refederation_rounds=len(records), launches=launches,
+        launches_per_round=held_refederation(
+            "re-federation", launches, records),
+        health=health.to_dict())
+    emit("serve", **line)
+    if not (monitor.trigger_count >= 1 and refed.completed >= 1
+            and refed.last_error is None and refed.retries >= 1
+            and refed.breaker_state == "closed" and slot.swaps >= 1
+            and max(engine.versions_served) >= 1 and stats.dropped == 0
+            and stats.deadline_miss == 0 and stats.errors == 1
+            and stats.served == stats.submitted):
+        raise AssertionError(f"continuous federation: {line}")
+    return path, int(path[-8:-5]), line
+
+
+def serve_across_devices(parity, serve, cfg, dirs, params, path: str,
+                         spec) -> None:
+    """The re-federated card checkpoint published into a CPU slot and
+    into a card slot (each restoring on its own device): the two engines'
+    scores of a drifted 512-flow window by ``parity.serve_mismatches``."""
+    X, _ = serve_traffic(cfg, dirs, 4321, 2 * SERVE_WINDOW, SERVE_AMP)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        slot = serve.ModelSlot(params, model=cfg.name, round_idx=SERVE_ROUNDS,
+                               device=dev)
+        slot.publish_checkpoint(path, spec=spec, round_base=SERVE_ROUNDS)
+        eng = serve.ServeEngine(slot, cfg, max_batch=SERVE_WINDOW)
+        eng.submit_many(X)
+        out[dev] = eng.drain()
+    problems = parity.serve_mismatches(out["cuda"], out["cpu"])
+    if {r.model_version for r in out["cpu"]} != {1}:
+        problems.append("the CPU slot did not flip to the checkpoint")
+    emit("card_vs_cpu", run="serve card checkpoint in a CPU slot",
+         checkpoint=os.path.basename(path), flows=len(X), problems=problems,
+         max_prob_gap=max(float(np.abs(a.probs - b.probs).max())
+                          for a, b in zip(out["cuda"], out["cpu"])))
+    if problems:
+        raise AssertionError("serve across devices: " + "; ".join(problems))
+
+
+def serve_cli() -> None:
+    """``python -m repro_torch.launch.serve --arch anomaly-mlp --batch 256
+    --requests 2048`` in a subprocess on the card: exit 0, two lines."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "anomaly-mlp", "--batch", "256", "--requests", "2048"],
+        env=env, capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    emit("serve", run="cli", returncode=proc.returncode, stdout=lines)
+    if proc.returncode != 0 or len(lines) != 2 \
+            or not lines[0].startswith("scored 2048 flows"):
+        raise AssertionError(f"serve CLI: {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+
+
+def phase_serve(T, parity, mods, smi: str) -> None:
+    """The serving phase (module docstring, 6f)."""
+    from repro_torch import faults, serve
+    from repro_torch.models import mlp_detector as mlp
+    t_phase = time.perf_counter()
+    cfg = quickstart_spec(T, "ours").resolve_model()
+    dirs = serve_dirs(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = serve_spec(T, cfg, dirs, 0.0, 0)
+        torch.cuda.synchronize()
+        reset_launches(mods)
+        t0 = time.perf_counter()
+        session = T.ExperimentSession.open(spec, device="cuda")
+        session.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(mods)
+        ckpt = f"{tmp}/initial.ckpt"
+        session.checkpoint(ckpt)
+        res = session.result()
+        records = [dataclasses.asdict(r) for r in res.records]
+        emit("serve", run="initial federation", rounds=len(records),
+             wall_s=wall, accuracy=res.final.accuracy, launches=launches,
+             launches_per_round=held_refederation("initial federation",
+                                                  launches, records))
+        params = {k: v.clone() for k, v in res.params.items()}
+        serve_card_cpu(parity, serve, mlp, cfg, dirs, params)
+        serve_latency(serve, mlp, cfg, dirs, params, smi)
+        serve_hot_swap(serve, cfg, dirs, params, ckpt, spec)
+        path, k, _line = serve_chaos(T, serve, faults, mlp, cfg, dirs,
+                                     session, mods, tmp)
+        serve_across_devices(parity, serve, cfg, dirs, params, path,
+                             serve_spec(T, cfg, dirs, SERVE_AMP, 100 + k))
+    serve_cli()
+    emit("serve_phase", seconds=time.perf_counter() - t_phase,
+         nvidia_smi=smi)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3340,6 +3860,10 @@ def main() -> int:
         cfg = quickstart_spec(T, "ours").resolve_model()
         params = model_api.init_params(torch.Generator().manual_seed(0), cfg)
         phase_session(T, parity, params, mods, smi)
+        return 0
+    if sys.argv[1:] == ["--serve"]:
+        _build.build_all()
+        phase_serve(T, parity, mods, smi)
         return 0
     if sys.argv[1:] == ["--lazy-world"]:
         _build.build_all()
@@ -3494,6 +4018,9 @@ def main() -> int:
 
     # 6e. sessions: checkpoint, restore and resume on the four paths
     phase_session(T, parity, params, mods, smi)
+
+    # 6f. serving the detector, with drift-triggered re-federation
+    phase_serve(T, parity, mods, smi)
 
     # 7. LM serving at qwen2-1.5b's full width
     launches.update(phase_lm(mods))

@@ -177,9 +177,34 @@ takes one product of a one-hot matrix, and f32 sums of up to a few dozen
 terms in any order lie within a few 2^-24 of that scale), the reference
 signs equal except where |agg| lies within that band of 0, where a sign
 taken of rounding noise may differ.
+
+Serving the detector (repro_torch/serve). Two engines fed the same
+requests in the same order, with the same weights, queue limit, deadlines
+and clock, admit, shed, expire and batch the same requests, so request
+ids, model versions, the expired flags and the shed, expired and error
+counts are equal (``serve_mismatches``). The probabilities are a softmax
+of three matrix products whose sums another library adds in another
+order: they agree within ``PROBS_RTOL`` relative and ``PROBS_ATOL``
+absolute, the JAX package's own tolerance between a padded and a tight
+batch (tests/test_serve.py), and the anomaly score 1 − p_0 within
+``PROBS_RTOL + PROBS_ATOL`` (p_0 ≤ 1). The drift statistic
+(``core/scenario.drift_statistic``) is a ratio of differences of f32
+means, and ``drift_stat_bound`` derives its gap from the reductions: an
+f32 sum of m terms in any order lies within m·2^-24·Σ|terms| of the exact
+sum, so two packages' means of m rows lie within 2m·2^-24 of the largest
+|value|; the window's means sum the whole bucket (padded rows masked to
+exact zeros), the reference's its N rows, each EMA step adds a few
+roundings (and XLA's and torch's f32 ``pow`` in the step's weight an ulp
+or two); the scores carry the probabilities' tolerance into the score
+moments. Those numerator gaps over the reference's standard deviations,
+plus the statistic times the variances' relative gap (2(N + 3)·2^-24 and
+the scores' share), bound each window's gap. A trigger decision is
+reproducible only where no window's statistic lies within its bound of
+the threshold: ``drift_problems`` asserts that and names the window.
 """
 from __future__ import annotations
 
+import math
 from typing import Iterable, List, Sequence
 
 import numpy as np
@@ -207,6 +232,9 @@ WALK_ULPS = 2             # per round walked: exp's ulp, carried on
 SINE_ULPS = 2
 SPMD_BF16_MOVE_RTOL = 2.0 ** -8
 TOPO_ACCUM_RTOL = 1e-6    # of Σ_c |w_c·u_c|: a reduction over clients
+PROBS_RTOL = 1e-5         # served probabilities (tests/test_serve.py's own)
+PROBS_ATOL = 1e-6
+F32_U = 2.0 ** -24        # f32 unit roundoff
 CONTROL_RTOL = {"avail": EMA_RTOL, "pass_rate": EMA_RTOL,
                 "round_time": EMA_RTOL, "lr_scale": EMA_RTOL,
                 "grad_norm": NORM_RTOL}
@@ -504,4 +532,88 @@ def topology_problems(got: dict, want: dict, theta_tests=(), thetas=(),
                               np.asarray(w.has_ref[b])):
             out.append(f"has_ref[{b}]: {np.asarray(g.has_ref[b]).tolist()} "
                        f"!= {np.asarray(w.has_ref[b]).tolist()}")
+    return out
+
+
+def serve_mismatches(got: Sequence, want: Sequence) -> List[str]:
+    """Two engines' responses (``serve.Response``, in the order each
+    engine returned them) against the serving rules above: ids, versions
+    and expired flags equal, probabilities within PROBS_RTOL / PROBS_ATOL
+    (NaN where expired, in both), scores within PROBS_RTOL + PROBS_ATOL;
+    empty when they agree."""
+    if len(got) != len(want):
+        return [f"{len(got)} responses against {len(want)}"]
+    out = []
+    for g, w in zip(got, want):
+        key = (g.request_id, g.model_version, g.expired)
+        if key != (w.request_id, w.model_version, w.expired):
+            out.append(f"response (id, version, expired) {key} != "
+                       f"{(w.request_id, w.model_version, w.expired)}")
+            continue
+        gp = np.asarray(g.probs, np.float64)
+        wp = np.asarray(w.probs, np.float64)
+        if not np.array_equal(np.isnan(gp), np.isnan(wp)):
+            out.append(f"request {w.request_id}: NaN probabilities differ")
+            continue
+        gap = np.abs(gp - wp)[~np.isnan(wp)]
+        lim = (PROBS_RTOL * np.abs(wp) + PROBS_ATOL)[~np.isnan(wp)]
+        if (gap > lim).any():
+            out.append(f"request {w.request_id}: probabilities "
+                       f"{gp.tolist()} vs {wp.tolist()}")
+        if not (math.isnan(g.score) and math.isnan(w.score)) and not abs(
+                g.score - w.score) <= PROBS_RTOL + PROBS_ATOL:
+            out.append(f"request {w.request_id}: score {g.score} vs "
+                       f"{w.score}")
+    return out
+
+
+def drift_stat_bound(stream_x, ref_x, ref_scores, bucket: int,
+                     windows: int, stat: float, eps: float = 1e-6) -> float:
+    """Largest gap between two packages' drift statistics after
+    ``windows`` masked EMA updates over buckets of at most ``bucket``
+    rows, where ``stream_x`` holds the real rows of every window so far,
+    and the references were taken of ``ref_x`` (N, F) with scores
+    ``ref_scores`` (N,), each package's own (within the probabilities'
+    tolerance of each other). ``stat`` is the statistic (either
+    package's). The derivation is in the module docstring."""
+    u = F32_U
+    xs = np.abs(np.asarray(stream_x, np.float64)).max(axis=0)
+    xr = np.asarray(ref_x, np.float64)
+    s = np.asarray(ref_scores, np.float64)
+    n = xr.shape[0]
+    sigma = np.sqrt(xr.var(axis=0) + eps)
+    sig_s = math.sqrt(s.var() + eps)
+    ema = 2 * u * (bucket + 6 * windows)       # window means + EMA steps
+    var_rel = 2 * (n + 3) * u                  # a variance of N rows
+    # the features' term: mean over F of |mu - mu_ref| / sigma_ref
+    e_mu = ema * xs + 2 * u * n * np.abs(xr).max(axis=0)
+    feat = float(np.mean(e_mu / sigma)) + stat * (var_rel / 2 + (
+        xr.shape[1] + 4) * u)
+    # the scores' term: |s - s_ref| / sigma_s, the scores in [0, 1] and
+    # each package's within PROBS_RTOL + PROBS_ATOL of the other's
+    d = PROBS_RTOL + PROBS_ATOL
+    e_s = 2 * d + ema + 2 * u * n
+    svar_rel = (2 * d * float(np.abs(s - s.mean()).max()) + d * d) / (
+        s.var() + eps) + var_rel
+    score = e_s / sig_s + stat * (svar_rel / 2 + 4 * u)
+    return max(feat, score)
+
+
+def drift_problems(got: Sequence[float], want: Sequence[float],
+                   bounds: Sequence[float], threshold: float) -> List[str]:
+    """Two monitors' per-window statistics (``DriftMonitor.history``)
+    against their ``drift_stat_bound``s, and every window's margin to the
+    threshold: a statistic within its bound of the threshold is a
+    problem (the two monitors may then count that window differently),
+    named by its window; empty when the trigger decisions are sure to be
+    the same."""
+    if len(got) != len(want):
+        return [f"{len(got)} windows against {len(want)}"]
+    out = []
+    for w, (a, b, lim) in enumerate(zip(got, want, bounds)):
+        if not abs(a - b) <= lim:
+            out.append(f"window {w}: statistic {a} vs {b} (bound {lim})")
+        if abs(b - threshold) <= lim:
+            out.append(f"window {w}: statistic {b} within {lim} of the "
+                       f"threshold {threshold}")
     return out

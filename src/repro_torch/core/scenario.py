@@ -29,7 +29,7 @@ device in one copy, and R rounds a dispatch replay R = 1 exactly. A test
 hands an engine the JAX package's own trajectory through the same class.
 
 ``DriftStats`` and its functions measure drift on served traffic (the
-serving monitor's side, ROADMAP.md queue 1 item 12).
+serving monitor's side, ``repro_torch/serve/monitor.py``).
 """
 from __future__ import annotations
 

@@ -1,7 +1,13 @@
-"""LM serving: a batched prefill + greedy decode loop for the dense
-language models, on the card unless the caller names another device.
+"""Serving driver, on the card unless the caller names another device:
+batched anomaly scoring through the ``repro_torch.serve`` engine (the
+paper's detector), or a batched prefill + greedy decode loop for the dense
+language models.
 
-Example:
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch anomaly-mlp \\
+      --batch 256 --requests 2048
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch anomaly-mlp \\
+      --from-checkpoint run.ckpt
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --batch 4 --prompt-len 2048 --decode-steps 16 --attention-impl blockwise
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
@@ -9,9 +15,9 @@ Example:
 
 The weights are random, drawn from a ``torch.Generator`` seeded ``seed``
 on the serving device (the JAX package serves random weights too); the
-prompt comes from ``np.random.default_rng(seed)``, so it is the JAX
-package's prompt. The anomaly detector's serving engine comes with
-ROADMAP.md queue 1 item 12.
+prompt comes from ``np.random.default_rng(seed)`` and the flows from
+``data.synthetic.make_unsw_like(seed, ...)``, so they are the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -75,6 +81,51 @@ def serve_lm(cfg, batch: int, prompt_len: int, decode_steps: int, seed=0, *,
     return torch.cat(out, dim=1)
 
 
+def serve_anomaly(cfg, batch: int, seed=0, requests: int = 0,
+                  checkpoint: str = None, queue_limit: int = None,
+                  deadline_ms: float = None, *, device=None):
+    """Batched flow scoring via ``repro_torch.serve.ServeEngine`` —
+    request queue, power-of-two batch buckets, hot-swappable model slot,
+    p50/p99 latency accounting. ``checkpoint`` serves a trained global
+    model from an ``ExperimentSession.checkpoint()`` artifact (sidecar-
+    validated); otherwise parameters initialize fresh. ``queue_limit``
+    and ``deadline_ms`` turn on the engine's admission control; shed /
+    expired requests show up in the health line."""
+    from repro_torch.data import synthetic
+    from repro_torch.serve import ModelSlot, ServeEngine, health_snapshot
+
+    dev = resolve_device(device)
+    max_batch = 1 << max(0, int(batch) - 1).bit_length()   # next pow2
+    slot = ModelSlot(api.init_params(
+        torch.Generator(device=dev).manual_seed(seed), cfg, dev),
+        model=cfg.name, device=dev)
+    if checkpoint:
+        slot.publish_checkpoint(checkpoint)
+    engine = ServeEngine(slot, cfg, max_batch=max_batch,
+                         queue_limit=queue_limit, deadline_ms=deadline_ms)
+    n = requests or max_batch * 4
+    X, _y = synthetic.make_unsw_like(seed, n, cfg.num_features,
+                                     cfg.num_classes)
+    responses = []
+    for i in range(0, n, max_batch):
+        engine.submit_many(X[i:i + max_batch], best_effort=True)
+        responses.extend(engine.pump())
+    health = health_snapshot(engine)
+    stats = engine.shutdown()
+    anomaly_rate = float(np.mean(
+        [np.argmax(r.probs) != 0 for r in responses])) if responses else 0.0
+    version = responses[-1].model_version if responses else 0
+    print(f"scored {stats.served} flows in {stats.busy_seconds*1e3:.1f} ms "
+          f"({stats.flows_per_sec:.0f} flows/s, p50 {stats.p50_ms:.2f} ms, "
+          f"p99 {stats.p99_ms:.2f} ms, model v{version}); "
+          f"flagged {anomaly_rate:.1%} as attack classes")
+    print(f"health: {health.status} (shed {health.shed}, "
+          f"deadline_miss {health.deadline_miss}, "
+          f"dispatch_errors {health.dispatch_errors}, "
+          f"degraded_mode {health.degraded_mode})")
+    return stats
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="anomaly-mlp",
@@ -87,6 +138,19 @@ def main(argv=None):
                     default=None,
                     help="blockwise: the flash kernel on each prefill layer "
                          "(prompt lengths that are multiples of 512)")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="anomaly serving: total flows to score "
+                         "(default 4 batches)")
+    ap.add_argument("--from-checkpoint", default=None, metavar="PATH",
+                    help="anomaly serving: hot-load the global model "
+                         "from an ExperimentSession checkpoint "
+                         "(validated against its sidecar metadata)")
+    ap.add_argument("--queue-limit", type=int, default=None,
+                    help="anomaly serving: bound the request queue; "
+                         "overflow is shed at admission")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="anomaly serving: per-request deadline; expired "
+                         "requests answer NaN and count deadline_miss")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
@@ -94,11 +158,13 @@ def main(argv=None):
     if args.attention_impl:
         cfg = cfg.replace(attention_impl=args.attention_impl)
     if cfg.family == "mlp":
-        raise NotImplementedError(
-            "serving the anomaly detector (repro.serve's engine) is not "
-            "ported yet; it comes with ROADMAP.md queue 1 item 12")
-    serve_lm(cfg, args.batch, args.prompt_len, args.decode_steps,
-             device=args.device)
+        serve_anomaly(cfg, args.batch, requests=args.requests,
+                      checkpoint=args.from_checkpoint,
+                      queue_limit=args.queue_limit,
+                      deadline_ms=args.deadline_ms, device=args.device)
+    else:
+        serve_lm(cfg, args.batch, args.prompt_len, args.decode_steps,
+                 device=args.device)
     return 0
 
 

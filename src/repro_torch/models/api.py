@@ -37,8 +37,8 @@ def _lm(cfg):
     mod = module_for(cfg)
     if cfg.family == "mlp":
         raise NotImplementedError(
-            "the anomaly-mlp family has no prefill or decode; its serving "
-            "path comes with ROADMAP.md queue 1 item 12")
+            "the anomaly-mlp family has no prefill or decode (in either "
+            "package); it is served by repro_torch.serve (ServeEngine)")
     return mod
 
 

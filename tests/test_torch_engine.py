@@ -120,7 +120,10 @@ def test_import_leaves_jax_out():
             "repro_torch.configs.registry, repro_torch.api.session,"
             "repro_torch.api.sweep, repro_torch.api.stats,"
             "repro_torch.checkpoint.io, repro_torch.checkpoint.manager,"
-            "repro_torch.faults, repro_torch.core.baselines;"
+            "repro_torch.faults, repro_torch.core.baselines,"
+            "repro_torch.serve, repro_torch.serve.swap,"
+            "repro_torch.serve.monitor, repro_torch.serve.engine,"
+            "repro_torch.serve.health, repro_torch.serve.federate;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             "assert not bad, bad")
@@ -143,7 +146,13 @@ def test_sources_import_neither_jax_nor_repro():
             "src/repro_torch/api/stats.py", "src/repro_torch/faults.py",
             "src/repro_torch/checkpoint/io.py",
             "src/repro_torch/checkpoint/manager.py",
-            "src/repro_torch/core/baselines.py"} <= scanned
+            "src/repro_torch/core/baselines.py",
+            "src/repro_torch/serve/__init__.py",
+            "src/repro_torch/serve/swap.py",
+            "src/repro_torch/serve/monitor.py",
+            "src/repro_torch/serve/engine.py",
+            "src/repro_torch/serve/health.py",
+            "src/repro_torch/serve/federate.py"} <= scanned
 
 
 def _asks_for_torch(node) -> bool:
@@ -193,6 +202,9 @@ def test_default_device_raises_without_cuda(monkeypatch):
         T.run_experiment(_spec(T, "smoke", "ours"))
     with pytest.raises(RuntimeError, match="CUDA"):
         tserve.serve_lm(tregistry.get_config("qwen2-1.5b", smoke=True), 1, 8, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tserve.serve_anomaly(tregistry.get_config("anomaly-mlp", smoke=True),
+                             8, requests=8)
     assert tdevice.resolve_device("cpu").type == "cpu"
 
 

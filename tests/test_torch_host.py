@@ -235,6 +235,19 @@ def test_numpy_only_copies_are_the_reference_sources():
                       'injection.')
 
 
+def test_serve_health_is_the_reference_source():
+    """``serve/health.py`` is the reference's source once its one import
+    of the session module names the port's package."""
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1] / "src"
+    want = (root / "repro" / "serve" / "health.py").read_text()
+    got = (root / "repro_torch" / "serve" / "health.py").read_text()
+    old = "        from repro.api import session as session_mod\n"
+    assert want.count(old) == 1
+    assert got == want.replace(
+        old, "        from repro_torch.api import session as session_mod\n")
+
+
 def test_fault_injector_copy_draws_the_reference_schedule():
     """The copied injector fires at the same calls as the reference's for
     the same spec, and the two ambient injectors are separate."""
