@@ -295,7 +295,39 @@ Phases, each printing JSON lines:
                four teacher-forced decode steps within 1e-4 of max|logit|,
                its two launches on the SIMT kernel (``"phase":
                "card_vs_cpu"``); and a traced warm blockwise prefill
-               (``"phase": "trace"``, with the wgmma kernel's share).
+               (``"phase": "trace"``, with the wgmma kernel's share). The
+               flash cases include granite-moe's prefill (4, 2048, 16, 8,
+               64), internvl2's (4, 2048, 16, 8, 128) and arctic's (4, 2048,
+               56, 8, 128) and (1, 512, 56, 8, 128), seven query heads a KV
+               head. Then the moe and
+               vlm families, each freeing the card before its weights are
+               drawn on it from seed 0 (bf16, blockwise): (a) ``serve_lm``
+               at granite-moe-1b-a400m's full width (24 layers, 32 experts
+               top-8), batch 4, 2048 tokens, 16 greedy: 24 wgmma launches
+               in the prefill, none in the decode, each prefill layer's
+               share of (token, choice) pairs dropped by capacity; (b) the
+               same for internvl2-2b, 256 zero patch embeddings and 1,792
+               tokens; (c) arctic-480b at full width cut to 1 of its 35
+               layers (128 experts of ff 4864, top-2, the dense residual),
+               batch 4, 2048 tokens, 16 greedy, its cut and the weights'
+               peak memory printed: 1 wgmma launch; each serve is warmed
+               at its timed shape, and the routing is read in that warm
+               run; (d) granite-moe and
+               internvl2 at full width, 2 layers, f32 (TF32 off), B 1 × S
+               512, card (SIMT kernel) against CPU (plain): prefill and
+               four teacher-forced decode steps within 1e-4 of
+               max|logit|, each routed call of the card held by
+               ``parity.routing_problems`` to the CPU's routing of the
+               card's own layer input, the two runs' routing and the aux
+               gap printed (``"phase": "card_vs_cpu"``); (e) a traced warm
+               granite-moe prefill (``"phase": "trace"``: device time and
+               share of busy time of the flash kernel, the expert
+               ``bmm``s, the router's product and softmax, the top-k
+               sort, the cumsum and the gathers and scatters); (f) ``python
+               -m repro_torch.launch.serve --arch granite-moe-1b-a400m``
+               and ``--arch internvl2-2b`` (blockwise, batch 4, 2048, 16)
+               in subprocesses, exit 0 and their line; the part's seconds
+               (``"phase": "moe_phase"``).
 
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -319,7 +351,12 @@ only the session phase (6e), after the build; and
 
     python3 chip_smoke.py --serve
 
-only the serving phase (6f), after the build.
+only the serving phase (6f), after the build; and
+
+    python3 chip_smoke.py --lm
+
+only phase 7 (the flash cases, qwen2-1.5b, the moe and vlm families),
+after the build.
 """
 from __future__ import annotations
 
@@ -2501,13 +2538,32 @@ def sync_free_dispatch(T, spec, params) -> dict:
             "updates_applied": [int(x) for x in host["updates_applied"]]}
 
 
+def device_busy(prof) -> tuple:
+    """A profile's device events: how many, and the µs in which at least
+    one ran (the length of the union of their spans)."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return len(spans), busy
+
+
+def port_env() -> dict:
+    """The environment of a subprocess that imports the port."""
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
+                + os.environ.get("PYTHONPATH", ""))
+
+
 def trace(run_once, share_of: str = None) -> dict:
     """``torch.profiler`` over one call of ``run_once`` (warm, ending in a
     synchronisation): the kernels the card ran, their device time, and
     the share of the call's wall time in which no kernel ran; with
     ``share_of``, the device time of the kernels whose name holds it and
     their share of the busy time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2515,19 +2571,13 @@ def trace(run_once, share_of: str = None) -> dict:
         run_once()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, -math.inf
-    for a, b in spans:                  # length of the union of the spans
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    n_events, busy = device_busy(prof)
     by_key = sorted(((e.key, e.count, e.device_time_total)
                      for e in prof.key_averages()
                      if e.device_time_total > 0), key=lambda x: -x[2])
-    line = dict(device_events=len(spans), device_busy_us=busy,
+    line = dict(device_events=n_events, device_busy_us=busy,
                 wall_us=wall_us,
-                device_idle_share=(1.0 - busy / wall_us) if spans else None,
+                device_idle_share=(1.0 - busy / wall_us) if n_events else None,
                 top_by_device_time=[dict(name=n[:60], count=c, us=t)
                                     for n, c, t in by_key[:6]])
     if share_of is not None:
@@ -2773,6 +2823,14 @@ FLASH_CASES = (
     ("hd 32 bf16", "gqa", (2, 1024, 8, 2, 32), "bfloat16", True, None, None),
     ("qwen2 2-layer f32", "gqa", (1, 512, 12, 2, 128), "float32", True, None,
      None),
+    ("granite-moe prefill", "gqa", (4, 2048, 16, 8, 64), "bfloat16", True,
+     None, None),
+    ("internvl2 prefill", "gqa", (4, 2048, 16, 8, 128), "bfloat16", True,
+     None, None),
+    ("arctic prefill", "gqa", (1, 512, 56, 8, 128), "bfloat16", True, None,
+     None),
+    ("arctic prefill B 4 x 2048", "gqa", (4, 2048, 56, 8, 128), "bfloat16",
+     True, None, None),
 )
 # the main path's case of each kernel: the blockwise bf16 serve runs the
 # wgmma kernel, the 2-layer f32 card-vs-CPU run the SIMT one
@@ -3019,12 +3077,13 @@ def serve_run(serve, transformer, mods, cfg, params, batch, prompt_len,
 
 
 def teacher_forced(model_api, cfg, params, prompt, feed, device) -> list:
-    """Prefill ``prompt`` on ``device``, graft the cache, then decode the
-    tokens ``feed`` (B, n) one by one; returns the logits of the prefill
-    and of each step, on the CPU in f32."""
-    B, S = prompt.shape
-    logits, cache = model_api.prefill(params, {"tokens": prompt.to(device)},
-                                      cfg)
+    """Prefill ``prompt`` (a batch dict of CPU tensors) on ``device``,
+    graft the cache, then decode the tokens ``feed`` (B, n) one by one;
+    returns the logits of the prefill and of each step, on the CPU in
+    f32."""
+    logits, cache = model_api.prefill(
+        params, {k: v.to(device) for k, v in prompt.items()}, cfg)
+    B, S = feed.shape[0], cache["step"]
     full = model_api.init_cache(cfg, B, S + feed.shape[1], device=device)
     for name in ("k", "v"):
         full[name][:, :, :S] = cache[name]
@@ -3130,12 +3189,12 @@ def phase_lm(mods) -> dict:
     feed = serve.serve_lm(small, 1, 512, 4, device="cpu",
                           params=cpu_params)[:, :4]
     with torch.no_grad():
-        cpu_logits = teacher_forced(model_api, small, cpu_params, prompt,
-                                    feed, "cpu")
+        cpu_logits = teacher_forced(model_api, small, cpu_params,
+                                    {"tokens": prompt}, feed, "cpu")
         torch.cuda.synchronize()
         reset_launches(mods)
-        card_logits = teacher_forced(model_api, small, card_params, prompt,
-                                     feed, "cuda")
+        card_logits = teacher_forced(model_api, small, card_params,
+                                     {"tokens": prompt}, feed, "cuda")
         torch.cuda.synchronize()
         card_launches = mods["flash_attn"].launches
         f32_launches = read_launches(mods)
@@ -3160,6 +3219,317 @@ def phase_lm(mods) -> dict:
         raise AssertionError("qwen2 card vs CPU: " + "; ".join(problems))
     return {"qwen2-1.5b serve blockwise": launches,
             "qwen2-1.5b 2-layer f32": f32_launches}
+
+
+# phase 7's moe and vlm serves: run -> (arch, layers (None: all), batch,
+# prompt positions, decode steps); arctic is cut in depth alone
+MOE_SERVES = {
+    "granite-moe-1b-a400m serve blockwise": ("granite-moe-1b-a400m", None, 4,
+                                             2048, 16),
+    "internvl2-2b serve blockwise": ("internvl2-2b", None, 4, 2048, 16),
+    "arctic-480b 1-layer serve blockwise": ("arctic-480b", 1, 4, 2048, 16),
+}
+# the traced prefill's shares: name -> aten operations whose own device
+# time it sums (the router's product is told from the other matrix
+# products by its input shapes, the flash kernel by its name)
+MOE_OPS = {
+    "expert_bmm": ("aten::bmm",),
+    "router_softmax": ("aten::_softmax",),
+    "top_k_sort": ("aten::sort",),
+    "cumsum": ("aten::cumsum",),
+    "gather_scatter": ("aten::index", "aten::index_put_",
+                       "aten::_index_put_impl_", "aten::gather"),
+}
+
+
+class RoutingRecorder:
+    """Wraps ``moe.route`` for one run: each call's ``Routing``, in order
+    (the prefill's layers, then each decode step's), and with ``inputs``
+    each call's arguments (cfg, router, xt)."""
+
+    def __init__(self, moe, inputs: bool = False):
+        self.moe, self.calls, self.inputs = moe, [], [] if inputs else None
+
+    def __enter__(self):
+        self.route = self.moe.route
+
+        def route(*a, **k):
+            r = self.route(*a, **k)
+            self.calls.append(r)
+            if self.inputs is not None:
+                self.inputs.append(a)
+            return r
+
+        self.moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def routing_line(cfg, calls) -> dict:
+    """The prefill's capacity and, layer by layer, the share of its
+    (token, choice) pairs that capacity dropped; the decode's drops."""
+    pre = calls[:cfg.num_layers]
+    return dict(capacity=pre[0].capacity, tokens=int(pre[0].topi.shape[0]),
+                dropped_share_by_layer=[1.0 - float(r.keep.float().mean())
+                                        for r in pre],
+                decode_dropped=sum(int((~r.keep).sum())
+                                   for r in calls[cfg.num_layers:]))
+
+
+def moe_serve(mods, run: str, spec) -> tuple:
+    """``serve_lm`` of one moe or vlm arch at full width (bf16, blockwise,
+    random weights drawn on the card from seed 0), the card freed before
+    the weights are drawn; gated: one wgmma flash launch a prefill layer,
+    none in the decode. Returns (cfg, params, launches)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import api as model_api
+    from repro_torch.models import moe, transformer
+    arch, layers, batch, prompt_len, steps = spec
+    cfg = registry.get_config(arch).replace(attention_impl="blockwise")
+    cuts = None
+    if layers is not None:
+        cuts = dict(layers=[cfg.num_layers, layers])
+        cfg = cfg.replace(num_layers=layers)
+    free_card()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_api.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    torch.cuda.synchronize()
+    emit("slice", run=f"{arch} weights", layers=cfg.num_layers,
+         params=sum(t.numel() for t in _leaves(params)),
+         param_count=cfg.param_count(),
+         bytes=sum(t.numel() * t.element_size() for t in _leaves(params)),
+         draw_s=time.perf_counter() - t0,
+         init_peak_memory_bytes=torch.cuda.max_memory_allocated())
+    # warm at the timed shape; the routing is recorded here, so that the
+    # timed run below carries no recorder
+    with RoutingRecorder(moe) as rec:
+        serve.serve_lm(cfg, batch, prompt_len, steps, device="cuda",
+                       params=params)
+    r = serve_run(serve, transformer, mods, cfg, params, batch, prompt_len,
+                  steps)
+    toks, logits = r["tokens"], r["logits"]
+    ok = (tuple(toks.shape) == (batch, 1 + steps)
+          and bool(((toks >= 0) & (toks < cfg.padded_vocab)).all())
+          and bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (batch, prompt_len, cfg.padded_vocab))
+    line = dict(run=run, arch=arch, layers=cfg.num_layers,
+                attention_impl=cfg.attention_impl, batch=batch,
+                prompt_len=prompt_len, decode_steps=steps,
+                prefill_s=r["prefill_s"], decode_s=r["decode_s"],
+                decode_tokens_per_s=r["decode_tokens_per_s"],
+                peak_memory_bytes=r["peak_memory_bytes"],
+                launches=r["launches"],
+                flash_launches_prefill=r["prefill_launches"],
+                flash_routes_prefill=r["prefill_routes"],
+                flash_launches_decode=r["decode_launches"],
+                tokens_row0=toks[0].tolist(), well_formed=ok)
+    if cuts:
+        line["cuts"] = cuts
+    if cfg.family == "vlm":
+        line["patches"] = cfg.num_patches
+    if cfg.num_experts:
+        line["routing"] = routing_line(cfg, rec.calls)
+    emit("slice", **line)
+    if not ok:
+        raise AssertionError(f"{run}: tokens or logits malformed")
+    if r["prefill_routes"] != {"wgmma": cfg.num_layers, "simt": 0} or \
+            r["decode_launches"] != 0:
+        raise AssertionError(
+            f"{run}: flash_attention launched {r['prefill_routes']} times "
+            f"in the prefill (want {cfg.num_layers}, all wgmma) and "
+            f"{r['decode_launches']} in the decode (want 0)")
+    return cfg, params, r["launches"]
+
+
+def moe_trace(run_once, router_shapes) -> dict:
+    """``torch.profiler`` (CPU and CUDA, with input shapes) over one warm
+    call: device busy time and idle share, the flash kernel's device time,
+    and the own device time of the operations of ``MOE_OPS`` and of the
+    router's product, each with its share of the busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        run_once()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    n_events, busy = device_busy(prof)
+
+    def own(e):
+        return getattr(e, "self_device_time_total", None) or 0.0
+
+    ops = [(e.key, [list(x) for x in (e.input_shapes or [])[:2]], own(e),
+            e.count)
+           for e in prof.key_averages(group_by_input_shape=True)
+           if e.device_type == DeviceType.CPU and own(e) > 0]
+    us = {name: sum(t for k, _, t, _ in ops if k in keys)
+          for name, keys in MOE_OPS.items()}
+    us["router_matmul"] = sum(t for k, sh, t, _ in ops
+                              if k == "aten::mm" and sh == router_shapes)
+    us["flash_kernel"] = sum(e.device_time_total
+                             for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA
+                             and "flash_wgmma_kernel" in e.key)
+    return dict(device_events=n_events, device_busy_us=busy,
+                wall_us=wall_us,
+                device_idle_share=(1.0 - busy / wall_us) if n_events else None,
+                device_us=us,
+                share_of_busy={k: v / busy if busy else None
+                               for k, v in us.items()},
+                top_ops_by_own_device_us=[
+                    dict(name=k, shapes=sh, count=c, us=t) for k, sh, t, c in
+                    sorted(ops, key=lambda o: -o[2])[:8]])
+
+
+def moe_card_cpu(mods, parity, arch: str) -> dict:
+    """One arch at full width, 2 layers deep, f32 (TF32 off): the card
+    (SIMT flash kernel) against the CPU (plain) from the same weights,
+    prefill and four teacher-forced decode steps within 1e-4 of
+    max|logit|; every routed call of the card held by
+    ``parity.routing_problems`` to the CPU's routing of the same layer
+    input (the card's, replayed), the two runs' routing against each
+    other printed (their layer inputs part by the earlier layers'
+    rounding: ``api/parity.py``); the aux gap printed. Returns the card
+    run's launches."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import api as model_api
+    from repro_torch.models import moe, transformer
+    cfg = registry.get_config(arch).replace(
+        num_layers=2, dtype="float32", attention_impl="blockwise")
+    cpu_params = model_api.init_params(torch.Generator().manual_seed(0), cfg,
+                                       "cpu")
+    card_params = transformer.tree_to(cpu_params, "cuda")
+    patches = cfg.num_patches if cfg.family == "vlm" else 0
+    # serve_lm's prompt (seed 0); its greedy tokens on the CPU are fed to
+    # both devices' decode steps
+    prompt = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, 512 - patches)))}
+    if patches:
+        prompt["patch_embeds"] = torch.zeros((1, patches, cfg.d_model))
+    feed = serve.serve_lm(cfg, 1, 512, 4, device="cpu",
+                          params=cpu_params)[:, :4]
+    with torch.no_grad():
+        with RoutingRecorder(moe) as cpu_rec:
+            cpu_logits = teacher_forced(model_api, cfg, cpu_params, prompt,
+                                        feed, "cpu")
+        torch.cuda.synchronize()
+        reset_launches(mods)
+        with RoutingRecorder(moe, inputs=True) as card_rec:
+            card_logits = teacher_forced(model_api, cfg, card_params, prompt,
+                                         feed, "cuda")
+        torch.cuda.synchronize()
+        launches = read_launches(mods)
+        replayed = [moe.route(c, router.cpu(), xt.cpu())
+                    for c, router, xt in card_rec.inputs]
+        aux = [float(transformer.forward(
+            p, {k: v.to(dev) for k, v in prompt.items()}, cfg)[2])
+            for p, dev in ((card_params, "cuda"), (cpu_params, "cpu"))
+        ] if cfg.num_experts else [0.0, 0.0]
+    problems, gaps = [], []
+    for i, (c, g) in enumerate(zip(card_logits, cpu_logits)):
+        gap = float((c - g).abs().max() / g.abs().max())
+        gaps.append(gap)
+        if not gap <= 1e-4:
+            problems.append(f"{'prefill' if i == 0 else f'decode {i}'}: "
+                            f"logit gap {gap} of max|logit|")
+    problems += parity.routing_problems(card_rec.calls, replayed)
+    if (launches["flash_attention_simt"], launches["flash_attention"]) != \
+            (cfg.num_layers, 0):
+        problems.append(f"flash_attention launched {launches['flash_attention']}"
+                        f" (wgmma) and {launches['flash_attention_simt']} "
+                        f"(SIMT) times, not 0 and {cfg.num_layers}")
+    line = dict(run=f"{arch} 2-layer f32", layers=cfg.num_layers, batch=1,
+                prompt_len=512, decode_steps=4, patches=patches,
+                allow_tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                                cudnn=torch.backends.cudnn.allow_tf32),
+                logit_gap_rel=gaps, flash_launches=launches["flash_attention"]
+                + launches["flash_attention_simt"],
+                aux_card_cpu=aux, aux_gap=abs(aux[0] - aux[1]))
+    if cfg.num_experts:
+        k = cfg.top_k
+        kth = [torch.sort(r.logits, dim=1, descending=True).values
+               for r in cpu_rec.calls]
+
+        def gap_max(a, b):
+            return max(float((x.logits.cpu() - y.logits).abs().max())
+                       for x, y in zip(a, b))
+
+        line.update(
+            routed_calls=len(card_rec.calls),
+            router_logit_gap_max_replayed=gap_max(card_rec.calls, replayed),
+            router_logit_gap_max_run=gap_max(card_rec.calls, cpu_rec.calls),
+            kth_logit_gap_min=min(float((z[:, k - 1] - z[:, k]).min())
+                                  for z in kth),
+            routing_run_vs_run=parity.routing_problems(card_rec.calls,
+                                                       cpu_rec.calls),
+            routing=routing_line(cfg, cpu_rec.calls))
+    emit("card_vs_cpu", **line, problems=problems)
+    if problems:
+        raise AssertionError(f"{arch} card vs CPU: " + "; ".join(problems))
+    return launches
+
+
+def lm_cli(arch: str) -> None:
+    """``python -m repro_torch.launch.serve --arch <arch> --attention-impl
+    blockwise --batch 4 --prompt-len 2048 --decode-steps 16`` in a
+    subprocess on the card: exit 0 and its line."""
+    env = port_env()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--attention-impl", "blockwise", "--batch", "4", "--prompt-len",
+         "2048", "--decode-steps", "16"],
+        env=env, capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    emit("slice", run=f"{arch} cli", returncode=proc.returncode,
+         stdout=lines, seconds=time.perf_counter() - t0)
+    if proc.returncode != 0 or not lines or not re.match(
+            r"prefill: 4x2048 in .*decode: 16 steps", lines[-1]):
+        raise AssertionError(f"{arch} serve CLI: {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+
+
+def phase_moe(mods, parity, smi: str) -> dict:
+    """Phase 7's moe and vlm part (module docstring, 7 (a) to (f)).
+    Returns the launches of each run."""
+    from repro_torch.models import api as model_api
+    t_phase = time.perf_counter()
+    launches = {}
+    for run, spec in MOE_SERVES.items():
+        cfg, params, launches[run] = moe_serve(mods, run, spec)
+        if cfg.name == "granite-moe-1b-a400m":
+            batch, prompt_len = spec[2], spec[3]
+            prompt = {"tokens": torch.as_tensor(
+                np.random.default_rng(0).integers(
+                    0, cfg.vocab_size, size=(batch, prompt_len)),
+                device="cuda")}
+            T = batch * prompt_len
+            with torch.no_grad():
+                model_api.prefill(params, prompt, cfg)
+                line = moe_trace(
+                    lambda: model_api.prefill(params, prompt, cfg),
+                    [[T, cfg.d_model], [cfg.d_model, cfg.num_experts]])
+            emit("trace", run=f"{cfg.name} prefill blockwise", batch=batch,
+                 prompt_len=prompt_len, **line)
+            del prompt
+        del params
+        free_card()
+    for arch in ("granite-moe-1b-a400m", "internvl2-2b"):
+        launches[f"{arch} 2-layer f32"] = moe_card_cpu(mods, parity, arch)
+    free_card()
+    for arch in ("granite-moe-1b-a400m", "internvl2-2b"):
+        lm_cli(arch)
+    emit("moe_phase", seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+    return launches
 
 
 SESSION_PATHS = {  # name -> (spec maker, rounds, checkpoint after, kernels)
@@ -3770,8 +4140,7 @@ def serve_across_devices(parity, serve, cfg, dirs, params, path: str,
 def serve_cli() -> None:
     """``python -m repro_torch.launch.serve --arch anomaly-mlp --batch 256
     --requests 2048`` in a subprocess on the card: exit 0, two lines."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
+    env = port_env()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
          "anomaly-mlp", "--batch", "256", "--requests", "2048"],
@@ -3864,6 +4233,12 @@ def main() -> int:
     if sys.argv[1:] == ["--serve"]:
         _build.build_all()
         phase_serve(T, parity, mods, smi)
+        return 0
+    if sys.argv[1:] == ["--lm"]:
+        _build.build_all()
+        phase_flash(flash_attn, ref)
+        phase_lm(mods)
+        phase_moe(mods, parity, smi)
         return 0
     if sys.argv[1:] == ["--lazy-world"]:
         _build.build_all()
@@ -4022,8 +4397,10 @@ def main() -> int:
     # 6f. serving the detector, with drift-triggered re-federation
     phase_serve(T, parity, mods, smi)
 
-    # 7. LM serving at qwen2-1.5b's full width
+    # 7. LM serving at qwen2-1.5b's full width, then the moe and vlm
+    # families (granite-moe, internvl2, arctic cut to one layer)
     launches.update(phase_lm(mods))
+    launches.update(phase_moe(mods, parity, smi))
 
     # launches on each kernel's main path: the megastep int8 run for the
     # three kernels it runs, the per-client int8 loop for the codec pair,

@@ -201,6 +201,43 @@ plus the statistic times the variances' relative gap (2(N + 3)·2^-24 and
 the scores' share), bound each window's gap. A trigger decision is
 reproducible only where no window's statistic lies within its bound of
 the threshold: ``drift_problems`` asserts that and names the window.
+
+Mixture-of-experts routing (models/moe.py). Two runs of one layer from
+inputs equal to float rounding choose each token's k experts from their
+own f32 router logits z (T, E). Within a row the gates are a softmax of
+the logits, exp(z_e − max_t)/Σ, so two gates compare as their logits do,
+except where the roundings of one run tie or swap them. Each rounding
+moves a gate by a relative amount, which is a shift of its logit by the
+same amount: the subtraction z_e − max_t by up to half an ulp of
+|z_e − max_t|, at most ulp(R_t)/2 with R_t = max_e |z_t,e − max_t| the
+row's range; exp by up to one ulp of the gate (2^-23 relative) and the
+division by half of one (2^-24). Two gates compared in one run: ulp(R_t)
++ ``ROUTER_GATE_ULPS``·2^-24, ROUTER_GATE_ULPS = 6; ulp(R_t) is taken
+twice, since the runs' ranges may fall in neighbouring binades. So the
+set of token t's k experts can differ between the runs only where its
+k-th and (k + 1)-th logits lie within 2·δ_t + 2·ulp(R_t) + 6·2^-24 of
+each other, δ_t = max_e |z_t,e − z'_t,e| the largest gap between the two
+runs' logits of that token (each of the two logits moves by at most
+δ_t) and R_t the larger of their ranges. The margin is taken from the
+runs' own logits, not chosen. Where every token's k-th and
+(k + 1)-th logits lie beyond it, the chosen sets are equal, and with them
+each choice's capacity position (its expert's choices before it in the
+flat token-major order), kept flag and slot: ``routing_problems`` holds
+them equal, each token's choices taken in expert order. The order of the
+k choices within a token is not a routing decision: it moves no position
+(a token names each expert once), only the order in which the combine
+adds the k outputs; ``top_k``'s tie order is held to ``jax.lax.top_k`` on
+its own (tests/test_torch_moe.py). A token within its margin is a case
+whose routing is not reproducible, and ``routing_problems`` names it by
+call and token, as the θ rule names a ratio within ``THETA_BAND``. Over
+whole runs the layers' inputs part by the earlier layers' rounding, and δ
+with them: granite-moe at full width, 2 layers in f32, an H100 against
+the CPU, met a token 9.3e-6 apart against a margin of 1.1e-5 (without the
+subtraction's term; about one
+run in ten at that δ, 1,032 routed token-layers and a k-th gap density
+near 10). So a layer's routing is held on one input, the
+card's replayed on the CPU (the replay-from-one-state rule), where δ is
+the router product's rounding alone; the two runs' routing is printed.
 """
 from __future__ import annotations
 
@@ -235,6 +272,7 @@ TOPO_ACCUM_RTOL = 1e-6    # of Σ_c |w_c·u_c|: a reduction over clients
 PROBS_RTOL = 1e-5         # served probabilities (tests/test_serve.py's own)
 PROBS_ATOL = 1e-6
 F32_U = 2.0 ** -24        # f32 unit roundoff
+ROUTER_GATE_ULPS = 6      # two gates' exp (1 ulp) and division (1/2 ulp)
 CONTROL_RTOL = {"avail": EMA_RTOL, "pass_rate": EMA_RTOL,
                 "round_time": EMA_RTOL, "lr_scale": EMA_RTOL,
                 "grad_norm": NORM_RTOL}
@@ -616,4 +654,55 @@ def drift_problems(got: Sequence[float], want: Sequence[float],
         if abs(b - threshold) <= lim:
             out.append(f"window {w}: statistic {b} within {lim} of the "
                        f"threshold {threshold}")
+    return out
+
+
+def _host(x) -> np.ndarray:
+    """A tensor (on any device) or an array, as a numpy array."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu()
+    return np.asarray(x)
+
+
+def routing_problems(got: Sequence, want: Sequence) -> List[str]:
+    """Two runs' routing, call by call (``moe.Routing`` or any records
+    with its ``logits``, ``topi``, ``keep`` and ``slot``; the layers of a
+    prefill, then of each decode step, in order), against the routing
+    rule above: every token's k-th and (k + 1)-th logits (in ``want``)
+    farther apart than its margin, and where they are, each token's
+    experts, kept flags and slots equal in expert order; empty when they
+    agree."""
+    if len(got) != len(want):
+        return [f"{len(got)} routed calls against {len(want)}"]
+    out = []
+    for n, (g, w) in enumerate(zip(got, want)):
+        zg = _host(g.logits).astype(np.float64)
+        zw = _host(w.logits).astype(np.float64)
+        if zg.shape != zw.shape:
+            out.append(f"call {n}: logits {zg.shape} against {zw.shape}")
+            continue
+        T, k = _host(w.topi).shape
+        span = np.maximum(zg.max(axis=1) - zg.min(axis=1),
+                          zw.max(axis=1) - zw.min(axis=1))
+        margin = (2 * np.abs(zg - zw).max(axis=1)
+                  + 2 * np.spacing(span.astype(np.float32)).astype(np.float64)
+                  + ROUTER_GATE_ULPS * F32_U)
+        ranked = -np.sort(-zw, axis=1)
+        gap = ranked[:, k - 1] - ranked[:, k] if k < zw.shape[1] else \
+            np.full(T, np.inf)
+        close = np.nonzero(gap <= margin)[0]
+        for t in close[:5]:
+            out.append(f"call {n} token {t}: logits {k} and {k + 1} lie "
+                       f"{gap[t]} apart, within the margin {margin[t]}: "
+                       f"its routing is not reproducible")
+        if len(close):
+            continue
+        for name in ("topi", "keep", "slot"):
+            a, b = (np.take_along_axis(
+                _host(getattr(r, name)).reshape(T, k),
+                np.argsort(_host(r.topi), axis=1, kind="stable"), axis=1)
+                for r in (g, w))
+            if not np.array_equal(a, b):
+                rows = np.nonzero((a != b).any(axis=1))[0][:5].tolist()
+                out.append(f"call {n}: {name} differs at tokens {rows}")
     return out

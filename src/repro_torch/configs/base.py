@@ -1,12 +1,16 @@
-"""Architecture configuration: the fields the mlp and dense families read.
+"""Architecture configuration: the fields the ported families read.
 
 The JAX package's ``ArchConfig`` describes every family it supports; the
 port carries what its ported families read, under the same names, so a
 config reads the same in both packages. Families:
   dense — llama-style decoder (GQA + RoPE + SwiGLU or variants)
+  moe   — dense skeleton with a mixture-of-experts FFN (top-k routing)
+  vlm   — InternVL2: stubbed patch embeddings, projected and prepended
+          to the token embeddings
   mlp   — the paper's own 256-128-64 anomaly-detection MLP
-The moe, ssm, hybrid, audio and vlm fields come with their families
-(ROADMAP.md queue 1 item 14).
+The ssm, hybrid and audio fields come with their families (ROADMAP.md
+queue 1 item 14); ``optimizer``, ``expert_parallel`` and ``client_axes``
+with LM training and sharding, which read them (items 14c, 14g).
 """
 from __future__ import annotations
 
@@ -15,14 +19,14 @@ from typing import Optional, Tuple
 
 import torch
 
-_NOT_PORTED = ("the {} family is not ported yet; it comes with ROADMAP.md "
-               "queue 1 item 14")
+_NOT_PORTED = ("the {} family is not ported yet; ssm, hybrid and audio come "
+               "with ROADMAP.md queue 1 item 14")
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | mlp in the port so far
+    family: str                      # dense | moe | vlm | mlp in the port
     num_layers: int = 0
     d_model: int = 0
     num_heads: int = 0
@@ -41,6 +45,17 @@ class ArchConfig:
     rope_fraction: float = 1.0       # partial rotary (stablelm uses 0.25)
     tie_embeddings: bool = False
     sliding_window: Optional[int] = None
+
+    # moe ------------------------------------------------------------------
+    num_experts: int = 0
+    top_k: int = 0
+    moe_dense_residual: bool = False       # arctic: dense FFN in parallel
+    moe_dispatch: str = "gather"           # gather | scatter (one function)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01        # load-balance loss weight
+
+    # vlm stub -------------------------------------------------------------
+    num_patches: int = 256           # vlm: stubbed patch embeddings
 
     # mlp detector -----------------------------------------------------------
     mlp_hidden: Tuple[int, ...] = ()
@@ -76,13 +91,14 @@ class ArchConfig:
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
-    def param_count(self) -> int:
-        """Analytic parameter count (the JAX package's formula)."""
+    def param_count(self, active_only: bool = False) -> int:
+        """Analytic parameter count (the JAX package's formula);
+        ``active_only`` counts the top-k experts only."""
         if self.family == "mlp":
             dims = ((self.num_features,) + tuple(self.mlp_hidden)
                     + (self.num_classes,))
             return sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
-        if self.family != "dense":
+        if self.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(_NOT_PORTED.format(repr(self.family)))
         d, ff, L, V = self.d_model, self.d_ff, self.num_layers, self.vocab_size
         hd, H, K = self.hd, self.num_heads, self.num_kv_heads
@@ -95,4 +111,12 @@ class ArchConfig:
             ffn = 2 * d * ff + ff + d
         norms = 2 * d
         emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.family == "moe":
+            experts = (self.top_k if active_only else self.num_experts)
+            router = d * self.num_experts
+            dense_res = 3 * d * ff if self.moe_dense_residual else 0
+            per_layer = attn + experts * 3 * d * ff + router + dense_res + norms
+            return L * per_layer + emb + d
+        if self.family == "vlm":
+            return L * (attn + ffn + norms) + emb + d + d * d  # projector
         return L * (attn + ffn + norms) + emb + d

@@ -1,24 +1,27 @@
 """Architecture registry: ``--arch <id>`` resolution for launchers, over
-the architectures the port runs (``anomaly-mlp`` and the dense family).
-The JAX package's other ids raise ``KeyError`` naming the roadmap item
-that brings them."""
+the architectures the port runs (``anomaly-mlp`` and the dense, moe and
+vlm families). The JAX package's other ids raise ``KeyError`` naming the
+roadmap item that brings them."""
 from __future__ import annotations
 
-from repro_torch.configs import (anomaly_mlp, granite_34b, phi3_mini_3_8b,
-                                 qwen2_1_5b, stablelm_1_6b)
+from repro_torch.configs import (anomaly_mlp, arctic_480b, granite_34b,
+                                 granite_moe_1b, internvl2_2b,
+                                 phi3_mini_3_8b, qwen2_1_5b, stablelm_1_6b)
 from repro_torch.configs.base import ArchConfig
 
 _MODULES = {
     "granite-34b": granite_34b,
+    "granite-moe-1b-a400m": granite_moe_1b,
+    "internvl2-2b": internvl2_2b,
     "qwen2-1.5b": qwen2_1_5b,
     "stablelm-1.6b": stablelm_1_6b,
+    "arctic-480b": arctic_480b,
     "phi3-mini-3.8b": phi3_mini_3_8b,
     "anomaly-mlp": anomaly_mlp,
 }
 
-# the JAX package's other archs (moe, ssm, hybrid, audio, vlm)
-NOT_PORTED = ("rwkv6-7b", "hymba-1.5b", "whisper-tiny",
-              "granite-moe-1b-a400m", "internvl2-2b", "arctic-480b")
+# the JAX package's other archs (ssm, hybrid, audio)
+NOT_PORTED = ("rwkv6-7b", "hymba-1.5b", "whisper-tiny")
 
 def list_archs():
     """Sorted list of the ``--arch`` ids the port runs."""
@@ -35,8 +38,9 @@ def get_config(name: str, smoke: bool = False) -> ArchConfig:
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-# long_500k: every ported arch runs the sliding-window variant (the JAX
-# package's natively long-context archs and its skipped one are unported)
+# long_500k: every ported arch (dense, moe, vlm, mlp) runs the
+# sliding-window variant, as in the JAX package; its natively long-context
+# archs (ssm, hybrid) and its skipped one (audio) are unported
 SLIDING_WINDOW = 4096
 
 

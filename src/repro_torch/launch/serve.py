@@ -1,7 +1,7 @@
 """Serving driver, on the card unless the caller names another device:
 batched anomaly scoring through the ``repro_torch.serve`` engine (the
-paper's detector), or a batched prefill + greedy decode loop for the dense
-language models.
+paper's detector), or a batched prefill + greedy decode loop for the
+language models (the dense, moe and vlm families).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch anomaly-mlp \\
@@ -12,12 +12,19 @@ Examples:
       --batch 4 --prompt-len 2048 --decode-steps 16 --attention-impl blockwise
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --smoke --prompt-len 32 --decode-steps 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite-moe-1b-a400m --batch 4 --prompt-len 2048 \\
+      --decode-steps 16 --attention-impl blockwise
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \\
+      --smoke --prompt-len 512 --decode-steps 4 --device cpu
 
 The weights are random, drawn from a ``torch.Generator`` seeded ``seed``
 on the serving device (the JAX package serves random weights too); the
 prompt comes from ``np.random.default_rng(seed)`` and the flows from
 ``data.synthetic.make_unsw_like(seed, ...)``, so they are the JAX
-package's.
+package's. A vlm prompt of ``prompt_len`` positions is ``num_patches``
+zero patch embeddings followed by ``prompt_len − num_patches`` tokens, as
+the JAX package builds it.
 """
 from __future__ import annotations
 
@@ -42,15 +49,21 @@ def serve_lm(cfg, batch: int, prompt_len: int, decode_steps: int, seed=0, *,
              device=None, params=None):
     """Prefill a (batch, prompt_len) random prompt, then ``decode_steps``
     greedy tokens; returns the (batch, 1 + decode_steps) tokens (the
-    prefill's argmax first). ``params`` replaces the random weights."""
+    prefill's argmax first). ``params`` replaces the random weights. A
+    vlm prompt's ``prompt_len`` counts its patches."""
     dev = resolve_device(device)
+    patches = cfg.num_patches if cfg.family == "vlm" else 0
     rng = np.random.default_rng(seed)
     if params is None:
         params = api.init_params(torch.Generator(device=dev).manual_seed(seed),
                                  cfg, dev)
     prompt = {"tokens": torch.as_tensor(
-        rng.integers(0, cfg.vocab_size, size=(batch, prompt_len)),
+        rng.integers(0, cfg.vocab_size, size=(batch, prompt_len - patches)),
         device=dev)}
+    if patches:
+        prompt["patch_embeds"] = torch.zeros(
+            (batch, patches, cfg.d_model), dtype=cfg.compute_dtype,
+            device=dev)
 
     _sync(dev)
     t0 = time.perf_counter()

@@ -1,7 +1,8 @@
-"""Model API: family dispatch (the mlp and dense families, so far).
+"""Model API: family dispatch (the mlp family and the transformer's dense,
+moe and vlm families, so far).
 
 Every family exposes ``init_params(generator, cfg, device)`` and
-``loss_fn(params, batch, cfg)``; the dense family also
+``loss_fn(params, batch, cfg)``; the transformer's also
 ``prefill(params, batch, cfg) -> (logits, cache)``,
 ``decode_step(params, cache, batch, cfg) -> (logits, cache)`` and
 ``init_cache(cfg, batch, seq)``.
@@ -12,7 +13,8 @@ import torch
 
 from repro_torch.models import mlp_detector, transformer
 
-_FAMILY = {"mlp": mlp_detector, "dense": transformer}
+_FAMILY = {"mlp": mlp_detector, "dense": transformer, "moe": transformer,
+           "vlm": transformer}
 
 
 def module_for(cfg):
@@ -21,8 +23,8 @@ def module_for(cfg):
     except KeyError:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet; the port runs "
-            "the mlp and dense families, and the other language models "
-            "come with ROADMAP.md queue 1 item 14") from None
+            "the mlp, dense, moe and vlm families, and ssm, hybrid and "
+            "audio come with ROADMAP.md queue 1 item 14") from None
 
 
 def init_params(generator, cfg, device="cpu"):

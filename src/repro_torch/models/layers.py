@@ -31,13 +31,15 @@ def dense_init(generator: torch.Generator, shape, dtype=torch.float32,
     differ). A stacked (L, in, out) shape has the fan-in of (in, out)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale / math.sqrt(fan_in)
-    return (torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=generator.device) * std).to(dtype)
+    # scaled in place: one f32 copy of the tensor at a time (arctic's
+    # experts are 17.8 GB each in f32)
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device).mul_(std).to(dtype)
 
 
 def embed_init(generator: torch.Generator, shape, dtype) -> torch.Tensor:
-    return (torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=generator.device) * 0.02).to(dtype)
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device).mul_(0.02).to(dtype)
 
 
 # --------------------------------------------------------------------------

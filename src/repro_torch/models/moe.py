@@ -1,0 +1,154 @@
+"""Top-k mixture-of-experts FFN with capacity-based dispatch, the
+counterpart of the JAX package's ``models/moe.py``.
+
+Each (token, choice) takes a slot in its expert's fixed (E, C, d) buffer,
+in flat token-major order (``cumsum(one_hot) − one_hot``); a choice past
+its expert's capacity C is dropped: its combine weight is 0 and its slot
+is the dump slot E·C, which is sliced off. The expert products are
+batched matrix products over the expert axis (``torch.bmm``), as the JAX
+package's einsums are: it has no kernel of its own for them.
+
+The buffer is filled through the inverse permutation ``tok_for_slot``
+and ``valid`` (written at the dump slot by every dropped choice, in any
+order, and sliced off before it is read). ``cfg.moe_dispatch`` takes the
+JAX package's two values, ``"gather"`` and ``"scatter"``: there they are
+two ways to one function, the scatter for GSPMD's sharding; unsharded,
+both run this gather. The combine is a gather of each choice's expert
+output times its weight, summed over the k choices.
+
+The JAX module's custom VJPs of the dispatch and the combine, and the
+combine's inverse permutation ``choice_for_slot`` that only their
+backward reads, serve GSPMD's sharding of training (ROADMAP.md queue 1
+item 14c); here the forward is plain indexing.
+
+The aux loss is the Switch load-balance term E·Σ_e f_e/k·p_e (f_e the
+choices routed to e per token, p_e the mean router probability of e).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+
+
+def moe_params(cfg, generator: torch.Generator, dtype, lead=()):
+    """The router (f32, (d, E)), the experts ``wg``, ``wu`` (E, d, ff) and
+    ``wd`` (E, ff, d) without the down-projection's depth scale, and with
+    ``moe_dense_residual`` a dense FFN; leading dims ``lead``."""
+    E, d, ff = cfg.num_experts, cfg.d_model, cfg.d_ff
+    lead = tuple(lead)
+    p = {
+        "router": L.dense_init(generator, lead + (d, E), torch.float32),
+        "wg": L.dense_init(generator, lead + (E, d, ff), dtype),
+        "wu": L.dense_init(generator, lead + (E, d, ff), dtype),
+        "wd": L.dense_init(generator, lead + (E, ff, d), dtype),
+    }
+    if cfg.moe_dense_residual:
+        p["dense"] = L.ffn_params(cfg, generator, dtype, lead)
+    return p
+
+
+def capacity(cfg, tokens: int) -> int:
+    c = int(cfg.capacity_factor * tokens * cfg.top_k / cfg.num_experts)
+    return max(4, min(c, tokens))
+
+
+class Routing(NamedTuple):
+    """One call's routing of T tokens to k of E experts."""
+    logits: torch.Tensor     # (T, E) f32 router logits
+    gates: torch.Tensor      # (T, E) f32 softmax of the logits
+    topv: torch.Tensor       # (T, k) f32 chosen gates, renormalised
+    topi: torch.Tensor       # (T, k) int64 chosen experts, best first
+    keep: torch.Tensor       # (T·k,) bool: the choice is within capacity
+    slot: torch.Tensor       # (T·k,) int64: e·C + position, E·C if dropped
+    load: torch.Tensor       # (E,) int64 choices routed to each expert
+    capacity: int
+
+
+def top_k(gates: torch.Tensor, k: int):
+    """The k largest of each row, best first and the lower index first
+    among equal values, as ``jax.lax.top_k`` orders them (``torch.topk``
+    promises no order for ties): the head of a stable descending sort."""
+    v, i = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return v[:, :k], i[:, :k]
+
+
+def route(cfg, router: torch.Tensor, xt: torch.Tensor) -> Routing:
+    """xt (T, d) -> each token's k experts, weights and capacity slots."""
+    T = xt.shape[0]
+    E, k = cfg.num_experts, cfg.top_k
+    C = capacity(cfg, T)
+    logits = xt.to(torch.float32) @ router
+    gates = torch.softmax(logits, dim=-1)
+    topv, topi = top_k(gates, k)
+    topv = topv / torch.clamp_min(topv.sum(dim=-1, keepdim=True), 1e-9)
+    # position of each (token, choice) inside its expert's capacity buffer:
+    # cumsum(one_hot) − one_hot in flat token-major order. The one-hot is
+    # laid out expert-major, (E, Tk), and its rows are scanned as one
+    # contiguous scan less each row's start: a scan down the Tk rows of a
+    # (Tk, E) tensor runs one thread a column on the card (11 ms a layer
+    # at T = 8,192 on an H100). A comparison, not F.one_hot, which reads
+    # the ids' range on the host.
+    flat_e = topi.reshape(T * k)
+    mask = (torch.arange(E, device=xt.device)[:, None]
+            == flat_e[None, :]).to(torch.int64)             # (E, Tk)
+    run = torch.cumsum(mask.reshape(-1), dim=0).reshape(E, T * k)
+    before = torch.cat([run.new_zeros(1), run[:-1, -1]])
+    pos = run - before[:, None] - mask
+    flat_pos = pos.gather(0, flat_e[None, :])[0]
+    keep = flat_pos < C
+    # overflow routes to a dump slot (index E·C) so it never collides
+    slot = torch.where(keep, flat_e * C + flat_pos, E * C)
+    return Routing(logits, gates, topv, topi, keep, slot, run[:, -1] - before,
+                   C)
+
+
+def dispatch(cfg, xt: torch.Tensor, r: Routing) -> torch.Tensor:
+    """xt (T, d) -> the experts' buffers (E, C, d), zero where no choice
+    fills a slot."""
+    T, d = xt.shape
+    E, k, C = cfg.num_experts, cfg.top_k, r.capacity
+    if cfg.moe_dispatch not in ("gather", "scatter"):
+        raise ValueError(f"moe_dispatch must be 'gather' or 'scatter'; got "
+                         f"{cfg.moe_dispatch!r}")
+    tok = torch.arange(T, device=xt.device).repeat_interleave(k)
+    # inverse permutation: which token fills each capacity slot; the
+    # dropped choices all write the dump slot E·C, cut off below
+    tok_for_slot = torch.zeros(E * C + 1, dtype=torch.int64, device=xt.device)
+    tok_for_slot[r.slot] = tok
+    valid = torch.zeros(E * C + 1, dtype=torch.bool, device=xt.device)
+    valid[r.slot] = r.keep
+    xe = xt[tok_for_slot[:E * C]] * valid[:E * C, None].to(xt.dtype)
+    return xe.reshape(E, C, d)
+
+
+def experts(p, xe: torch.Tensor) -> torch.Tensor:
+    """SwiGLU over the experts: (E, C, d) -> (E, C, d)."""
+    h = F.silu(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"])
+    return torch.bmm(h, p["wd"])
+
+
+def moe_ffn(cfg, p, x: torch.Tensor):
+    """x: (B, S, d) -> (out (B, S, d), aux_loss f32 scalar)."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    T = B * S
+    xt = x.reshape(T, d)
+    r = route(cfg, p["router"], xt)
+    C = r.capacity
+    ye = experts(p, dispatch(cfg, xt, r)).reshape(E * C, d)
+    # combine: each choice's expert output times its weight (0 if dropped;
+    # a dropped choice reads slot E·C − 1), summed over the k choices
+    w = (r.topv.reshape(T * k) * r.keep).to(x.dtype)
+    yt = ye[torch.clamp_max(r.slot, E * C - 1)] * w[:, None]
+    out = yt.reshape(T, k, d).sum(dim=1)
+    if cfg.moe_dense_residual:
+        out = out + L.ffn(cfg, p["dense"], xt)
+    # load-balance aux
+    f_e = r.load.to(torch.float32) / T
+    p_e = r.gates.mean(dim=0)
+    aux = E * torch.sum(f_e / k * p_e)
+    return out.reshape(B, S, d), aux

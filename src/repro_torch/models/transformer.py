@@ -1,11 +1,15 @@
-"""Decoder-only transformer, the dense family (qwen2, stablelm, phi3,
-granite-34b).
+"""Decoder-only transformer (dense, MoE, VLM families).
 
 Per-layer parameters are stacked on a leading layer axis, as in the JAX
 package's tree, so weights carry across one to one
 (``convert.lm_params_from_jax``); the layers run as a Python loop over
-that axis. The moe and vlm families of the JAX module come with
-ROADMAP.md queue 1 item 14.
+that axis. The same stack serves:
+
+  dense — llama-style (granite-34b, qwen2, stablelm, phi3)
+  moe   — FFN replaced by top-k mixture of experts (granite-moe, arctic;
+          ``models/moe.py``)
+  vlm   — InternVL2: stubbed patch embeddings are projected and prepended
+          to the token embeddings (internvl2-2b)
 
 The cache is ``{"k", "v": (L, B, S, K, hd), "step": int}``: the step is a
 Python int (the position of the next token), not a tensor, so a decode
@@ -16,14 +20,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
+
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def _check_family(cfg) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the transformer's {cfg.family!r} family is not ported yet; "
-            "the port runs the dense family, and moe and vlm come with "
-            "ROADMAP.md queue 1 item 14")
+            f"the {cfg.family!r} family is not ported yet; the transformer "
+            "runs the dense, moe and vlm families, and the others come "
+            "with ROADMAP.md queue 1 item 14")
 
 
 # --------------------------------------------------------------------------
@@ -45,13 +52,20 @@ def init_params(generator: torch.Generator, cfg, device=None):
             "attn": L.attn_params(cfg, generator, dtype, lead),
             "ln2": L.norm_params(cfg, cfg.d_model, dtype, generator.device,
                                  lead),
-            "ffn": L.ffn_params(cfg, generator, dtype, lead),
         },
         "final_norm": L.norm_params(cfg, cfg.d_model, dtype, generator.device),
     }
+    if cfg.num_experts:
+        params["layers"]["moe"] = moe_mod.moe_params(cfg, generator, dtype,
+                                                     lead)
+    else:
+        params["layers"]["ffn"] = L.ffn_params(cfg, generator, dtype, lead)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(
             generator, (cfg.d_model, cfg.padded_vocab), dtype)
+    if cfg.family == "vlm":
+        params["patch_proj"] = L.dense_init(
+            generator, (cfg.d_model, cfg.d_model), dtype)
     if device is not None and torch.device(device) != generator.device:
         params = tree_to(params, device)
     return params
@@ -78,13 +92,29 @@ def _head(params, cfg):
 # forward (prefill)
 # --------------------------------------------------------------------------
 
-def forward(params, batch, cfg, *, return_cache: bool = False):
-    """Returns (logits, cache_or_None, aux_loss), aux 0 for the dense
-    family."""
-    _check_family(cfg)
+def _embed_inputs(params, cfg, batch):
     x = params["embed"][batch["tokens"]]
+    if cfg.family == "vlm":
+        patches = batch["patch_embeds"].to(x.dtype) @ params["patch_proj"]
+        x = torch.cat([patches, x], dim=1)
+    return x
+
+
+def _ffn(cfg, lp, x):
+    """The layer's FFN (dense or mixture of experts) -> (out, aux)."""
+    if cfg.num_experts:
+        return moe_mod.moe_ffn(cfg, lp["moe"], x)
+    return L.ffn(cfg, lp["ffn"], x), None
+
+
+def forward(params, batch, cfg, *, return_cache: bool = False):
+    """Returns (logits, cache_or_None, aux_loss): the layers' MoE aux
+    summed in f32 (0 without experts)."""
+    _check_family(cfg)
+    x = _embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
@@ -93,7 +123,10 @@ def forward(params, batch, cfg, *, return_cache: bool = False):
             cfg, lp["attn"], a_in, positions=positions, causal=True,
             sliding_window=cfg.sliding_window)
         x = x + a_out
-        x = x + L.ffn(cfg, lp["ffn"], L.apply_norm(cfg, x, lp["ln2"]))
+        f_out, moe_aux = _ffn(cfg, lp, L.apply_norm(cfg, x, lp["ln2"]))
+        if moe_aux is not None:
+            aux = aux + moe_aux
+        x = x + f_out
         if return_cache:
             ks.append(k)
             vs.append(v)
@@ -102,12 +135,19 @@ def forward(params, batch, cfg, *, return_cache: bool = False):
     cache = None
     if return_cache:
         cache = {"k": torch.stack(ks), "v": torch.stack(vs), "step": S}
-    return logits, cache, torch.zeros((), device=x.device)
+    return logits, cache, aux
 
 
 def loss_fn(params, batch, cfg):
+    """The forward's value: cross-entropy over the token positions (the
+    patch positions dropped for vlm) plus ``router_aux_weight`` times the
+    aux. Its backward comes with LM training (ROADMAP.md queue 1 item
+    14c)."""
     logits, _, aux = forward(params, batch, cfg)
-    return L.softmax_xent(logits[:, :-1], batch["labels"][:, 1:]) + aux
+    if cfg.family == "vlm":
+        logits = logits[:, cfg.num_patches:]
+    xent = L.softmax_xent(logits[:, :-1], batch["labels"][:, 1:])
+    return xent + cfg.router_aux_weight * aux
 
 
 def prefill(params, batch, cfg):
@@ -141,6 +181,6 @@ def decode_step(params, cache, batch, cfg):
         a_in = L.apply_norm(cfg, x, lp["ln1"])
         x = x + L.decode_attention(cfg, lp["attn"], a_in, nk[i], nv[i], step,
                                    sliding_window=cfg.sliding_window)
-        x = x + L.ffn(cfg, lp["ffn"], L.apply_norm(cfg, x, lp["ln2"]))
+        x = x + _ffn(cfg, lp, L.apply_norm(cfg, x, lp["ln2"]))[0]
     x = L.apply_norm(cfg, x, params["final_norm"])
     return x @ _head(params, cfg), {"k": nk, "v": nv, "step": step + 1}

@@ -174,7 +174,9 @@ def test_configs_match_jax(arch, smoke):
 
 
 def test_registry_and_shapes():
-    assert treg.list_archs() == sorted(DENSE + ["anomaly-mlp"])
+    assert treg.list_archs() == sorted(
+        DENSE + ["anomaly-mlp", "granite-moe-1b-a400m", "internvl2-2b",
+                 "arctic-480b"])
     assert treg.get_config("qwen2-1.5b").param_count() == 1_777_088_000
     from repro.configs import shapes as jshapes
     assert tshapes.SHAPES.keys() == jshapes.SHAPES.keys()
@@ -336,8 +338,7 @@ def test_serve_main_runs_a_smoke_arch_on_the_cpu(capsys):
 # what the port refuses
 # --------------------------------------------------------------------------
 
-UNPORTED = {"granite-moe-1b-a400m": "moe", "arctic-480b": "moe",
-            "internvl2-2b": "vlm", "rwkv6-7b": "ssm", "hymba-1.5b": "hybrid",
+UNPORTED = {"rwkv6-7b": "ssm", "hymba-1.5b": "hybrid",
             "whisper-tiny": "audio"}
 
 
@@ -357,14 +358,11 @@ def test_unported_families_are_refused(arch):
     for call in (lambda: tapi.prefill({}, batch, cfg),
                  lambda: tapi.init_params(torch.Generator(), cfg),
                  lambda: tapi.init_cache(cfg, 1, 8),
-                 lambda: cfg.param_count()):
+                 lambda: cfg.param_count(),
+                 lambda: transformer.prefill({}, batch, cfg)):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP.md queue 1 item 14"):
             call()
-    if cfg.family in ("moe", "vlm"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 14"):
-            transformer.prefill({}, batch, cfg)
 
 
 def test_serving_the_detector_is_refused():
