@@ -329,6 +329,44 @@ Phases, each printing JSON lines:
                in subprocesses, exit 0 and their line; the part's seconds
                (``"phase": "moe_phase"``).
 
+  8. training — the language models through the spmd step (core/fl_step.py,
+               the config's optimizer: adamw with f32 master weights, remat),
+               TF32 off: (a) qwen2-1.5b at full width, C 2 clients × 1 ×
+               4,096 tokens, θ 0.65, weights drawn on the card from seed 0,
+               with ``attention_impl`` ``full`` and then ``blockwise`` (1
+               warm step, 3 timed): wall s a step, tokens/s, model TFLOP/s
+               (the formula printed), peak memory beside the reckoning, and
+               the launches of the timed steps, which must be one count and
+               one aggregation a step and, blockwise, 112 wgmma flash
+               launches a step (28 layers × the forward and remat's recompute
+               × 2 clients; 0 with full); (f) the blockwise run traced for a
+               warm step (``"phase": "trace"``: kernel time by class, the
+               idle share) and its phases timed by CUDA events; (b)
+               ``per_client_sign_align`` and ``masked_agg`` at C 2 × R
+               1,735,822 (qwen2's arena) against their plain versions (counts
+               equal, sums within 1e-6 of Σ|w·u|), timed beside their bounds;
+               (c) the flash forward and backward at (1, 4,096, 12, 2, 128)
+               bf16 (wgmma), granite-moe's (1, 4,096, 16, 8, 64) bf16
+               (wgmma) and (1, 512, 12, 2, 128) f32 (SIMT) against the
+               plain forward's autograd (``flash_grad_excess``'s tolerance),
+               timed beside SDPA's; (d) granite-moe-1b-a400m's cell at full
+               width, blockwise, 2 timed steps (96 flash launches a step);
+               (e) qwen2-1.5b, granite-moe and internvl2-2b at full width cut
+               to 2 layers, f32, C 2 × 1 × 256 tokens (internvl2's 256
+               patches before them), 2 steps on the CPU, each replayed on the
+               card from the CPU's state before it (``"phase":
+               "card_vs_cpu"``, problems ``[]``: records equal, no θ ratio
+               within the band, the card's aggregated gradient within
+               ``grad_bound`` of the CPU's (each leaf's gap printed beside
+               its bound), reference signs and weights by
+               ``api/parity.py``'s adamw rule); internvl2-2b trains at 2
+               layers only, since its 2.2 B parameters pass the count
+               kernel's 2^31 slots; (g) ``python -m repro_torch.launch.train
+               --arch qwen2-1.5b`` (C 2 × 1 × 2,048, 2 steps) and ``--arch
+               anomaly-mlp`` in subprocesses, each exiting 0 with a
+               checkpoint written; the phase's
+               seconds (``"phase": "train_phase"``).
+
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It needs a CUDA device and the repository
@@ -356,7 +394,11 @@ only the serving phase (6f), after the build; and
     python3 chip_smoke.py --lm
 
 only phase 7 (the flash cases, qwen2-1.5b, the moe and vlm families),
-after the build.
+after the build; and
+
+    python3 chip_smoke.py --train
+
+only phase 8 (training the language models), after the build.
 """
 from __future__ import annotations
 
@@ -377,6 +419,11 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# the LM training step allocates a 13 GiB arena every step beside a 25 GiB
+# state that its optimizer reallocates leaf by leaf: fixed-size cache
+# segments fragment until the arena finds no room in one piece (phase 8),
+# so the allocator maps growable segments, as the trainer does
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -4191,6 +4238,594 @@ def phase_serve(T, parity, mods, smi: str) -> None:
          nvidia_smi=smi)
 
 
+# ---------------------------------------------------------------------------
+# 8. training the language models: the spmd step at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_CELL = dict(clients=2, per_client=1, seq=4096, theta=0.65)
+TRAIN_LAUNCHES = ("per_client_sign_align", "masked_agg", "flash_attention",
+                  "flash_attention_simt")
+TRAIN_KERNEL_CLASSES = {   # trace share name -> substrings of kernel names
+    "count": ("sign_align",),
+    "aggregation": ("masked_agg",),
+    "attention_flash": ("flash",),
+    "gemm": ("gemm", "Gemm", "sm90_xmma", "nvjet", "cutlass", "cublas"),
+}
+
+
+def train_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of one step: 6·N'·T + 6·L·S·H·hd·T (causal attention,
+    half of 12·L·S·H·hd·T), N' the parameters a token's matrix products
+    read (less the input embedding; the top-k experts of an MoE layer),
+    T the step's tokens; remat's recompute is not counted."""
+    n = cfg.param_count(active_only=bool(cfg.num_experts))
+    n -= cfg.vocab_size * cfg.d_model
+    return (6.0 * n * tokens
+            + 6.0 * cfg.num_layers * seq * cfg.num_heads * cfg.hd * tokens)
+
+
+def train_reckoning(cfg, n_params: int, rows: int, clients: int,
+                    seq: int) -> dict:
+    """The step's device memory, item by item (bytes), reckoned from the
+    shapes before the run."""
+    V = cfg.padded_vocab
+    items = {
+        "weights_bf16": 2 * n_params,
+        "adamw_m_v_master_f32": 12 * n_params,
+        "arena_f32": clients * rows * 1024 * 4,
+        "aggregate_f32": rows * 1024 * 4,
+        "reference_signs_int8": n_params,
+        "one_client_gradients_bf16": 2 * n_params,
+        "logits_bf16_f32_and_gradient": seq * V * (2 + 4 + 4),
+        "one_layer_scores_f32_x3": (3 * 4 * cfg.num_heads * seq * seq
+                                    if cfg.attention_impl == "full" else 0),
+    }
+    items["total"] = sum(items.values())
+    return items
+
+
+def stepped(step, box: list, batch) -> dict:
+    """One step of the state held in ``box`` (a one-element list), which
+    takes the new state; returns the metrics. No caller's frame keeps the
+    old state alive: a step's peak already holds the state twice (the
+    input and the optimizer's new one)."""
+    state, m = step(box.pop(), batch)
+    box.append(state)
+    return m
+
+
+def train_run(mods, step, box: list, batches, warm: int = 1) -> dict:
+    """``warm`` steps, then one step per remaining batch, timed on the
+    host's clock (each ending in a synchronisation), every launch count
+    set to 0 just before the timed steps and read just after; the peak
+    device memory of the timed steps. ``box`` holds the state."""
+    for b in batches[:warm]:
+        stepped(step, box, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    losses, ratios, masks, walls = [], [], [], []
+    for b in batches[warm:]:
+        t0 = time.perf_counter()
+        m = stepped(step, box, b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        ratios.append(m["ratios"].tolist())
+        masks.append(m["mask"].tolist())
+    launches = read_launches(mods)
+    return dict(step_s=walls, losses=losses, ratios=ratios, masks=masks,
+                launches=launches,
+                peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def held_train_launches(run: str, launches: dict, steps: int,
+                        flash: int) -> None:
+    """One count and one aggregation a step (θ on), ``flash`` flash
+    launches a step (all wgmma: bf16, hd 128), no other kernel."""
+    want = dict.fromkeys(launches, 0)
+    want.update(per_client_sign_align=steps, masked_agg=steps,
+                flash_attention=flash * steps)
+    if launches != want:
+        raise AssertionError(f"{run}: launches {launches}, not {want}")
+
+
+def train_trace(step, box: list, batch) -> dict:
+    """A warm step under ``torch.profiler``: busy time by kernel class
+    (matrix products, the flash kernel, the count, the aggregation, the
+    rest: the optimizer's and the loss's elementwise kernels, the
+    backward's attention), the idle share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stepped(step, box, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    n_events, busy = device_busy(prof)
+    by_class = dict.fromkeys(list(TRAIN_KERNEL_CLASSES) + ["other"], 0.0)
+    top = sorted(((e.key, e.count, e.device_time_total)
+                  for e in prof.key_averages() if e.device_time_total > 0),
+                 key=lambda x: -x[2])[:12]
+    for e in prof.key_averages():
+        if e.device_time_total <= 0:
+            continue
+        for name, keys in TRAIN_KERNEL_CLASSES.items():
+            if any(k in e.key for k in keys):
+                by_class[name] += e.device_time_total
+                break
+        else:
+            by_class["other"] += e.device_time_total
+    total = sum(by_class.values())
+    return dict(
+        device_events=n_events, device_busy_us=busy, wall_us=wall_us,
+        device_idle_share=1.0 - busy / wall_us,
+        share_of_kernel_time={k: v / total for k, v in by_class.items()},
+        kernel_us=by_class,
+        top_by_device_time=[dict(name=n[:70], count=c, us=t)
+                            for n, c, t in top])
+
+
+def train_spans(mods, step, box: list, batch) -> dict:
+    """A warm step with CUDA events around its phases: the per-client
+    gradients, the count, the aggregation and the optimizer (each the
+    device time between its events, idle gaps included)."""
+    from repro_torch.core import alignment, fl_step
+    from repro_torch.kernels import arena as arena_mod
+    events, saved = [], {}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            events.append((name, start, end))
+            return out
+        return call
+
+    targets = ((fl_step, "_lm_client_grads", "gradients"),
+               (alignment, "cohort_alignment", "count"),
+               (arena_mod, "weighted_sum", "aggregation"))
+    for mod, attr, name in targets:
+        saved[(mod, attr)] = getattr(mod, attr)
+        setattr(mod, attr, timed(name, getattr(mod, attr)))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stepped(step, box, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+    spans = {name: s.elapsed_time(e) for name, s, e in events}
+    spans["rest_optimizer_and_update"] = wall * 1e3 - sum(spans.values())
+    return dict(wall_ms=wall * 1e3, span_ms=spans)
+
+
+def train_cell(mods, run: str, cfg, steps: int = 3) -> tuple:
+    """The training cell of one config at full width (TRAIN_CELL): weights
+    drawn on the card from seed 0, the config's optimizer, 1 warm step and
+    ``steps`` timed ones; returns (box, step, batches, line), ``box`` a
+    one-element list holding the state (``stepped``)."""
+    from repro_torch.core import fl_step
+    from repro_torch.launch import train as train_mod
+    C, B, S = (TRAIN_CELL[k] for k in ("clients", "per_client", "seq"))
+    t0 = time.perf_counter()
+    box = [fl_step.init_state(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, device="cuda")]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = fl_step.build_fl_train_step(cfg, theta=TRAIN_CELL["theta"])
+    draw = train_mod.make_batch_fn(cfg, C, B, S, seed=0, device="cuda")
+    batches = [draw() for _ in range(steps + 1)]
+    r = train_run(mods, step, box, batches)
+    n = sum(t.numel() for t in _leaves(box[0].params))
+    rows = -(-n // 1024)
+    tokens = C * B * (S - (cfg.num_patches if cfg.family == "vlm" else 0))
+    flops = train_flops(cfg, C * B * S, S)
+    step_s = sum(r["step_s"]) / len(r["step_s"])
+    finite = all(math.isfinite(x) for x in r["losses"])
+    line = dict(run=run, arch=cfg.name, layers=cfg.num_layers,
+                attention_impl=cfg.attention_impl, remat=cfg.remat,
+                dtype=cfg.dtype, clients=C, per_client_batch=B, seq=S,
+                theta=TRAIN_CELL["theta"],
+                optimizer=sorted(box[0].opt_state), params=n,
+                arena_rows=rows,
+                init_s=init_s, step_s=r["step_s"], step_s_mean=step_s,
+                tokens_per_s=tokens / step_s,
+                model_tflops_per_step=flops / 1e12,
+                model_tflop_per_s=flops / step_s / 1e12,
+                flops_formula="6*N'*T + 6*L*S*H*hd*T (N' = parameters less "
+                              "the input embedding, active experts only; T "
+                              "tokens a step; remat's recompute not counted)",
+                losses=r["losses"], ratios=r["ratios"], masks=r["masks"],
+                peak_memory_bytes=r["peak_memory_bytes"],
+                reckoned_bytes=train_reckoning(cfg, n, rows, C, S),
+                launches=r["launches"], finite=finite)
+    if not finite:
+        raise AssertionError(f"{run}: losses {r['losses']}")
+    return box, step, batches, line
+
+
+def phase_train_qwen2(mods, smi: str) -> tuple:
+    """8 (a) and (f): the qwen2-1.5b cell, full attention then blockwise
+    (the flash kernel: 28 layers × 2 (the forward, remat's recompute) × 2
+    clients a step), the blockwise run traced and its phases timed.
+    Returns the launches of each run and the arena's rows."""
+    from repro_torch.configs import registry
+    base = registry.get_config("qwen2-1.5b")
+    launches = {}
+    for impl in ("full", "blockwise"):
+        cfg = base.replace(attention_impl=impl)
+        run = f"qwen2-1.5b train {impl}"
+        box, step, batches, line = train_cell(mods, run, cfg)
+        flash = (2 * cfg.num_layers * TRAIN_CELL["clients"]
+                 if impl == "blockwise" else 0)
+        held_train_launches(run, line["launches"], len(batches) - 1, flash)
+        line["flash_launches_per_step_expected"] = flash
+        emit("slice", **line, nvidia_smi=smi)
+        launches[run] = line["launches"]
+        if impl == "blockwise":
+            emit("trace", run=f"{run} warm step",
+                 **train_trace(step, box, batches[0]))
+            emit("trace", run=f"{run} phases",
+                 **train_spans(mods, step, box, batches[1]))
+        rows = line["arena_rows"]
+        del box, step, batches
+        free_card()
+    return launches, rows
+
+
+def traced_grid(fn, kernel: str, calls: int = 2) -> dict:
+    """The launches of the kernel whose name holds ``kernel`` in a
+    ``torch.profiler`` trace of ``calls`` calls of ``fn`` and a small
+    kernel after them (a trace of milliseconds-long kernels can lose its
+    last event): blocks, threads a block, registers a thread."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    mine = {(tuple(e["args"]["grid"]), tuple(e["args"]["block"]),
+             e["args"].get("registers per thread")) for e in events
+            if e.get("cat") == "kernel" and kernel in e.get("name", "")}
+    return dict(traced=[dict(blocks=math.prod(g), threads_per_block=
+                             math.prod(b), registers_per_thread=r)
+                        for g, b, r in sorted(mine)])
+
+
+def phase_train_kernels(sign_align, masked_agg, ref, R: int,
+                        smi: str) -> None:
+    """8 (b): the count and the aggregation at C 2 × R, the rows of
+    qwen2-1.5b's arena, against their plain versions, timed beside their
+    bounds."""
+    C = TRAIN_CELL["clients"]
+    u, r, w = kernel_inputs(C, R, seed=3)
+    counts, _ = held_counts(sign_align.per_client_sign_align,
+                            ref.per_client_sign_align, u, r,
+                            f"C={C}, R={R}")
+    got, want, excess = held_agg(masked_agg, ref, u, w, f"C={C}, R={R}")
+    err = float((got - want).abs().max())
+    del got, want
+    free_card()
+    m = R * 1024
+    sa_bound = bound_ms(C * m * 4 + m + C * 4, 2 * C * m)
+    ma_bound = bound_ms(C * m * 4 + C * 4 + m * 4, 2 * C * m)
+    emit("kernels", name="per_client_sign_align", shape=[C, R],
+         counts=counts.tolist(), sign_align="equal",
+         ms=time_ms(lambda: sign_align.per_client_sign_align(u, r),
+                    iters=20, warmup=3),
+         plain_ms=time_ms(lambda: ref.per_client_sign_align(u, r),
+                          iters=3, warmup=1),
+         bound_ms=sa_bound[0], bound_by=sa_bound[1], library_ms=None,
+         design=traced_grid(lambda: sign_align.per_client_sign_align(u, r),
+                            "sign_align_kernel"), nvidia_smi=smi)
+    emit("kernels", name="masked_agg", shape=[C, R], max_abs_err=err,
+         excess=excess,
+         ms=time_ms(lambda: masked_agg.masked_agg(u, w), iters=20, warmup=3),
+         plain_ms=time_ms(lambda: ref.masked_agg(u, w), iters=3, warmup=1),
+         bound_ms=ma_bound[0], bound_by=ma_bound[1],
+         library_ms=time_ms(lambda: torch.einsum("crl,c->rl", u, w),
+                            iters=5, warmup=1),
+         design=traced_grid(lambda: masked_agg.masked_agg(u, w),
+                            "masked_agg_kernel"), nvidia_smi=smi)
+
+
+FLASH_TRAIN_CASES = {   # name -> ((B, S, H, K, hd), dtype, route)
+    "qwen2 train (1, 4096, 12, 2, 128) bf16": ((1, 4096, 12, 2, 128),
+                                               torch.bfloat16, "wgmma"),
+    "granite-moe train (1, 4096, 16, 8, 64) bf16": ((1, 4096, 16, 8, 64),
+                                                    torch.bfloat16, "wgmma"),
+    "qwen2 2-layer f32 (1, 512, 12, 2, 128)": ((1, 512, 12, 2, 128),
+                                               torch.float32, "simt"),
+}
+
+
+def flash_grad_excess(got, want, dtype) -> float:
+    """Largest excess of |got − want| over the tolerance (≤ 0 passes).
+    f32: 1e-5 of max|want| (sums over keys and queries in another
+    order). bf16: two bf16 ulps of the element (each side rounds its f32
+    gradient once) plus 2^-8 of max|want|: the backward's rowsum(dO ∘ O)
+    reads the forward's output rounded to bf16 (2^-9 relative an
+    element), which moves dS by up to that share of the row's scale."""
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max())
+    if dtype == torch.float32:
+        return float((g - w).abs().max()) - 1e-5 * scale
+    ulp = 2.0 ** -7 * torch.maximum(g.abs(), w.abs())
+    return float(((g - w).abs() - 2 * ulp).max()) - 2.0 ** -8 * scale
+
+
+def phase_train_flash(flash_attn, ref) -> None:
+    """8 (c): the flash forward and backward against the plain forward's
+    autograd, on the same inputs and output gradient, causal; timed (one
+    forward and backward) beside SDPA's."""
+    import torch.nn.functional as F
+    for name, ((B, S, H, K, hd), dtype, route) in FLASH_TRAIN_CASES.items():
+        g = torch.Generator(device="cuda").manual_seed(5)
+        q, k, v = (torch.randn((B, S, n, hd), generator=g, device="cuda"
+                               ).to(dtype) for n in (H, K, K))
+        dout = torch.randn((B, S, H, hd), generator=g, device="cuda").to(
+            dtype)
+
+        def kernel_grads():
+            qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+            flash_attn.flash_attention_gqa(qq, kk, vv, causal=True).backward(
+                dout)
+            return qq.grad, kk.grad, vv.grad
+
+        def plain_grads():
+            qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+            out = ref.flash_attention(
+                qq.transpose(1, 2).reshape(B * H, S, hd),
+                kk.transpose(1, 2).reshape(B * K, S, hd),
+                vv.transpose(1, 2).reshape(B * K, S, hd), True,
+                kv_groups=H // K).reshape(B, H, S, hd).transpose(1, 2)
+            out.backward(dout)
+            return qq.grad, kk.grad, vv.grad
+
+        def sdpa_grads():
+            qq, kk, vv = (t.detach().transpose(1, 2).requires_grad_(True)
+                          for t in (q, k, v))
+            F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                           enable_gqa=True).backward(
+                dout.transpose(1, 2))
+            return qq.grad, kk.grad, vv.grad
+
+        before = dict(flash_attn.launches_by_route)
+        got = kernel_grads()
+        torch.cuda.synchronize()
+        routes = {r_: flash_attn.launches_by_route[r_] - before[r_]
+                  for r_ in before}
+        want = plain_grads()
+        excess = [flash_grad_excess(a, b, dtype) for a, b in zip(got, want)]
+        line = dict(name="flash_attention backward", case=name,
+                    shape=[B, S, H, K, hd], dtype=str(dtype), route=route,
+                    routes_launched=routes,
+                    max_abs_err=[float((a.float() - b.float()).abs().max())
+                                 for a, b in zip(got, want)],
+                    excess=excess,
+                    ms=time_ms(kernel_grads, iters=5, warmup=2),
+                    plain_ms=time_ms(plain_grads, iters=3, warmup=1),
+                    library_ms=time_ms(sdpa_grads, iters=5, warmup=2))
+        emit("kernels", **line)
+        if routes != {route: 1, ("simt" if route == "wgmma" else "wgmma"): 0}:
+            raise AssertionError(f"flash backward {name}: routes {routes}")
+        if not all(e <= 0.0 for e in excess):
+            raise AssertionError(f"flash backward {name}: excess {excess}")
+
+
+def phase_train_moe(mods, smi: str) -> dict:
+    """8 (d): granite-moe-1b-a400m's cell at full width (blockwise, the
+    MoE VJPs and the flash kernel), 1 warm and 2 timed steps."""
+    from repro_torch.configs import registry
+    cfg = registry.get_config("granite-moe-1b-a400m").replace(
+        attention_impl="blockwise")
+    run = "granite-moe-1b-a400m train blockwise"
+    box, step, batches, line = train_cell(mods, run, cfg, steps=2)
+    flash = 2 * cfg.num_layers * TRAIN_CELL["clients"]
+    held_train_launches(run, line["launches"], len(batches) - 1, flash)
+    emit("slice", **line, nvidia_smi=smi)
+    del box, step, batches
+    free_card()
+    return {run: line["launches"]}
+
+
+def train_card_cpu(mods, parity, arch: str) -> dict:
+    """8 (e): one arch at full width, 2 layers deep, f32 (TF32 off), C 2 ×
+    B 1 × 256 tokens (a vlm's 256 patch embeddings before them), θ 0.65,
+    the config's optimizer (adamw without master weights in f32), 2
+    steps on the CPU; each step replayed on the card from the CPU's
+    state before it. Records equal, loss within LOSS_RTOL, no θ ratio
+    within THETA_BAND; the card's aggregated gradient (from its moments)
+    within ``parity.grad_problems`` of the CPU's, each leaf's largest gap
+    printed beside its bound; reference signs and weights by the adamw
+    rule of ``api/parity.py``. An MoE step's routing is held on the
+    card's layer inputs replayed on the CPU; where the two runs' routing
+    parts (a token within its margin), the step's gradients and weights
+    are not comparable: the step says ``weights_held: false``, and its
+    gaps are printed, not held."""
+    from repro_torch.configs import registry
+    from repro_torch.core import fl_step
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import moe
+    from repro_torch.tree import named_leaves, tree_map
+    cfg = registry.get_config(arch).replace(num_layers=2, dtype="float32")
+    patches = cfg.num_patches if cfg.family == "vlm" else 0
+    seq = 256 + patches
+    step = fl_step.make_raw_step(cfg, theta=TRAIN_CELL["theta"],
+                                 agg_dtype=torch.float32)
+    cpu = fl_step.init_state(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    draw = train_mod.make_batch_fn(cfg, TRAIN_CELL["clients"], 1, seq,
+                                   seed=1, device="cpu")
+    width = max(cfg.d_model, cfg.d_ff, cfg.padded_vocab, seq)
+
+    def flat(tree):
+        """name -> leaf on the card (the rules run there, in f64)."""
+        return {"/".join(map(str, p)): v.detach().to("cuda")
+                for p, v in named_leaves(tree)}
+
+    problems, launches, lines = [], None, []
+    for i in range(2):
+        batch = draw()
+        card = tree_map(lambda t: t.to("cuda") if torch.is_tensor(t) else t,
+                        cpu)
+        t0 = time.perf_counter()
+        with RoutingRecorder(moe) as cpu_rec:
+            after, cm = step(cpu, batch)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        reset_launches(mods)
+        with RoutingRecorder(moe, inputs=True) as card_rec:
+            card, km = step(card, {k: v.to("cuda") for k, v in batch.items()})
+        torch.cuda.synchronize()
+        launches = read_launches(mods)
+        t2 = time.perf_counter()
+        where = f"{arch} step {i}: "
+        for k in ("mask", "selected", "delivered"):
+            if not torch.equal(km[k].cpu(), cm[k]):
+                problems.append(f"{where}{k} {km[k].tolist()} vs "
+                                f"{cm[k].tolist()}")
+        for k in ("accept_rate", "bytes_sent", "bytes_baseline"):
+            if float(km[k]) != float(cm[k]):
+                problems.append(f"{where}{k} {float(km[k])} vs "
+                                f"{float(cm[k])}")
+        loss_gap = abs(float(km["loss"]) - float(cm["loss"]))
+        if not loss_gap <= parity.LOSS_RTOL * abs(float(cm["loss"])):
+            problems.append(f"{where}loss {float(km['loss'])} vs "
+                            f"{float(cm['loss'])}")
+        if i > 0:
+            problems += [where + p for p in parity.theta_band_violations(
+                [(i, c, float(x)) for c, x in enumerate(km["ratios"])],
+                TRAIN_CELL["theta"])]
+        run_vs_run = replayed = []
+        if cfg.num_experts:
+            with torch.no_grad():
+                replayed = parity.routing_problems(card_rec.calls, [
+                    moe.route(c, router.cpu(), xt.cpu())
+                    for c, router, xt in card_rec.inputs])
+            run_vs_run = parity.routing_problems(card_rec.calls,
+                                                 cpu_rec.calls)
+            problems += [where + "replayed routing: " + p for p in replayed]
+        # each run's aggregated gradient from its first moments, both
+        # from the same m0: g = (m1 − 0.9·m0) / 0.1 (the recovery's own
+        # rounding, a few f32 ulps of m, lies far inside grad_bound)
+        m0 = flat(cpu.opt_state["m"])
+
+        def grads_of(state):
+            m1 = flat(state.opt_state["m"])
+            return {k: (m1[k].double() - 0.9 * m0[k].double()) / 0.1
+                    for k in m1}
+        g, g_card = grads_of(after), grads_of(card)
+        bounds = {k: parity.grad_bound(v, width, seq) for k, v in g.items()}
+        grad_gaps = {k: [float((g_card[k] - g[k]).abs().max()), bounds[k]]
+                     for k in sorted(g)}
+        weights = signs = []
+        if not run_vs_run:
+            problems += parity.grad_problems(g_card, g, width, seq, where)
+            signs = parity.ref_sign_problems(flat(card.ref_sign),
+                                             flat(after.ref_sign), g, bounds,
+                                             where)
+            weights = parity.adamw_weight_problems(
+                flat(card.params), flat(after.params), [g], [bounds],
+                [1e-3], count0=i, where=where)
+            problems += signs + weights
+        lines.append(dict(step=i, loss_card_cpu=[float(km["loss"]),
+                                                 float(cm["loss"])],
+                          ratios=km["ratios"].tolist(),
+                          routing_run_vs_run=run_vs_run,
+                          weights_held=not run_vs_run,
+                          grad_gap_and_bound=grad_gaps,
+                          grad_gap_over_bound=max(
+                              (a / b for a, b in grad_gaps.values() if b > 0),
+                              default=0.0),
+                          cpu_step_s=t1 - t0,
+                          card_step_s=t2 - t1,
+                          check_s=time.perf_counter() - t2))
+        cpu = after
+        del card, g, g_card, m0
+    line = dict(run=f"{arch} 2-layer f32 train", layers=2, clients=2,
+                batch=1, tokens=256, patches=patches, steps=lines,
+                allow_tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                                cudnn=torch.backends.cudnn.allow_tf32),
+                launches=launches, problems=problems)
+    emit("card_vs_cpu", **line)
+    if launches["per_client_sign_align"] != 1 or launches["masked_agg"] != 1:
+        raise AssertionError(f"{arch} card step launches {launches}")
+    if problems:
+        raise AssertionError(f"{arch} train card vs CPU: "
+                             + "; ".join(problems))
+    return launches
+
+
+def train_cli(argv, run: str, timeout: int = 300) -> None:
+    """``python -m repro_torch.launch.train`` in a subprocess on the card:
+    exit 0, its log lines, and a checkpoint written (the first step's)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"]
+                          + argv, env=port_env(), capture_output=True,
+                          text=True, timeout=timeout)
+    lines = proc.stdout.strip().splitlines()
+    emit("slice", run=run, argv=argv, returncode=proc.returncode,
+         stdout=lines[-4:], seconds=time.perf_counter() - t0)
+    saved = re.search(r"checkpoints=(\d+)$", lines[-1]) if lines else None
+    if (not saved or proc.returncode != 0
+            or not lines[-1].startswith("done:") or int(saved.group(1)) < 1):
+        raise AssertionError(f"{run}: {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+
+
+def phase_train(mods, parity, ref, smi: str) -> dict:
+    """Phase 8 (module docstring, 8 (a) to (g)). Returns the launches of
+    each full-width run."""
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def mark(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches, rows = phase_train_qwen2(mods, smi)
+    mark("a_f_qwen2")
+    phase_train_kernels(mods["sign_align"], mods["masked_agg"], ref, rows,
+                        smi)
+    free_card()
+    mark("b_kernels")
+    phase_train_flash(mods["flash_attn"], ref)
+    free_card()
+    mark("c_flash")
+    launches.update(phase_train_moe(mods, smi))
+    mark("d_moe")
+    for arch in ("qwen2-1.5b", "granite-moe-1b-a400m", "internvl2-2b"):
+        launches[f"{arch} 2-layer f32 train"] = train_card_cpu(mods, parity,
+                                                               arch)
+        free_card()
+    mark("e_card_vs_cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        train_cli(["--arch", "qwen2-1.5b", "--clients", "2",
+                   "--per-client-batch", "1", "--seq", "2048", "--steps", "2",
+                   "--log-every", "1", "--ckpt-dir",
+                   os.path.join(tmp, "qwen2")], "qwen2-1.5b train cli")
+        train_cli(["--arch", "anomaly-mlp", "--steps", "5", "--ckpt-dir",
+                   os.path.join(tmp, "mlp")], "anomaly-mlp train cli")
+    mark("g_cli")
+    emit("train_phase", seconds=time.perf_counter() - t_phase,
+         seconds_by_part=parts, nvidia_smi=smi)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4239,6 +4874,10 @@ def main() -> int:
         phase_flash(flash_attn, ref)
         phase_lm(mods)
         phase_moe(mods, parity, smi)
+        return 0
+    if sys.argv[1:] == ["--train"]:
+        _build.build_all()
+        phase_train(mods, parity, ref, smi)
         return 0
     if sys.argv[1:] == ["--lazy-world"]:
         _build.build_all()
@@ -4401,6 +5040,11 @@ def main() -> int:
     # families (granite-moe, internvl2, arctic cut to one layer)
     launches.update(phase_lm(mods))
     launches.update(phase_moe(mods, parity, smi))
+
+    # 8. training the language models: qwen2-1.5b and granite-moe at full
+    # width through the spmd step, the kernels at the LM arena, the flash
+    # backward, card against CPU at 2 layers, the trainer's CLI
+    launches.update(phase_train(mods, parity, ref, smi))
 
     # launches on each kernel's main path: the megastep int8 run for the
     # three kernels it runs, the per-client int8 loop for the codec pair,

@@ -18,16 +18,19 @@ keeps its module layout and public names, imports neither JAX nor
 checkpoints and resumes a run; ``run_sweep`` runs seeds × strategies and
 gives the paper's Mann-Whitney U test.
 
-It also serves the dense language models (``repro_torch.launch.serve``:
+It also serves the language models (``repro_torch.launch.serve``:
 prefill and greedy decode, with the flash-attention kernel on the
-blockwise attention path).
+blockwise attention path) and trains them federatedly on the spmd step
+(``repro_torch.launch.train``; ``engine="spmd"`` with ``dataset="lm"``).
 """
 from repro_torch.api import *  # noqa: F401,F403
 from repro_torch.api import __all__ as _api_all
 from repro_torch.convert import (control_from_jax, fl_state_from_jax,
-                                 lm_params_from_jax, params_from_jax,
-                                 sim_state_from_jax, spmd_state_from_jax)
+                                 lm_params_from_jax, opt_state_from_jax,
+                                 params_from_jax, sim_state_from_jax,
+                                 spmd_state_from_jax)
 
 __all__ = list(_api_all) + ["control_from_jax", "fl_state_from_jax",
-                            "lm_params_from_jax", "params_from_jax",
-                            "sim_state_from_jax", "spmd_state_from_jax"]
+                            "lm_params_from_jax", "opt_state_from_jax",
+                            "params_from_jax", "sim_state_from_jax",
+                            "spmd_state_from_jax"]

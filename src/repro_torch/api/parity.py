@@ -238,13 +238,40 @@ run in ten at that δ, 1,032 routed token-layers and a k-th gap density
 near 10). So a layer's routing is held on one input, the
 card's replayed on the CPU (the replay-from-one-state rule), where δ is
 the router product's rounding alone; the two runs' routing is printed.
+
+Language-model training (the spmd step with adamw; core/fl_step.py). Two
+packages' per-client gradients of one state part by f32 rounding. Each
+element of the gradient arena is a mean over the client's T token
+positions of products back-propagated through reductions of width at
+most K (the widest contraction: the model width, the FFN width, the
+padded vocabulary, the sequence). An f32 sum of n terms in any order is
+within n·2^-24 of the sum of their magnitudes, so one package's element
+is within (K + T)·2^-24 of the terms' scale, and two packages' within
+twice that: ``grad_bound`` is GRAD_RUNS·(K + T)·2^-24·M, with M the
+leaf's largest |g| standing for the scale of its terms (a scale, not a
+proof: a sum that cancels far below its terms can exceed it, and
+``grad_problems`` names such an element). AdamW's first step moves a
+weight by lr·g/(|g| + ε): an element whose sign the rounding decides
+moves by 2·lr in one package against the other. So ``adamw_weight_
+problems`` holds the weights elementwise only where every step's
+aggregated |g| exceeds its bound (the sign is the same in both runs), as
+``ref_sign_problems`` holds a step's reference signs.
+There a step's ratio m̂/(√v̂ + ε) is a quotient of two averages of the
+step's gradients, each moved by at most bound/|g| relative, so the two
+packages' steps differ by at most 2·lr·(bound/|g|)·R, R = √(Σ_k a_k²/b_k)
+the Cauchy–Schwarz bound of |m̂|/√v̂ (a_k, b_k the bias-corrected EMA
+weights of step k in m̂ and v̂; R = 1 after one step, 1.0014 after two),
+plus the f32 rounding of the update and of the weight (4 ulps of the
+larger of the weight and the step). Elsewhere a weight is within its
+steps' 2·lr·R of the reference.
 """
 from __future__ import annotations
 
 import math
-from typing import Iterable, List, Sequence
+from typing import Dict, Iterable, List, Sequence
 
 import numpy as np
+import torch
 
 ACC_TOL = 2.5e-3          # 10 of the quickstart's 4,000 eval samples
 LOSS_RTOL = 1e-3
@@ -272,6 +299,7 @@ TOPO_ACCUM_RTOL = 1e-6    # of Σ_c |w_c·u_c|: a reduction over clients
 PROBS_RTOL = 1e-5         # served probabilities (tests/test_serve.py's own)
 PROBS_ATOL = 1e-6
 F32_U = 2.0 ** -24        # f32 unit roundoff
+GRAD_RUNS = 2             # two packages' roundings of one gradient
 ROUTER_GATE_ULPS = 6      # two gates' exp (1 ulp) and division (1/2 ulp)
 CONTROL_RTOL = {"avail": EMA_RTOL, "pass_rate": EMA_RTOL,
                 "round_time": EMA_RTOL, "lr_scale": EMA_RTOL,
@@ -705,4 +733,108 @@ def routing_problems(got: Sequence, want: Sequence) -> List[str]:
             if not np.array_equal(a, b):
                 rows = np.nonzero((a != b).any(axis=1))[0][:5].tolist()
                 out.append(f"call {n}: {name} differs at tokens {rows}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# language-model training
+# ---------------------------------------------------------------------------
+
+def _f64(x, device=None) -> torch.Tensor:
+    """A numpy array or a tensor as an f64 tensor (on ``device``, else
+    where it lies): the LM rules below run in torch, on the card when the
+    caller's tensors are there (an LM leaf has hundreds of millions of
+    elements)."""
+    t = x.detach() if torch.is_tensor(x) else torch.tensor(np.asarray(x))
+    return t.to(device=device if device is not None else t.device,
+                dtype=torch.float64)
+
+
+def grad_bound(g, width: int, rows: int) -> float:
+    """The largest gap two packages' f32 gradients of one leaf ``g`` may
+    show: GRAD_RUNS·(width + rows)·2^-24·max|g| (module docstring)."""
+    g = _f64(g)
+    top = float(g.abs().max()) if g.numel() else 0.0
+    return GRAD_RUNS * (width + rows) * 2.0 ** -24 * top
+
+
+def grad_problems(got: Dict[str, object], want: Dict[str, object],
+                  width: int, rows: int, where: str = "") -> List[str]:
+    """Leaves of two gradients (name -> array or tensor) that part by more
+    than ``grad_bound`` of the reference leaf, each named with its gap."""
+    out = []
+    for k in sorted(want):
+        w = _f64(want[k])
+        gap = (_f64(got[k], w.device) - w).abs()
+        gap = float(gap.max()) if gap.numel() else 0.0
+        bound = grad_bound(w, width, rows)
+        if not gap <= bound:
+            out.append(f"{where}{k}: gradient gap {gap} beyond {bound}")
+    return out
+
+
+def ref_sign_problems(got: Dict[str, object], want: Dict[str, object],
+                      grads: Dict[str, object], bounds: Dict[str, float],
+                      where: str = "") -> List[str]:
+    """A step's reference signs (name -> int8 array or tensor) equal
+    wherever the reference's aggregated |g| exceeds its bound; elsewhere
+    the rounding may decide the sign (module docstring)."""
+    out = []
+    for k in sorted(want):
+        w = _f64(want[k])
+        decided = _f64(grads[k], w.device).abs() > bounds[k]
+        bad = (decided & (_f64(got[k], w.device) != w)).reshape(-1)
+        if bool(bad.any()):
+            out.append(f"{where}{k}: {int(bad.sum())} decided signs differ, "
+                       f"first flat {int(torch.nonzero(bad)[0])}")
+    return out
+
+
+def adam_ratio_bound(steps: int, b1: float = 0.9, b2: float = 0.999
+                     ) -> float:
+    """R = √(Σ_k a_k²/b_k): the largest |m̂|/√v̂ after ``steps`` steps."""
+    a = [(1 - b1) * b1 ** (steps - 1 - k) / (1 - b1 ** steps)
+         for k in range(steps)]
+    b = [(1 - b2) * b2 ** (steps - 1 - k) / (1 - b2 ** steps)
+         for k in range(steps)]
+    return math.sqrt(sum(x * x / y for x, y in zip(a, b)))
+
+
+def adamw_weight_problems(got: Dict[str, object], want: Dict[str, object],
+                          grads: Sequence[Dict[str, object]],
+                          bounds: Sequence[Dict[str, float]],
+                          lrs: Sequence[float], count0: int = 0,
+                          where: str = "") -> List[str]:
+    """Weights after len(grads) adamw steps (name -> f32 array or tensor),
+    held by the rule of the module docstring: ``grads`` the reference's
+    aggregated gradient of each step, ``bounds`` each step's bound of
+    each leaf, ``lrs`` each step's learning rate; ``count0`` the
+    optimizer's step count before the first of them."""
+    out = []
+    steps = len(grads)
+    reach = sum(2 * lr * adam_ratio_bound(count0 + t + 1)
+                for t, lr in enumerate(lrs))
+    for k in sorted(want):
+        w = _f64(want[k])
+        gap = (_f64(got[k], w.device) - w).abs().reshape(-1)
+        decided = torch.ones_like(gap, dtype=torch.bool)
+        allowed = torch.zeros_like(gap)
+        for t in range(steps):
+            g = _f64(grads[t][k], w.device).abs().reshape(-1)
+            decided &= g > bounds[t][k]
+            rel = torch.where(g > 0, bounds[t][k] / g, math.inf)
+            allowed += 2 * lrs[t] * rel * adam_ratio_bound(count0 + t + 1)
+        rounding = 4 * 2.0 ** -23 * (w.abs().reshape(-1) + sum(lrs))
+        allowed += rounding
+        bad = decided & ~(gap <= allowed)
+        if bool(bad.any()):
+            i = int(torch.nonzero(bad)[0])
+            out.append(f"{where}{k}: {int(bad.sum())} decided weights "
+                       f"beyond the rule, first flat {i}: gap "
+                       f"{float(gap[i])} beyond {float(allowed[i])}")
+        wild = ~decided & ~(gap <= reach + rounding)
+        if bool(wild.any()):
+            i = int(torch.nonzero(wild)[0])
+            out.append(f"{where}{k}: undecided weight flat {i} moved "
+                       f"{float(gap[i])} from the reference, beyond {reach}")
     return out

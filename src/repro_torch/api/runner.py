@@ -174,8 +174,12 @@ def _resolve_optimizer(spec: ExperimentSpec, st):
         # which is what makes the degenerate sim/spmd parity exact
         return optim_mod.sgd(st.lr, momentum=0.0)
     if isinstance(opt, str):
-        raise ValueError(f"optimizer {opt!r} is not ported yet; it comes "
-                         "with ROADMAP.md queue 1 item 14")
+        if opt == "adamw":
+            return optim_mod.adamw(st.lr)
+        if opt == "adafactor":
+            return optim_mod.adafactor(st.lr)
+        raise ValueError(f"unknown optimizer {opt!r}; expected "
+                         "'sgd', 'adamw', 'adafactor' or an Optimizer")
     return opt
 
 

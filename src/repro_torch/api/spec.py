@@ -11,7 +11,11 @@ engine, rounds, seed), with the JAX package's field names, and
                    ``rounds_per_dispatch`` (and ``fused_eval``);
   engine="spmd"  — one synchronous round per step (core/fl_step.py), the
                    path of the paper's synchronous baselines, with an
-                   optional ``lr_schedule`` and ``optimizer="sgd"``;
+                   optional ``lr_schedule`` and ``optimizer`` ("sgd",
+                   "adamw", "adafactor"); it also trains the language
+                   models (``model`` a registry id or an ``ArchConfig``
+                   of the dense, moe or vlm family, on ``DataSpec(
+                   dataset="lm", partition="iid")``);
 
 each with or without int8 wire compression (``strategy.quantize_updates``),
 two-stage client selection (``candidate_frac``, ``candidate_shards``), a
@@ -38,8 +42,8 @@ from repro_torch.core.schedule import ScheduleSpec, resolve_schedule
 from repro_torch.topology.spec import TopologySpec, resolve_topology
 
 ENGINES = ("sim", "spmd")
-OPTIMIZERS = ("sgd",)                 # strings the port runs
-DATASETS = ("auto", "unsw", "road")
+OPTIMIZERS = ("sgd", "adamw", "adafactor")
+DATASETS = ("auto", "unsw", "road", "lm")
 PARTITIONS = ("dirichlet", "iid")
 PROFILES = ("heterogeneous", "uniform")
 MODELS = ("anomaly-mlp", "anomaly-mlp-road", "anomaly-mlp-smoke")
@@ -76,7 +80,7 @@ class DataSpec:
     eval_samples: int = 4000
     partition: str = "dirichlet"
     alpha: float = 0.5                # Dirichlet concentration (lower=skewed)
-    seq_len: int = 128                # lm datasets only (not ported)
+    seq_len: int = 128                # lm datasets only
     factory: Optional[Callable[[int, int], Any]] = None
     # factory(seed, n) -> (X, y) or {"x": ..., "y": ...} overrides `dataset`
     samples_per_client: Optional[int] = None   # non-resident worlds only
@@ -131,7 +135,8 @@ class ExperimentSpec:
                                                # to it by bits
     candidate_shards: int = 8
     optimizer: Union[str, Any, None] = None
-    # spmd engine only: None or "sgd" (momentum 0), or an Optimizer pair
+    # spmd engine only: None or "sgd" (momentum 0), "adamw", "adafactor",
+    # or an Optimizer pair
 
     # ------------------------------------------------------------------
     # resolution helpers
@@ -144,9 +149,11 @@ class ExperimentSpec:
                                   anomaly_mlp.SMOKE)))
         if self.model in named:
             return named[self.model]
-        raise ValueError(f"model {self.model!r} is not ported yet; the port "
-                         f"runs {MODELS}, and the other architectures come "
-                         "with ROADMAP.md queue 1 item 14")
+        from repro_torch.configs import registry
+        try:
+            return registry.get_config(self.model)
+        except KeyError as e:
+            raise ValueError(e.args[0]) from None
 
     def resolve_strategy(self) -> StrategyConfig:
         return strategies_mod.resolve_strategy(self.strategy,
@@ -234,8 +241,9 @@ class ExperimentSpec:
         if self.data.dataset not in DATASETS and self.data.factory is None:
             issues.append(SpecIssue(
                 "data.dataset", self.data.dataset,
-                f"expected one of {DATASETS} or a factory (token datasets "
-                "come with ROADMAP.md queue 1 item 14)"))
+                f"unknown dataset; expected one of {DATASETS} or a "
+                "factory"))
+        issues.extend(self._validate_family())
         if self.data.partition not in PARTITIONS:
             issues.append(SpecIssue(
                 "data.partition", self.data.partition,
@@ -350,14 +358,25 @@ class ExperimentSpec:
                 "honest majority to form a reference otherwise"))
         return issues
 
+    def _validate_family(self) -> List[SpecIssue]:
+        """The port trains a language model on the spmd engine only."""
+        try:
+            cfg = self.resolve_model()
+        except ValueError:
+            return []                  # the model's issue is reported
+        if self.engine == "sim" and getattr(cfg, "family", "mlp") != "mlp":
+            return [SpecIssue(
+                "engine", self.engine,
+                f"the port's sim engines (loop, megastep, scanned) train "
+                f"the mlp family; the {cfg.family} model {cfg.name!r} "
+                "trains on engine='spmd' (the sim engines' language "
+                "models come with ROADMAP.md queue 1 item 14c′)")]
+        return []
+
     def _validate_optimizer(self) -> List[SpecIssue]:
         opt = self.optimizer
         if opt is None or opt in OPTIMIZERS:
             return []
-        if opt in ("adamw", "adafactor"):
-            return [SpecIssue("optimizer", opt,
-                              f"{opt} is not ported yet; it comes with "
-                              "ROADMAP.md queue 1 item 14")]
         if isinstance(opt, str):
             return [SpecIssue("optimizer", opt,
                               "unknown optimizer; expected 'sgd', 'adamw', "

@@ -106,8 +106,11 @@ def _make_split(kind: str, data_spec, cfg, seed: int, n: int):
     if kind == "road":
         X, y = synthetic.make_road_like(seed, n, window=cfg.num_features)
         return {"x": X, "y": y}
-    raise ValueError(f"dataset kind {kind!r} is not ported yet (token "
-                     "datasets come with ROADMAP.md queue 1 item 14)")
+    if kind == "lm":
+        t, l = synthetic.make_lm_tokens(seed, n, data_spec.seq_len,
+                                        cfg.vocab_size)
+        return {"tokens": t, "labels": l}
+    raise ValueError(f"unknown dataset kind {kind!r}")
 
 
 def _as_arrays(split) -> Dict[str, Any]:
@@ -164,10 +167,16 @@ def build_world(spec) -> World:
     kind = _dataset_kind(d, cfg)
     if not w.resident:
         return build_lazy_world(spec)
+    if kind == "lm" and d.partition == "dirichlet":
+        raise ValueError("dirichlet partition needs class labels; "
+                         "use partition='iid' for token datasets")
     train = _as_arrays(_make_split(kind, d, cfg, spec.seed, d.n_samples))
-    n = len(train["y"])
+    n = len(train["y" if "y" in train else "labels"])
 
     if d.partition == "dirichlet":
+        if "y" not in train:
+            raise ValueError("dirichlet partition needs class labels; "
+                             "use partition='iid' for token datasets")
         parts = partition.dirichlet_partition(train["y"], w.num_clients,
                                               alpha=d.alpha, seed=spec.seed)
     elif d.partition == "iid":

@@ -9,8 +9,8 @@ config reads the same in both packages. Families:
           to the token embeddings
   mlp   — the paper's own 256-128-64 anomaly-detection MLP
 The ssm, hybrid and audio fields come with their families (ROADMAP.md
-queue 1 item 14); ``optimizer``, ``expert_parallel`` and ``client_axes``
-with LM training and sharding, which read them (items 14c, 14g).
+queue 1 item 14); ``expert_parallel`` and ``client_axes`` with sharding,
+which reads them (item 14g).
 """
 from __future__ import annotations
 
@@ -65,7 +65,8 @@ class ArchConfig:
 
     # numerics -----------------------------------------------------------------
     dtype: str = "bfloat16"
-    remat: bool = True               # read by training (not ported yet)
+    remat: bool = True               # checkpoint each layer in training
+    optimizer: str = "adamw"         # adamw | adafactor (large archs)
 
     @property
     def hd(self) -> int:

@@ -8,8 +8,10 @@ arrays, into the port's dict of f32 tensors (same names, same layouts).
 so both packages can step one round from the same mid-run state, and
 ``fl_state_from_jax`` for the spmd step's whole ``FLState`` (parameters,
 optimizer state, reference sign, control state, step, counters, scenario
-world and topology state; ``topology_from_jax`` for the last alone), and
-``lm_params_from_jax`` for a language model's nested parameter tree.
+world and topology state; ``topology_from_jax`` for the last alone), ``lm_params_from_jax`` for a
+language model's nested parameter tree and ``opt_state_from_jax`` for an
+optimizer's state (adamw, adafactor or sgd), so both packages can train
+on from one mid-run state.
 
 A JAX run's mid-run state continues in the port: ``sim_state_from_jax``
 turns the JAX ``FederatedSimulation.state_dict()`` of the loop or the
@@ -77,6 +79,30 @@ def _tensors(tree, device, dtype=None):
     return torch.tensor(a, dtype=dt, device=device)
 
 
+def opt_state_from_jax(state, device=None):
+    """An optimizer's state from the JAX package's (a nested dict of numpy
+    arrays): adamw's ``m``, ``v``, ``master`` and adafactor's ``stats``
+    (``r``, ``c`` or ``v`` a leaf) as f32 tensors, sgd's ``mom`` too, and
+    the step counter ``count`` as a 0-dim int32."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if np.issubdtype(a.dtype, np.integer):
+            return torch.tensor(a, dtype=torch.int32, device=dev)
+        if a.dtype != np.float32:
+            raise TypeError(f"expected f32 optimizer state; got {a.dtype}")
+        return torch.tensor(a, device=dev)
+
+    if isinstance(state, dict):
+        return {k: opt_state_from_jax(v, dev) for k, v in state.items()}
+    return leaf(state)
+
+
+def _is_nested(tree) -> bool:
+    return any(isinstance(v, dict) for v in tree.values())
+
+
 def topology_from_jax(state, device=None):
     """A ``TopologyState`` from the JAX package's (its fields as numpy
     arrays): f32 accumulators and accounting, int8 reference signs, bool
@@ -101,7 +127,8 @@ def topology_from_jax(state, device=None):
 def fl_state_from_jax(state, device=None):
     """The spmd step's ``FLState`` from the JAX package's (its fields as
     numpy arrays, e.g. ``jax.device_get(state)``), its scenario ``world``
-    and ``topology`` included."""
+    and ``topology`` included; a language model's nested weights keep
+    their dtypes."""
     from repro_torch.core.fl_step import FLState
     from repro_torch.core.scenario import WorldState
     dev = resolve_device(device)
@@ -116,8 +143,11 @@ def fl_state_from_jax(state, device=None):
             f: torch.tensor(np.asarray(v), device=dev,
                             dtype=torch.bool if f == "live" else torch.float32)
             for f, v in world._asdict().items()})
-    return FLState(params=params_from_jax(state.params, dev),
-                   opt_state=_tensors(state.opt_state, dev),
+    params = (lm_params_from_jax(state.params, dev)
+              if _is_nested(state.params)
+              else params_from_jax(state.params, dev))
+    return FLState(params=params,
+                   opt_state=opt_state_from_jax(state.opt_state, dev),
                    ref_sign=_tensors(state.ref_sign, dev, torch.int8),
                    step=_tensors(state.step, dev, torch.int32),
                    metrics=_tensors(state.metrics, dev, torch.float32),

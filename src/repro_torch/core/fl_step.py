@@ -2,10 +2,14 @@
 call (the JAX package's ``core/fl_step.py``).
 
 One FL round = one step over a client-batched global batch (leading dim C):
-  1. per-client gradients at the shared weights: the weights are expanded
-     with a leading client axis and one autograd backward of the SUM of the
-     C clients' mean losses gives each copy exactly its client's gradient
-     (the JAX package's ``vmap(value_and_grad)``);
+  1. per-client gradients at the shared weights (the JAX package's
+     ``vmap(value_and_grad)``): for the mlp, the weights are expanded with
+     a leading client axis and one autograd backward of the SUM of the C
+     clients' mean losses gives each copy exactly its client's gradient;
+     for a language model (a token batch: ``tokens``, ``labels``, for vlm
+     ``patch_embeds``), one backward per client, each client's gradient
+     packed straight into its slab of the arena, so no (C, ...) gradient
+     nest is held beside it;
   2. the gradients are packed ONCE into the (C, rows, LANE) arena, and the
      per-client sign-alignment ratios against the sign of the previous
      global update (Algorithm 1) run as one kernel sweep over it;
@@ -13,7 +17,13 @@ One FL round = one step over a client-batched global batch (leading dim C):
   4. optimizer update and the new reference sign.
 
 ``theta=None`` is the synchronous FedAvg baseline. If no client passes,
-parameters, optimizer state and reference sign are kept.
+parameters, optimizer state and reference sign are kept. Without an
+optimizer the step takes the config's (``optim.for_config``: adamw, or
+adafactor for the large archs). The new parameters and optimizer state
+are the optimizer's own tensors, held back in place (``torch.where`` into
+them) where nothing was accepted; the cohort arena is released before
+the optimizer runs, so a step at qwen2-1.5b's width holds one copy of
+the arena and two of the optimizer state at its peak.
 
 A ``ControlPlane`` routes the device control plane (core/control.py)
 through the same step as cohort masking: top-k + ε-greedy selection over
@@ -62,7 +72,8 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.convert import params_from_jax
+from repro_torch import tree as tree_mod
+from repro_torch.convert import lm_params_from_jax, params_from_jax
 from repro_torch.core import alignment, compression
 from repro_torch.core import control as control_mod
 from repro_torch.core import scenario as scenario_mod
@@ -70,6 +81,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import arena as arena_mod
 from repro_torch.kernels import ref as _ref
 from repro_torch.models import api
+from repro_torch.optim import adamw as optim_mod
 from repro_torch.topology import engine as topology_engine
 from repro_torch.topology.spec import resolve_topology
 
@@ -132,16 +144,16 @@ class ControlPlane:
                 or self.per_client_lr)
 
 
-def _check_optimizer(optimizer) -> None:
-    if optimizer is None:
-        raise NotImplementedError(
-            "the JAX package's default optimizer (adamw, optim.for_config) "
-            "is not ported yet; it comes with ROADMAP.md queue 1 item 14")
-
-
-def _template(cfg) -> Dict[str, torch.Tensor]:
-    """The config's parameter shapes and dtypes (a small CPU init)."""
-    return api.init_params(torch.Generator().manual_seed(0), cfg)
+def _params_on(params, cfg, dev):
+    """The weights on ``dev``: the mlp's as a flat dict of f32 tensors, a
+    language model's as its nest in its own dtypes (numpy, e.g. the JAX
+    package's, or tensors)."""
+    if cfg.family == "mlp":
+        return params_from_jax({k: (v.detach().cpu() if torch.is_tensor(v)
+                                    else v) for k, v in params.items()}, dev)
+    return tree_mod.tree_map(
+        lambda v: (v.detach().to(dev) if torch.is_tensor(v)
+                   else lm_params_from_jax(v, dev)), params)
 
 
 def init_state(generator: Optional[torch.Generator], cfg, optimizer=None,
@@ -154,13 +166,15 @@ def init_state(generator: Optional[torch.Generator], cfg, optimizer=None,
     package's) or drawn from ``generator``; with an active ``scenario``,
     the world before round 0, and with a ``topology`` its empty tier
     state (links priced off ``comm``), of ``num_clients`` clients (or
-    the control plane's)."""
-    _check_optimizer(optimizer)
+    the control plane's). Without an ``optimizer``, the config's
+    (``optim.for_config``). A language model's weights are drawn on the
+    generator's device (a CUDA generator draws on the card)."""
+    optimizer = optimizer or optim_mod.for_config(cfg)
     dev = resolve_device(device)
     if params is None:
-        params = api.init_params(generator, cfg)
-    params = params_from_jax({k: (v.detach().cpu() if torch.is_tensor(v)
-                                  else v) for k, v in params.items()}, dev)
+        params = api.init_params(generator, cfg,
+                                 "cpu" if cfg.family == "mlp" else dev)
+    params = _params_on(params, cfg, dev)
     ctl = None
     if control_plane is not None and control_plane.active():
         ctl = control_mod.init_control(
@@ -185,8 +199,9 @@ def init_state(generator: Optional[torch.Generator], cfg, optimizer=None,
             topology, n, arena_mod.ParamArena(params), comm, dev).init()
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     return FLState(params, optimizer.init(params),
-                   {k: torch.zeros_like(p, dtype=torch.int8)
-                    for k, p in params.items()},
+                   tree_mod.tree_map(
+                       lambda p: torch.zeros_like(p, dtype=torch.int8),
+                       params),
                    torch.zeros((), dtype=torch.int32, device=dev),
                    {"accepted": zero, "rounds": zero.clone()}, ctl, world,
                    topo)
@@ -194,7 +209,7 @@ def init_state(generator: Optional[torch.Generator], cfg, optimizer=None,
 
 def _per_client_grads(params: Dict[str, torch.Tensor], batch, cfg):
     """(C,) losses and the per-client gradient dict (leading axis C) at
-    the shared ``params``."""
+    the shared ``params`` (the mlp)."""
     C = batch["x"].shape[0]
     names = tuple(sorted(params))
     p = {k: params[k].expand((C,) + params[k].shape).clone()
@@ -203,6 +218,46 @@ def _per_client_grads(params: Dict[str, torch.Tensor], batch, cfg):
         loss = api.loss_fn(p, batch, cfg)                      # (C,)
         grads = torch.autograd.grad(loss.sum(), [p[k] for k in names])
     return loss.detach(), dict(zip(names, grads))
+
+
+def _lm_client_grads(params, batch, cfg, arena) -> Tuple[torch.Tensor,
+                                                          torch.Tensor]:
+    """(C,) losses and the (C, rows, LANE) f32 arena of the per-client
+    gradients at the shared ``params`` of a language model: one backward
+    per client, each gradient (in its weight's dtype, as JAX's) packed
+    into the client's slab as it comes, then dropped."""
+    C = batch["tokens"].shape[0]
+    dev = batch["tokens"].device
+    u = torch.empty((C, arena.rows, arena.lane), dtype=torch.float32,
+                    device=dev)
+    losses = []
+    for c in range(C):
+        p = tree_mod.tree_map(lambda t: t.detach().requires_grad_(True),
+                              params)
+        leaves = arena.leaves(p)
+        with torch.enable_grad():
+            loss = api.loss_fn(p, {k: v[c] for k, v in batch.items()}, cfg)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        arena.pack_into(u[c], tree_mod.from_paths(arena.paths, [
+            torch.zeros_like(t) if g is None else g
+            for g, t in zip(grads, leaves)]))
+        losses.append(loss.detach().to(torch.float32))
+        del p, leaves, grads, loss
+    return torch.stack(losses), u
+
+
+def _keep_in_place(keep: torch.Tensor, new, old) -> None:
+    """``new`` becomes where(keep, new, old), leaf by leaf, written into
+    ``new``'s own tensors (one leaf's temporary at a time); a tensor that
+    appears twice in ``new`` (adamw's f32 weights are its master copy) is
+    written once."""
+    seen = set()
+    for (_, n), (_, o) in zip(tree_mod.named_leaves(new),
+                              tree_mod.named_leaves(old)):
+        if id(n) in seen:
+            continue
+        seen.add(id(n))
+        torch.where(keep, n, o, out=n)
 
 
 def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
@@ -223,16 +278,18 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
     ``world`` (a ``WorldState`` on the state's device); ``drift_dirs``
     ((classes, features) f32) with a drift. topology: a hierarchical
     topology of ``num_clients`` clients (or the control plane's), links
-    priced off ``comm``, advanced in ``FLState.topology``.
+    priced off ``comm``, advanced in ``FLState.topology``. Without an
+    ``optimizer``, the config's (``optim.for_config``).
     """
-    _check_optimizer(optimizer)
+    optimizer = optimizer or optim_mod.for_config(cfg)
+    lm = cfg.family != "mlp"
     scn = scenario if scenario_mod.is_active(scenario) else None
     dirs = {}                        # device -> drift directions
-    arena = arena_mod.ParamArena(_template(cfg))
     cp = control_plane if (control_plane is not None
                            and control_plane.active()) else None
-    wire_bytes = (float(compression.arena_wire_bytes(arena))
-                  if (cp and cp.quantize) else None)
+    # the arena's layout, from the first state's weights (only names,
+    # shapes and dtypes are read)
+    layout: Dict[str, object] = {}
     topology = resolve_topology(topology)
     n_top = num_clients if num_clients is not None else (
         cp.num_clients if cp is not None else None)
@@ -260,6 +317,12 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
     @torch.no_grad()
     def step(state: FLState, batch, draws=None, world=None):
         dev = state.step.device
+        if not layout:
+            layout["arena"] = arena_mod.ParamArena(state.params)
+            layout["wire_bytes"] = (
+                float(compression.arena_wire_bytes(layout["arena"]))
+                if (cp and cp.quantize) else None)
+        arena, wire_bytes = layout["arena"], layout["wire_bytes"]
         # (0) dynamic world: this round's WorldState
         ws = state.world
         if scn is not None:
@@ -273,7 +336,12 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
                 batch = scenario_mod.apply_drift(batch, ws.drift_amp,
                                                  dirs[dev])
         # (1) per-client gradients at the shared weights
-        loss, grads = _per_client_grads(state.params, batch, cfg)
+        if lm:
+            loss, u = _lm_client_grads(state.params, batch, cfg, arena)
+        else:
+            loss, grads = _per_client_grads(state.params, batch, cfg)
+            u = arena.pack_cohort(grads)
+            del grads
         C = loss.shape[0]
         ctl = state.control
         k = constants(dev, C)
@@ -324,7 +392,6 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
         f_active = active.to(torch.float32)
 
         # (2)+(3) selective aggregation on the (C, rows, LANE) arena
-        u = arena.pack_cohort(grads)
         if cp is not None and cp.per_client_lr:
             u = u * ctl.lr_scale[:, None, None]
         if scn is not None and scn.byzantine is not None:
@@ -340,7 +407,9 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
             ctl = ctl._replace(ef=torch.cat(
                 [torch.where(a3, residual, ctl.ef[:C]), ctl.ef[C:]]))
         # norms AFTER the quantize round trip: what the server receives
-        norms = torch.sqrt((u * u).sum(dim=(1, 2)))
+        # (read by the control plane only)
+        norms = torch.sqrt((u * u).sum(dim=(1, 2))) if cp is not None \
+            else None
         if theta is None:
             ratios = torch.ones((C,), dtype=torch.float32, device=dev)
             passed = mask = f_active
@@ -360,17 +429,7 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
                            dtype=torch.float32)
         any_accepted = mask.sum() > 0
 
-        # (4) optimizer update; hold position if nothing was accepted
-        lr_now = lr_schedule(state.step) if lr_schedule else None
-        new_params, new_opt = optimizer.update(agg, state.opt_state,
-                                               state.params, lr_now=lr_now)
-        new_params, new_opt = _tree_map(
-            lambda n, o: torch.where(any_accepted, n, o),
-            (new_params, new_opt), (state.params, state.opt_state))
-        new_ref = {n: torch.where(any_accepted, _ref.sign(a), state.ref_sign[n])
-                   for n, a in agg.items()}
-
-        # (4b) hierarchical topology: leaf-pod accumulation of the SAME
+        # (4) hierarchical topology: leaf-pod accumulation of the SAME
         # weighted cohort updates the aggregation consumed + due syncs
         topo = state.topology
         if topology is not None:
@@ -378,6 +437,17 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
                 runtimes[dev] = topology_engine.TopologyRuntime(
                     topology, n_top, arena, comm, dev)
             topo = runtimes[dev].step(topo, state.step, u, w)
+        u = None                     # the arena is released here
+
+        # (4b) optimizer update; hold position if nothing was accepted
+        lr_now = lr_schedule(state.step) if lr_schedule else None
+        new_params, new_opt = optimizer.update(agg, state.opt_state,
+                                               state.params, lr_now=lr_now)
+        new_ref = tree_mod.tree_map(
+            lambda a, r: torch.where(any_accepted, _ref.sign(a), r),
+            agg, state.ref_sign)
+        _keep_in_place(any_accepted, (new_params, new_opt),
+                       (state.params, state.opt_state))
 
         # (5) control-plane statistics for the next round's selection
         if cp is not None:
@@ -447,20 +517,6 @@ def build_fl_train_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
 # several seeds in one state
 # ---------------------------------------------------------------------------
 
-def _tree_map(fn, *trees):
-    """``fn`` over the tensors of nested dicts and tuples of one shape."""
-    first = trees[0]
-    if first is None:
-        return None
-    if isinstance(first, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
-    if isinstance(first, tuple):
-        parts = [_tree_map(fn, *p) for p in zip(*trees)]
-        return type(first)(*parts) if hasattr(first, "_fields") \
-            else tuple(parts)
-    return fn(*trees)
-
-
 def init_seed_batched_state(seeds: Sequence[int], cfg, optimizer=None, *,
                             params: Optional[Sequence[dict]] = None,
                             device=None) -> FLState:
@@ -472,7 +528,7 @@ def init_seed_batched_state(seeds: Sequence[int], cfg, optimizer=None, *,
                          optimizer, params=None if params is None
                          else params[i], device=device)
               for i, s in enumerate(seeds)]
-    return _tree_map(lambda *xs: torch.stack(xs), *states)
+    return tree_mod.tree_map(lambda *xs: torch.stack(xs), *states)
 
 
 def build_seed_batched_step(cfg, optimizer=None,
@@ -487,16 +543,17 @@ def build_seed_batched_step(cfg, optimizer=None,
                         beacon_bytes=beacon_bytes)
 
     def step(state: FLState, batch):
-        outs = [raw(_tree_map(lambda x, i=i: x[i], state),
+        outs = [raw(tree_mod.tree_map(lambda x, i=i: x[i], state),
                     {k: v[i] for k, v in batch.items()})
                 for i in range(state.step.shape[0])]
-        return _tree_map(lambda *xs: torch.stack(xs), *outs)
+        return tree_mod.tree_map(lambda *xs: torch.stack(xs), *outs)
 
     return step
 
 
 def _update_bytes(params) -> float:
-    return float(sum(p.numel() * p.element_size() for p in params.values()))
+    return float(sum(p.numel() * p.element_size()
+                     for p in tree_mod.leaves(params)))
 
 
 # ---------------------------------------------------------------------------

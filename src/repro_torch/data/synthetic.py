@@ -11,9 +11,11 @@
    masquerade" attack injects a constant/offset wheel-speed segment that
    breaks cross-wheel correlation (the ROAD scenario the paper evaluates).
 
-A copy of the JAX package's ``data/synthetic.py`` (the mlp datasets),
-kept byte-identical in output; the token streams of the language models
-come with them (ROADMAP.md queue 1 item 14).
+``make_lm_tokens``  — Zipf-distributed token streams with a first-order
+   Markov flavour, for the federated LM example and smoke tests.
+
+A copy of the JAX package's ``data/synthetic.py``, kept byte-identical in
+output.
 """
 from __future__ import annotations
 
@@ -63,3 +65,16 @@ def make_road_like(seed: int, n: int, window: int = 32,
         sig[i, inj_start[i]:inj_start[i] + 8] = inj_val[i]
     x = (sig - sig.mean(0)) / (sig.std(0) + 1e-6)
     return x.astype(np.float32), y
+
+
+def make_lm_tokens(seed: int, n_seq: int, seq_len: int, vocab: int):
+    rng = np.random.default_rng(seed)
+    # zipfian unigram + local repetition structure
+    ranks = np.arange(1, vocab + 1)
+    p = 1.0 / ranks ** 1.1
+    p /= p.sum()
+    toks = rng.choice(vocab, size=(n_seq, seq_len + 1), p=p)
+    rep = rng.random((n_seq, seq_len + 1)) < 0.3
+    for j in range(1, seq_len + 1):
+        toks[:, j] = np.where(rep[:, j], toks[:, j - 1], toks[:, j])
+    return toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)

@@ -1,9 +1,9 @@
 """Flat parameter arena: the (rows, LANE) f32 layout that the cohort step
 and the two arena kernels share.
 
-``ParamArena`` packs a parameter dict ONCE into a lane-aligned matrix,
-in the JAX package's leaf order (dict keys sorted), so that every hot
-reduction runs over one buffer:
+``ParamArena`` packs a parameter nest ONCE into a lane-aligned matrix,
+in the JAX package's leaf order (dict keys sorted at every level), so
+that every hot reduction runs over one buffer:
 
   * per-client sign-alignment counts    (kernels/sign_align.py)
   * weighted cohort aggregation, and the same sum applied to the
@@ -24,6 +24,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch import tree as _tree
 from repro_torch.kernels import gather as _gather
 from repro_torch.kernels import masked_agg as _agg
 from repro_torch.kernels import ref as _ref
@@ -33,59 +34,78 @@ LANE = _sa.LANE
 
 
 class ParamArena:
-    """Static layout of one parameter dict in the (rows, LANE) arena.
+    """Static layout of one parameter nest in the (rows, LANE) arena.
 
-    Built from a template dict of tensors or arrays; only names, shapes
-    and dtypes are read."""
+    Built from a template nest of dicts of tensors or arrays (flat for the
+    mlp, nested for the language models); only paths, shapes and dtypes
+    are read. Leaves are laid out in the JAX package's order (keys sorted
+    at every level); ``names`` are their paths joined by "/" (a flat
+    dict's keys as they are)."""
 
     def __init__(self, template: Dict[str, object], lane: int = LANE):
-        self.names = tuple(sorted(template))
-        self.shapes = tuple(tuple(template[k].shape) for k in self.names)
-        self.dtypes = tuple(_torch_dtype(template[k].dtype)
-                            for k in self.names)
+        named = _tree.named_leaves(template)
+        self.paths = tuple(p for p, _ in named)
+        self.names = tuple("/".join(map(str, p)) for p in self.paths)
+        self.shapes = tuple(tuple(l.shape) for _, l in named)
+        self.dtypes = tuple(_torch_dtype(l.dtype) for _, l in named)
         self.sizes = tuple(math.prod(s) for s in self.shapes)
         self.n = int(sum(self.sizes))
         self.lane = int(lane)
         self.rows = max(-(-self.n // self.lane), 1)
         self.pad = self.rows * self.lane - self.n
 
+    def leaves(self, tree) -> list:
+        """The nest's leaves in the arena's order."""
+        return [_tree.get(tree, p) for p in self.paths]
+
     # ------------------------------------------------------------------
     # pack / unpack
     # ------------------------------------------------------------------
     def pack(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """dict -> (rows, lane) f32, zero-padded."""
-        return self.pack_cohort({k: v[None] for k, v in params.items()})[0]
+        """nest -> (rows, lane) f32, zero-padded."""
+        return self.pack_cohort(_tree.tree_map(lambda v: v[None], params))[0]
 
     def pack_cohort(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """dict with leading client dim C -> (C, rows, lane) f32."""
-        first = params[self.names[0]]
-        C = first.shape[0]
-        flat = [params[k].reshape(C, -1).to(torch.float32) for k in self.names]
+        """nest with leading client dim C -> (C, rows, lane) f32."""
+        leaves = self.leaves(params)
+        C = leaves[0].shape[0]
+        flat = [v.reshape(C, -1).to(torch.float32) for v in leaves]
         flat.append(torch.zeros((C, self.pad), dtype=torch.float32,
-                                device=first.device))
+                                device=leaves[0].device))
         return torch.cat(flat, dim=1).reshape(C, self.rows, self.lane)
 
+    def pack_into(self, out: torch.Tensor, params) -> None:
+        """Write one nest (no client dim) into ``out``, a (rows, lane) f32
+        slab (e.g. one client's row of a cohort arena), leaf by leaf in
+        place: each leaf converted to f32 as ``pack`` converts it, the
+        padding zeroed. Nothing of the arena's size is allocated."""
+        flat = out.view(-1)
+        off = 0
+        for v, size in zip(self.leaves(params), self.sizes):
+            flat[off:off + size].copy_(v.reshape(-1))
+            off += size
+        flat[off:].zero_()
+
     def unpack(self, mat: torch.Tensor, dtype=None) -> Dict[str, torch.Tensor]:
-        """(rows, lane) -> dict; leaves cast to the template dtypes, or to
+        """(rows, lane) -> nest; leaves cast to the template dtypes, or to
         one override ``dtype`` (f32 for gradient math). A leaf whose dtype
         is already the target is a view into ``mat``."""
         flat = mat.reshape(-1)
-        out, off = {}, 0
-        for k, shape, dt, size in zip(self.names, self.shapes, self.dtypes,
-                                      self.sizes):
-            out[k] = flat[off:off + size].reshape(shape).to(dtype or dt)
+        out, off = [], 0
+        for shape, dt, size in zip(self.shapes, self.dtypes, self.sizes):
+            out.append(flat[off:off + size].reshape(shape).to(dtype or dt))
             off += size
-        return out
+        return _tree.from_paths(self.paths, out)
 
     def unpack_cohort(self, mat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """(C, rows, lane) -> dict with leading client dim C."""
+        """(C, rows, lane) -> nest with leading client dim C."""
         C = mat.shape[0]
         flat = mat.reshape(C, -1)
-        out, off = {}, 0
-        for k, shape, size in zip(self.names, self.shapes, self.sizes):
-            out[k] = flat[:, off:off + size].reshape((C,) + shape)
+        out, off = [], 0
+        for shape, size in zip(self.shapes, self.sizes):
+            out.append(flat[:, off:off + size].reshape((C,) + shape))
             off += size
-        return out
+        return _tree.from_paths(self.paths, out)
 
     # ------------------------------------------------------------------
     # reference-sign helpers
@@ -103,11 +123,11 @@ class ParamArena:
         return sign.reshape(self.rows, self.lane)
 
     def pack_signs(self, signs: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """int8 sign dict -> (rows, lane) with the -2 padding sentinel."""
-        first = signs[self.names[0]]
-        flat = [signs[k].reshape(-1).to(torch.int8) for k in self.names]
+        """int8 sign nest -> (rows, lane) with the -2 padding sentinel."""
+        leaves = self.leaves(signs)
+        flat = [v.reshape(-1).to(torch.int8) for v in leaves]
         flat.append(torch.full((self.pad,), -2, dtype=torch.int8,
-                               device=first.device))
+                               device=leaves[0].device))
         return torch.cat(flat).reshape(self.rows, self.lane)
 
 

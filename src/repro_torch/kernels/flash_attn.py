@@ -20,8 +20,19 @@ and bf16 at any other hd, the SIMT kernel ``csrc/flash_attn.cu``
 
 Contract, checked on either device: q, k and v f32 or bf16, one dtype,
 contiguous along hd; S and Sk multiples of 128; hd a multiple of 8, at
-most 256; S <= Sk when causal or windowed (every row keeps its diagonal);
-no input that requires grad (the kernel has no backward yet).
+most 256; S <= Sk when causal or windowed (every row keeps its diagonal).
+
+Under grad, ``flash_attention_gqa`` is a ``torch.autograd.Function``: its
+forward is the call above (the kernel of ``route`` on the card), saving
+q, k, v and the output; its backward is ``flash_backward``, plain torch
+on both devices (the JAX package differentiates its ``lax.scan`` of
+``blockwise_attention`` and has no backward kernel). It recomputes the
+scores one query block at a time, so no (B, H, S, Sk) tensor is held:
+with P = softmax(s) from the block's recomputed row log-sum-exp,
+dV = Pᵀ·dO, dS = P ∘ (dO·Vᵀ − rowsum(dO ∘ O)), dQ = dS·K/√hd,
+dK = dSᵀ·Q/√hd, in f32, the KV gradients summed over each KV head's
+query group and the masks the forward's. A hand-written backward kernel
+is ROADMAP.md queue 2 item 5.
 """
 from __future__ import annotations
 
@@ -88,10 +99,6 @@ def _check(q, k, v, causal, sliding_window, out_dtype) -> int:
                          f"row keeps its diagonal); got S = {S}, Sk = {Sk}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v must be contiguous along hd")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise RuntimeError("flash_attention has no backward yet (LM training "
-                           "comes with ROADMAP.md queue 1 item 14); call it "
-                           "under torch.no_grad() or on detached tensors")
     return _launch.device_index("flash_attention", q, k, v)
 
 
@@ -128,13 +135,7 @@ def _enqueue(q, k, v, out, causal: bool, window: Optional[int],
     launches_by_route[which] += 1
 
 
-def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool, sliding_window: Optional[int] = None,
-                        out_dtype: Optional[torch.dtype] = None
-                        ) -> torch.Tensor:
-    """q (B, S, H, hd), k/v (B, Sk, K, hd) -> (B, S, H, hd) in
-    ``out_dtype`` (q's dtype by default)."""
-    out_dtype = q.dtype if out_dtype is None else out_dtype
+def _forward(q, k, v, causal, sliding_window, out_dtype) -> torch.Tensor:
     if _check(q, k, v, causal, sliding_window, out_dtype) < 0:
         B, S, H, hd = q.shape
         Sk, K = k.shape[1], k.shape[2]
@@ -147,6 +148,91 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     _enqueue(q, k, v, out, causal, sliding_window)
     return out
+
+
+BACKWARD_BLOCK = 512       # query rows a step of flash_backward
+
+
+def flash_backward(q, k, v, out, dout, *, causal: bool,
+                   sliding_window: Optional[int] = None):
+    """(dq, dk, dv) of ``flash_attention_gqa`` at q (B, S, H, hd), k, v
+    (B, Sk, K, hd), its output ``out`` and the output's gradient ``dout``
+    (B, S, H, hd); each gradient in its input's dtype. Plain torch, one
+    block of ``BACKWARD_BLOCK`` query rows at a time against the keys its
+    masks reach."""
+    block = BACKWARD_BLOCK
+    B, S, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+    qf = q.to(f32).reshape(B, S, K, G, hd)
+    kf, vf = k.to(f32), v.to(f32)
+    dof = dout.to(f32).reshape(B, S, K, G, hd)
+    # rowsum(dO ∘ O): (B, K, G, S)
+    dsum = (dof * out.to(f32).reshape(B, S, K, G, hd)).sum(-1).permute(
+        0, 2, 3, 1)
+    dq = torch.empty((B, S, K, G, hd), dtype=f32, device=q.device)
+    dk = torch.zeros((B, Sk, K, hd), dtype=f32, device=q.device)
+    dv = torch.zeros((B, Sk, K, hd), dtype=f32, device=q.device)
+    for i0 in range(0, S, block):
+        i1 = min(S, i0 + block)
+        lo, hi = 0, Sk
+        if causal:
+            hi = min(Sk, i1)
+        if sliding_window is not None:
+            lo = max(0, i0 - sliding_window + 1)
+        qb, dob = qf[:, i0:i1], dof[:, i0:i1]
+        kb, vb = kf[:, lo:hi], vf[:, lo:hi]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb) * scale
+        if causal or sliding_window is not None:
+            i = torch.arange(i0, i1, device=q.device)[:, None]
+            j = torch.arange(lo, hi, device=q.device)[None, :]
+            mask = torch.ones((i1 - i0, hi - lo), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                mask &= j <= i
+            if sliding_window is not None:
+                mask &= (i - j) < sliding_window
+            s = torch.where(mask, s, -1e30)
+        p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+        dv[:, lo:hi] += torch.einsum("bkgqs,bqkgd->bskd", p, dob)
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dob, vb)
+        ds = p * (dp - dsum[..., i0:i1, None])
+        dq[:, i0:i1] = torch.einsum("bkgqs,bskd->bqkgd", ds, kb) * scale
+        dk[:, lo:hi] += torch.einsum("bkgqs,bqkgd->bskd", ds, qb) * scale
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sliding_window, out_dtype):
+        out = _forward(q, k, v, causal, sliding_window, out_dtype)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.sliding_window = causal, sliding_window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, dout, causal=ctx.causal,
+                                    sliding_window=ctx.sliding_window)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool, sliding_window: Optional[int] = None,
+                        out_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """q (B, S, H, hd), k/v (B, Sk, K, hd) -> (B, S, H, hd) in
+    ``out_dtype`` (q's dtype by default); differentiable in q, k, v."""
+    out_dtype = q.dtype if out_dtype is None else out_dtype
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, sliding_window,
+                                     out_dtype)
+    return _forward(q, k, v, causal, sliding_window, out_dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

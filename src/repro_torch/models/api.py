@@ -58,11 +58,14 @@ def init_cache(cfg, batch_size: int, seq_len: int, device=None):
 
 def build_default_eval(cfg):
     """ev(params, batch) -> scalar quality metric: classification accuracy
-    for the mlp detector family."""
+    for the mlp detector family, the negative loss (a quality proxy) for
+    the language models, as in the JAX package."""
     mod = module_for(cfg)
 
     @torch.no_grad()
     def ev(params, batch):
-        return mod.accuracy(params, batch, cfg)
+        if cfg.family == "mlp":
+            return mod.accuracy(params, batch, cfg)
+        return -mod.loss_fn(params, batch, cfg)
 
     return ev

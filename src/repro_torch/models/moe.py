@@ -16,10 +16,14 @@ two ways to one function, the scatter for GSPMD's sharding; unsharded,
 both run this gather. The combine is a gather of each choice's expert
 output times its weight, summed over the k choices.
 
-The JAX module's custom VJPs of the dispatch and the combine, and the
-combine's inverse permutation ``choice_for_slot`` that only their
-backward reads, serve GSPMD's sharding of training (ROADMAP.md queue 1
-item 14c); here the forward is plain indexing.
+The dispatch and the combine are ``torch.autograd.Function``s with the
+JAX module's custom VJPs: the backward of each gather is a gather through
+the inverse permutation (the dispatch's through each choice's slot, the
+combine's through ``choice_for_slot``), dropped choices contribute
+nothing, and the combine's weight gradient is accumulated in f32 and
+rounded once (``_combine_bwd``). Autograd of the plain gathers would
+scatter with atomics on the card and, in bf16, round each product of the
+weight gradient before its sum.
 
 The aux loss is the Switch load-balance term E·Σ_e f_e/k·p_e (f_e the
 choices routed to e per token, p_e the mean router probability of e).
@@ -106,6 +110,54 @@ def route(cfg, router: torch.Tensor, xt: torch.Tensor) -> Routing:
                    C)
 
 
+class _Dispatch(torch.autograd.Function):
+    """xt (T, d) -> slot-major (E·C, d); the backward gathers each
+    choice's slot and sums a token's k choices (JAX ``_dispatch``)."""
+
+    @staticmethod
+    def forward(ctx, xt, tok_for_slot, valid, slot_c, keep, k):
+        ctx.save_for_backward(slot_c, keep)
+        ctx.k = k
+        return xt[tok_for_slot] * valid[:, None].to(xt.dtype)
+
+    @staticmethod
+    def backward(ctx, dxe):
+        slot_c, keep = ctx.saved_tensors
+        dxt = dxe[slot_c] * keep[:, None].to(dxe.dtype)          # (Tk, d)
+        return (dxt.reshape(-1, ctx.k, dxe.shape[-1]).sum(dim=1), None,
+                None, None, None, None)
+
+
+class _Combine(torch.autograd.Function):
+    """ye (E·C, d), w (Tk,) -> (T, d); the backward gathers through
+    ``choice_for_slot`` and takes dw in f32 (JAX ``_combine``)."""
+
+    @staticmethod
+    def forward(ctx, ye, w, slot_c, choice_for_slot, valid, k):
+        ctx.save_for_backward(ye, w, slot_c, choice_for_slot, valid)
+        ctx.k = k
+        yt = ye[slot_c] * w[:, None].to(ye.dtype)
+        return yt.reshape(-1, k, ye.shape[-1]).sum(dim=1)
+
+    @staticmethod
+    def backward(ctx, dout):
+        ye, w, slot_c, choice_for_slot, valid = ctx.saved_tensors
+        dyt = dout.repeat_interleave(ctx.k, dim=0)                # (Tk, d)
+        dye = (dyt[choice_for_slot] * valid[:, None].to(dyt.dtype)
+               * w[choice_for_slot][:, None].to(dyt.dtype))
+        dw = torch.sum(dyt.to(torch.float32)
+                       * ye[slot_c].to(torch.float32), dim=-1)
+        return dye.to(ye.dtype), dw.to(w.dtype), None, None, None, None
+
+
+def _inverse(r: Routing, values: torch.Tensor, n: int) -> torch.Tensor:
+    """(n + 1,) table with ``values[i]`` at slot ``r.slot[i]`` (the dump
+    slot n written by every dropped choice, in any order)."""
+    out = torch.zeros(n + 1, dtype=values.dtype, device=values.device)
+    out[r.slot] = values
+    return out
+
+
 def dispatch(cfg, xt: torch.Tensor, r: Routing) -> torch.Tensor:
     """xt (T, d) -> the experts' buffers (E, C, d), zero where no choice
     fills a slot."""
@@ -116,13 +168,25 @@ def dispatch(cfg, xt: torch.Tensor, r: Routing) -> torch.Tensor:
                          f"{cfg.moe_dispatch!r}")
     tok = torch.arange(T, device=xt.device).repeat_interleave(k)
     # inverse permutation: which token fills each capacity slot; the
-    # dropped choices all write the dump slot E·C, cut off below
-    tok_for_slot = torch.zeros(E * C + 1, dtype=torch.int64, device=xt.device)
-    tok_for_slot[r.slot] = tok
-    valid = torch.zeros(E * C + 1, dtype=torch.bool, device=xt.device)
-    valid[r.slot] = r.keep
-    xe = xt[tok_for_slot[:E * C]] * valid[:E * C, None].to(xt.dtype)
+    # dropped choices all write the dump slot E·C, cut off here
+    tok_for_slot = _inverse(r, tok, E * C)[:E * C]
+    valid = _inverse(r, r.keep, E * C)[:E * C]
+    xe = _Dispatch.apply(xt, tok_for_slot, valid,
+                         torch.clamp_max(r.slot, E * C - 1), r.keep, k)
     return xe.reshape(E, C, d)
+
+
+def combine(cfg, ye: torch.Tensor, r: Routing, w: torch.Tensor
+            ) -> torch.Tensor:
+    """ye (E·C, d), w (T·k,) -> (T, d): each choice's expert output times
+    its weight (0 if dropped; a dropped choice reads slot E·C − 1),
+    summed over the k choices."""
+    E, k, C = cfg.num_experts, cfg.top_k, r.capacity
+    choice_for_slot = _inverse(r, torch.arange(r.slot.shape[0],
+                                               device=ye.device), E * C)
+    valid = _inverse(r, r.keep, E * C)
+    return _Combine.apply(ye, w, torch.clamp_max(r.slot, E * C - 1),
+                          choice_for_slot[:E * C], valid[:E * C], k)
 
 
 def experts(p, xe: torch.Tensor) -> torch.Tensor:
@@ -140,11 +204,8 @@ def moe_ffn(cfg, p, x: torch.Tensor):
     r = route(cfg, p["router"], xt)
     C = r.capacity
     ye = experts(p, dispatch(cfg, xt, r)).reshape(E * C, d)
-    # combine: each choice's expert output times its weight (0 if dropped;
-    # a dropped choice reads slot E·C − 1), summed over the k choices
     w = (r.topv.reshape(T * k) * r.keep).to(x.dtype)
-    yt = ye[torch.clamp_max(r.slot, E * C - 1)] * w[:, None]
-    out = yt.reshape(T, k, d).sum(dim=1)
+    out = combine(cfg, ye, r, w)
     if cfg.moe_dense_residual:
         out = out + L.ffn(cfg, p["dense"], xt)
     # load-balance aux

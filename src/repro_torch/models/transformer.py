@@ -18,6 +18,7 @@ step reads no device value on the host.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -107,29 +108,46 @@ def _ffn(cfg, lp, x):
     return L.ffn(cfg, lp["ffn"], x), None
 
 
+def _block(cfg, lp, positions, x):
+    """One layer: attention and FFN with their residuals -> (x, aux or
+    None, (k, v))."""
+    a_in = L.apply_norm(cfg, x, lp["ln1"])
+    a_out, kv = L.full_attention(
+        cfg, lp["attn"], a_in, positions=positions, causal=True,
+        sliding_window=cfg.sliding_window)
+    x = x + a_out
+    f_out, moe_aux = _ffn(cfg, lp, L.apply_norm(cfg, x, lp["ln2"]))
+    return x + f_out, moe_aux, kv
+
+
 def forward(params, batch, cfg, *, return_cache: bool = False):
     """Returns (logits, cache_or_None, aux_loss): the layers' MoE aux
-    summed in f32 (0 without experts)."""
+    summed in f32 (0 without experts).
+
+    With ``cfg.remat``, under grad and without a cache, each layer runs
+    under ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    dropped after the forward and recomputed in the backward, as the JAX
+    package's ``jax.checkpoint`` of the scanned layer body does."""
     _check_family(cfg)
     x = _embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and not return_cache and torch.is_grad_enabled()
     ks, vs = [], []
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
-        a_in = L.apply_norm(cfg, x, lp["ln1"])
-        a_out, (k, v) = L.full_attention(
-            cfg, lp["attn"], a_in, positions=positions, causal=True,
-            sliding_window=cfg.sliding_window)
-        x = x + a_out
-        f_out, moe_aux = _ffn(cfg, lp, L.apply_norm(cfg, x, lp["ln2"]))
+        if remat:
+            x, moe_aux = torch.utils.checkpoint.checkpoint(
+                lambda h, lp=lp: _block(cfg, lp, positions, h)[:2], x,
+                use_reentrant=False)
+        else:
+            x, moe_aux, (k, v) = _block(cfg, lp, positions, x)
+            if return_cache:
+                ks.append(k)
+                vs.append(v)
         if moe_aux is not None:
             aux = aux + moe_aux
-        x = x + f_out
-        if return_cache:
-            ks.append(k)
-            vs.append(v)
     x = L.apply_norm(cfg, x, params["final_norm"])
     logits = x @ _head(params, cfg)
     cache = None
@@ -139,10 +157,8 @@ def forward(params, batch, cfg, *, return_cache: bool = False):
 
 
 def loss_fn(params, batch, cfg):
-    """The forward's value: cross-entropy over the token positions (the
-    patch positions dropped for vlm) plus ``router_aux_weight`` times the
-    aux. Its backward comes with LM training (ROADMAP.md queue 1 item
-    14c)."""
+    """Cross-entropy over the token positions (the patch positions
+    dropped for vlm) plus ``router_aux_weight`` times the aux."""
     logits, _, aux = forward(params, batch, cfg)
     if cfg.family == "vlm":
         logits = logits[:, cfg.num_patches:]

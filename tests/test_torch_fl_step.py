@@ -144,10 +144,39 @@ def test_step_matches_jax(case, agg, steps):
                                             np.asarray(want.control.ef))
 
 
+def _default_optimizer_step_matches_jax():
+    """``init_state`` and ``make_raw_step`` without an optimizer take the
+    config's (adamw without master weights for the f32 mlp), as JAX's do:
+    one θ step from the reference's state, records equal and weights by
+    the adamw rule of ``api/parity.py``."""
+    js = jfl.init_state(jax.random.PRNGKey(0), jcfgs.SMOKE)
+    before = jax.device_get(js)
+    ts = fl_state_from_jax(before, device="cpu")
+    assert set(ts.opt_state) == {"m", "v", "count"}
+    assert set(tfl.init_state(torch.Generator().manual_seed(0), tcfgs.SMOKE,
+                              device="cpu").opt_state) == {"m", "v", "count"}
+    b = _batch(0, tcfgs.SMOKE)
+    js, jm = jax.jit(jfl.make_raw_step(jcfgs.SMOKE, agg_dtype=jnp.float32))(
+        js, {k: jnp.asarray(v) for k, v in b.items()})
+    ts, tm = tfl.make_raw_step(tcfgs.SMOKE, agg_dtype=torch.float32)(
+        ts, {"x": torch.from_numpy(b["x"]), "y": torch.from_numpy(b["y"])})
+    after = jax.device_get(js)
+    for k in ("mask", "accept_rate", "bytes_sent"):
+        np.testing.assert_array_equal(tm[k].numpy(), np.asarray(jm[k]))
+    g = {k: np.asarray(after.opt_state["m"][k], np.float64) / 0.1
+         for k in after.params}
+    bounds = {k: parity.grad_bound(v, 256, B) for k, v in g.items()}
+    assert parity.adamw_weight_problems(
+        {k: v.numpy() for k, v in ts.params.items()}, after.params, [g],
+        [bounds], [1e-3]) == []
+
+
 def test_step_refuses_what_is_not_ported():
     opt = topt.sgd(LR)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tfl.make_raw_step(tcfgs.SMOKE, None)
+    # the default optimizer (optim.for_config: adamw) is run, not refused;
+    # tests/test_torch_train.py holds it against the JAX package's, and
+    # here one step of the mlp without an optimizer against JAX's
+    _default_optimizer_step_matches_jax()
     # two-stage selection is run, not refused
     two = tfl.ControlPlane(num_clients=C, select_k=2, candidate_frac=0.5,
                            candidate_shards=2)

@@ -47,6 +47,14 @@ def test_synthetic_datasets_are_byte_identical(seed):
         _same(a, b)
 
 
+@pytest.mark.parametrize("seed", [0, 7, 12345])
+def test_lm_tokens_are_byte_identical(seed):
+    for args in [(seed, 6, 33, 512), (seed, 2, 128, 151936)]:
+        for a, b in zip(jsyn.make_lm_tokens(*args),
+                        tsyn.make_lm_tokens(*args)):
+            _same(a, b)
+
+
 @pytest.mark.parametrize("alpha", [0.1, 0.5, 5.0])
 def test_partitions_are_byte_identical(alpha):
     _, y = jsyn.make_unsw_like(0, 2000)

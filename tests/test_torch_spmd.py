@@ -216,6 +216,8 @@ ACCEPTED = {
     "per_client_lr": dict(strategy="fedl2p"),
     "lr_schedule": dict(strategy="fedavg", lr_schedule=lambda s: 0.01),
     "optimizer-sgd": dict(strategy="fedavg", optimizer="sgd"),
+    "optimizer-adamw": dict(strategy="fedavg", optimizer="adamw"),
+    "optimizer-adafactor": dict(strategy="fedavg", optimizer="adafactor"),
     "scenario": dict(strategy="cmfl", scenario="dynamic"),
     "topology": dict(strategy="cmfl", topology="two-tier-pods"),
     "candidate_frac": dict(strategy="cmfl", candidate_frac=0.5,
@@ -233,13 +235,16 @@ REFUSED_LIKE_JAX = {
 }
 # refusals whose hints are the JAX package's own, word for word
 SAME_HINT = ("resident",)
+# adamw and adafactor are run (ACCEPTED above; tests/test_torch_train.py
+# holds their runs against the JAX package); the unported families stay
+# refused
 NOT_PORTED = {
-    "adamw": (dict(optimizer="adamw"), "optimizer", 14),
-    "adafactor": (dict(optimizer="adafactor"), "optimizer", 14),
+    "ssm-model": (dict(model="rwkv6-7b"), "model", 14),
+    "hybrid-model": (dict(model="hymba-1.5b"), "model", 14),
 }
 _SPEC_FIELDS = ("rounds_per_dispatch", "fused_eval", "lr_schedule",
                 "optimizer", "scenario", "topology", "candidate_frac",
-                "candidate_shards")
+                "candidate_shards", "model")
 
 
 def _make(mod, options):
