@@ -367,6 +367,48 @@ Phases, each printing JSON lines:
                checkpoint written; the phase's
                seconds (``"phase": "train_phase"``).
 
+  9. families — the ssm, hybrid and audio families (models/rwkv6.py,
+               hybrid.py, whisper.py), weights drawn on the card from seed
+               0 (bf16), each arch's real parameter count printed beside
+               ``param_count``'s formula: (a) ``serve_lm`` at rwkv6-7b's
+               full width, B 4 × 2,048 tokens, 16 greedy (no flash launch;
+               the prompt cut to 1,024 if the prefill passes 30 s), the
+               WKV loop's share of a warm prefill timed by CUDA events,
+               peak memory beside a reckoning; (b) hymba-1.5b the same,
+               ``blockwise`` (32 wgmma flash launches in the prefill, none
+               in the decode) and ``full``, the selective scan's share,
+               blockwise against full printed, and ``flash_attention`` at
+               its prefill layer (4, 2,048, 25, 5, 64) bf16 causal (and
+               whisper's decoder's (4, 512, 6, 6, 64)) against its plain
+               version, timed beside its bound and SDPA (``"phase":
+               "kernels"``); (c) whisper-tiny at B 4 × 512 decoder tokens
+               beside its 1,500 stub frames, both impls (4 flash launches
+               a blockwise prefill, none for the encoder, the cross
+               attention or the decode); (d) hymba-1.5b (C 2 × 1 × 512
+               tokens) and whisper-tiny (C 4 × 1 × 512 and the frames)
+               trained through the spmd step, blockwise, remat, θ 0.65, 1
+               warm and 2 timed steps: one count, one aggregation and 128
+               (hymba) or 32 (whisper) flash launches a step, s a step,
+               tokens/s, peak memory, the scan's share of a step; the
+               count and the aggregation at hymba's arena against their
+               plain versions; rwkv6-7b's reason for not training at full
+               width; (e) card against CPU in f32, TF32 off, blockwise:
+               whisper-tiny at full width, rwkv6-7b and hymba-1.5b at
+               full width cut to 2 layers; B 1 × 512 prefill and four
+               teacher-forced decode steps within 1e-4 of max|logit|,
+               every cache leaf by ``parity.state_problems``, greedy
+               tokens equal where the top-2 margin is at least 1e-3;
+               then 1 (rwkv6) or 2 steps of C 2 × 1 × 256 tokens on the
+               CPU with the config's optimizer (adafactor for rwkv6),
+               each replayed on the card from the CPU's state: records equal, no θ ratio
+               within the band, gradients by ``parity.grad_problems``,
+               reference signs, weights by the adamw rule or the
+               adafactor replay (``"phase": "card_vs_cpu"``, problems
+               ``[]``); (f) ``python -m repro_torch.launch.serve --arch
+               rwkv6-7b --smoke`` and ``python -m repro_torch.launch.train
+               --arch whisper-tiny`` in subprocesses, exit 0; the phase's
+               seconds (``"phase": "families_phase"``).
+
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It needs a CUDA device and the repository
@@ -398,7 +440,11 @@ after the build; and
 
     python3 chip_smoke.py --train
 
-only phase 8 (training the language models), after the build.
+only phase 8 (training the language models), after the build; and
+
+    python3 chip_smoke.py --families
+
+only phase 9 (the ssm, hybrid and audio families), after the build.
 """
 from __future__ import annotations
 
@@ -2968,74 +3014,84 @@ def wgmma_ptxas(log: str, flash_attn) -> list:
     return out
 
 
-def phase_flash(flash_attn, ref) -> dict:
-    """Hold flash_attention to its plain version at every listed shape,
-    each through the kernel its route names (bf16 at hd 64/96/128 must be
-    "wgmma"); time each beside its bound, its plain version and SDPA, and
-    at the wgmma kernel's main case the SIMT kernel on the same inputs."""
+def flash_case(flash_attn, ref, case) -> tuple:
+    """One case of FLASH_CASES' form held to its plain version through
+    the kernel its route names (bf16 at hd 64/96/128 must be "wgmma") and
+    timed beside its bound, its plain version and SDPA. Returns (line,
+    route, q, k, v, window)."""
     F = torch.nn.functional
+    name, layout, shape, dtype, causal, window, Sk = case
+    q, k, v = flash_inputs(layout, shape, dtype, Sk)
+    which = flash_attn.route(q.dtype, shape[-1])
+    if dtype == "bfloat16" and shape[-1] in (64, 96, 128) and \
+            which != "wgmma":
+        raise AssertionError(f"{name}: bf16 hd {shape[-1]} routes to "
+                             f"{which}, not wgmma")
+    if layout == "flat":
+        call = functools.partial(flash_attn.flash_attention, q, k, v,
+                                 causal=causal)
+        plain = functools.partial(ref.flash_attention, q, k, v, causal)
+        sdpa = functools.partial(F.scaled_dot_product_attention,
+                                 q[None], k[None], v[None],
+                                 is_causal=causal)
+    else:
+        call = functools.partial(flash_attn.flash_attention_gqa, q, k, v,
+                                 causal=causal, sliding_window=window)
+        plain = functools.partial(plain_gqa, ref, q, k, v, causal, window)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None
+        if window is not None:
+            S = q.shape[1]
+            i = torch.arange(S, device="cuda")[:, None]
+            j = torch.arange(S, device="cuda")[None, :]
+            mask = (j <= i) & ((i - j) < window)
+        sdpa = functools.partial(
+            F.scaled_dot_product_attention, qt, kt, vt, attn_mask=mask,
+            is_causal=causal and mask is None, enable_gqa=True)
+    before = dict(flash_attn.launches_by_route)
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    took = {r: n - before[r] for r, n in
+            flash_attn.launches_by_route.items()}
+    if took != {r: int(r == which) for r in took}:
+        raise AssertionError(f"{name}: route {which}, launches {took}")
+    excess = flash_excess(got, want)
+    gap = float((got.float() - want.float()).abs().max())
+    if got.dtype != q.dtype or got.shape != want.shape or \
+            not excess <= 0.0:
+        raise AssertionError(f"flash_attention differs from its plain "
+                             f"version at {name} {shape} {dtype}: excess "
+                             f"{excess}, max gap {gap}")
+    nbytes, flops = flash_work(layout, shape, causal, window, Sk,
+                               q.element_size())
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    line = dict(name="flash_attention", case=name, route=which,
+                layout=layout, shape=list(shape), dtype=dtype,
+                causal=causal,
+                window=window, sk=Sk, max_abs_err=gap,
+                elements_differing=int((got != want).sum()),
+                ms=time_ms(call, iters=10, warmup=2),
+                device_ms=graph_ms(call, per_graph=3, replays=3),
+                plain_ms=time_ms(plain, iters=3, warmup=1),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=time_ms(sdpa, iters=10, warmup=2),
+                library_device_ms=graph_ms(sdpa, per_graph=3,
+                                           replays=3))
+    return line, which, q, k, v, window
+
+
+def phase_flash(flash_attn, ref) -> dict:
+    """Hold flash_attention to its plain version at every listed shape
+    (``flash_case``), and at the wgmma kernel's main case time the SIMT
+    kernel on the same inputs."""
     rows, err = {}, dict.fromkeys(FLASH_MAIN, 0.0)
-    for name, layout, shape, dtype, causal, window, Sk in FLASH_CASES:
-        q, k, v = flash_inputs(layout, shape, dtype, Sk)
-        which = flash_attn.route(q.dtype, shape[-1])
-        if dtype == "bfloat16" and shape[-1] in (64, 96, 128) and \
-                which != "wgmma":
-            raise AssertionError(f"{name}: bf16 hd {shape[-1]} routes to "
-                                 f"{which}, not wgmma")
-        if layout == "flat":
-            call = functools.partial(flash_attn.flash_attention, q, k, v,
-                                     causal=causal)
-            plain = functools.partial(ref.flash_attention, q, k, v, causal)
-            sdpa = functools.partial(F.scaled_dot_product_attention,
-                                     q[None], k[None], v[None],
-                                     is_causal=causal)
-        else:
-            call = functools.partial(flash_attn.flash_attention_gqa, q, k, v,
-                                     causal=causal, sliding_window=window)
-            plain = functools.partial(plain_gqa, ref, q, k, v, causal, window)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            mask = None
-            if window is not None:
-                S = q.shape[1]
-                i = torch.arange(S, device="cuda")[:, None]
-                j = torch.arange(S, device="cuda")[None, :]
-                mask = (j <= i) & ((i - j) < window)
-            sdpa = functools.partial(
-                F.scaled_dot_product_attention, qt, kt, vt, attn_mask=mask,
-                is_causal=causal and mask is None, enable_gqa=True)
-        before = dict(flash_attn.launches_by_route)
-        got, want = call(), plain()
-        torch.cuda.synchronize()
-        took = {r: n - before[r] for r, n in
-                flash_attn.launches_by_route.items()}
-        if took != {r: int(r == which) for r in took}:
-            raise AssertionError(f"{name}: route {which}, launches {took}")
-        excess = flash_excess(got, want)
-        gap = float((got.float() - want.float()).abs().max())
-        if got.dtype != q.dtype or got.shape != want.shape or \
-                not excess <= 0.0:
-            raise AssertionError(f"flash_attention differs from its plain "
-                                 f"version at {name} {shape} {dtype}: excess "
-                                 f"{excess}, max gap {gap}")
-        err[which] = max(err[which], gap)
-        nbytes, flops = flash_work(layout, shape, causal, window, Sk,
-                                   q.element_size())
-        rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / rate * 1e3
-        line = dict(name="flash_attention", case=name, route=which,
-                    layout=layout, shape=list(shape), dtype=dtype,
-                    causal=causal,
-                    window=window, sk=Sk, max_abs_err=gap,
-                    elements_differing=int((got != want).sum()),
-                    ms=time_ms(call, iters=10, warmup=2),
-                    device_ms=graph_ms(call, per_graph=3, replays=3),
-                    plain_ms=time_ms(plain, iters=3, warmup=1),
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    library_ms=time_ms(sdpa, iters=10, warmup=2),
-                    library_device_ms=graph_ms(sdpa, per_graph=3,
-                                               replays=3))
+    for case in FLASH_CASES:
+        line, which, q, k, v, window = flash_case(flash_attn, ref, case)
+        name, causal = case[0], case[4]
+        err[which] = max(err[which], line["max_abs_err"])
         if name == FLASH_MAIN["wgmma"]:
             # the SIMT kernel on the same bf16 inputs, for the old time
             # beside the new one on one card
@@ -3051,13 +3107,13 @@ def phase_flash(flash_attn, ref) -> dict:
                     f"not faster than the SIMT one ({line['simt_device_ms']})")
             del out
         emit("kernels", **line)
-        for r, case in FLASH_MAIN.items():
-            if name == case:
+        for r, main_case in FLASH_MAIN.items():
+            if name == main_case:
                 rows[r] = {k: line[k] for k in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "library_device_ms", "simt_ms",
                     "simt_device_ms") if k in line}
-        del q, k, v, got, want
+        del q, k, v
     return {("flash_attention" if r == "wgmma" else "flash_attention_simt"):
             dict(route="cuda", kernel=r, source=FLASH_SOURCES[r],
                  replaces="src/repro/kernels/flash_attn.py:71",
@@ -3065,13 +3121,14 @@ def phase_flash(flash_attn, ref) -> dict:
 
 
 class ServeRecorder:
-    """Wraps the transformer's ``prefill`` and ``decode_step`` for one
-    ``serve_lm`` call: the prefill's logits, the kernel launches when the
-    prefill ends and the times at its end and at the first decode step,
-    each after a synchronisation."""
+    """Wraps a model module's ``prefill`` and ``decode_step`` (the
+    transformer's, or another family's) for one ``serve_lm`` call: the
+    prefill's logits, the kernel launches when the prefill ends and the
+    times at its end and at the first decode step, each after a
+    synchronisation."""
 
-    def __init__(self, transformer, flash_attn):
-        self.tf, self.fa = transformer, flash_attn
+    def __init__(self, module, flash_attn):
+        self.tf, self.fa = module, flash_attn
 
     def __enter__(self):
         self.prefill, self.decode = self.tf.prefill, self.tf.decode_step
@@ -3098,15 +3155,15 @@ class ServeRecorder:
         self.tf.prefill, self.tf.decode_step = self.prefill, self.decode
 
 
-def serve_run(serve, transformer, mods, cfg, params, batch, prompt_len,
+def serve_run(serve, module, mods, cfg, params, batch, prompt_len,
               steps) -> dict:
     """``serve_lm`` on the card with every launch count set to 0 just
-    before; returns its tokens, prefill logits, times, launches and peak
-    memory."""
+    before (``module`` the config's model module); returns its tokens,
+    prefill logits, times, launches and peak memory."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(mods)
-    with ServeRecorder(transformer, mods["flash_attn"]) as rec:
+    with ServeRecorder(module, mods["flash_attn"]) as rec:
         t0 = time.perf_counter()
         toks = serve.serve_lm(cfg, batch, prompt_len, steps, device="cuda",
                               params=params)
@@ -3123,24 +3180,27 @@ def serve_run(serve, transformer, mods, cfg, params, batch, prompt_len,
                 peak_memory_bytes=torch.cuda.max_memory_allocated())
 
 
-def teacher_forced(model_api, cfg, params, prompt, feed, device) -> list:
-    """Prefill ``prompt`` (a batch dict of CPU tensors) on ``device``,
-    graft the cache, then decode the tokens ``feed`` (B, n) one by one;
-    returns the logits of the prefill and of each step, on the CPU in
-    f32."""
+def teacher_forced(model_api, serve, cfg, params, prompt, feed,
+                   device) -> tuple:
+    """Prefill ``prompt`` (CPU tensors) on ``device``, graft the cache
+    (``serve.graft_cache``), decode ``feed`` (B, n) one token at a time;
+    returns (logits of the prefill and each step, the prefill's cache, the
+    last cache), on the CPU in f32."""
     logits, cache = model_api.prefill(
         params, {k: v.to(device) for k, v in prompt.items()}, cfg)
-    B, S = feed.shape[0], cache["step"]
-    full = model_api.init_cache(cfg, B, S + feed.shape[1], device=device)
-    for name in ("k", "v"):
-        full[name][:, :, :S] = cache[name]
+    S = cache["step"]
+    host = {k: (v.float().cpu() if torch.is_tensor(v) else v)
+            for k, v in cache.items()}
+    full = serve.graft_cache(model_api.init_cache(
+        cfg, feed.shape[0], S + feed.shape[1], device=device), cache)
     full["step"] = S
     out = [logits.float().cpu()]
     for i in range(feed.shape[1]):
         logits, full = model_api.decode_step(
             params, full, {"tokens": feed[:, i:i + 1].to(device)}, cfg)
         out.append(logits.float().cpu())
-    return out
+    return out, host, {k: (v.float().cpu() if torch.is_tensor(v) else v)
+                       for k, v in full.items()}
 
 
 def phase_lm(mods) -> dict:
@@ -3236,12 +3296,12 @@ def phase_lm(mods) -> dict:
     feed = serve.serve_lm(small, 1, 512, 4, device="cpu",
                           params=cpu_params)[:, :4]
     with torch.no_grad():
-        cpu_logits = teacher_forced(model_api, small, cpu_params,
-                                    {"tokens": prompt}, feed, "cpu")
+        cpu_logits = teacher_forced(model_api, serve, small, cpu_params,
+                                    {"tokens": prompt}, feed, "cpu")[0]
         torch.cuda.synchronize()
         reset_launches(mods)
-        card_logits = teacher_forced(model_api, small, card_params,
-                                     {"tokens": prompt}, feed, "cuda")
+        card_logits = teacher_forced(model_api, serve, small, card_params,
+                                     {"tokens": prompt}, feed, "cuda")[0]
         torch.cuda.synchronize()
         card_launches = mods["flash_attn"].launches
         f32_launches = read_launches(mods)
@@ -3466,13 +3526,13 @@ def moe_card_cpu(mods, parity, arch: str) -> dict:
                           params=cpu_params)[:, :4]
     with torch.no_grad():
         with RoutingRecorder(moe) as cpu_rec:
-            cpu_logits = teacher_forced(model_api, cfg, cpu_params, prompt,
-                                        feed, "cpu")
+            cpu_logits = teacher_forced(model_api, serve, cfg, cpu_params,
+                                        prompt, feed, "cpu")[0]
         torch.cuda.synchronize()
         reset_launches(mods)
         with RoutingRecorder(moe, inputs=True) as card_rec:
-            card_logits = teacher_forced(model_api, cfg, card_params, prompt,
-                                         feed, "cuda")
+            card_logits = teacher_forced(model_api, serve, cfg, card_params,
+                                         prompt, feed, "cuda")[0]
         torch.cuda.synchronize()
         launches = read_launches(mods)
         replayed = [moe.route(c, router.cpu(), xt.cpu())
@@ -4405,39 +4465,45 @@ def train_spans(mods, step, box: list, batch) -> dict:
     return dict(wall_ms=wall * 1e3, span_ms=spans)
 
 
-def train_cell(mods, run: str, cfg, steps: int = 3) -> tuple:
-    """The training cell of one config at full width (TRAIN_CELL): weights
-    drawn on the card from seed 0, the config's optimizer, 1 warm step and
-    ``steps`` timed ones; returns (box, step, batches, line), ``box`` a
-    one-element list holding the state (``stepped``)."""
+def train_cell(mods, run: str, cfg, steps: int = 3, cell=None,
+               warm: int = 1) -> tuple:
+    """The training cell of one config at full width (``cell``, else
+    TRAIN_CELL): weights drawn on the card from seed 0, the config's
+    optimizer, ``warm`` warm steps and ``steps`` timed ones; returns (box, step,
+    batches, line), ``box`` a one-element list holding the state
+    (``stepped``). Model FLOPs are not reckoned for the audio family (its
+    encoder frames are no tokens of the formula)."""
     from repro_torch.core import fl_step
     from repro_torch.launch import train as train_mod
-    C, B, S = (TRAIN_CELL[k] for k in ("clients", "per_client", "seq"))
+    cell = cell or TRAIN_CELL
+    C, B, S = (cell[k] for k in ("clients", "per_client", "seq"))
     t0 = time.perf_counter()
     box = [fl_step.init_state(torch.Generator(device="cuda").manual_seed(0),
                               cfg, device="cuda")]
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    step = fl_step.build_fl_train_step(cfg, theta=TRAIN_CELL["theta"])
+    step = fl_step.build_fl_train_step(cfg, theta=cell["theta"])
     draw = train_mod.make_batch_fn(cfg, C, B, S, seed=0, device="cuda")
-    batches = [draw() for _ in range(steps + 1)]
-    r = train_run(mods, step, box, batches)
+    batches = [draw() for _ in range(steps + warm)]
+    r = train_run(mods, step, box, batches, warm=warm)
     n = sum(t.numel() for t in _leaves(box[0].params))
     rows = -(-n // 1024)
     tokens = C * B * (S - (cfg.num_patches if cfg.family == "vlm" else 0))
-    flops = train_flops(cfg, C * B * S, S)
+    flops = (None if cfg.family == "audio"
+             else train_flops(cfg, C * B * S, S))
     step_s = sum(r["step_s"]) / len(r["step_s"])
     finite = all(math.isfinite(x) for x in r["losses"])
     line = dict(run=run, arch=cfg.name, layers=cfg.num_layers,
                 attention_impl=cfg.attention_impl, remat=cfg.remat,
                 dtype=cfg.dtype, clients=C, per_client_batch=B, seq=S,
-                theta=TRAIN_CELL["theta"],
+                theta=cell["theta"],
                 optimizer=sorted(box[0].opt_state), params=n,
                 arena_rows=rows,
                 init_s=init_s, step_s=r["step_s"], step_s_mean=step_s,
                 tokens_per_s=tokens / step_s,
-                model_tflops_per_step=flops / 1e12,
-                model_tflop_per_s=flops / step_s / 1e12,
+                model_tflops_per_step=None if flops is None else flops / 1e12,
+                model_tflop_per_s=(None if flops is None
+                                   else flops / step_s / 1e12),
                 flops_formula="6*N'*T + 6*L*S*H*hd*T (N' = parameters less "
                               "the input embedding, active experts only; T "
                               "tokens a step; remat's recompute not counted)",
@@ -4505,10 +4571,10 @@ def traced_grid(fn, kernel: str, calls: int = 2) -> dict:
 
 
 def phase_train_kernels(sign_align, masked_agg, ref, R: int,
-                        smi: str) -> None:
+                        smi: str, arena: str = "qwen2-1.5b") -> None:
     """8 (b): the count and the aggregation at C 2 × R, the rows of
-    qwen2-1.5b's arena, against their plain versions, timed beside their
-    bounds."""
+    ``arena``'s arena (qwen2-1.5b's; hymba-1.5b's in phase 9), against
+    their plain versions, timed beside their bounds."""
     C = TRAIN_CELL["clients"]
     u, r, w = kernel_inputs(C, R, seed=3)
     counts, _ = held_counts(sign_align.per_client_sign_align,
@@ -4522,7 +4588,7 @@ def phase_train_kernels(sign_align, masked_agg, ref, R: int,
     sa_bound = bound_ms(C * m * 4 + m + C * 4, 2 * C * m)
     ma_bound = bound_ms(C * m * 4 + C * 4 + m * 4, 2 * C * m)
     emit("kernels", name="per_client_sign_align", shape=[C, R],
-         counts=counts.tolist(), sign_align="equal",
+         arena=arena, counts=counts.tolist(), sign_align="equal",
          ms=time_ms(lambda: sign_align.per_client_sign_align(u, r),
                     iters=20, warmup=3),
          plain_ms=time_ms(lambda: ref.per_client_sign_align(u, r),
@@ -4530,8 +4596,8 @@ def phase_train_kernels(sign_align, masked_agg, ref, R: int,
          bound_ms=sa_bound[0], bound_by=sa_bound[1], library_ms=None,
          design=traced_grid(lambda: sign_align.per_client_sign_align(u, r),
                             "sign_align_kernel"), nvidia_smi=smi)
-    emit("kernels", name="masked_agg", shape=[C, R], max_abs_err=err,
-         excess=excess,
+    emit("kernels", name="masked_agg", shape=[C, R], arena=arena,
+         max_abs_err=err, excess=excess,
          ms=time_ms(lambda: masked_agg.masked_agg(u, w), iters=20, warmup=3),
          plain_ms=time_ms(lambda: ref.masked_agg(u, w), iters=3, warmup=1),
          bound_ms=ma_bound[0], bound_by=ma_bound[1],
@@ -4826,6 +4892,554 @@ def phase_train(mods, parity, ref, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 9. the ssm, hybrid and audio families: served and trained at full width
+# ---------------------------------------------------------------------------
+
+# run -> (arch, attention_impl, batch, prompt positions, decode steps,
+# flash launches of the prefill); whisper's prompt is its decoder's tokens
+# (beside its 1,500 stub frames), 512 the least that reaches the kernel
+FAMILY_SERVES = {
+    "rwkv6-7b serve": ("rwkv6-7b", "full", 4, 2048, 16, 0),
+    "hymba-1.5b serve blockwise": ("hymba-1.5b", "blockwise", 4, 2048, 16,
+                                   32),
+    "hymba-1.5b serve full": ("hymba-1.5b", "full", 4, 2048, 16, 0),
+    "whisper-tiny serve blockwise": ("whisper-tiny", "blockwise", 4, 512, 16,
+                                     4),
+    "whisper-tiny serve full": ("whisper-tiny", "full", 4, 512, 16, 0),
+}
+RWKV_PREFILL_CUT_S = 30.0      # above it the rwkv6 prompt is cut to 1,024
+# arch -> (cell, flash launches a step, warm steps, timed steps): hymba's
+# step is its selective scan's launches (forward, remat's recompute and
+# backward: minutes of host time for a few steps), so its one timed step
+# is its first
+FAMILY_TRAIN = {
+    "hymba-1.5b": (dict(clients=2, per_client=1, seq=512, theta=0.65),
+                   2 * 32 * 2, 0, 1),
+    "whisper-tiny": (dict(clients=4, per_client=1, seq=512, theta=0.65),
+                     2 * 4 * 4, 1, 2),
+}
+# card against CPU, f32: arch -> (layers (None: all), training steps);
+# rwkv6's CPU step at d 4,096 takes half a minute, so it takes one
+FAMILY_CARD_CPU = {"whisper-tiny": (None, 2), "rwkv6-7b": (2, 1),
+                   "hymba-1.5b": (2, 2)}
+# the recurrent loops (plain torch, a loop over time) whose share of a
+# prefill and of a training step is timed: module -> function
+SCAN_LOOPS = {"rwkv6": "_wkv_scan", "hybrid": "_ssm_scan"}
+
+
+class ScanTimer:
+    """Wraps the family's recurrent loop (``SCAN_LOOPS``) with CUDA events
+    around each call (no synchronisation); ``ms()`` sums their spans, the
+    device time from a call's first launch to its last, gaps included."""
+
+    def __init__(self, module):
+        self.mod = module
+        self.name = SCAN_LOOPS.get(module.__name__.rsplit(".", 1)[-1])
+        self.events = []
+
+    def __enter__(self):
+        if self.name:
+            fn = getattr(self.mod, self.name)
+
+            def timed(*a, **k):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a, **k)
+                end.record()
+                self.events.append((start, end))
+                return out
+            self.fn = fn
+            setattr(self.mod, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        if self.name:
+            setattr(self.mod, self.name, self.fn)
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def family_weights(cfg) -> tuple:
+    """The config's weights drawn on the card from seed 0 (the card freed
+    first): (params, line) with the real count beside ``param_count``'s
+    formula (approximate for ssm and hybrid, as in the JAX package)."""
+    from repro_torch.models import api as model_api
+    free_card()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_api.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    return params, dict(
+        run=f"{cfg.name} weights", layers=cfg.num_layers, params=n,
+        param_count_formula=cfg.param_count(),
+        bytes=sum(t.numel() * t.element_size() for t in _leaves(params)),
+        f32_leaves=sorted({".".join(map(str, p)) for p, t in
+                           _named(params) if t.dtype == torch.float32}),
+        draw_s=time.perf_counter() - t0,
+        init_peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def _named(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def serve_reckoning(cfg, n: int, batch: int, prompt_len: int,
+                    steps: int) -> dict:
+    """A serve's device memory, item by item (bytes), from the shapes: the
+    ``n`` weights, the cache at the decode length, the prefill's logits,
+    and the init's largest f32 draw (the stacked channel-mix or FFN up
+    matrix)."""
+    from repro_torch.models import api as model_api
+    cache = model_api.init_cache(cfg, 1, prompt_len + steps, device="meta")
+    items = {
+        "weights_bf16": 2 * n,
+        "cache": batch * sum(t.numel() * t.element_size()
+                             for k, t in cache.items() if k != "step"),
+        "logits_bf16": batch * prompt_len * cfg.padded_vocab * 2,
+        "init_largest_draw_f32": 4 * cfg.num_layers * cfg.d_model * cfg.d_ff,
+    }
+    items["total_weights_cache_logits"] = (items["weights_bf16"]
+                                           + items["cache"]
+                                           + items["logits_bf16"])
+    return items
+
+
+def family_serve(mods, run: str, cfg, params, n_params: int, batch,
+                 prompt_len, steps, flash: int) -> dict:
+    """``serve_lm`` at full width (warmed at B 1 × 512), gated: the
+    prefill's flash launches all wgmma and ``flash`` of them, none in the
+    decode, tokens and logits well formed; the recurrent loop's CUDA-event
+    span in the timed prefill against its wall time."""
+    from repro_torch.launch import serve
+    from repro_torch.models import api as model_api
+    module = model_api.module_for(cfg)
+    serve.serve_lm(cfg, 1, 512, 1, device="cuda", params=params)   # warm
+    with ScanTimer(module) as timer:
+        r = serve_run(serve, module, mods, cfg, params, batch, prompt_len,
+                      steps)
+    toks, logits = r["tokens"], r["logits"]
+    ok = (tuple(toks.shape) == (batch, 1 + steps)
+          and bool(((toks >= 0) & (toks < cfg.padded_vocab)).all())
+          and bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (batch, prompt_len, cfg.padded_vocab))
+    line = dict(run=run, arch=cfg.name, layers=cfg.num_layers,
+                attention_impl=cfg.attention_impl, batch=batch,
+                prompt_len=prompt_len, decode_steps=steps,
+                prefill_s=r["prefill_s"], decode_s=r["decode_s"],
+                decode_tokens_per_s=r["decode_tokens_per_s"],
+                peak_memory_bytes=r["peak_memory_bytes"],
+                reckoned_bytes=serve_reckoning(cfg, n_params, batch,
+                                               prompt_len, steps),
+                launches=r["launches"],
+                flash_launches_prefill=r["prefill_launches"],
+                flash_routes_prefill=r["prefill_routes"],
+                flash_launches_decode=r["decode_launches"],
+                tokens_row0=toks[0].tolist(), well_formed=ok)
+    if cfg.family == "audio":
+        line.update(encoder_frames=cfg.encoder_seq, note=(
+            "512 decoder tokens pass Whisper's own 448-token text context; "
+            "the JAX package enforces no limit, and 512 is the least "
+            "length that reaches the flash kernel"))
+    if timer.name:
+        # the prefill runs the loop once a layer, before any decode step
+        torch.cuda.synchronize()
+        pre = sum(a.elapsed_time(b) for a, b in
+                  timer.events[:cfg.num_layers])
+        line.update(scan_loop=timer.name, scan_prefill_ms=pre,
+                    scan_share_of_prefill=pre / 1e3 / r["prefill_s"])
+    if not ok:
+        emit("slice", **line)
+        raise AssertionError(f"{run}: tokens or logits malformed")
+    if r["prefill_routes"] != {"wgmma": flash, "simt": 0} or \
+            r["decode_launches"] != 0:
+        emit("slice", **line)
+        raise AssertionError(
+            f"{run}: flash_attention launched {r['prefill_routes']} times in "
+            f"the prefill (want {flash}, all wgmma) and "
+            f"{r['decode_launches']} in the decode (want 0)")
+    line["logits"] = logits
+    line["tokens"] = toks
+    return line
+
+
+def family_serves(mods, smi: str) -> tuple:
+    """9 (a)-(c): each arch's weights drawn once, its serves run in turn;
+    blockwise against full printed; rwkv6's prompt cut to 1,024 if its
+    prefill passes RWKV_PREFILL_CUT_S. Returns each run's launches and
+    each arch's real parameter count."""
+    from repro_torch.configs import registry
+    launches, by_arch, counts = {}, {}, {}
+    for run, (arch, impl, batch, plen, steps, flash) in \
+            FAMILY_SERVES.items():
+        by_arch.setdefault(arch, []).append(
+            (run, impl, batch, plen, steps, flash))
+    for arch, runs in by_arch.items():
+        cfg = registry.get_config(arch)
+        params, wline = family_weights(cfg)
+        counts[arch] = wline["params"]
+        emit("slice", **wline, nvidia_smi=smi)
+        lines = {}
+        for run, impl, batch, plen, steps, flash in runs:
+            c = cfg.replace(attention_impl=impl)
+            line = family_serve(mods, run, c, params, counts[arch], batch,
+                                plen, steps, flash)
+            if arch == "rwkv6-7b" and line["prefill_s"] > RWKV_PREFILL_CUT_S:
+                emit("slice", **{k: v for k, v in line.items()
+                                 if k not in ("logits", "tokens")})
+                line = family_serve(mods, run, c, params, counts[arch],
+                                    batch, 1024, steps, flash)
+                line["cuts"] = dict(prompt_len=[plen, 1024])
+            lines[run] = line
+            emit("slice", **{k: v for k, v in line.items()
+                             if k not in ("logits", "tokens")},
+                 nvidia_smi=smi)
+            launches[run] = line["launches"]
+        if len(lines) == 2:
+            a, b = lines.values()
+            emit("slice", run=f"{arch} serve blockwise vs full",
+                 prefill_logit_gap_rel=float(
+                     (a["logits"].float() - b["logits"].float()).abs().max()
+                     / b["logits"].float().abs().max()),
+                 argmax_agreement=float((a["logits"].argmax(-1)
+                                         == b["logits"].argmax(-1)
+                                         ).float().mean()),
+                 tokens_equal=int((a["tokens"] == b["tokens"]).sum()),
+                 tokens=a["tokens"].numel(),
+                 prefill_s=[a["prefill_s"], b["prefill_s"]])
+        del params, lines
+        free_card()
+    return launches, counts
+
+
+FAMILY_FLASH_CASES = (   # the families' prefill layer, each as in phase 3
+    ("hymba prefill", "gqa", (4, 2048, 25, 5, 64), "bfloat16", True, None,
+     None),
+    ("whisper decoder prefill", "gqa", (4, 512, 6, 6, 64), "bfloat16", True,
+     None, None),
+)
+
+
+def family_flash(flash_attn, ref, smi: str) -> None:
+    """9 (b): flash_attention at hymba's (and whisper's) prefill layer
+    against its plain version, timed beside its bound and SDPA."""
+    for case in FAMILY_FLASH_CASES:
+        line, *_ = flash_case(flash_attn, ref, case)
+        emit("kernels", **line, nvidia_smi=smi)
+    free_card()
+
+
+def family_train(mods, ref, smi: str, rwkv_params: int) -> dict:
+    """9 (d): hymba-1.5b and whisper-tiny trained at full width through
+    the spmd step (bf16, remat, blockwise, the config's optimizer), 1 warm
+    and 2 timed steps; one count, one aggregation and the listed flash
+    launches a step; the recurrent loop's share of a warm step; the count
+    and the aggregation at hymba's arena against their plain versions.
+    rwkv6-7b is not trained at full width: the reason is printed."""
+    from repro_torch.configs import registry
+    from repro_torch.models import api as model_api
+    launches = {}
+    rwkv = registry.get_config("rwkv6-7b")
+    n = rwkv_params
+    emit("slice", run="rwkv6-7b train", trained=False, params=n,
+         reason=(f"{n} arena slots pass the sign count's 2^31 refusal "
+                 f"(kernels/sign_align.py), and a 2-client f32 arena alone "
+                 f"is {2 * 4 * n / 1e9:.1f} GB"), optimizer=rwkv.optimizer)
+    for arch, (cell, flash, warm, steps) in FAMILY_TRAIN.items():
+        cfg = registry.get_config(arch).replace(attention_impl="blockwise")
+        run = f"{arch} train blockwise"
+        free_card()
+        with ScanTimer(model_api.module_for(cfg)) as timer:
+            box, step, batches, line = train_cell(mods, run, cfg,
+                                                  steps=steps, cell=cell,
+                                                  warm=warm)
+        held_train_launches(run, line["launches"], steps, flash)
+        line.update(flash_launches_per_step_expected=flash, warm_steps=warm)
+        if timer.name:
+            line.update(scan_loop=timer.name,
+                        scan_forward_and_recompute_ms=timer.ms(),
+                        scan_share_of_steps=timer.ms() / 1e3
+                        / sum(line["step_s"]) if not warm else None,
+                        scan_note="the loop's forward and remat's "
+                                  "recompute, CUDA-event spans; its "
+                                  "backward is not timed apart")
+        emit("slice", **line, nvidia_smi=smi)
+        launches[run] = line["launches"]
+        rows = line["arena_rows"]
+        del box, step, batches
+        free_card()
+        if arch == "hymba-1.5b":
+            phase_train_kernels(mods["sign_align"], mods["masked_agg"], ref,
+                                rows, smi, arena=arch)
+            free_card()
+    return launches
+
+
+def family_card_cpu(mods, parity, arch: str, layers, train_steps) -> dict:
+    """9 (e): one arch at full width (``layers`` deep where given), f32,
+    TF32 off, blockwise (the SIMT flash kernel where a length reaches
+    it), card against CPU from the same weights. Serving: B 1 × 512
+    tokens (whisper with its 1,500 frames), prefill and four
+    teacher-forced decode steps within 1e-4 of max|logit|, every cache
+    leaf after the prefill and after the steps by
+    ``parity.state_problems``, greedy tokens equal where the CPU's top-2
+    margin is at least 1e-3. Training: C 2 × B 1 × 256 tokens,
+    θ 0.65, the config's optimizer (adafactor for rwkv6, adamw without
+    masters otherwise) recording its gradient on each device,
+    ``train_steps`` steps on the CPU, each replayed on the card from the
+    CPU's state before it:
+    records equal, loss within LOSS_RTOL, no θ ratio within THETA_BAND
+    (the second step; the first accepts every client), the gradients by
+    ``parity.grad_problems``, reference signs by ``ref_sign_problems`` and
+    weights by the adamw rule or the adafactor replay. Returns the card
+    runs' launches."""
+    from repro_torch.configs import registry
+    from repro_torch.core import fl_step
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import api as model_api
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw as optim_mod
+    from repro_torch.tree import named_leaves, tree_map
+    cfg = registry.get_config(arch).replace(dtype="float32",
+                                            attention_impl="blockwise")
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    problems = []
+    cpu_params = model_api.init_params(torch.Generator().manual_seed(0), cfg,
+                                       "cpu")
+    card_params = transformer.tree_to(cpu_params, "cuda")
+    rng = np.random.default_rng(0)
+    prompt = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                     size=(1, 512)))}
+    if cfg.family == "audio":
+        prompt["enc_embeds"] = torch.as_tensor(rng.normal(
+            size=(1, cfg.encoder_seq, cfg.d_model))).float()
+    t0 = time.perf_counter()
+    feed = serve.serve_lm(cfg, 1, 512, 4, device="cpu",
+                          params=cpu_params)[:, :4]
+    with torch.no_grad():
+        cpu_logits, cpu_pre, cpu_last = teacher_forced(
+            model_api, serve, cfg, cpu_params, prompt, feed, "cpu")
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        reset_launches(mods)
+        card_logits, card_pre, card_last = teacher_forced(
+            model_api, serve, cfg, card_params, prompt, feed, "cuda")
+        torch.cuda.synchronize()
+        serve_launches = read_launches(mods)
+    t2 = time.perf_counter()
+    gaps, tokens_held, tokens_near = [], 0, 0
+    for i, (c, g) in enumerate(zip(card_logits, cpu_logits)):
+        gap = float((c - g).abs().max() / g.abs().max())
+        gaps.append(gap)
+        if not gap <= 1e-4:
+            problems.append(f"{'prefill' if i == 0 else f'decode {i}'}: "
+                            f"logit gap {gap} of max|logit|")
+        top2 = torch.topk(g[:, -1], 2, dim=-1).values
+        held = (top2[:, 0] - top2[:, 1]) >= 1e-3
+        tokens_held += int(held.sum())
+        tokens_near += int((~held).sum())
+        if bool((held & (c[:, -1].argmax(-1) != g[:, -1].argmax(-1))).any()):
+            problems.append(f"step {i}: a greedy token differs where the "
+                            f"top-2 margin is at least 1e-3")
+    width = max(cfg.d_model, cfg.d_ff,
+                cfg.encoder_seq if cfg.family == "audio" else 0)
+    state_gaps = {}
+    for tag, got, want, steps in (("prefill", card_pre, cpu_pre, 512),
+                                  ("decode 4", card_last, cpu_last, 516)):
+        names = [k for k in want if k != "step"]
+        problems += parity.state_problems(
+            {k: got[k] for k in names}, {k: want[k] for k in names}, width,
+            steps, where=f"{tag} ")
+        state_gaps[tag] = {k: [float((got[k] - want[k]).abs().max()),
+                               parity.grad_bound(want[k], width, steps)]
+                           for k in names}
+    want_flash = {"rwkv6-7b": 0, "hymba-1.5b": cfg.num_layers,
+                  "whisper-tiny": cfg.num_layers}[arch]
+    if (serve_launches["flash_attention_simt"],
+            serve_launches["flash_attention"]) != (want_flash, 0):
+        problems.append(f"flash launched {serve_launches}, want "
+                        f"{want_flash} on the SIMT kernel")
+    serve_line = dict(logit_gap_rel=gaps, state_gap_and_bound=state_gaps,
+                      tokens_held=tokens_held, tokens_near_tie=tokens_near,
+                      cpu_serve_s=t1 - t0, card_serve_s=t2 - t1,
+                      launches=serve_launches)
+    del card_params, card_pre, card_last
+
+    # training: 2 steps on the CPU, each replayed on the card
+    seq, C = 256, 2
+    tcpu = time.perf_counter()
+    cpu_opt, cpu_seen = parity.recording(optim_mod.for_config(cfg))
+    card_opt, card_seen = parity.recording(optim_mod.for_config(cfg))
+    cpu_step = fl_step.make_raw_step(cfg, cpu_opt, theta=0.65,
+                                     agg_dtype=torch.float32)
+    card_step = fl_step.make_raw_step(cfg, card_opt, theta=0.65,
+                                      agg_dtype=torch.float32)
+    cpu = fl_step.init_state(None, cfg, cpu_opt, params=cpu_params,
+                             device="cpu")
+    draw = train_mod.make_batch_fn(cfg, C, 1, seq, seed=1, device="cpu")
+    gwidth = max(width, cfg.padded_vocab, seq)
+
+    def flat(tree, device="cuda"):
+        return {"/".join(map(str, p)): (v.detach().to(device)
+                                        if torch.is_tensor(v) else v)
+                for p, v in named_leaves(tree)}
+
+    steps_lines, train_launches = [], None
+    for i in range(train_steps):
+        batch = draw()
+        card = tree_map(lambda t: t.to("cuda") if torch.is_tensor(t) else t,
+                        cpu)
+        ta = time.perf_counter()
+        after, cm = cpu_step(cpu, batch)
+        tb = time.perf_counter()
+        torch.cuda.synchronize()
+        reset_launches(mods)
+        card, km = card_step(card, {k: v.to("cuda") for k, v in
+                                    batch.items()})
+        torch.cuda.synchronize()
+        train_launches = read_launches(mods)
+        tc_ = time.perf_counter()
+        where = f"{arch} train step {i}: "
+        for k in ("mask", "selected", "delivered"):
+            if not torch.equal(km[k].cpu(), cm[k]):
+                problems.append(f"{where}{k} {km[k].tolist()} vs "
+                                f"{cm[k].tolist()}")
+        for k in ("accept_rate", "bytes_sent", "bytes_baseline"):
+            if float(km[k]) != float(cm[k]):
+                problems.append(f"{where}{k} {float(km[k])} vs "
+                                f"{float(cm[k])}")
+        if not abs(float(km["loss"]) - float(cm["loss"])) <= \
+                parity.LOSS_RTOL * abs(float(cm["loss"])):
+            problems.append(f"{where}loss {float(km['loss'])} vs "
+                            f"{float(cm['loss'])}")
+        if i > 0:
+            problems += [where + p for p in parity.theta_band_violations(
+                [(i, c, float(x)) for c, x in enumerate(km["ratios"])],
+                0.65)]
+        g, g_card = flat(cpu_seen[-1]), flat(card_seen[-1])
+        scales = (parity.null_bias_scales(g, [k for k in g
+                                              if k.endswith("attn/bk")])
+                  if cfg.family == "audio" else {})
+        bounds = {k: parity.grad_bound(scales.get(k, v), gwidth, seq)
+                  for k, v in g.items()}
+        problems += parity.grad_problems(g_card, g, gwidth, seq, where,
+                                         scales=scales)
+        problems += parity.ref_sign_problems(flat(card.ref_sign),
+                                             flat(after.ref_sign), g,
+                                             bounds, where)
+        if cfg.optimizer == "adafactor":
+            replay, rstate = optim_mod.for_config(cfg).update(
+                tree_map(lambda t: t.cpu(), card_seen[-1]), cpu.opt_state,
+                cpu.params)
+            stats = {}
+            for k, v in flat(rstate["stats"]).items():
+                leaf, stat = k.rsplit("/", 1)
+                stats.setdefault(leaf, {})[stat] = v
+            problems += parity.adafactor_replay_problems(
+                flat(card.params), flat(replay), 1e-3, stats, where)
+            del replay, rstate
+        else:
+            problems += parity.adamw_weight_problems(
+                flat(card.params), flat(after.params), [g], [bounds],
+                [1e-3], count0=i, where=where)
+        gg = {k: [float((g_card[k].double() - g[k].double()).abs().max()),
+                  bounds[k]] for k in sorted(g)}
+        steps_lines.append(dict(
+            step=i, loss_card_cpu=[float(km["loss"]), float(cm["loss"])],
+            ratios=km["ratios"].tolist(), mask=km["mask"].tolist(),
+            grad_gap_over_bound=max((a / b for a, b in gg.values() if b > 0),
+                                    default=0.0),
+            grad_gap_and_bound_top3=sorted(
+                ([k, a, b] for k, (a, b) in gg.items() if b > 0),
+                key=lambda x: -x[1] / x[2])[:3],
+            cpu_step_s=tb - ta, card_step_s=tc_ - tb,
+            check_s=time.perf_counter() - tc_))
+        cpu = after
+        del card, g, g_card
+        cpu_seen.clear()
+        card_seen.clear()
+    line = dict(run=f"{arch} f32 card vs cpu", layers=cfg.num_layers,
+                encoder_layers=cfg.encoder_layers or None,
+                optimizer=cfg.optimizer, serve=serve_line,
+                train=dict(clients=C, batch=1, tokens=seq, steps=steps_lines,
+                           launches=train_launches,
+                           seconds=time.perf_counter() - tcpu),
+                allow_tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                                cudnn=torch.backends.cudnn.allow_tf32),
+                problems=problems)
+    emit("card_vs_cpu", **line)
+    if train_launches["per_client_sign_align"] != 1 or \
+            train_launches["masked_agg"] != 1:
+        raise AssertionError(f"{arch} card step launches {train_launches}")
+    if problems:
+        raise AssertionError(f"{arch} card vs CPU: " + "; ".join(problems))
+    return {f"{arch} f32 serve": serve_launches,
+            f"{arch} f32 train": train_launches}
+
+
+def family_clis() -> None:
+    """9 (f): ``python -m repro_torch.launch.serve --arch rwkv6-7b
+    --smoke`` and ``python -m repro_torch.launch.train --arch
+    whisper-tiny`` (full width) in subprocesses on the card, exit 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "rwkv6-7b", "--smoke", "--prompt-len", "32", "--decode-steps", "4"],
+        env=port_env(), capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    emit("slice", run="rwkv6-7b serve cli", returncode=proc.returncode,
+         stdout=lines, seconds=time.perf_counter() - t0)
+    if proc.returncode != 0 or not lines or not re.match(
+            r"prefill: 4x32 in .*decode: 4 steps", lines[-1]):
+        raise AssertionError(f"rwkv6-7b serve CLI: {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        train_cli(["--arch", "whisper-tiny", "--clients", "2",
+                   "--per-client-batch", "1", "--seq", "64", "--steps", "2",
+                   "--log-every", "1", "--ckpt-dir",
+                   os.path.join(tmp, "whisper")], "whisper-tiny train cli")
+
+
+def phase_families(mods, parity, ref, smi: str) -> dict:
+    """Phase 9 (module docstring, 9 (a) to (f)). Returns the launches of
+    each run."""
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def mark(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches, counts = family_serves(mods, smi)
+    mark("a_c_serve")
+    family_flash(mods["flash_attn"], ref, smi)
+    mark("b_flash")
+    launches.update(family_train(mods, ref, smi, counts["rwkv6-7b"]))
+    mark("d_train")
+    for arch, (layers, steps) in FAMILY_CARD_CPU.items():
+        launches.update(family_card_cpu(mods, parity, arch, layers, steps))
+        free_card()
+    mark("e_card_vs_cpu")
+    family_clis()
+    mark("f_cli")
+    emit("families_phase", seconds=time.perf_counter() - t_phase,
+         seconds_by_part=parts, nvidia_smi=smi)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4878,6 +5492,10 @@ def main() -> int:
     if sys.argv[1:] == ["--train"]:
         _build.build_all()
         phase_train(mods, parity, ref, smi)
+        return 0
+    if sys.argv[1:] == ["--families"]:
+        _build.build_all()
+        phase_families(mods, parity, ref, smi)
         return 0
     if sys.argv[1:] == ["--lazy-world"]:
         _build.build_all()
@@ -5045,6 +5663,11 @@ def main() -> int:
     # width through the spmd step, the kernels at the LM arena, the flash
     # backward, card against CPU at 2 layers, the trainer's CLI
     launches.update(phase_train(mods, parity, ref, smi))
+
+    # 9. the ssm, hybrid and audio families: rwkv6-7b, hymba-1.5b and
+    # whisper-tiny served at full width, hymba and whisper trained, card
+    # against CPU in f32, their CLIs
+    launches.update(phase_families(mods, parity, ref, smi))
 
     # launches on each kernel's main path: the megastep int8 run for the
     # three kernels it runs, the per-client int8 loop for the codec pair,

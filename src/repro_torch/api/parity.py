@@ -264,6 +264,56 @@ weights of step k in m̂ and v̂; R = 1 after one step, 1.0014 after two),
 plus the f32 rounding of the update and of the weight (4 ulps of the
 larger of the weight and the step). Elsewhere a weight is within its
 steps' 2·lr·R of the reference.
+
+An attention without rotary (whisper's) adds its key bias b_k to every
+key, so every score of a query's row moves by the same q·b_k, which the
+softmax ignores: the bias's gradient, Σ over positions of the keys'
+gradients, is zero in exact arithmetic, and each package's value is the
+rounding of that cancelling sum, far above its own tiny max|g|. Its terms
+are the keys' gradients, whose scale the key weight's gradient Σ_pos
+x_pos·dk_pos carries (x the normed input, of order one): such a leaf is
+held to ``grad_bound`` of its key weight's gradient (``null_bias_scales``;
+the bias of the values and queries is not shift-invariant and keeps its
+own).
+
+Adafactor keeps no first moment, so a step's aggregated gradient cannot
+be read back from its state: it is read where the optimizer receives it,
+held by ``grad_problems``, and the weights are held by a replay from one
+state (``adafactor_replay_problems``): the reference's optimizer applied
+to the run's own gradient from the state both runs started from. The two
+then differ by the optimizer's roundings alone. Its row and column means
+sum n positive terms in another order, within n·2^-24 relative; the
+factored denominator multiplies two such means and divides by a third,
+and the update takes its rsqrt: 4·n·2^-24 + 4 ulps relative of the
+update, n the leaf's widest mean (``tests/test_torch_optim.py``'s
+``FACTOR_RTOL``). The RMS clip divides by κ = max(rms(u), 1), a mean of
+the leaf's N squares, within (N/2 + 2)·2^-24 of itself for any order of
+summation, and |u|/κ ≤ √N. So a weight is within 4 ulps of its size plus
+lr·√N·(4·n·2^-24 + 4·2^-23 + (N/2 + 2)·2^-24) of the replay: a worst
+case that above 2^24 elements exceeds a step, so there a weight is held
+to its step's size only. Where a factored leaf's gradient lies at
+rounding level (a null direction's, as the key bias above), r_i·c_j can
+fall below f32's least normal 2^-126: the product is subnormal, which
+XLA's CPU code flushes to zero and torch keeps, and the relative rounding
+above no longer holds. Such a leaf is held to its two steps' size,
+2·lr·√N (each run moves a weight by at most lr·√N from the same start).
+
+The recurrent states (models/rwkv6.py's ``S`` and its token shifts
+``tshift``, ``cshift``; models/hybrid.py's ``h`` and its conv window
+``conv``) are sums over the T steps taken. rwkv6 updates S ← w·S + k⊗v
+with w = exp(−exp(·)) in (0, 1), hymba h ← exp(dt·A)·h + dt·x·B with dt
+> 0 and A < 0: the carried state is multiplied by a factor at most 1, so
+a gap made at one step never grows, and the T steps' gaps add. Each
+step's new term is a product of inputs that come from reductions of
+width at most K (the model and FFN widths), within K·2^-24 of their
+terms' scale in each run, and the update adds one rounding; over T steps
+one run is within (K + T)·2^-24 of the scale of the summed terms, and
+two runs within twice that: ``state_problems`` holds each leaf to
+GRAD_RUNS·(K + T)·2^-24·max|s|, with max|s| standing for the scale as
+``grad_bound`` does (a scale, not a proof), T the steps the state has
+taken (the prompt, then each decode step). The token shifts and the conv
+window are the last tokens' normed inputs, which read the earlier
+layers' states, and take the same rule.
 """
 from __future__ import annotations
 
@@ -758,19 +808,37 @@ def grad_bound(g, width: int, rows: int) -> float:
     return GRAD_RUNS * (width + rows) * 2.0 ** -24 * top
 
 
-def grad_problems(got: Dict[str, object], want: Dict[str, object],
-                  width: int, rows: int, where: str = "") -> List[str]:
-    """Leaves of two gradients (name -> array or tensor) that part by more
-    than ``grad_bound`` of the reference leaf, each named with its gap."""
+def null_bias_scales(grads: Dict[str, object], leaves) -> Dict[str, object]:
+    """For each key-bias leaf name in ``leaves`` (an attention without
+    rotary: whisper's), its key weight's gradient (the name's ``bk``
+    replaced by ``wk``) to stand for its scale (module docstring)."""
+    return {k: grads[k[:-2] + "wk"] for k in leaves}
+
+
+def _bound_problems(got, want, width: int, rows: int, where: str,
+                    what: str, scales=None) -> List[str]:
+    """Leaves (name -> array or tensor) of two runs that part by more than
+    ``grad_bound`` of the reference leaf (or of ``scales[name]``), each
+    named with its gap."""
     out = []
+    scales = scales or {}
     for k in sorted(want):
         w = _f64(want[k])
         gap = (_f64(got[k], w.device) - w).abs()
         gap = float(gap.max()) if gap.numel() else 0.0
-        bound = grad_bound(w, width, rows)
+        bound = grad_bound(scales.get(k, w), width, rows)
         if not gap <= bound:
-            out.append(f"{where}{k}: gradient gap {gap} beyond {bound}")
+            out.append(f"{where}{k}: {what} gap {gap} beyond {bound}")
     return out
+
+
+def grad_problems(got: Dict[str, object], want: Dict[str, object],
+                  width: int, rows: int, where: str = "",
+                  scales: Dict[str, object] = None) -> List[str]:
+    """Leaves of two gradients (name -> array or tensor) that part by more
+    than ``grad_bound`` of the reference leaf (or of ``scales[name]``,
+    where given), each named with its gap."""
+    return _bound_problems(got, want, width, rows, where, "gradient", scales)
 
 
 def ref_sign_problems(got: Dict[str, object], want: Dict[str, object],
@@ -838,3 +906,57 @@ def adamw_weight_problems(got: Dict[str, object], want: Dict[str, object],
             out.append(f"{where}{k}: undecided weight flat {i} moved "
                        f"{float(gap[i])} from the reference, beyond {reach}")
     return out
+
+
+def state_problems(got: Dict[str, object], want: Dict[str, object],
+                   width: int, steps: int, where: str = "") -> List[str]:
+    """Recurrent-state leaves (name -> array or tensor) of two runs that
+    part by more than GRAD_RUNS·(width + steps)·2^-24·max|s| of the
+    reference leaf (module docstring), each named with its gap."""
+    return _bound_problems(got, want, width, steps, where, "state")
+
+
+def adafactor_replay_problems(got: Dict[str, object],
+                              want: Dict[str, object], lr: float,
+                              stats: Dict[str, dict], where: str = ""
+                              ) -> List[str]:
+    """Weights after one adafactor step (name -> f32 array or tensor)
+    against the reference optimizer's replay of that step on the run's own
+    gradient from the same state, by the rule of the module docstring;
+    ``stats`` the replay's new statistics of each leaf (``r`` and ``c``,
+    or ``v``)."""
+    out = []
+    for k in sorted(want):
+        w = _f64(want[k])
+        n = max(w.shape[-2:]) if w.dim() >= 2 else 1
+        N = max(w.numel(), 1)
+        rel = 4 * n * F32_U + 4 * 2.0 ** -23
+        allowed = 4 * 2.0 ** -23 * w.abs() + lr * math.sqrt(N) * (
+            rel + (N / 2 + 2) * F32_U)
+        st = stats[k]
+        if "r" in st and float(_f64(st["r"]).min()) * float(
+                _f64(st["c"]).min()) < 2.0 ** -126:
+            allowed = torch.full_like(w, 2 * lr * math.sqrt(N))
+        gap = (_f64(got[k], w.device) - w).abs()
+        bad = ~(gap <= allowed)
+        if bool(bad.any()):
+            i = int(torch.nonzero(bad.reshape(-1))[0])
+            out.append(f"{where}{k}: {int(bad.sum())} weights beyond the "
+                       f"adafactor replay, first flat {i}: gap "
+                       f"{float(gap.reshape(-1)[i])} beyond "
+                       f"{float(allowed.reshape(-1)[i])}")
+    return out
+
+
+def recording(optimizer):
+    """(optimizer, grads): ``optimizer`` whose update first appends the
+    gradient nest it receives (a step's aggregated gradient) to the list
+    ``grads``, for the rules above that read it."""
+    from repro_torch.optim.adamw import Optimizer
+    grads = []
+
+    def update(g, state, params, lr_now=None):
+        grads.append(g)
+        return optimizer.update(g, state, params, lr_now=lr_now)
+
+    return Optimizer(optimizer.init, update), grads

@@ -1,2 +1,2 @@
 """Model configurations the port supports: the anomaly-mlp family and
-the dense transformers."""
+the dense, moe, vlm, ssm, hybrid and audio language models."""

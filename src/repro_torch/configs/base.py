@@ -1,16 +1,18 @@
 """Architecture configuration: the fields the ported families read.
 
 The JAX package's ``ArchConfig`` describes every family it supports; the
-port carries what its ported families read, under the same names, so a
-config reads the same in both packages. Families:
-  dense — llama-style decoder (GQA + RoPE + SwiGLU or variants)
-  moe   — dense skeleton with a mixture-of-experts FFN (top-k routing)
-  vlm   — InternVL2: stubbed patch embeddings, projected and prepended
-          to the token embeddings
-  mlp   — the paper's own 256-128-64 anomaly-detection MLP
-The ssm, hybrid and audio fields come with their families (ROADMAP.md
-queue 1 item 14); ``expert_parallel`` and ``client_axes`` with sharding,
-which reads them (item 14g).
+port carries what its families read, under the same names, so a config
+reads the same in both packages. Families:
+  dense  — llama-style decoder (GQA + RoPE + SwiGLU or variants)
+  moe    — dense skeleton with a mixture-of-experts FFN (top-k routing)
+  ssm    — RWKV6 "Finch" (attention-free, data-dependent decay)
+  hybrid — Hymba (parallel attention + mamba heads per layer)
+  audio  — Whisper encoder-decoder backbone (conv frontend stubbed)
+  vlm    — InternVL2: stubbed patch embeddings, projected and prepended
+           to the token embeddings
+  mlp    — the paper's own 256-128-64 anomaly-detection MLP
+``expert_parallel`` and ``client_axes`` come with sharding, which reads
+them (ROADMAP.md queue 1 item 14g).
 """
 from __future__ import annotations
 
@@ -19,14 +21,11 @@ from typing import Optional, Tuple
 
 import torch
 
-_NOT_PORTED = ("the {} family is not ported yet; ssm, hybrid and audio come "
-               "with ROADMAP.md queue 1 item 14")
-
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | moe | vlm | mlp in the port
+    family: str                      # dense|moe|ssm|hybrid|audio|vlm|mlp
     num_layers: int = 0
     d_model: int = 0
     num_heads: int = 0
@@ -54,7 +53,14 @@ class ArchConfig:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01        # load-balance loss weight
 
-    # vlm stub -------------------------------------------------------------
+    # ssm / hybrid -----------------------------------------------------------
+    ssm_state: int = 0               # mamba state size (hymba) / 0
+    rwkv_head_dim: int = 64          # RWKV6 WKV head size
+    rwkv_lora_dim: int = 32          # ddlerp / decay LoRA rank
+
+    # audio / vlm stubs ------------------------------------------------------
+    encoder_layers: int = 0          # whisper encoder depth
+    encoder_seq: int = 1500          # whisper: 30 s -> 1500 frames
     num_patches: int = 256           # vlm: stubbed patch embeddings
 
     # mlp detector -----------------------------------------------------------
@@ -93,14 +99,13 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self, active_only: bool = False) -> int:
-        """Analytic parameter count (the JAX package's formula);
-        ``active_only`` counts the top-k experts only."""
+        """Analytic parameter count (the JAX package's formula, approximate
+        for the ssm and hybrid families as it is there); ``active_only``
+        counts the top-k experts only."""
         if self.family == "mlp":
             dims = ((self.num_features,) + tuple(self.mlp_hidden)
                     + (self.num_classes,))
             return sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
-        if self.family not in ("dense", "moe", "vlm"):
-            raise NotImplementedError(_NOT_PORTED.format(repr(self.family)))
         d, ff, L, V = self.d_model, self.d_ff, self.num_layers, self.vocab_size
         hd, H, K = self.hd, self.num_heads, self.num_kv_heads
         attn = d * H * hd + 2 * d * K * hd + H * hd * d
@@ -112,6 +117,23 @@ class ArchConfig:
             ffn = 2 * d * ff + ff + d
         norms = 2 * d
         emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":  # rwkv6
+            heads = d // self.rwkv_head_dim
+            lora = self.rwkv_lora_dim
+            tmix = 4 * d * d + d  # r,k,v,g,o projections (g folded) approx
+            tmix += 5 * (d * lora + lora * d) + 6 * d  # ddlerp loras + mus
+            tmix += d * lora + lora * d + d + heads * self.rwkv_head_dim
+            cmix = d * ff + ff * d + 2 * d
+            return L * (tmix + cmix + norms) + emb + d
+        if self.family == "hybrid":
+            dd = d  # mamba inner dim == d_model (parallel-heads design)
+            mamba = d * 2 * dd + dd * (2 * self.ssm_state + dd // 16) \
+                + dd * self.ssm_state + dd + dd * d + 4 * dd
+            return L * (attn + mamba + ffn + 3 * d) + emb + d
+        if self.family == "audio":
+            enc = self.encoder_layers * (attn + ffn + norms)
+            dec = L * (2 * attn + ffn + 3 * d)  # self + cross attention
+            return enc + dec + emb + 2 * d
         if self.family == "moe":
             experts = (self.top_k if active_only else self.num_experts)
             router = d * self.num_experts

@@ -1,7 +1,7 @@
 """Serving driver, on the card unless the caller names another device:
 batched anomaly scoring through the ``repro_torch.serve`` engine (the
 paper's detector), or a batched prefill + greedy decode loop for the
-language models (the dense, moe and vlm families).
+language models (every family but the mlp).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch anomaly-mlp \\
@@ -17,14 +17,20 @@ Examples:
       --decode-steps 16 --attention-impl blockwise
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \\
       --smoke --prompt-len 512 --decode-steps 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+      --smoke --prompt-len 32 --decode-steps 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
+      --batch 4 --prompt-len 512 --decode-steps 16 --attention-impl blockwise
 
 The weights are random, drawn from a ``torch.Generator`` seeded ``seed``
 on the serving device (the JAX package serves random weights too); the
 prompt comes from ``np.random.default_rng(seed)`` and the flows from
 ``data.synthetic.make_unsw_like(seed, ...)``, so they are the JAX
 package's. A vlm prompt of ``prompt_len`` positions is ``num_patches``
-zero patch embeddings followed by ``prompt_len − num_patches`` tokens, as
-the JAX package builds it.
+zero patch embeddings followed by ``prompt_len − num_patches`` tokens,
+and an audio prompt's ``enc_embeds`` (the stubbed frontend's frames) are
+normal draws from the same Generator after the tokens, as the JAX package
+builds them.
 """
 from __future__ import annotations
 
@@ -42,6 +48,22 @@ from repro_torch.models import api
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def graft_cache(full: dict, cache: dict) -> dict:
+    """The prefill's ``cache`` carried into ``full`` (an ``init_cache`` of
+    the whole decode length), by the JAX package's rule: a leaf of the
+    same rank and another shape (a KV cache) is copied into the leading
+    slice of ``full``'s, any other (a recurrent state, the encoder's k and
+    v, the step) is carried over as it is. Returns ``full``."""
+    for name, src in cache.items():
+        dst = full.get(name)
+        if (torch.is_tensor(src) and torch.is_tensor(dst)
+                and dst.dim() == src.dim() and dst.shape != src.shape):
+            dst[tuple(slice(0, n) for n in src.shape)] = src.to(dst.dtype)
+        else:
+            full[name] = src
+    return full
 
 
 @torch.no_grad()
@@ -64,6 +86,10 @@ def serve_lm(cfg, batch: int, prompt_len: int, decode_steps: int, seed=0, *,
         prompt["patch_embeds"] = torch.zeros(
             (batch, patches, cfg.d_model), dtype=cfg.compute_dtype,
             device=dev)
+    if cfg.family == "audio":
+        prompt["enc_embeds"] = torch.as_tensor(
+            rng.normal(size=(batch, cfg.encoder_seq, cfg.d_model)),
+            device=dev).to(cfg.compute_dtype)
 
     _sync(dev)
     t0 = time.perf_counter()
@@ -72,12 +98,9 @@ def serve_lm(cfg, batch: int, prompt_len: int, decode_steps: int, seed=0, *,
     t_prefill = time.perf_counter() - t0
 
     # pad the cache to prompt_len + decode_steps for the decode loop
-    full = api.init_cache(cfg, batch, prompt_len + decode_steps, device=dev)
-    for name in ("k", "v"):
-        src = cache[name]
-        full[name][:, :, :src.shape[2]] = src.to(full[name].dtype)
-    full["step"] = prompt_len
-    cache = full
+    cache = graft_cache(api.init_cache(cfg, batch, prompt_len + decode_steps,
+                                       device=dev), cache)
+    cache["step"] = prompt_len
 
     tok = logits[:, -1:].argmax(dim=-1)
     out = [tok]

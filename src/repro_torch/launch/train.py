@@ -8,6 +8,8 @@ Examples:
       --smoke --steps 20 --clients 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch anomaly-mlp \\
       --steps 50 --clients 8 --theta 0.65
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
+      --steps 2 --clients 2 --per-client-batch 1 --seq 512
 """
 from __future__ import annotations
 
@@ -32,8 +34,8 @@ def make_batch_fn(cfg, clients: int, per_client: int, seq: int, seed=0,
                   device=None):
     """next() -> one (C, per_client, ...) batch on ``device`` (the card
     unless named): flow records for the mlp, token streams (and zero patch
-    embeddings for vlm) for the language models, drawn as the JAX
-    package's are."""
+    embeddings for vlm, normal frame embeddings ``enc_embeds`` for audio)
+    for the language models, drawn as the JAX package's are."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     if cfg.family == "mlp":
@@ -45,11 +47,6 @@ def make_batch_fn(cfg, clients: int, per_client: int, seq: int, seed=0,
             return {"x": torch.from_numpy(X[idx]).to(device),
                     "y": torch.from_numpy(y[idx]).to(torch.int64).to(device)}
         return nxt
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            "the audio family's encoder batches come with its model "
-            "(ROADMAP.md queue 1 item 14f)")
-
     toks = seq - (cfg.num_patches if cfg.family == "vlm" else 0)
 
     def nxt():
@@ -66,6 +63,10 @@ def make_batch_fn(cfg, clients: int, per_client: int, seq: int, seed=0,
             batch["patch_embeds"] = torch.zeros(
                 (clients, per_client, cfg.num_patches, cfg.d_model),
                 dtype=cfg.compute_dtype, device=device)
+        if cfg.family == "audio":
+            batch["enc_embeds"] = torch.as_tensor(rng.normal(size=(
+                clients, per_client, cfg.encoder_seq, cfg.d_model)),
+                device=device).to(cfg.compute_dtype)
         return batch
     return nxt
 

@@ -1,9 +1,9 @@
-"""Model API: family dispatch (the mlp family and the transformer's dense,
-moe and vlm families, so far).
+"""Model API: family dispatch.
 
 Every family exposes ``init_params(generator, cfg, device)`` and
-``loss_fn(params, batch, cfg)``; the transformer's also
-``prefill(params, batch, cfg) -> (logits, cache)``,
+``loss_fn(params, batch, cfg)``; the language models (the transformer's
+dense, moe and vlm families, rwkv6's ssm, hymba's hybrid and whisper's
+audio) also ``prefill(params, batch, cfg) -> (logits, cache)``,
 ``decode_step(params, cache, batch, cfg) -> (logits, cache)`` and
 ``init_cache(cfg, batch, seq)``.
 """
@@ -11,20 +11,16 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import mlp_detector, transformer
+from repro_torch.models import (hybrid, mlp_detector, rwkv6, transformer,
+                                whisper)
 
 _FAMILY = {"mlp": mlp_detector, "dense": transformer, "moe": transformer,
-           "vlm": transformer}
+           "vlm": transformer, "ssm": rwkv6, "hybrid": hybrid,
+           "audio": whisper}
 
 
 def module_for(cfg):
-    try:
-        return _FAMILY[cfg.family]
-    except KeyError:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet; the port runs "
-            "the mlp, dense, moe and vlm families, and ssm, hybrid and "
-            "audio come with ROADMAP.md queue 1 item 14") from None
+    return _FAMILY[cfg.family]
 
 
 def init_params(generator, cfg, device="cpu"):

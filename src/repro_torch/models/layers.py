@@ -121,6 +121,39 @@ def apply_rope(x, positions, fraction: float, theta: float):
 
 
 # --------------------------------------------------------------------------
+# sinusoidal positions (whisper)
+# --------------------------------------------------------------------------
+
+def _inv_timescales(d: int, device=None) -> torch.Tensor:
+    """10000^(i/d), i = 0, 2, .., d − 2, f32: the exponent an f32
+    quotient and the power taken in f64 and rounded once, as
+    ``rope_freqs`` does (XLA's f32 power is correctly rounded)."""
+    expo = torch.arange(0, d, 2, dtype=torch.float32) / d
+    return (10000.0 ** expo.double()).to(torch.float32).to(device)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """(seq, d) f32: sin(pos / 10000^(i/d)) at even columns i, cos at the
+    odd ones, as the JAX package's table."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    ang = pos / _inv_timescales(d, device)[None, :]
+    pe = torch.empty((seq, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
+
+
+def sinusoidal_position_at(pos: int, d: int, device=None) -> torch.Tensor:
+    """(d,) f32: row ``pos`` of ``sinusoidal_positions``."""
+    ang = torch.tensor(float(pos), dtype=torch.float32,
+                       device=device) / _inv_timescales(d, device)
+    pe = torch.empty((d,), dtype=torch.float32, device=device)
+    pe[0::2] = torch.sin(ang)
+    pe[1::2] = torch.cos(ang)
+    return pe
+
+
+# --------------------------------------------------------------------------
 # attention (GQA, grouped einsum; full-sequence and decode paths)
 # --------------------------------------------------------------------------
 
@@ -144,16 +177,19 @@ def attn_params(cfg, generator, dtype, lead=()):
     return p
 
 
-def _project_qkv(cfg, p, x):
+def _project_qkv(cfg, p, x, xkv=None):
+    """q from x, k and v from ``xkv`` (cross attention) or from x."""
     B, S, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    xkv = x if xkv is None else xkv
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = xkv @ p["wk"]
+    v = xkv @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, K, hd),
-            v.reshape(B, S, K, hd))
+    Sk = xkv.shape[1]
+    return (q.reshape(B, S, H, hd), k.reshape(B, Sk, K, hd),
+            v.reshape(B, Sk, K, hd))
 
 
 def _gqa_scores(q, k):
@@ -179,25 +215,28 @@ def _gqa_out(probs, v, dtype):
 FLASH_BLOCK = 512
 
 
-def full_attention(cfg, p, x, positions=None, causal=True,
+def full_attention(cfg, p, x, positions=None, causal=True, xkv=None,
                    sliding_window: Optional[int] = None, use_rope=True):
-    """Full-sequence self-attention (prefill). Returns (out, (k, v))."""
+    """Full-sequence attention (prefill, encoder, and cross attention over
+    ``xkv``, which takes no rotary and no mask). Returns (out, (k, v))."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(cfg, p, x)
+    q, k, v = _project_qkv(cfg, p, x, xkv)
+    Sk = k.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    if use_rope:
+    if use_rope and xkv is None:
         q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
-    if cfg.attention_impl == "blockwise" and S % FLASH_BLOCK == 0:
-        out = blockwise_attention(q, k, v, causal=causal,
+    if (cfg.attention_impl == "blockwise" and S % FLASH_BLOCK == 0
+            and Sk % FLASH_BLOCK == 0):
+        out = blockwise_attention(q, k, v, causal=(causal and xkv is None),
                                   sliding_window=sliding_window,
                                   out_dtype=x.dtype)
         return out @ p["wo"], (k, v)
-    scores = _gqa_scores(q, k)                     # (B,K,G,S,S)
-    if causal:
+    scores = _gqa_scores(q, k)                     # (B,K,G,S,Sk)
+    if causal and xkv is None:
         i = torch.arange(S, device=x.device)[:, None]
-        j = torch.arange(S, device=x.device)[None, :]
+        j = torch.arange(Sk, device=x.device)[None, :]
         mask = j <= i
         if sliding_window is not None:
             mask &= (i - j) < sliding_window
@@ -264,15 +303,24 @@ def blockwise_attention(q, k, v, *, causal: bool, sliding_window=None,
 
 
 def decode_attention(cfg, p, x, cache_k, cache_v, step: int, *,
-                     sliding_window: Optional[int] = None,
+                     sliding_window: Optional[int] = None, cross=False,
                      use_rope: bool = True):
     """One-token decode. x: (B,1,d); cache_[kv]: (B,Scache,K,hd), written
     in place at the step's slot; ``step`` is the token's position.
 
     For sliding-window archs the cache is cyclic with Scache == window and
-    the new KV is written at ``step % window``. Returns the attention out.
+    the new KV is written at ``step % window``. With ``cross`` the cache
+    holds the encoder's pre-projected k and v: q attends to all of it,
+    with no rotary, and nothing is written. Returns the attention out.
     """
     B = x.shape[0]
+    if cross:
+        q = x @ p["wq"]
+        if "bq" in p:
+            q = q + p["bq"]
+        q = q.reshape(B, 1, cfg.num_heads, cfg.hd)
+        probs = torch.softmax(_gqa_scores(q, cache_k), dim=-1)
+        return _gqa_out(probs, cache_v, x.dtype) @ p["wo"]
     q, k_new, v_new = _project_qkv(cfg, p, x)
     Sc = cache_k.shape[1]
     if use_rope:

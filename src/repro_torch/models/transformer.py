@@ -24,14 +24,19 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 
 FAMILIES = ("dense", "moe", "vlm")
+# the families that other modules run (models/api.py dispatches to them)
+_OTHER = {"ssm": "rwkv6", "hybrid": "hybrid", "audio": "whisper",
+          "mlp": "mlp_detector"}
 
 
 def _check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
+        where = _OTHER.get(cfg.family)
         raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet; the transformer "
-            "runs the dense, moe and vlm families, and the others come "
-            "with ROADMAP.md queue 1 item 14")
+            f"the transformer runs the dense, moe and vlm families, not "
+            f"{cfg.family!r}" + (f"; repro_torch.models.{where} runs it "
+                                 "(through repro_torch.models.api)"
+                                 if where else ""))
 
 
 # --------------------------------------------------------------------------

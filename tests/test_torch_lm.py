@@ -176,7 +176,8 @@ def test_configs_match_jax(arch, smoke):
 def test_registry_and_shapes():
     assert treg.list_archs() == sorted(
         DENSE + ["anomaly-mlp", "granite-moe-1b-a400m", "internvl2-2b",
-                 "arctic-480b"])
+                 "arctic-480b", "rwkv6-7b", "hymba-1.5b", "whisper-tiny"])
+    assert treg.list_archs() == jreg.list_archs()
     assert treg.get_config("qwen2-1.5b").param_count() == 1_777_088_000
     from repro.configs import shapes as jshapes
     assert tshapes.SHAPES.keys() == jshapes.SHAPES.keys()
@@ -342,27 +343,25 @@ UNPORTED = {"rwkv6-7b": "ssm", "hymba-1.5b": "hybrid",
             "whisper-tiny": "audio"}
 
 
-def _port_cfg(jcfg):
-    """The JAX config's fields that the port's ArchConfig carries."""
-    return ArchConfig(**{f.name: getattr(jcfg, f.name)
-                         for f in dataclasses.fields(ArchConfig)})
-
-
 @pytest.mark.parametrize("arch", sorted(UNPORTED))
 def test_unported_families_are_refused(arch):
-    with pytest.raises(KeyError, match="ROADMAP.md queue 1 item 14"):
-        treg.get_config(arch)
-    cfg = _port_cfg(jreg.get_config(arch, smoke=True))
+    """The ssm, hybrid and audio families, once refused everywhere, run
+    through ``models/api.py`` (their own modules); the transformer still
+    refuses them, naming the module that runs each."""
+    cfg = treg.get_config(arch, smoke=True)
     assert cfg.family == UNPORTED[arch]
+    module = {"ssm": "rwkv6", "hybrid": "hybrid", "audio": "whisper"}[
+        cfg.family]
+    assert tapi.module_for(cfg).__name__ == f"repro_torch.models.{module}"
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.int64)}
-    for call in (lambda: tapi.prefill({}, batch, cfg),
-                 lambda: tapi.init_params(torch.Generator(), cfg),
-                 lambda: tapi.init_cache(cfg, 1, 8),
-                 lambda: cfg.param_count(),
-                 lambda: transformer.prefill({}, batch, cfg)):
+    for call in (lambda: transformer.prefill({}, batch, cfg),
+                 lambda: transformer.init_params(torch.Generator(), cfg),
+                 lambda: transformer.init_cache(cfg, 1, 8)):
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 14"):
+                           match=f"repro_torch.models.{module} runs it"):
             call()
+    assert cfg.param_count() == jreg.get_config(arch, smoke=True
+                                                ).param_count()
 
 
 def test_serving_the_detector_is_refused():

@@ -222,6 +222,9 @@ ACCEPTED = {
     "topology": dict(strategy="cmfl", topology="two-tier-pods"),
     "candidate_frac": dict(strategy="cmfl", candidate_frac=0.5,
                            candidate_shards=2),
+    "ssm-model-spmd": dict(model="rwkv6-7b"),
+    "hybrid-model-spmd": dict(model="hymba-1.5b"),
+    "audio-model-spmd": dict(model="whisper-tiny"),
 }
 REFUSED_LIKE_JAX = {
     "async": (dict(strategy="ours", dynamic_batch=False), "schedule.kind"),
@@ -236,15 +239,16 @@ REFUSED_LIKE_JAX = {
 # refusals whose hints are the JAX package's own, word for word
 SAME_HINT = ("resident",)
 # adamw and adafactor are run (ACCEPTED above; tests/test_torch_train.py
-# holds their runs against the JAX package); the unported families stay
-# refused
+# holds their runs against the JAX package), and so is every model family
+# on this engine; a language model on the sim engines stays refused
 NOT_PORTED = {
-    "ssm-model": (dict(model="rwkv6-7b"), "model", 14),
-    "hybrid-model": (dict(model="hymba-1.5b"), "model", 14),
+    "ssm-model": (dict(model="rwkv6-7b", engine="sim"), "engine", "14c′"),
+    "hybrid-model": (dict(model="hymba-1.5b", engine="sim"), "engine",
+                     "14c′"),
 }
 _SPEC_FIELDS = ("rounds_per_dispatch", "fused_eval", "lr_schedule",
                 "optimizer", "scenario", "topology", "candidate_frac",
-                "candidate_shards", "model")
+                "candidate_shards", "model", "engine")
 
 
 def _make(mod, options):
@@ -286,4 +290,5 @@ def test_spec_refuses_what_is_not_ported_naming_its_item(name):
     options, field, item = NOT_PORTED[name]
     issues = [i for i in _fields(T, options) if i.field == field]
     assert issues, name
-    assert re.search(rf"ROADMAP\.md queue 1 item {item}\b", issues[0].hint)
+    assert re.search(rf"ROADMAP\.md queue 1 item {re.escape(item)}(?![\w′])",
+                     issues[0].hint)

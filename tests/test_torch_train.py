@@ -628,9 +628,18 @@ def test_train_batches_are_jax_s():
 
 
 def test_train_refuses_the_audio_family():
-    cfg = treg.get_config("qwen2-1.5b", smoke=True).replace(family="audio")
-    with pytest.raises(NotImplementedError, match="item 14f"):
-        ttrain.make_batch_fn(cfg, 2, 2, 16, device="cpu")
+    """The audio family's batches, once refused, are the JAX trainer's:
+    tokens, labels and the stubbed frontend's frames ``enc_embeds``,
+    drawn from the same Generator in the same order."""
+    from repro.launch import train as jtrain
+    jc, tc = _cfgs("whisper-tiny")
+    jb = jtrain.make_batch_fn(jc, 2, 1, 16, seed=4)()
+    tb = ttrain.make_batch_fn(tc, 2, 1, 16, seed=4, device="cpu")()
+    assert sorted(tb) == sorted(jb) == ["enc_embeds", "labels", "tokens"]
+    assert tb["enc_embeds"].shape == (2, 1, tc.encoder_seq, tc.d_model)
+    for k in jb:
+        np.testing.assert_array_equal(tb[k].float().numpy(),
+                                      np.asarray(jb[k], np.float32))
 
 
 def test_train_batches_default_to_the_card():
