@@ -370,12 +370,14 @@ Phases, each printing JSON lines:
   9. families — the ssm, hybrid and audio families (models/rwkv6.py,
                hybrid.py, whisper.py), weights drawn on the card from seed
                0 (bf16), each arch's real parameter count printed beside
-               ``param_count``'s formula: (a) ``serve_lm`` at rwkv6-7b's
-               full width, B 4 × 2,048 tokens, 16 greedy (no flash launch;
+               ``param_count``'s formula (rwkv6 and hymba, served cut to
+               8 layers for the script's time, also at full depth): (a)
+               ``serve_lm`` at rwkv6-7b's full width cut to 8 layers, B
+               4 × 2,048 tokens, 16 greedy (no flash launch;
                the prompt cut to 1,024 if the prefill passes 30 s), the
                WKV loop's share of a warm prefill timed by CUDA events,
                peak memory beside a reckoning; (b) hymba-1.5b the same,
-               ``blockwise`` (32 wgmma flash launches in the prefill, none
+               ``blockwise`` (8 wgmma flash launches in the prefill, none
                in the decode) and ``full``, the selective scan's share,
                blockwise against full printed, and ``flash_attention`` at
                its prefill layer (4, 2,048, 25, 5, 64) bf16 causal (and
@@ -384,13 +386,14 @@ Phases, each printing JSON lines:
                "kernels"``); (c) whisper-tiny at B 4 × 512 decoder tokens
                beside its 1,500 stub frames, both impls (4 flash launches
                a blockwise prefill, none for the encoder, the cross
-               attention or the decode); (d) hymba-1.5b (C 2 × 1 × 512
-               tokens) and whisper-tiny (C 4 × 1 × 512 and the frames)
-               trained through the spmd step, blockwise, remat, θ 0.65, 1
-               warm and 2 timed steps: one count, one aggregation and 128
-               (hymba) or 32 (whisper) flash launches a step, s a step,
+               attention or the decode); (d) hymba-1.5b at full width cut to
+               8 layers (C 2 × 1 × 512 tokens, one timed step) and
+               whisper-tiny (C 4 × 1 × 512 and the frames, 1 warm and 2
+               timed steps) trained through the spmd step, blockwise,
+               remat, θ 0.65: one count, one aggregation and 32 flash
+               launches a step, s a step,
                tokens/s, peak memory, the scan's share of a step; the
-               count and the aggregation at hymba's arena against their
+               count and the aggregation at hymba's full arena against their
                plain versions; rwkv6-7b's reason for not training at full
                width; (e) card against CPU in f32, TF32 off, blockwise:
                whisper-tiny at full width, rwkv6-7b and hymba-1.5b at
@@ -408,6 +411,36 @@ Phases, each printing JSON lines:
                rwkv6-7b --smoke`` and ``python -m repro_torch.launch.train
                --arch whisper-tiny`` in subprocesses, exit 0; the phase's
                seconds (``"phase": "families_phase"``).
+  10. sim-lm — the language models on the sim engines under ``ours``
+               (async quorum and staleness weights, θ 0.65, no dynamic
+               batch), N 4 clients selecting K 2, 2 local steps of B 1
+               a client, iid token data: (a) qwen2-1.5b at full width
+               and depth (bf16, blockwise, remat) on the megastep at
+               512 tokens, weights drawn on the card, 1 warm-up and 3
+               timed rounds, each round's launches counted from 0 and
+               held (the flash kernel 56 a client step, 28 for the eval,
+               one sign count a round once a reference exists, one
+               aggregation a round that applies an update), wall s a
+               round, training tokens/s, peak memory beside the
+               reckoning (``"phase": "slice"`` ``qwen2-1.5b sim
+               megastep``); (b) the same at full width cut to 2 layers on
+               the loop, the megastep, the int8 megastep and the int8
+               scanned path at 2 rounds a dispatch with fused eval: wall
+               s a round, each run's kernels launched, the int8 payload
+               against the uncompressed one; ``ef_round_trip``, the
+               cohort gather (by bits) and the flash kernel at the path's
+               shapes against their plain versions (``"phase":
+               "kernels"``); (c) card against CPU in f32, TF32 off, at
+               full width cut to 2 layers, B 1 × 128 tokens, 2 rounds:
+               qwen2-1.5b and granite-moe-1b-a400m on the megastep,
+               rwkv6-7b on the loop; after round 0 each client's first
+               gradient by ``parity.grad_problems``, the globals by
+               ``parity.sim_weight_problems`` and the reference signs by
+               ``ref_sign_problems`` (bounds from the CPU's gradients);
+               after round 1 the records by ``record_mismatches`` and no
+               θ ratio within the band (``"phase": "card_vs_cpu"``,
+               problems ``[]``); (d) the phase's seconds (``"phase":
+               "sim_lm_phase"``).
 
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -444,7 +477,11 @@ only phase 8 (training the language models), after the build; and
 
     python3 chip_smoke.py --families
 
-only phase 9 (the ssm, hybrid and audio families), after the build.
+only phase 9 (the ssm, hybrid and audio families), after the build; and
+
+    python3 chip_smoke.py --sim-lm
+
+only phase 10 (the language models on the sim engines), after the build.
 """
 from __future__ import annotations
 
@@ -4902,22 +4939,28 @@ def phase_train(mods, parity, ref, smi: str) -> dict:
 FAMILY_SERVES = {
     "rwkv6-7b serve": ("rwkv6-7b", "full", 4, 2048, 16, 0),
     "hymba-1.5b serve blockwise": ("hymba-1.5b", "blockwise", 4, 2048, 16,
-                                   32),
+                                   8),
     "hymba-1.5b serve full": ("hymba-1.5b", "full", 4, 2048, 16, 0),
     "whisper-tiny serve blockwise": ("whisper-tiny", "blockwise", 4, 512, 16,
                                      4),
     "whisper-tiny serve full": ("whisper-tiny", "full", 4, 512, 16, 0),
 }
 RWKV_PREFILL_CUT_S = 30.0      # above it the rwkv6 prompt is cut to 1,024
-# arch -> (cell, flash launches a step, warm steps, timed steps): hymba's
-# step is its selective scan's launches (forward, remat's recompute and
-# backward: minutes of host time for a few steps), so its one timed step
-# is its first
+# rwkv6-7b and hymba-1.5b are served at full width cut to 8 layers: their
+# prefills are a loop over time a layer (6.5-11 s at 32 layers), and the
+# script must leave room for phase 10
+FAMILY_SERVE_LAYERS = {"rwkv6-7b": 8, "hymba-1.5b": 8}
+# arch -> (cell, flash launches a step, warm steps, timed steps, layers
+# (None: all)): hymba's step is its selective scan's launches (forward,
+# remat's recompute and backward: 42-75 s of host time at its 32 layers),
+# so its one timed step is its first, at full width cut to 8 layers to
+# keep the script inside its time with phase 10; the count and the
+# aggregation are held at its full arena all the same
 FAMILY_TRAIN = {
     "hymba-1.5b": (dict(clients=2, per_client=1, seq=512, theta=0.65),
-                   2 * 32 * 2, 0, 1),
+                   2 * 8 * 2, 0, 1, 8),
     "whisper-tiny": (dict(clients=4, per_client=1, seq=512, theta=0.65),
-                     2 * 4 * 4, 1, 2),
+                     2 * 4 * 4, 1, 2, None),
 }
 # card against CPU, f32: arch -> (layers (None: all), training steps);
 # rwkv6's CPU step at d 4,096 takes half a minute, so it takes one
@@ -5076,8 +5119,10 @@ def family_serve(mods, run: str, cfg, params, n_params: int, batch,
 def family_serves(mods, smi: str) -> tuple:
     """9 (a)-(c): each arch's weights drawn once, its serves run in turn;
     blockwise against full printed; rwkv6's prompt cut to 1,024 if its
-    prefill passes RWKV_PREFILL_CUT_S. Returns each run's launches and
-    each arch's real parameter count."""
+    prefill passes RWKV_PREFILL_CUT_S; rwkv6 and hymba at the depth of
+    FAMILY_SERVE_LAYERS. Returns each run's launches and each arch's real
+    parameter count at full depth (the stacked layer leaves' count scaled
+    from the depth served)."""
     from repro_torch.configs import registry
     launches, by_arch, counts = {}, {}, {}
     for run, (arch, impl, batch, plen, steps, flash) in \
@@ -5085,19 +5130,30 @@ def family_serves(mods, smi: str) -> tuple:
         by_arch.setdefault(arch, []).append(
             (run, impl, batch, plen, steps, flash))
     for arch, runs in by_arch.items():
-        cfg = registry.get_config(arch)
+        full = registry.get_config(arch)
+        cfg = full.replace(num_layers=FAMILY_SERVE_LAYERS.get(
+            arch, full.num_layers))
         params, wline = family_weights(cfg)
-        counts[arch] = wline["params"]
+        served = counts[arch] = wline["params"]
+        if cfg.num_layers != full.num_layers:
+            # the layers' leaves are stacked on a leading axis of depth
+            layer_params = sum(t.numel() for t in _leaves(params["layers"]))
+            counts[arch] = (served - layer_params + layer_params
+                            // cfg.num_layers * full.num_layers)
+            wline.update(params_full_depth=counts[arch],
+                         cuts=[f"depth: {full.num_layers} -> "
+                               f"{cfg.num_layers} layers (the script's "
+                               f"time)"])
         emit("slice", **wline, nvidia_smi=smi)
         lines = {}
         for run, impl, batch, plen, steps, flash in runs:
             c = cfg.replace(attention_impl=impl)
-            line = family_serve(mods, run, c, params, counts[arch], batch,
+            line = family_serve(mods, run, c, params, served, batch,
                                 plen, steps, flash)
             if arch == "rwkv6-7b" and line["prefill_s"] > RWKV_PREFILL_CUT_S:
                 emit("slice", **{k: v for k, v in line.items()
                                  if k not in ("logits", "tokens")})
-                line = family_serve(mods, run, c, params, counts[arch],
+                line = family_serve(mods, run, c, params, served,
                                     batch, 1024, steps, flash)
                 line["cuts"] = dict(prompt_len=[plen, 1024])
             lines[run] = line
@@ -5139,25 +5195,30 @@ def family_flash(flash_attn, ref, smi: str) -> None:
     free_card()
 
 
-def family_train(mods, ref, smi: str, rwkv_params: int) -> dict:
-    """9 (d): hymba-1.5b and whisper-tiny trained at full width through
-    the spmd step (bf16, remat, blockwise, the config's optimizer), 1 warm
-    and 2 timed steps; one count, one aggregation and the listed flash
-    launches a step; the recurrent loop's share of a warm step; the count
-    and the aggregation at hymba's arena against their plain versions.
-    rwkv6-7b is not trained at full width: the reason is printed."""
+def family_train(mods, ref, smi: str, counts: dict) -> dict:
+    """9 (d): hymba-1.5b (cut to 8 layers) and whisper-tiny trained at full
+    width through the spmd step (bf16, remat, blockwise, the config's
+    optimizer), the listed warm and timed steps; one count, one
+    aggregation and the listed flash launches a step; the recurrent
+    loop's share of a step; the count and the aggregation at hymba's full
+    arena (its rows from ``counts``, the real parameter counts of (a))
+    against their plain versions. rwkv6-7b is not trained at full width:
+    the reason is printed."""
     from repro_torch.configs import registry
     from repro_torch.models import api as model_api
     launches = {}
     rwkv = registry.get_config("rwkv6-7b")
-    n = rwkv_params
+    n = counts["rwkv6-7b"]
     emit("slice", run="rwkv6-7b train", trained=False, params=n,
          reason=(f"{n} arena slots pass the sign count's 2^31 refusal "
                  f"(kernels/sign_align.py), and a 2-client f32 arena alone "
                  f"is {2 * 4 * n / 1e9:.1f} GB"), optimizer=rwkv.optimizer)
-    for arch, (cell, flash, warm, steps) in FAMILY_TRAIN.items():
+    for arch, (cell, flash, warm, steps, layers) in FAMILY_TRAIN.items():
         cfg = registry.get_config(arch).replace(attention_impl="blockwise")
         run = f"{arch} train blockwise"
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+            run = f"{arch} {layers}-layer train blockwise"
         free_card()
         with ScanTimer(model_api.module_for(cfg)) as timer:
             box, step, batches, line = train_cell(mods, run, cfg,
@@ -5165,6 +5226,9 @@ def family_train(mods, ref, smi: str, rwkv_params: int) -> dict:
                                                   warm=warm)
         held_train_launches(run, line["launches"], steps, flash)
         line.update(flash_launches_per_step_expected=flash, warm_steps=warm)
+        if layers:
+            line.update(cuts=[f"depth: {registry.get_config(arch).num_layers}"
+                              f" -> {layers} layers (the script's time)"])
         if timer.name:
             line.update(scan_loop=timer.name,
                         scan_forward_and_recompute_ms=timer.ms(),
@@ -5175,7 +5239,7 @@ def family_train(mods, ref, smi: str, rwkv_params: int) -> dict:
                                   "backward is not timed apart")
         emit("slice", **line, nvidia_smi=smi)
         launches[run] = line["launches"]
-        rows = line["arena_rows"]
+        rows = -(-counts[arch] // 1024) if arch in counts else None
         del box, step, batches
         free_card()
         if arch == "hymba-1.5b":
@@ -5427,7 +5491,7 @@ def phase_families(mods, parity, ref, smi: str) -> dict:
     mark("a_c_serve")
     family_flash(mods["flash_attn"], ref, smi)
     mark("b_flash")
-    launches.update(family_train(mods, ref, smi, counts["rwkv6-7b"]))
+    launches.update(family_train(mods, ref, smi, counts))
     mark("d_train")
     for arch, (layers, steps) in FAMILY_CARD_CPU.items():
         launches.update(family_card_cpu(mods, parity, arch, layers, steps))
@@ -5436,6 +5500,465 @@ def phase_families(mods, parity, ref, smi: str) -> dict:
     family_clis()
     mark("f_cli")
     emit("families_phase", seconds=time.perf_counter() - t_phase,
+         seconds_by_part=parts, nvidia_smi=smi)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 10. language models on the sim engines (the loop, the megastep, the
+# scanned control plane) under ``ours``
+# ---------------------------------------------------------------------------
+
+# the cell: N clients, K = N·fraction selected, batches of B × S tokens,
+# ``steps`` local momentum-SGD steps a client, ``eval`` sequences evaluated
+# a round, ``warm`` warm-up rounds and ``timed`` timed ones
+SIM_LM = dict(arch="qwen2-1.5b", clients=4, select_fraction=0.5, batch=1,
+              seq=512, steps=2, eval=4, theta=0.65, warm=1, timed=3)
+SIM_LM_CUT = 2            # layers of the 2-layer runs of (b) and (c)
+# (c): arch -> sim path, card against CPU in f32 at B 1 × 128 tokens (no
+# flash: 128 is no multiple of 512), 1 local step a client (the CPU's
+# steps over up to 0.97 G f32 weights set the phase's time), 2 rounds, 2
+# sequences evaluated
+SIM_LM_CARD_CPU = {"qwen2-1.5b": "megastep",
+                   "granite-moe-1b-a400m": "megastep", "rwkv6-7b": "loop"}
+SIM_LM_CPU_SEQ = 128
+SIM_LM_CPU_STEPS = 1
+SIM_LM_MOMENTUM = 0.9     # the engine's optim.sgd default
+
+
+def sim_lm_spec(T, cfg, *, rounds: int, path: str = "megastep",
+                quantize: bool = False, seq: int = SIM_LM["seq"],
+                eval_samples: int = SIM_LM["eval"],
+                steps: int = SIM_LM["steps"]):
+    """The phase's ``ours`` spec (async quorum and staleness weights, θ
+    0.65, no dynamic batch) over iid token data, 4 sequences a client,
+    ``steps`` local steps a client."""
+    c = SIM_LM
+    kw = {"loop": dict(megastep=False), "megastep": {},
+          "scanned": dict(rounds_per_dispatch=2, fused_eval=True)}[path]
+    return T.ExperimentSpec(
+        model=cfg,
+        data=T.DataSpec(dataset="lm", partition="iid", seq_len=seq,
+                        n_samples=4 * c["clients"],
+                        eval_samples=eval_samples),
+        world=T.WorldSpec(num_clients=c["clients"]),
+        strategy="ours",
+        strategy_kwargs=dict(batch_size=c["batch"],
+                             select_fraction=c["select_fraction"],
+                             theta=c["theta"], dynamic_batch=False,
+                             max_samples_per_round=c["batch"] * steps,
+                             quantize_updates=quantize),
+        rounds=rounds, seed=0, **kw)
+
+
+def sim_lm_reckoning(sim, C: int) -> dict:
+    """The megastep's device memory while a client trains, item by item
+    (bytes), from the arena's shape and the weights' bytes."""
+    slots = sim._arena.rows * sim._arena.lane
+    w = sim.param_bytes                 # the weights in their dtypes
+    n = sim._arena.n
+    items = {
+        "arena_f32": 4 * slots,
+        "unpacked_globals": w,
+        "client_weights_and_their_update": 2 * w,
+        "momentum_f32_and_its_update": 2 * 4 * n,
+        "gradient_f32": 4 * n,
+        "deltas_arena_f32": 4 * C * slots,
+        "reference_signs_int8": slots,
+    }
+    items["total"] = sum(items.values())
+    return items
+
+
+def sim_lm_expected(cfg, launches: list, records) -> list:
+    """The launches each round must show, derived from the code: the flash
+    kernel 2·L a client step (each layer's forward and remat's recompute;
+    the backward is plain torch) and L for the round's eval; one
+    ``per_client_sign_align`` a shape group once a reference exists (it
+    exists from the first round that applied an update); one
+    ``masked_agg`` a shape group in a round that applied one. Returns the
+    problems."""
+    c = SIM_LM
+    L = cfg.num_layers
+    K = max(1, int(c["select_fraction"] * c["clients"]))
+    out, has_ref = [], False
+    for r, (got, rec) in enumerate(zip(launches, records)):
+        want = {"flash_attention": K * c["steps"] * 2 * L + L,
+                "per_client_sign_align": int(has_ref),
+                "masked_agg": int(rec.updates_applied > 0)}
+        for k, v in want.items():
+            if got[k] != v:
+                out.append(f"round {r}: {k} launched {got[k]} times, "
+                           f"not {v}")
+        has_ref = has_ref or rec.updates_applied > 0
+    return out
+
+
+def sim_lm_full_width(T, mods, smi: str) -> dict:
+    """10 (a): qwen2-1.5b at full width and depth (bf16, blockwise, remat)
+    trained through the async megastep: weights drawn on the card from
+    seed 0, 1 warm-up and 3 timed rounds, each round's launches counted
+    from 0 and held (``sim_lm_expected``), wall s a round, training
+    tokens/s, peak memory beside the reckoning. Returns the launches of
+    the timed rounds, summed."""
+    from repro_torch.configs import registry
+    from repro_torch.models import api as model_api
+    c = SIM_LM
+    cfg = registry.get_config(c["arch"]).replace(attention_impl="blockwise")
+    rounds = c["warm"] + c["timed"]
+    spec = sim_lm_spec(T, cfg, rounds=rounds)
+    free_card()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_api.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    sim = T.build_simulation(spec, device="cuda", params=params)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    walls, per_round = [], []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        reset_launches(mods)
+        t = time.perf_counter()
+        sim.run(1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        per_round.append(read_launches(mods))
+    peak = torch.cuda.max_memory_allocated()
+    records = [T.record_from_metrics(m) for m in sim.history]
+    problems = sim_lm_expected(cfg, per_round, records)
+    if not all(math.isfinite(r.loss) and math.isfinite(r.accuracy)
+               for r in records):
+        problems.append("loss or accuracy not finite")
+    K = max(1, int(c["select_fraction"] * c["clients"]))
+    timed = walls[c["warm"]:]
+    tokens = K * c["steps"] * c["batch"] * c["seq"]
+    line = dict(
+        run=f"{cfg.name} sim megastep", arch=cfg.name,
+        layers=cfg.num_layers, dtype=cfg.dtype,
+        attention_impl=cfg.attention_impl, remat=cfg.remat,
+        strategy="ours", mode="async", theta=c["theta"],
+        clients=c["clients"], cohort=K, batch=c["batch"], seq=c["seq"],
+        local_steps=c["steps"], eval_sequences=c["eval"],
+        params=sim._arena.n, arena_rows=sim._arena.rows,
+        param_bytes=sim.param_bytes, init_s=init_s, wall_s=walls,
+        warm_rounds=c["warm"],
+        wall_s_per_round=sum(timed) / len(timed),
+        training_tokens_per_round=tokens,
+        tokens_per_s=tokens * len(timed) / sum(timed),
+        peak_memory_bytes=peak,
+        reckoned_bytes=sim_lm_reckoning(sim, C=K),
+        launches_per_round=per_round,
+        records=[dataclasses.asdict(r) for r in records],
+        theta_ratios=sim.theta_ratios, problems=problems, nvidia_smi=smi)
+    emit("slice", **line)
+    if problems:
+        raise AssertionError(f"{line['run']}: {problems}")
+    del sim
+    free_card()
+    return {k: sum(p[k] for p in per_round[c["warm"]:])
+            for k in per_round[0]}
+
+
+# (b): run -> (path, int8, kernels that must launch); 2 rounds each
+SIM_LM_CUT_RUNS = {
+    "loop": ("loop", False, ("flash_attention",)),
+    "megastep": ("megastep", False, ("flash_attention", "masked_agg")),
+    "int8 megastep": ("megastep", True, ("flash_attention", "masked_agg",
+                                         "ef_round_trip")),
+    "int8 scanned fused R=2": ("scanned", True, (
+        "flash_attention", "per_client_sign_align", "masked_agg",
+        "ef_round_trip", "cohort_gather")),
+}
+
+
+def sim_lm_cut(T, mods, ref, smi: str) -> dict:
+    """10 (b): qwen2-1.5b at full width cut to 2 layers (bf16, blockwise,
+    remat) on the loop, the megastep, the int8 megastep and the int8
+    scanned path at 2 rounds a dispatch with fused eval: wall s a round,
+    launches (each run's kernels at least once, the codec's calls held
+    by ``held_launches``), the int8 runs' wire bytes against the
+    uncompressed ones; then the kernels at this path's shapes against
+    their plain versions (``sim_lm_kernels``). Returns each run's
+    launches."""
+    from repro_torch.configs import registry
+    from repro_torch.models import api as model_api
+    cfg = registry.get_config(SIM_LM["arch"]).replace(
+        attention_impl="blockwise", num_layers=SIM_LM_CUT)
+    params = model_api.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    launches, payload, finals = {}, {}, {}
+    for name, (path, int8, needed) in SIM_LM_CUT_RUNS.items():
+        run = f"{cfg.name} {SIM_LM_CUT}-layer sim {name}"
+        spec = sim_lm_spec(T, cfg, rounds=2, path=path, quantize=int8)
+        sim, wall, launches[run], rows = run_card(T, spec, params, mods)
+        held_launches(run, launches[run], needed, rows)
+        records = [T.record_from_metrics(m) for m in sim.history]
+        if not all(math.isfinite(r.loss) and math.isfinite(r.accuracy)
+                   for r in records):
+            raise AssertionError(f"{run}: loss or accuracy not finite")
+        payload[name] = sim._payload_bytes()
+        finals[name] = records[-1]
+        emit("slice", run=run, layers=SIM_LM_CUT, path=path, int8=int8,
+             cuts=["depth: 28 -> 2 layers (the int8 error feedback, "
+                   "(N + 1) f32 arenas, does not fit one card beside the "
+                   "28-layer megastep)"],
+             rounds=len(records), wall_s=wall,
+             wall_s_per_round=wall / len(records),
+             dispatches=sim.dispatches, launches=launches[run],
+             rows_per_call=rows_line(rows), payload_bytes=payload[name],
+             records=[dataclasses.asdict(r) for r in records],
+             nvidia_smi=smi)
+        slots = sim._arena.rows
+        del sim
+        free_card()
+    emit("slice", run=f"{cfg.name} {SIM_LM_CUT}-layer sim int8 wire",
+         payload_bytes={k: payload[k] for k in ("megastep", "int8 megastep")},
+         payload_ratio=payload["megastep"] / payload["int8 megastep"],
+         bytes_sent={k: finals[k].bytes_sent
+                     for k in ("megastep", "int8 megastep")},
+         note="the uncompressed payload counts the weights' bf16 bytes, as "
+              "the JAX package does: int8 with a scale a row halves it")
+    del params
+    free_card()
+    sim_lm_kernels(mods, ref, slots, smi)
+    return launches
+
+
+def sim_lm_kernels(mods, ref, rows: int, smi: str) -> None:
+    """10 (b): the kernels at this path's shapes against their plain
+    versions, timed beside their bounds: ``ef_round_trip`` on the cohort's
+    C 2 × ``rows`` folded rows and ``cohort_gather`` of K 2 slabs from the
+    (N + 1, rows, 1024) error-feedback arena (both by bits), and the
+    flash kernel at a client step's layer, (1, 512, 12, 2, 128) bf16
+    causal. ``per_client_sign_align`` and ``masked_agg`` at the 28-layer
+    arena's C 2 × 1,735,822 rows are phase 8 (b)'s lines."""
+    quantize, gather = mods["quantize"], mods["gather"]
+    g = torch.Generator(device="cuda").manual_seed(10)
+    K, N = 2, SIM_LM["clients"]
+    M = K * rows
+    d = torch.randn((M, 1024), generator=g, device="cuda")
+    e = torch.randn((M, 1024), generator=g, device="cuda") * 1e-3
+    got, want = quantize.ef_round_trip(d, e), ref.ef_round_trip(d, e)
+    torch.cuda.synchronize()
+    for a, b, what in zip(got, want, ("restored", "residual")):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"ef_round_trip {what} differs from its "
+                                 f"plain version at {M} rows")
+    del got, want
+    n = M * 1024
+    bound = bound_ms(16 * n, 8 * n)
+    emit("kernels", name="ef_round_trip", rows=M, shape="sim cohort C 2",
+         ef_round_trip="equal by bits",
+         ms=time_ms(lambda: quantize.ef_round_trip(d, e), iters=10,
+                    warmup=2),
+         plain_ms=time_ms(lambda: ref.ef_round_trip(d, e), iters=3,
+                          warmup=1),
+         bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+         nvidia_smi=smi)
+    del d, e
+    free_card()
+    src = torch.randn((N + 1, rows, 1024), generator=g, device="cuda")
+    idx = torch.tensor([2, 0], dtype=torch.int64, device="cuda")
+    got, want = gather.cohort_gather(src, idx), ref.cohort_gather(src, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("cohort_gather differs from its plain version "
+                             f"at ({N + 1}, {rows}, 1024)")
+    del got, want
+    bound = bound_ms(2 * K * rows * 4096 + 8 * K, 0)
+    emit("kernels", name="cohort_gather", slabs=[N + 1, rows], k=K,
+         cohort_gather="equal by bits",
+         ms=time_ms(lambda: gather.cohort_gather(src, idx), iters=10,
+                    warmup=2),
+         plain_ms=time_ms(lambda: ref.cohort_gather(src, idx), iters=10,
+                          warmup=2),
+         bound_ms=bound[0], bound_by=bound[1],
+         library_ms=time_ms(lambda: torch.index_select(src, 0, idx),
+                            iters=10, warmup=2), nvidia_smi=smi)
+    del src
+    free_card()
+    line, *_ = flash_case(mods["flash_attn"], ref, (
+        "qwen2 sim client step", "gqa", (1, 512, 12, 2, 128), "bfloat16",
+        True, None, None))
+    emit("kernels", **line, nvidia_smi=smi)
+
+
+@contextlib.contextmanager
+def recording_sgd(parity):
+    """Within the block, each simulation built gets ``optim.sgd`` wrapped
+    by ``parity.recording``: the yielded list gets one list a simulation,
+    the gradients its optimizer receives, in call order."""
+    from repro_torch.optim import adamw as optim_mod
+    plain = optim_mod.sgd
+    seen = []
+
+    def sgd(lr=1e-2, momentum=SIM_LM_MOMENTUM):
+        opt, grads = parity.recording(plain(lr=lr, momentum=momentum))
+        seen.append(grads)
+        return opt
+
+    optim_mod.sgd = sgd
+    try:
+        yield seen
+    finally:
+        optim_mod.sgd = plain
+
+
+def _card_named(tree) -> dict:
+    """name -> a card copy of each leaf (the parity rules then run in f64
+    on the card: a 2-layer leaf set is up to 0.97 G elements)."""
+    from repro_torch.tree import named_leaves
+    return {"/".join(map(str, p)): v.detach().to("cuda")
+            for p, v in named_leaves(tree)}
+
+
+def sim_globals(sim) -> tuple:
+    """(globals, reference signs) of a simulation as name -> card tensor:
+    the megastep's arena and its signs unpacked, the loop's dicts."""
+    if sim.megastep:
+        arena = sim._arena
+        return (_card_named(arena.unpack(sim._params_mat.to("cuda"),
+                                         torch.float32)),
+                _card_named(arena.unpack(sim._ref_mat.to("cuda"),
+                                         torch.int8)))
+    return _card_named(sim.params), _card_named(sim.ref_sign)
+
+
+def sim_lm_card_cpu(T, parity, mods, arch: str, path: str) -> dict:
+    """10 (c): ``arch`` at full width cut to 2 layers, f32, TF32 off, on
+    the sim ``path``, card against CPU from the same weights (drawn on the
+    card from seed 0) at B 1 × 128 tokens and one local step a client,
+    each run's SGD recording its gradients. After
+    round 0: each client's first gradient (both from the shared start)
+    by ``parity.grad_problems``; the globals by ``sim_weight_problems``
+    and the reference signs by ``ref_sign_problems``, both against
+    ``sim_round_bounds`` of the CPU's gradients. After round 1: the
+    records by ``record_mismatches``, and no θ ratio of either run within
+    ``THETA_BAND``. Returns (run, the card's launches in round 0,
+    problems)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import api as model_api
+    from repro_torch.models import transformer
+    c = SIM_LM
+    seq = SIM_LM_CPU_SEQ
+    cfg = registry.get_config(arch).replace(
+        dtype="float32", num_layers=SIM_LM_CUT, attention_impl="blockwise")
+    S = SIM_LM_CPU_STEPS
+    spec = sim_lm_spec(T, cfg, rounds=2, path=path, seq=seq, eval_samples=2,
+                       steps=S)
+    card_params = model_api.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    params = transformer.tree_to(card_params, "cpu")
+    with recording_sgd(parity) as seen:
+        cpu = T.build_simulation(spec, device="cpu", params=params)
+        card = T.build_simulation(spec, device="cuda", params=card_params)
+    del card_params
+    cpu_grads, card_grads = seen
+    t0 = time.perf_counter()
+    cpu.run(1)
+    t_cpu = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_launches(mods)
+    card.run(1)
+    torch.cuda.synchronize()
+    launches = read_launches(mods)
+    t_check = time.perf_counter()
+    width, rows = parity.lm_grad_width(cfg, seq), c["batch"] * seq
+    problems = []
+    if len(card_grads) != len(cpu_grads) or not cpu_grads:
+        problems.append(f"{len(card_grads)} gradients on the card, "
+                        f"{len(cpu_grads)} on the CPU")
+    grad_gap = {}
+    for i in range(0, len(cpu_grads), S):
+        want = _card_named(cpu_grads[i])
+        got = _card_named(card_grads[i])
+        problems += parity.grad_problems(got, want, width, rows,
+                                         where=f"client slot {i // S} "
+                                               f"step 0: ")
+        for k in want:
+            gap = float((got[k] - want[k]).abs().max())
+            b = parity.grad_bound(want[k], width, rows)
+            grad_gap[k] = max(grad_gap.get(k, 0.0), gap / b if b else 0.0)
+        del want, got
+    per_client = [parity.sgd_delta_bounds(
+        [_card_named(g) for g in cpu_grads[i:i + S]], cpu.strategy.lr,
+        SIM_LM_MOMENTUM, width, rows) for i in range(0, len(cpu_grads), S)]
+    cpu_grads.clear()
+    card_grads.clear()
+    start = _card_named(params)
+    want, want_ref = sim_globals(cpu)
+    got, got_ref = sim_globals(card)
+    bounds = parity.sim_round_bounds(want, start, per_client, S,
+                                     cpu.schedule.alpha0)
+    problems += parity.sim_weight_problems(got, want, bounds,
+                                           where="round 0 globals: ")
+    moved = {k: want[k] - start[k] for k in want}
+    problems += parity.ref_sign_problems(got_ref, want_ref, moved, bounds,
+                                         where="round 0 signs: ")
+    weight_gap = {k: float((got[k] - want[k]).abs().max()) / bounds[k]
+                  for k in want if bounds[k]}
+    del got, want, moved, start, got_ref, want_ref
+    free_card()
+    t_check = time.perf_counter() - t_check
+    t1 = time.perf_counter()
+    cpu.run(1)
+    t_cpu += time.perf_counter() - t1
+    card.run(1)
+    torch.cuda.synchronize()
+    cpu_grads.clear()
+    card_grads.clear()
+    got_r = [T.record_from_metrics(m) for m in card.history]
+    want_r = [T.record_from_metrics(m) for m in cpu.history]
+    problems += parity.record_mismatches(got_r, want_r)
+    for who, sim in (("card", card), ("cpu", cpu)):
+        problems += [f"{who}: {p}" for p in parity.theta_band_violations(
+            sim.theta_ratios, c["theta"])]
+    line = dict(
+        run=f"{arch} {SIM_LM_CUT}-layer f32 sim {path}", layers=SIM_LM_CUT,
+        seq=seq, path=path, rounds=2, problems=problems,
+        records_card=[dataclasses.asdict(r) for r in got_r],
+        records_cpu=[dataclasses.asdict(r) for r in want_r],
+        theta_ratios_card=card.theta_ratios,
+        theta_ratios_cpu=cpu.theta_ratios,
+        step0_grad_gap_over_bound_max=max(grad_gap.values(), default=None),
+        round0_weight_gap_over_bound=weight_gap,
+        local_steps=S, launches_round0=launches, cpu_rounds_s=t_cpu,
+        check_s=t_check)
+    emit("card_vs_cpu", **line)
+    del cpu, card
+    free_card()
+    return line["run"], launches, problems
+
+
+def phase_sim_lm(T, parity, mods, ref, smi: str) -> dict:
+    """Phase 10 (module docstring, 10 (a) to (d)). Returns the launches of
+    each run."""
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def mark(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    launches = {f"{SIM_LM['arch']} sim megastep": sim_lm_full_width(
+        T, mods, smi)}
+    mark("a_full_width")
+    launches.update(sim_lm_cut(T, mods, ref, smi))
+    mark("b_cut")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    problems = []
+    for arch, path in SIM_LM_CARD_CPU.items():
+        run, got, line_problems = sim_lm_card_cpu(T, parity, mods, arch,
+                                                  path)
+        launches[run] = got
+        problems += [f"{run}: {p}" for p in line_problems]
+    mark("c_card_vs_cpu")
+    if problems:
+        raise AssertionError("card and CPU disagree: " + "; ".join(problems))
+    emit("sim_lm_phase", seconds=time.perf_counter() - t_phase,
          seconds_by_part=parts, nvidia_smi=smi)
     return launches
 
@@ -5496,6 +6019,10 @@ def main() -> int:
     if sys.argv[1:] == ["--families"]:
         _build.build_all()
         phase_families(mods, parity, ref, smi)
+        return 0
+    if sys.argv[1:] == ["--sim-lm"]:
+        _build.build_all()
+        phase_sim_lm(T, parity, mods, ref, smi)
         return 0
     if sys.argv[1:] == ["--lazy-world"]:
         _build.build_all()
@@ -5668,6 +6195,11 @@ def main() -> int:
     # whisper-tiny served at full width, hymba and whisper trained, card
     # against CPU in f32, their CLIs
     launches.update(phase_families(mods, parity, ref, smi))
+
+    # 10. the language models on the sim engines under ours: qwen2-1.5b at
+    # full width through the async megastep, the loop, the int8 megastep
+    # and the int8 scanned path at 2 layers, card against CPU in f32
+    launches.update(phase_sim_lm(T, parity, mods, ref, smi))
 
     # launches on each kernel's main path: the megastep int8 run for the
     # three kernels it runs, the per-client int8 loop for the codec pair,

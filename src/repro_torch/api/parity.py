@@ -298,6 +298,33 @@ XLA's CPU code flushes to zero and torch keeps, and the relative rounding
 above no longer holds. Such a leaf is held to its two steps' size,
 2·lr·√N (each run moves a weight by at most lr·√N from the same start).
 
+Language models on the sim engines (the loop, the megastep and the
+scanned path; core/megastep.py's ``lm_local_sgd``). Each client takes S
+steps of momentum SGD from the round's globals: step t's gradient enters
+the client's delta with the weight lr·c_t, c_t = Σ_{u=t}^{S-1} μ^(u-t), so
+two packages' deltas from one start part by at most lr·Σ_t c_t·
+``grad_bound``(g_t) per leaf (``sgd_delta_bounds``; a later step's
+gradient is taken at weights the earlier steps moved apart by that much,
+which moves it by the Hessian times the gap, left out as lr·|H| ≪ 1 for a
+stable step: a scale, as ``grad_bound`` is). A round's aggregation weights
+sum to at most α₀ (α(τ) ≤ α₀ over the count applied; 1/|S| under sync), so
+the new globals part by at most α₀ times the largest client's bound, plus
+S + 3 f32 roundings of the leaf's scale (one per local step, the delta's
+subtraction, the weighted sum and its addition to the globals):
+``sim_round_bounds`` and ``sim_weight_problems`` hold the globals after
+one round from a shared start, ``ref_sign_problems`` the reference signs
+where the movement exceeds the same bound. This holds for f32 weights.
+With bf16 weights the two packages round the model's intermediate values
+at different points (XLA keeps f32 inside a fused loop, torch rounds each
+operation's output to bf16), and no bound on those roundings is derived
+here: a bf16 run's
+records are held by the fields that depend on its θ decisions alone
+(``exact_field_mismatches``: times, bytes — with bf16 leaves counted at 2
+bytes, as the JAX package counts them — update counts, accept rates) and
+its θ tests by ``THETA_BAND``; its loss and accuracy are printed, not held
+(observed on the CPU after 2 rounds of the smoke configs: granite-moe and
+rwkv6 at 2.0e-3 and 2.3e-3 of the loss, qwen2 and hymba within 1e-3).
+
 The recurrent states (models/rwkv6.py's ``S`` and its token shifts
 ``tshift``, ``cshift``; models/hybrid.py's ``h`` and its conv window
 ``conv``) are sums over the T steps taken. rwkv6 updates S ← w·S + k⊗v
@@ -359,14 +386,10 @@ CONTROL_RTOL = {"avail": EMA_RTOL, "pass_rate": EMA_RTOL,
 def record_mismatches(got: Sequence, want: Sequence) -> List[str]:
     """Every way the records ``got`` fall outside the tolerances of
     ``want``; empty when they agree."""
+    out = exact_field_mismatches(got, want)
     if len(got) != len(want):
-        return [f"{len(got)} records against {len(want)}"]
-    out = []
+        return out
     for g, w in zip(got, want):
-        for f in EXACT_FIELDS:
-            if getattr(g, f) != getattr(w, f):
-                out.append(f"round {w.round}: {f} {getattr(g, f)!r} != "
-                           f"{getattr(w, f)!r}")
         if not abs(g.accuracy - w.accuracy) <= ACC_TOL:
             out.append(f"round {w.round}: accuracy {g.accuracy} vs "
                        f"{w.accuracy} (tolerance {ACC_TOL})")
@@ -856,6 +879,70 @@ def ref_sign_problems(got: Dict[str, object], want: Dict[str, object],
             out.append(f"{where}{k}: {int(bad.sum())} decided signs differ, "
                        f"first flat {int(torch.nonzero(bad)[0])}")
     return out
+
+
+def lm_grad_width(cfg, seq: int) -> int:
+    """K of a language model's gradient element: the widest contraction
+    behind it (the model and FFN widths, the padded vocabulary, the
+    sequence, and for audio the encoder frames)."""
+    return max(cfg.d_model, cfg.d_ff, cfg.padded_vocab, seq,
+               cfg.encoder_seq if cfg.family == "audio" else 0)
+
+
+def sgd_delta_bounds(grads: Sequence[Dict[str, object]], lr: float,
+                     momentum: float, width: int, rows: int
+                     ) -> Dict[str, float]:
+    """The largest gap two packages' deltas of one client's local momentum
+    SGD from a shared start may show, per leaf: lr·Σ_t c_t·grad_bound(g_t)
+    with c_t = Σ_{u=t}^{S-1} μ^(u-t) (module docstring). ``grads``: the S
+    steps' gradients as the client's optimizer received them (name ->
+    array or tensor)."""
+    S = len(grads)
+    c = [sum(momentum ** (u - t) for u in range(t, S)) for t in range(S)]
+    return {k: lr * sum(c[t] * grad_bound(grads[t][k], width, rows)
+                        for t in range(S)) for k in grads[0]}
+
+
+def sim_round_bounds(want: Dict[str, object], start: Dict[str, object],
+                     client_bounds: Sequence[Dict[str, float]], steps: int,
+                     weight_sum: float) -> Dict[str, float]:
+    """The largest gap two runs' f32 globals after one sim round from the
+    shared ``start`` may show, per leaf (name -> array or tensor): the
+    round's ``weight_sum`` times the largest of its clients'
+    ``sgd_delta_bounds``, plus S + 3 f32 roundings of the leaf's scale
+    (module docstring). ``want``: the reference's globals after it."""
+    out = {}
+    for k in want:
+        w = _f64(want[k])
+        s0 = _f64(start[k], w.device)
+        scale = float(s0.abs().max()) + float((w - s0).abs().max())
+        out[k] = (weight_sum * max(b[k] for b in client_bounds)
+                  + (steps + 3) * 2.0 ** -23 * scale)
+    return out
+
+
+def sim_weight_problems(got: Dict[str, object], want: Dict[str, object],
+                        bounds: Dict[str, float], where: str = ""
+                        ) -> List[str]:
+    """Globals after one sim round (name -> array or tensor), each leaf
+    within its ``sim_round_bounds`` of the reference's."""
+    out = []
+    for k in sorted(want):
+        w = _f64(want[k])
+        gap = float((_f64(got[k], w.device) - w).abs().max())
+        if not gap <= bounds[k]:
+            out.append(f"{where}{k}: weight gap {gap} beyond {bounds[k]}")
+    return out
+
+
+def exact_field_mismatches(got: Sequence, want: Sequence) -> List[str]:
+    """``record_mismatches`` without loss and accuracy: the records of a
+    bf16 run (module docstring)."""
+    if len(got) != len(want):
+        return [f"{len(got)} records against {len(want)}"]
+    return [f"round {w.round}: {f} {getattr(g, f)!r} != {getattr(w, f)!r}"
+            for g, w in zip(got, want) for f in EXACT_FIELDS
+            if getattr(g, f) != getattr(w, f)]
 
 
 def adam_ratio_bound(steps: int, b1: float = 0.9, b2: float = 0.999

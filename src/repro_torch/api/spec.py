@@ -243,7 +243,6 @@ class ExperimentSpec:
                 "data.dataset", self.data.dataset,
                 f"unknown dataset; expected one of {DATASETS} or a "
                 "factory"))
-        issues.extend(self._validate_family())
         if self.data.partition not in PARTITIONS:
             issues.append(SpecIssue(
                 "data.partition", self.data.partition,
@@ -357,21 +356,6 @@ class ExperimentSpec:
                 f"{self.world.num_clients}); the θ-filter has no "
                 "honest majority to form a reference otherwise"))
         return issues
-
-    def _validate_family(self) -> List[SpecIssue]:
-        """The port trains a language model on the spmd engine only."""
-        try:
-            cfg = self.resolve_model()
-        except ValueError:
-            return []                  # the model's issue is reported
-        if self.engine == "sim" and getattr(cfg, "family", "mlp") != "mlp":
-            return [SpecIssue(
-                "engine", self.engine,
-                f"the port's sim engines (loop, megastep, scanned) train "
-                f"the mlp family; the {cfg.family} model {cfg.name!r} "
-                "trains on engine='spmd' (the sim engines' language "
-                "models come with ROADMAP.md queue 1 item 14c′)")]
-        return []
 
     def _validate_optimizer(self) -> List[SpecIssue]:
         opt = self.optimizer

@@ -2,7 +2,7 @@
 server (paper §IV-C).
 
 ``masked_mean`` / ``fedavg`` — w_g = 1/|S| Σ_{i∈S} w_i over parameter
-dicts with a leading client axis, in f32; ``buffered_async_update`` —
+nests with a leading client axis, in f32; ``buffered_async_update`` —
 w_g ← w_a + (1/N) Σ_i α(τ_i)·(w_i − w_a). The per-client reference loop
 aggregates with these; the megastep path with one weighted arena sum.
 
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import xla_pow
+from repro_torch.tree import leaves, tree_map
 
 Params = Dict[str, torch.Tensor]
 
@@ -41,11 +42,11 @@ def masked_mean(client_trees: Params, mask: torch.Tensor,
         wf = w.reshape((-1,) + (1,) * (x.dim() - 1)).to(torch.float32)
         return (x.to(torch.float32) * wf).sum(0) / denom
 
-    return {k: agg(x) for k, x in client_trees.items()}
+    return tree_map(agg, client_trees)
 
 
 def fedavg(client_trees: Params, weights: torch.Tensor = None) -> Params:
-    first = next(iter(client_trees.values()))
+    first = next(iter(leaves(client_trees)))
     return masked_mean(client_trees, torch.ones(
         first.shape[0], dtype=torch.float32, device=first.device), weights)
 
@@ -58,13 +59,14 @@ def buffered_async_update(anchor: Params,
     if not arrivals:
         return anchor
     n = float(len(arrivals))
-    out = {}
-    for k, a in anchor.items():
+
+    def combine(a, *clients):
         af = a.to(torch.float32)
-        delta = sum(alpha * (c[k].to(torch.float32) - af)
-                    for alpha, c in arrivals)
-        out[k] = (af + delta / n).to(a.dtype)
-    return out
+        delta = sum(alpha * (c.to(torch.float32) - af)
+                    for (alpha, _), c in zip(arrivals, clients))
+        return (af + delta / n).to(a.dtype)
+
+    return tree_map(combine, anchor, *[c for _, c in arrivals])
 
 
 def staleness_weights_np(taus, alpha0: float = 0.6) -> np.ndarray:

@@ -5,10 +5,10 @@ lines 3–12).
 global-update sign) / (# params)``. Clients with relevance ≥ θ (0.65)
 transmit; others are filtered at the source. ``cohort_alignment`` scores
 all C clients of the packed (C, rows, LANE) arena in one kernel launch;
-``alignment_ratio`` scores one client's parameter dict, leaf by leaf, for
-the per-client reference loop, and ``per_client_alignment`` a dict with a
-leading client axis, for ``core/hierarchy.py`` (plain torch, as the JAX
-package's).
+``alignment_ratio`` scores one client's parameter nest, leaf by leaf in
+the JAX package's leaf order, for the per-client reference loop, and
+``per_client_alignment`` a dict with a leading client axis, for
+``core/hierarchy.py`` (plain torch, as the JAX package's).
 """
 from __future__ import annotations
 
@@ -18,21 +18,22 @@ import torch
 
 from repro_torch.kernels import arena as arena_ops
 from repro_torch.kernels import ref as _ref
+from repro_torch.tree import leaves, tree_map
 
 
-def tree_sign(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def tree_sign(tree):
     """int8 sign of every leaf (±0 -> 0): the loop's ``ref_sign``."""
-    return {k: _ref.sign(v) for k, v in tree.items()}
+    return tree_map(_ref.sign, tree)
 
 
-def alignment_ratio(local: Dict[str, torch.Tensor],
-                    ref_sign: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Scalar f32 relevance of ONE client's update against the reference
-    sign. The count is an exact integer, then one f32 division, as the
-    JAX package's f32 sums of exact counts."""
-    aligned = sum((_ref.sign(local[k]) == ref_sign[k]).sum()
-                  for k in sorted(local))
-    total = sum(v.numel() for v in local.values())
+def alignment_ratio(local, ref_sign) -> torch.Tensor:
+    """Scalar f32 relevance of ONE client's update (a nest) against the
+    reference sign nest. The count is an exact integer, then one f32
+    division, as the JAX package's f32 sums of exact counts (exact below
+    2^24 elements)."""
+    aligned = sum((_ref.sign(a) == r).sum()
+                  for a, r in zip(leaves(local), leaves(ref_sign)))
+    total = sum(v.numel() for v in leaves(local))
     return aligned.to(torch.float32) / float(max(total, 1))
 
 

@@ -23,6 +23,9 @@ plane lives on the device (core/control.py) and R whole rounds run as one
 dispatch (``megastep.build_scanned_rounds``), read back once at its end;
 ``fused_eval`` evaluates inside the dispatch too. Its random draws come
 from a draw source (core/draws.py), not from the host Generators.
+Any model family trains on each path: the mlp's flat dict of weights or a
+language model's nest (its bf16 leaves counted at 2 bytes on the wire, as
+the JAX package counts them; its token batches from ``api/world.py``).
 ``quantize_updates`` puts int8 with error feedback on the wire on any
 path (core/compression.py): one error-feedback arena for all clients on
 the megastep and scanned paths, one buffer dict per client on the loop.
@@ -60,7 +63,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.convert import params_from_jax
+from repro_torch import tree as tree_mod
+from repro_torch.convert import lm_params_from_jax, params_from_jax
 from repro_torch.core import aggregation, alignment, compression
 from repro_torch.core import control as control_mod
 from repro_torch.core import megastep as megastep_mod
@@ -256,11 +260,18 @@ class FederatedSimulation:
         if params is None:
             gen = torch.Generator().manual_seed(seed)
             params = api.init_params(gen, cfg)
-        params = params_from_jax(
-            {k: (v.detach().cpu() if torch.is_tensor(v) else v)
-             for k, v in params.items()}, self.device)
+        if cfg.family == "mlp":
+            params = params_from_jax(
+                {k: (v.detach().cpu() if torch.is_tensor(v) else v)
+                 for k, v in params.items()}, self.device)
+        else:
+            # a language model's nest keeps its dtypes (bf16 leaves count
+            # 2 bytes below, as the JAX package's itemsize does)
+            params = tree_mod.tree_map(
+                lambda v: (v.detach().to(self.device) if torch.is_tensor(v)
+                           else lm_params_from_jax(v, self.device)), params)
         self.param_bytes = sum(p.numel() * p.element_size()
-                               for p in params.values())
+                               for p in tree_mod.leaves(params))
         self.opt = optim_mod.sgd(lr=strategy.lr)
         # eval_fn(params_dict, eval_batch) -> float replaces the default
         self._eval = eval_fn or api.build_default_eval(cfg)
@@ -425,37 +436,53 @@ class FederatedSimulation:
             batch, self._world_view["drift_amp"], self._drift_dirs)
 
     def _train_client(self, cid: int):
-        """The loop's local training of one client, as a cohort of one;
-        a byzantine client's update is scaled before the codec; with
+        """The loop's local training of one client (the mlp as a cohort of
+        one); a byzantine client's update is scaled before the codec; with
         compression, the update is the dequantized payload and the
-        client's error-feedback buffers advance. Returns (new_params,
-        delta, loss, train_time)."""
+        client's error-feedback buffers advance. The delta is f32 and a
+        changed update is added to the old weights in f32 and cast back to
+        their dtype, as the JAX package's. Returns (new_params, delta,
+        loss, train_time)."""
         batches, steps, n_samples = self._client_batches(cid)
-        batch = self._drift(_to_device({k: v[None] for k, v in
-                                        batches.items()}, self.device))
-        lr_scale = torch.tensor([self.client_lr_scale[cid]],
-                                dtype=torch.float32, device=self.device)
         old = self.params
-        trained, loss = megastep_mod.local_sgd(self.cfg, self.opt, old,
-                                               batch, lr_scale)
-        new_params = {k: v[0] for k, v in trained.items()}
-        delta = {k: new_params[k] - old[k] for k in old}
+        if self.cfg.family == "mlp":
+            batch = self._drift(_to_device({k: v[None] for k, v in
+                                            batches.items()}, self.device))
+            lr_scale = torch.tensor([self.client_lr_scale[cid]],
+                                    dtype=torch.float32, device=self.device)
+            trained, loss = megastep_mod.local_sgd(self.cfg, self.opt, old,
+                                                   batch, lr_scale)
+            new_params = {k: v[0] for k, v in trained.items()}
+            loss = loss[0]
+        else:
+            lr_scale = torch.tensor(self.client_lr_scale[cid],
+                                    dtype=torch.float32, device=self.device)
+            new_params, loss = megastep_mod.lm_local_sgd(
+                self.cfg, self.opt, old, _to_device(batches, self.device),
+                lr_scale)
+        delta = tree_mod.tree_map(lambda n, o: (n - o).to(torch.float32),
+                                  new_params, old)
+
+        def moved(d):
+            return tree_mod.tree_map(
+                lambda o, x: (o.to(torch.float32) + x).to(o.dtype), old, d)
+
         wv = self._world_view
         if wv is not None and float(wv["byz_factor"][cid]) != 1.0:
             f = torch.tensor(float(wv["byz_factor"][cid]),
                              dtype=torch.float32, device=self.device)
-            delta = {k: d * f for k, d in delta.items()}
-            new_params = {k: old[k] + delta[k] for k in old}
+            delta = tree_mod.tree_map(lambda d: d * f, delta)
+            new_params = moved(delta)
         if self.strategy.quantize_updates:
             err = self._ef_state.setdefault(
                 cid, compression.init_error_state(delta))
             q, s, _n, self._ef_state[cid] = compression.compress_update(
                 delta, err)
             delta = compression.decompress_update(q, s, delta)
-            new_params = {k: old[k] + delta[k] for k in old}
+            new_params = moved(delta)
             self._wire_bytes = compression.transport_bytes(q, s)
         train_time = self._train_time(steps, n_samples, self.profiles[cid])
-        return new_params, delta, float(loss[0]), train_time
+        return new_params, delta, float(loss), train_time
 
     def _filter_update(self, rnd: int, cid: int, delta) -> bool:
         """The loop's client-side θ filter (Algorithm 1 lines 27-32):
@@ -790,7 +817,7 @@ class FederatedSimulation:
             losses.append(loss)
             sent = self._filter_update(rnd, cid, delta)
             gn = math.sqrt(sum(float(torch.dot(g.reshape(-1), g.reshape(-1)))
-                               for _k, g in sorted(delta.items())))
+                               for g in tree_mod.leaves(delta)))
             arrive = self._deliver(cid, round_start, delay, train_time, sent,
                                    gn)
             arrivals.append((arrive, cid, sent, new_params))
@@ -805,19 +832,18 @@ class FederatedSimulation:
         if applied:
             sent_params = {a[1]: a[3] for a in arrivals if a[2]}
             if self.schedule.is_sync:
-                self._params_tree = aggregation.fedavg({
-                    k: torch.stack([sent_params[c][k] for c, _a in applied])
-                    for k in prev_params})
+                self._params_tree = aggregation.fedavg(tree_mod.tree_map(
+                    lambda *xs: torch.stack(xs),
+                    *[sent_params[c] for c, _a in applied]))
             else:
                 self._params_tree = aggregation.buffered_async_update(
                     prev_params, [(alpha, sent_params[c])
                                   for c, alpha in applied])
             # reference direction = sign of the global movement this round
             if st.theta is not None:
-                self.ref_sign = alignment.tree_sign(
-                    {k: self._params_tree[k].to(torch.float32)
-                     - prev_params[k].to(torch.float32)
-                     for k in prev_params})
+                self.ref_sign = alignment.tree_sign(tree_mod.tree_map(
+                    lambda n, o: n.to(torch.float32) - o.to(torch.float32),
+                    self._params_tree, prev_params))
 
         return self._finish_round(rnd, evaluate, len(selected), losses,
                                   n_sent, updates_applied, round_times)

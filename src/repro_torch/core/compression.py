@@ -18,19 +18,19 @@ around the codec kernels, as the JAX loop does.
 """
 from __future__ import annotations
 
-from typing import Dict
 
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import quantize
+from repro_torch.tree import leaves, tree_map
 
 
-def init_error_state(params: Dict[str, torch.Tensor]
-                     ) -> Dict[str, torch.Tensor]:
-    """One client's error-feedback buffers (f32, zero)."""
-    return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            for k, p in params.items()}
+def init_error_state(params):
+    """One client's error-feedback buffers (f32, zero), a nest like
+    ``params``."""
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
 
 
 # ---------------------------------------------------------------------------
@@ -67,24 +67,21 @@ def arena_wire_bytes(arena) -> int:
 
 
 # ---------------------------------------------------------------------------
-# the per-client loop: one dict at a time
+# the per-client loop: one parameter nest at a time
 # ---------------------------------------------------------------------------
 
-def compress_update(update: Dict[str, torch.Tensor],
-                    error: Dict[str, torch.Tensor]):
-    """(update, error) -> (q, scales, n_true, new_error); q and scales are
-    the payload, n_lanes + 4·rows bytes against 4·n in f32."""
-    corrected = {k: g.to(torch.float32) + error[k] for k, g in update.items()}
+def compress_update(update, error):
+    """(update, error) nests -> (q, scales, n_true, new_error); q and
+    scales are the payload, n_lanes + 4·rows bytes against 4·n in f32."""
+    corrected = tree_map(lambda g, e: g.to(torch.float32) + e, update, error)
     q, s, n = ops.quantize_tree(corrected)
     restored = ops.dequantize_tree(q, s, corrected)
-    new_error = {k: c - restored[k].to(torch.float32)
-                 for k, c in corrected.items()}
+    new_error = tree_map(lambda c, r: c - r.to(torch.float32), corrected,
+                         restored)
     return q, s, n, new_error
 
 
-def decompress_update(q: torch.Tensor, s: torch.Tensor,
-                      like: Dict[str, torch.Tensor]
-                      ) -> Dict[str, torch.Tensor]:
+def decompress_update(q: torch.Tensor, s: torch.Tensor, like):
     return ops.dequantize_tree(q, s, like)
 
 
@@ -93,9 +90,9 @@ def transport_bytes(q: torch.Tensor, s: torch.Tensor) -> int:
     return int(q.numel() * q.element_size() + s.numel() * s.element_size())
 
 
-def compression_ratio(params: Dict[str, torch.Tensor]) -> float:
+def compression_ratio(params) -> float:
     """f32 update bytes / compressed bytes (about 4 for int8 and row
     scales)."""
-    n = sum(p.numel() for p in params.values())
+    n = sum(p.numel() for p in leaves(params))
     rows = (n + ops.LANE - 1) // ops.LANE
     return (4.0 * n) / (rows * ops.LANE + 4.0 * rows)

@@ -8,7 +8,11 @@
     vmap-of-scan becomes a Python loop over the local steps with the
     cohort as a batch dimension: weights (C, in, out) and batched matrix
     products. The per-client reference loop trains one client through the
-    same ``local_sgd``, as a cohort of one.
+    same ``local_sgd``, as a cohort of one. A language model (any other
+    family) trains its cohort one client after another from the same
+    start (``lm_local_sgd`` over the nested weights: the flash kernel is
+    a call inside an autograd Function, which no vmap passes through),
+    each delta packed into its slab of the arena as soon as it exists.
 
 ``build_apply_update`` — server aggregation as one weighted sum over the
     arena per shape group (the ``masked_agg`` kernel on the card), plus
@@ -34,6 +38,7 @@ from typing import Dict, Sequence
 
 import torch
 
+from repro_torch import tree as tree_mod
 from repro_torch.core import aggregation, alignment, compression, control
 from repro_torch.core.scenario import apply_drift as _apply_drift
 from repro_torch.kernels import arena as arena_ops
@@ -43,7 +48,8 @@ from repro_torch.models import api
 @torch.no_grad()
 def local_sgd(cfg, opt, params: Dict[str, torch.Tensor],
               batches: Dict[str, torch.Tensor], lr_scale: torch.Tensor):
-    """Local momentum SGD for a cohort of C clients from the same start.
+    """Local momentum SGD of the mlp for a cohort of C clients from the
+    same start.
 
     params: the round-start globals (no client axis); batches: leaves
     (C, steps, B, ...); lr_scale: (C,) per-client LR scaling, applied to
@@ -84,6 +90,70 @@ def local_step(cfg, opt, p, state, batch, lr_scale):
     return p, state, loss.detach()
 
 
+@torch.no_grad()
+def lm_local_sgd(cfg, opt, params, batches: Dict[str, torch.Tensor],
+                 lr_scale: torch.Tensor):
+    """Local momentum SGD of ONE client of a language model (any family
+    but the mlp): ``params`` the round-start nest, ``batches`` leaves
+    (steps, B, ...), ``lr_scale`` a 0-dim f32 tensor. The JAX package's
+    vmap over the cohort computes each client independently from the same
+    start; here the caller trains the clients one after another, since a
+    kernel call inside an autograd Function cannot be vmapped. Returns the
+    trained nest (the weights' dtypes) and the 0-dim f32 mean loss."""
+    paths = [path for path, _ in tree_mod.named_leaves(params)]
+    p = params
+    state = opt.init(p)
+    losses = []
+    for t in range(batches["tokens"].shape[0]):
+        leaves = [leaf.detach().requires_grad_(True)
+                  for leaf in tree_mod.leaves(p)]
+        q = tree_mod.from_paths(paths, leaves)
+        with torch.enable_grad():
+            loss = api.loss_fn(q, {k: v[t] for k, v in batches.items()}, cfg)
+            grads = list(torch.autograd.grad(loss, leaves,
+                                             allow_unused=True))
+        # the JAX package scales the gradient by an f32 scalar, which
+        # promotes a bf16 gradient to f32; a leaf the loss does not read
+        # has a zero gradient there
+        for i, (g, leaf) in enumerate(zip(grads, leaves)):
+            g = torch.zeros_like(leaf) if g is None else g
+            grads[i] = g.to(torch.float32) * lr_scale
+        p, state = opt.update(tree_mod.from_paths(paths, grads), state,
+                              tree_mod.from_paths(
+                                  paths, [v.detach() for v in leaves]))
+        del q, leaves, grads
+        losses.append(loss.detach().to(torch.float32))
+    return p, torch.stack(losses).mean()
+
+
+@torch.no_grad()
+def train_cohort(cfg, opt, arena, params, batches, lr_scale):
+    """The cohort's local training from the round-start ``params``: the
+    per-client deltas packed into the (C, rows, lane) f32 arena and the
+    (C,) mean losses. The mlp trains the cohort at once (``local_sgd``); a
+    language model one client after another (``lm_local_sgd``), each
+    delta packed into its slab as soon as it exists and the client's
+    weights then dropped. A delta is taken in the weights' dtype and
+    widened to f32, as the JAX package's ``(new - old).astype(f32)``."""
+    if cfg.family == "mlp":
+        trained, losses = local_sgd(cfg, opt, params, batches, lr_scale)
+        return arena.pack_cohort({k: trained[k] - params[k]
+                                  for k in arena.names}), losses
+    C = lr_scale.shape[0]
+    deltas = torch.empty((C, arena.rows, arena.lane), dtype=torch.float32,
+                         device=lr_scale.device)
+    losses = []
+    for c in range(C):
+        trained, loss = lm_local_sgd(cfg, opt, params,
+                                     {k: v[c] for k, v in batches.items()},
+                                     lr_scale[c])
+        arena.pack_into(deltas[c], tree_mod.tree_map(
+            lambda n, o: n - o, trained, params))
+        losses.append(loss)
+        del trained
+    return deltas, torch.stack(losses)
+
+
 def build_cohort_step(cfg, opt, arena, theta=None, quantize: bool = False):
     """Returns ``step(params_mat, batches, lr_scale, byz, ref_mat, ef, idx,
     *, has_ref) -> (deltas, losses, ratios, norms, new_ef)``.
@@ -108,10 +178,9 @@ def build_cohort_step(cfg, opt, arena, theta=None, quantize: bool = False):
     @torch.no_grad()
     def cohort_step(params_mat, batches, lr_scale, byz, ref_mat, ef, idx, *,
                     has_ref):
-        params = arena.unpack(params_mat)
-        trained, losses = local_sgd(cfg, opt, params, batches, lr_scale)
-        deltas = arena.pack_cohort({k: trained[k] - params[k]
-                                    for k in arena.names})
+        deltas, losses = train_cohort(cfg, opt, arena,
+                                      arena.unpack(params_mat), batches,
+                                      lr_scale)
         if byz is not None:
             deltas = deltas * byz[:, None, None]
         new_ef = ef
@@ -292,12 +361,11 @@ def build_scanned_rounds(cfg, opt, arena, st, comm, *, num_clients: int,
             if scn is not None and scn.drift is not None:
                 batch = _apply_drift(batch, ws.drift_amp, drift_dirs)
 
-            # --- local training: the cohort as a batch dimension -------
-            params = arena.unpack(params_mat)
+            # --- local training (the mlp's cohort a batch dimension) ---
             lr_scale = ctl.lr_scale[cohort] if st.per_client_lr else ones_k
-            trained, losses = local_sgd(cfg, opt, params, batch, lr_scale)
-            deltas = arena.pack_cohort({k: trained[k] - params[k]
-                                        for k in arena.names})
+            deltas, losses = train_cohort(cfg, opt, arena,
+                                          arena.unpack(params_mat), batch,
+                                          lr_scale)
             if scn is not None and scn.byzantine is not None:
                 # corruption before the codec and the θ test
                 deltas = deltas * ws.byz_factor[cohort][:, None, None]

@@ -135,6 +135,8 @@ def _torch_dtype(dtype) -> torch.dtype:
     """A tensor's or an array's dtype as a torch dtype."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    if np.dtype(dtype).name == "bfloat16":       # ml_dtypes' bfloat16
+        return torch.bfloat16
     return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
 
 

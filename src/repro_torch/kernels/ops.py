@@ -2,9 +2,10 @@
 layout, its padding, and ratio / aggregation conveniences (the JAX
 package's ``kernels/ops.py``).
 
-Parameter dicts are flattened in sorted key order, the JAX package's leaf
-order, into a zero-padded (R, LANE) f32 matrix; reference signs pad with
-the -2 sentinel, which no sign matches. Every call goes to the kernel
+Parameter dicts (nests of dicts for the language models) are flattened
+with their keys sorted at every level, the JAX package's leaf order, into
+a zero-padded (R, LANE) f32 matrix; reference signs pad with the -2
+sentinel, which no sign matches. Every call goes to the kernel
 modules, where the tensor's device picks the CUDA kernel or the plain
 version; the JAX wrappers' ``interpret`` argument has no counterpart. The
 dicts are cast to f32 on the way in, so these calls send f32 to the
@@ -16,6 +17,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import tree as _tree
 from repro_torch.kernels import masked_agg as _agg
 from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import sign_align as _sa
@@ -24,9 +26,10 @@ LANE = _qz.LANE
 
 
 def flatten_to_lanes(tree: Dict[str, torch.Tensor], lane: int = LANE):
-    """dict -> ((R, lane) f32 matrix, zero-padded; true element count)."""
-    flat = torch.cat([tree[k].reshape(-1).to(torch.float32)
-                      for k in sorted(tree)])
+    """dict (or nest of dicts) -> ((R, lane) f32 matrix, zero-padded; true
+    element count)."""
+    flat = torch.cat([v.reshape(-1).to(torch.float32)
+                      for v in _tree.leaves(tree)])
     n = flat.numel()
     rows = max(-(-n // lane), 1)
     flat = torch.nn.functional.pad(flat, (0, rows * lane - n))
@@ -35,22 +38,23 @@ def flatten_to_lanes(tree: Dict[str, torch.Tensor], lane: int = LANE):
 
 def unflatten_from_lanes(mat: torch.Tensor, like: Dict[str, torch.Tensor]
                          ) -> Dict[str, torch.Tensor]:
-    """Inverse of ``flatten_to_lanes`` into the shapes and dtypes of
-    ``like``."""
+    """Inverse of ``flatten_to_lanes`` into the nest, shapes and dtypes
+    of ``like``."""
     flat = mat.reshape(-1)
-    out, off = {}, 0
-    for k in sorted(like):
-        ref = like[k]
-        out[k] = flat[off:off + ref.numel()].reshape(ref.shape).to(ref.dtype)
+    paths, out, off = [], [], 0
+    for path, ref in _tree.named_leaves(like):
+        paths.append(path)
+        out.append(flat[off:off + ref.numel()].reshape(ref.shape).to(ref.dtype))
         off += ref.numel()
-    return out
+    return _tree.from_paths(paths, out)
 
 
 def ref_sign_lanes(ref_sign_tree: Dict[str, torch.Tensor],
                    lane: int = LANE) -> torch.Tensor:
-    """int8 sign dict -> (R, lane) int8 with the -2 padding sentinel."""
-    flat = torch.cat([ref_sign_tree[k].reshape(-1).to(torch.int8)
-                      for k in sorted(ref_sign_tree)])
+    """int8 sign dict (or nest) -> (R, lane) int8 with the -2 padding
+    sentinel."""
+    flat = torch.cat([v.reshape(-1).to(torch.int8)
+                      for v in _tree.leaves(ref_sign_tree)])
     n = flat.numel()
     rows = max(-(-n // lane), 1)
     flat = torch.nn.functional.pad(flat, (0, rows * lane - n), value=-2)

@@ -580,17 +580,19 @@ def test_run_experiment_lm_matches_jax(optimizer):
 
 def test_lm_spec_validates_as_jax_does():
     """Token data needs an iid partition (JAX's rule, its message); the
-    sim engines refuse a language model, naming the roadmap item."""
+    same spec on the sim engine validates in both packages and builds on
+    the port's."""
     for mod in (J, T):
         spec = dataclasses.replace(_lm_spec(mod, "adamw"),
                                    data=mod.DataSpec(dataset="lm",
                                                      partition="dirichlet"))
         with pytest.raises(ValueError, match="iid"):
             spec.build_world()
-    spec = dataclasses.replace(_lm_spec(T, "adamw"), engine="sim")
-    with pytest.raises(T.SpecError) as err:
-        spec.validate()
-    assert any("item 14c" in i.hint for i in err.value.issues)
+        dataclasses.replace(_lm_spec(mod, "adamw"), engine="sim").validate()
+    sim = T.build_simulation(dataclasses.replace(_lm_spec(T, "adamw"),
+                                                 engine="sim"), device="cpu")
+    assert sim.cfg.family == "dense"
+    assert set(sim.eval_arrays) == {"tokens", "labels"}
     assert treg.get_config("qwen2-1.5b") == T.ExperimentSpec(
         model="qwen2-1.5b").resolve_model()
 
