@@ -46,7 +46,20 @@ Phases, each printing JSON lines:
                an input with every sign case (±0, NaN, ±Inf, f32 and bf16
                subnormals, the -2 padding), counts equal, also to the plain
                version on the CPU; ``sign_align_counts`` at 54, 864, 35, 1 and
-               7 rows, f32 and bf16, counts equal. The timed rows of the
+               7 rows, f32 and bf16, counts equal. Past 2^31 slots
+               (``sign_past_int32``): both sign counts at C 1 × R 2,200,000
+               f32 against reference signs sign(u) (n = 2,252,800,000
+               matches, exact in f32) and with one slot padded (n − 1,
+               which rounds), and the grouped form at C 2 × P 2 at the same
+               R, equal by bits to the plain version and to the exact
+               counts in f32, each with its chunks and blocks, timed beside
+               its bound by bytes; every chunked launch's int32 partials,
+               read back, equal to the plain count of each chunk
+               (``held_partials``), there and where f32 counts are exact
+               and the chunks' edges uneven (``sign_chunk_edges``: C 1 × R
+               8,192, 16,383 and 12,289, grouped C 2 and 4 × P 2 × R
+               16,383, random reference signs; both wrappers, f32 and bf16
+               counts, equal by bits). The timed rows of the
                aggregation, sign and quantize kernels carry ``design``: threads
                a block, blocks, registers a thread, the cluster's dimensions if
                the trace has them and clients a chunk where the kernel's name
@@ -345,6 +358,7 @@ Phases, each printing JSON lines:
                ``per_client_sign_align`` and ``masked_agg`` at C 2 × R
                1,735,822 (qwen2's arena) against their plain versions (counts
                equal, sums within 1e-6 of Σ|w·u|), timed beside their bounds;
+               the count in ``sign_align.chunks`` chunks (9 of 8 blocks);
                (c) the flash forward and backward at (1, 4,096, 12, 2, 128)
                bf16 (wgmma), granite-moe's (1, 4,096, 16, 8, 64) bf16
                (wgmma) and (1, 512, 12, 2, 128) f32 (SIMT) against the
@@ -359,9 +373,11 @@ Phases, each printing JSON lines:
                within the band, the card's aggregated gradient within
                ``grad_bound`` of the CPU's (each leaf's gap printed beside
                its bound), reference signs and weights by
-               ``api/parity.py``'s adamw rule); internvl2-2b trains at 2
-               layers only, since its 2.2 B parameters pass the count
-               kernel's 2^31 slots; (g) ``python -m repro_torch.launch.train
+               ``api/parity.py``'s adamw rule; all three cut to 2 layers
+               for the CPU's half, internvl2-2b's arena of 1,849,442 rows
+               being under the count's old 2^31 slots, no bar to its full
+               depth on the card: phase 11 reckons its step); (g) ``python
+               -m repro_torch.launch.train
                --arch qwen2-1.5b`` (C 2 × 1 × 2,048, 2 steps) and ``--arch
                anomaly-mlp`` in subprocesses, each exiting 0 with a
                checkpoint written; the phase's
@@ -441,6 +457,35 @@ Phases, each printing JSON lines:
                θ ratio within the band (``"phase": "card_vs_cpu"``,
                problems ``[]``); (d) the phase's seconds (``"phase":
                "sim_lm_phase"``).
+  11. dry run — the dry run's census (``roofline/census.py``, the steps
+               traced on meta tensors) against the card, TF32 off: (a)
+               qwen2-1.5b's blockwise prefill at B 4 × 2,048 (phase 7's
+               serve), weights from seed 0; (b) its training step at C 2
+               × 1 × 4,096 (blockwise, remat, adamw, θ 0.65), the card's
+               second step profiled and its third timed; each ``"phase":
+               "dryrun"`` line holds the census's matrix-product FLOPs by
+               operator, which must equal ``torch.profiler``'s
+               ``with_flops`` by name and in total, and the hand-written
+               kernels' launches, which must equal the card's and the
+               path's (flash 28 a prefill; 112, one count and one
+               aggregation a step); printed beside them, not gated: the
+               census's peak beside ``max_memory_allocated``, the
+               roofline's terms on the H100's peaks beside the measured
+               time, the operators the census dispatched beside the
+               profiler's aten operators and the CUDA runtime's launch
+               and copy calls (the paper's Tables V-VI metric); (c) the
+               peaks the census reckons for internvl2-2b (24 layers) and
+               phi3-mini-3.8b (32) at that training cell, on meta only,
+               beside the card's memory; (d) ``python -m
+               repro_torch.launch.dryrun --arch qwen2-1.5b`` (4 rows); the
+               phase's seconds (``"phase": "dryrun_phase"``).
+
+Every CLI check of phases 6f-11 (the serve, train and dry-run launchers in
+subprocesses, each exiting 0 with its output held) runs after phase 11,
+all at once in two waves (the two full-width serves, then the rest, the
+one full-width trainer among them), each line with its seconds from its
+wave's start (``"phase": "cli_phase"`` the waves' seconds); a phase run
+alone by its flag runs its own at its end.
 
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -481,7 +526,12 @@ only phase 9 (the ssm, hybrid and audio families), after the build; and
 
     python3 chip_smoke.py --sim-lm
 
-only phase 10 (the language models on the sim engines), after the build.
+only phase 10 (the language models on the sim engines), after the build;
+and
+
+    python3 chip_smoke.py --dryrun
+
+only phase 11 (the dry run's census against the card), after the build.
 """
 from __future__ import annotations
 
@@ -1010,6 +1060,224 @@ def sign_grid(sign_align, ref) -> float:
          grid=[list(s) for s in SIGN_GRID], equal=True,
          sign_cases=dict(values=len(SIGN_CASES_F32), counts=got.tolist()))
     return max(err, e)
+
+
+# rows of the counts past the old int32 limit: n = R·1024 = 2,252,800,000
+# slots, above 2^31 = 2,147,483,648; n = 2^15·68,750 is exact in f32 and
+# n − 1 (odd, above 2^24) rounds
+PAST_INT32_ROWS = 2_200_000
+
+
+def exact_counts(ref, u, refs) -> list:
+    """Each client's matches of u (C, R, 1024) against refs (P, R, 1024),
+    client c against refs[c // (C / P)], as Python ints: ``ref.sign``
+    compared and summed on the card a block of rows at a time."""
+    C, R, _ = u.shape
+    group = C // refs.shape[0]
+    step = 1 << 17
+    return [sum(int((ref.sign(u[c, a:a + step])
+                     == refs[c // group, a:a + step]).sum())
+                for a in range(0, R, step)) for c in range(C)]
+
+
+def plain_chunk_counts(ref, x, refs, chunks: int) -> list:
+    """Each count's matches in each chunk the kernel takes (chunk z: the
+    float4s [z·chunk4, (z + 1)·chunk4) of n / 4, chunk4 = ⌈n / 4 /
+    chunks⌉, as ``launch`` in csrc/sign_align.cu splits them), x (C, R,
+    1024) against refs (P, R, 1024), client c against refs[c // (C / P)],
+    counted with ``ref.sign`` on the card: (C, chunks) Python ints."""
+    C, P = x.shape[0], refs.shape[0]
+    n = x[0].numel()
+    xf, rf = x.reshape(C, n), refs.reshape(P, n)
+    chunk = 4 * -(-(n // 4) // chunks)
+    return [[int((ref.sign(xf[c, a:a + chunk])
+                  == rf[c // (C // P), a:a + chunk]).sum())
+              if a < n else 0 for a in range(0, chunk * chunks, chunk)]
+            for c in range(C)]
+
+
+def read_partials(sign_align, launch, name: str, x, r) -> tuple:
+    """(counts, partials) of one chunked launch of the entry point
+    ``name`` on (x, r) with an int32 workspace allocated here: the f32
+    counts as floats and the workspace read back as (C, chunks) ints. The
+    wrapper allocates the same workspace, and never reads it back."""
+    C = x.shape[0] if name == "per_client_sign_align" else 1
+    n = x[0].numel() if name == "per_client_sign_align" else x.numel()
+    k = sign_align.chunks(C, n)
+    if k < 2:
+        raise AssertionError(f"{name} at {tuple(x.shape)}: one chunk")
+    partials = torch.full((C * k,), -1, dtype=torch.int32, device="cuda")
+    counts = torch.empty(C if name == "per_client_sign_align" else (),
+                         dtype=torch.float32, device="cuda")
+    stream = launch.stream(torch.cuda.current_device())
+    if name == "per_client_sign_align":
+        group = C if r.dim() == 2 else C // r.shape[0]
+        launch.entries[name](x.data_ptr(), r.data_ptr(), counts.data_ptr(),
+                             partials.data_ptr(), C, group, n, k, stream)
+    else:
+        launch.entries[name](x.data_ptr(), int(x.dtype == torch.bfloat16),
+                             r.data_ptr(), counts.data_ptr(),
+                             partials.data_ptr(), n, k, stream)
+    torch.cuda.synchronize()
+    return (counts.reshape(-1).tolist(),
+            partials.reshape(C, k).tolist())
+
+
+def held_partials(sign_align, launch, ref, name: str, x, r, where: str):
+    """A chunked launch's int32 partials equal, chunk by chunk, to the
+    plain count of that chunk's slots, and its counts to their int64 sums
+    converted once to f32: a slot dropped or counted twice at a chunk's
+    edge shows here even where the f32 count cannot hold it. Returns the
+    chunks and the exact counts."""
+    counts, partials = read_partials(sign_align, launch, name, x, r)
+    xs = x if name == "per_client_sign_align" else x[None]
+    refs = r[None] if r.dim() == 2 else r
+    want = plain_chunk_counts(ref, xs, refs, len(partials[0]))
+    if partials != want:
+        raise AssertionError(f"{name} {where}: chunk partials {partials} "
+                             f"vs the plain chunks' counts {want}")
+    exact = [sum(p) for p in want]
+    if counts != [float(np.float32(c)) for c in exact]:
+        raise AssertionError(f"{name} {where}: counts {counts} vs the "
+                             f"partials' sums {exact} in f32")
+    return len(partials[0]), exact
+
+
+# (C, P, R) of the chunked count below 2^24 slots a count, where an f32
+# count is exact and the chunks' edges fall unevenly: 2 chunks; 3 chunks
+# of 1,398,016 float4s each; 3 chunks whose last is 2 float4s short; the
+# grouped form, one client and two clients a reference, 3 chunks
+CHUNK_EDGES = ((1, 1, 8_192), (1, 1, 16_383), (1, 1, 12_289),
+               (2, 2, 16_383), (4, 2, 16_383))
+
+
+def sign_chunk_edges(sign_align, launch, ref) -> None:
+    """The chunked count where an f32 count is exact (``CHUNK_EDGES``), u
+    random and random reference signs in {-1, 0, 1} (about a third of the
+    slots match, and the count moves with every slot): both wrappers
+    (``sign_align_counts`` on client 0's update, f32 and bf16, where P =
+    1) equal by bits to their plain versions and to the exact counts, and
+    every launch's chunk partials to the plain chunks' counts."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for C, P, R in CHUNK_EDGES:
+        u = torch.randn((C, R, 1024), generator=g, device="cuda")
+        refs = torch.randint(-1, 2, (P, R, 1024), generator=g, device="cuda",
+                             dtype=torch.int8)
+        r = refs[0] if P == 1 else refs
+        where = f"C {C} x P {P} x R {R}"
+        got, _ = held_counts(sign_align.per_client_sign_align,
+                             ref.per_client_sign_align, u, r, where)
+        chunks, exact = held_partials(sign_align, launch, ref,
+                                      "per_client_sign_align", u, r, where)
+        if got.tolist() != [float(c) for c in exact] or \
+                max(exact) >= 2 ** 24:
+            raise AssertionError(f"{where}: {got.tolist()} vs the exact "
+                                 f"counts {exact}")
+        line = dict(name="per_client_sign_align", case="chunk edges",
+                    shape=[C, R], references=P, chunks=chunks,
+                    counts=exact, equal_by_bits=True, partials_equal=True)
+        if P == 1:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = u[0].to(dtype)
+                one, _ = held_counts(sign_align.sign_align_counts,
+                                     ref.sign_align_counts, x, r,
+                                     f"{where} {dtype}")
+                held_partials(sign_align, launch, ref, "sign_align_counts",
+                              x, r, f"{where} {dtype}")
+                line[f"sign_align_counts_{str(dtype)[6:]}"] = float(one)
+        emit("kernels", **line)
+        del u, refs, r
+
+
+def sign_past_int32(sign_align, launch, ref, smi: str) -> None:
+    """Both sign counts past 2^31 slots against their plain versions, by
+    bits: ``per_client_sign_align`` at C 1 × R ``PAST_INT32_ROWS`` and
+    ``sign_align_counts`` on the same f32 update, the reference signs
+    sign(u) (every slot matches: n, exact in f32) and then with the first
+    slot set to the -2 padding (n − 1, which rounds); the grouped form at
+    C 2 × P 2 at the same R, client 0 against sign(u[0]) and client 1
+    against sign(u[1]) with its first slot padded. Counts also equal to
+    ``exact_counts`` converted once to f32 (numpy, nearest even), and each
+    case's chunk partials, read back from a launch of the entry point, to
+    the plain count of each chunk (``held_partials``: the f32 count past
+    2^31 cannot tell a slot more or less). Each case timed beside its
+    bound by bytes (each input read once), with its chunks and its
+    launches traced."""
+    R = PAST_INT32_ROWS
+    n = R * 1024
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def f32(count: int) -> float:
+        return float(np.float32(count))
+
+    def check(what, got, want_ints):
+        torch.cuda.synchronize()
+        want = torch.tensor([f32(c) for c in want_ints], device="cuda")
+        if got.reshape(-1).tolist() != want.tolist():
+            raise AssertionError(f"{what}: {got.tolist()} vs the exact "
+                                 f"counts {want_ints} in f32")
+
+    u = torch.randn((1, R, 1024), generator=g, device="cuda")
+    r = ref.sign(u[0])
+    lines = []
+    for case, pad in (("exact", False), ("rounds", True)):
+        if pad:
+            r[0, 0] = -2
+        want_ints = exact_counts(ref, u, r[None])
+        if want_ints != [n - pad]:
+            raise AssertionError(f"{case}: counted {want_ints}, built "
+                                 f"{n - pad}")
+        if (f32(n - pad) == n - pad) != (not pad):
+            raise AssertionError(f"{case}: {n - pad} in f32")
+        for name, fn, plain, args in (
+                ("per_client_sign_align", sign_align.per_client_sign_align,
+                 ref.per_client_sign_align, (u, r)),
+                ("sign_align_counts", sign_align.sign_align_counts,
+                 ref.sign_align_counts, (u[0], r))):
+            got, _ = held_counts(fn, plain, *args, f"{name} {case}")
+            check(f"{name} {case}", got, want_ints)
+            held_partials(sign_align, launch, ref, name, *args,
+                          f"{case} past 2^31")
+            bound = bound_ms(5 * n + 4, 2 * n)
+            lines.append(dict(
+                name=name, case=case, shape=[1, R], slots=n,
+                count=float(got.reshape(-1)[0]), exact_count=n - pad,
+                equal_by_bits=True, partials_equal=True,
+                chunks=sign_align.chunks(1, n),
+                ms=time_ms(lambda: fn(*args), iters=5, warmup=1),
+                plain_ms=time_ms(lambda: plain(*args), iters=1, warmup=1),
+                bound_ms=bound[0], bound_by=bound[1],
+                design=traced_grid(lambda: fn(*args), "sign_align")))
+    del u, r
+    free_card()
+    u = torch.randn((2, R, 1024), generator=g, device="cuda")
+    refs = ref.sign(u)
+    refs[1, 0, 0] = -2
+    want_ints = exact_counts(ref, u, refs)
+    if want_ints != [n, n - 1]:
+        raise AssertionError(f"grouped: counted {want_ints}")
+    got, _ = held_counts(sign_align.per_client_sign_align,
+                         ref.per_client_sign_align, u, refs, "grouped")
+    check("grouped", got, want_ints)
+    held_partials(sign_align, launch, ref, "per_client_sign_align", u, refs,
+                  "grouped past 2^31")
+    bound = bound_ms(2 * n * 4 + 2 * n + 8, 4 * n)
+    lines.append(dict(
+        name="per_client_sign_align", case="grouped C 2 x P 2",
+        shape=[2, R], references=2, slots=n, counts=got.tolist(),
+        exact_counts=want_ints, equal_by_bits=True, partials_equal=True,
+        chunks=sign_align.chunks(2, n),
+        ms=time_ms(lambda: sign_align.per_client_sign_align(u, refs),
+                   iters=5, warmup=1),
+        plain_ms=time_ms(lambda: ref.per_client_sign_align(u, refs),
+                         iters=1, warmup=1),
+        bound_ms=bound[0], bound_by=bound[1],
+        design=traced_grid(lambda: sign_align.per_client_sign_align(u, refs),
+                           "sign_align")))
+    del u, refs
+    free_card()
+    for line in lines:
+        emit("kernels", past_int32=True, **line, nvidia_smi=smi)
 
 
 def phase_kernels(sign_align, masked_agg, ref) -> dict:
@@ -3622,24 +3890,92 @@ def moe_card_cpu(mods, parity, arch: str) -> dict:
     return launches
 
 
+# The CLI checks: each runs ``python -m <module> ...`` in a subprocess on
+# the card and holds its exit code and output. In the whole script they
+# are gathered here and run together after phase 11 (``run_clis``); a phase
+# run alone by its flag runs its own at its end. None: run at once.
+DEFERRED_CLIS = None
+
+
+def cli_check(phase: str, run: str, args: list, ok, wave: int = 1,
+              keep=None, **fields) -> None:
+    """A CLI check: ``args`` after ``python -m`` (``{ckpt}`` becomes a
+    fresh directory), ``ok(stdout lines)`` must hold and the exit code be
+    0; its line is emitted under ``phase`` with ``fields`` and the last
+    ``keep`` lines of its output (all: None). Run now, or gathered into
+    ``DEFERRED_CLIS``."""
+    job = dict(phase=phase, run=run, args=args, ok=ok, wave=wave,
+               keep=keep, fields=fields)
+    if DEFERRED_CLIS is None:
+        run_clis([job])
+    else:
+        DEFERRED_CLIS.append(job)
+
+
+def run_clis(jobs, timeout: float = 600.0) -> None:
+    """Run the CLI checks ``jobs``, wave after wave (wave 0: the
+    full-width LM serves; wave 1: the rest, the one full-width trainer
+    among them, as the card's memory holds each wave), the jobs of a wave
+    started together and waited for together, each with its own output
+    files and checkpoint directory; every process is stopped before this
+    returns. Emits each job's line (its ``seconds`` from its wave's start
+    to its own end) and raises if any failed."""
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for wave in sorted({j["wave"] for j in jobs}):
+            running = []
+            t0 = time.perf_counter()
+            try:
+                for i, job in enumerate(j for j in jobs if j["wave"] == wave):
+                    args = [a.replace("{ckpt}", os.path.join(
+                        tmp, f"w{wave}j{i}")) for a in job["args"]]
+                    out = open(os.path.join(tmp, f"w{wave}j{i}.out"), "w+")
+                    err = open(os.path.join(tmp, f"w{wave}j{i}.err"), "w+")
+                    proc = subprocess.Popen([sys.executable, "-m", *args],
+                                            env=port_env(), stdout=out,
+                                            stderr=err, text=True)
+                    running.append([job, args, proc, out, err, None])
+                while any(r[5] is None for r in running):
+                    for r in running:
+                        if r[5] is None and r[2].poll() is not None:
+                            r[5] = time.perf_counter() - t0
+                    if time.perf_counter() - t0 > timeout:
+                        break
+                    time.sleep(0.1)
+            finally:
+                for r in running:
+                    if r[2].poll() is None:
+                        r[2].kill()
+                        r[2].wait()
+            for job, args, proc, out, err, seconds in running:
+                out.seek(0)
+                err.seek(0)
+                stdout, stderr = out.read(), err.read()
+                out.close()
+                err.close()
+                lines = stdout.strip().splitlines()
+                emit(job["phase"], run=job["run"], argv=args,
+                     returncode=proc.returncode,
+                     stdout=lines if job["keep"] is None
+                     else lines[-job["keep"]:], seconds=seconds,
+                     wave=wave, **job["fields"])
+                if proc.returncode != 0 or not lines or not job["ok"](lines):
+                    failures.append(f"{job['run']}: {proc.returncode}\n"
+                                    f"{stdout[-2000:]}\n{stderr[-2000:]}")
+    if failures:
+        raise AssertionError("CLI checks failed: " + "\n".join(failures))
+
+
 def lm_cli(arch: str) -> None:
     """``python -m repro_torch.launch.serve --arch <arch> --attention-impl
-    blockwise --batch 4 --prompt-len 2048 --decode-steps 16`` in a
-    subprocess on the card: exit 0 and its line."""
-    env = port_env()
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
-         "--attention-impl", "blockwise", "--batch", "4", "--prompt-len",
-         "2048", "--decode-steps", "16"],
-        env=env, capture_output=True, text=True, timeout=300)
-    lines = proc.stdout.strip().splitlines()
-    emit("slice", run=f"{arch} cli", returncode=proc.returncode,
-         stdout=lines, seconds=time.perf_counter() - t0)
-    if proc.returncode != 0 or not lines or not re.match(
-            r"prefill: 4x2048 in .*decode: 16 steps", lines[-1]):
-        raise AssertionError(f"{arch} serve CLI: {proc.returncode}\n"
-                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    blockwise --batch 4 --prompt-len 2048 --decode-steps 16`` on the card:
+    exit 0 and its line."""
+    cli_check("slice", f"{arch} cli", [
+        "repro_torch.launch.serve", "--arch", arch, "--attention-impl",
+        "blockwise", "--batch", "4", "--prompt-len", "2048",
+        "--decode-steps", "16"],
+        lambda lines: re.match(r"prefill: 4x2048 in .*decode: 16 steps",
+                               lines[-1]), wave=0)
 
 
 def phase_moe(mods, parity, smi: str) -> dict:
@@ -4283,18 +4619,12 @@ def serve_across_devices(parity, serve, cfg, dirs, params, path: str,
 
 def serve_cli() -> None:
     """``python -m repro_torch.launch.serve --arch anomaly-mlp --batch 256
-    --requests 2048`` in a subprocess on the card: exit 0, two lines."""
-    env = port_env()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "anomaly-mlp", "--batch", "256", "--requests", "2048"],
-        env=env, capture_output=True, text=True, timeout=300)
-    lines = proc.stdout.strip().splitlines()
-    emit("serve", run="cli", returncode=proc.returncode, stdout=lines)
-    if proc.returncode != 0 or len(lines) != 2 \
-            or not lines[0].startswith("scored 2048 flows"):
-        raise AssertionError(f"serve CLI: {proc.returncode}\n"
-                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    --requests 2048`` on the card: exit 0, two lines."""
+    cli_check("serve", "cli", [
+        "repro_torch.launch.serve", "--arch", "anomaly-mlp", "--batch",
+        "256", "--requests", "2048"],
+        lambda lines: len(lines) == 2
+        and lines[0].startswith("scored 2048 flows"))
 
 
 def phase_serve(T, parity, mods, smi: str) -> None:
@@ -4632,7 +4962,7 @@ def phase_train_kernels(sign_align, masked_agg, ref, R: int,
                           iters=3, warmup=1),
          bound_ms=sa_bound[0], bound_by=sa_bound[1], library_ms=None,
          design=traced_grid(lambda: sign_align.per_client_sign_align(u, r),
-                            "sign_align_kernel"), nvidia_smi=smi)
+                            "sign_align"), nvidia_smi=smi)
     emit("kernels", name="masked_agg", shape=[C, R], arena=arena,
          max_abs_err=err, excess=excess,
          ms=time_ms(lambda: masked_agg.masked_agg(u, w), iters=20, warmup=3),
@@ -4872,21 +5202,15 @@ def train_card_cpu(mods, parity, arch: str) -> dict:
     return launches
 
 
-def train_cli(argv, run: str, timeout: int = 300) -> None:
-    """``python -m repro_torch.launch.train`` in a subprocess on the card:
-    exit 0, its log lines, and a checkpoint written (the first step's)."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"]
-                          + argv, env=port_env(), capture_output=True,
-                          text=True, timeout=timeout)
-    lines = proc.stdout.strip().splitlines()
-    emit("slice", run=run, argv=argv, returncode=proc.returncode,
-         stdout=lines[-4:], seconds=time.perf_counter() - t0)
-    saved = re.search(r"checkpoints=(\d+)$", lines[-1]) if lines else None
-    if (not saved or proc.returncode != 0
-            or not lines[-1].startswith("done:") or int(saved.group(1)) < 1):
-        raise AssertionError(f"{run}: {proc.returncode}\n"
-                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+def train_cli(argv, run: str) -> None:
+    """``python -m repro_torch.launch.train`` on the card: exit 0, its log
+    lines, and a checkpoint written (the first step's) into ``{ckpt}``."""
+    def ok(lines):
+        saved = re.search(r"checkpoints=(\d+)$", lines[-1])
+        return (lines[-1].startswith("done:") and saved is not None
+                and int(saved.group(1)) >= 1)
+    cli_check("slice", run, ["repro_torch.launch.train", *argv,
+                             "--ckpt-dir", "{ckpt}"], ok, keep=4)
 
 
 def phase_train(mods, parity, ref, smi: str) -> dict:
@@ -4916,13 +5240,11 @@ def phase_train(mods, parity, ref, smi: str) -> dict:
                                                                arch)
         free_card()
     mark("e_card_vs_cpu")
-    with tempfile.TemporaryDirectory() as tmp:
-        train_cli(["--arch", "qwen2-1.5b", "--clients", "2",
-                   "--per-client-batch", "1", "--seq", "2048", "--steps", "2",
-                   "--log-every", "1", "--ckpt-dir",
-                   os.path.join(tmp, "qwen2")], "qwen2-1.5b train cli")
-        train_cli(["--arch", "anomaly-mlp", "--steps", "5", "--ckpt-dir",
-                   os.path.join(tmp, "mlp")], "anomaly-mlp train cli")
+    train_cli(["--arch", "qwen2-1.5b", "--clients", "2",
+               "--per-client-batch", "1", "--seq", "2048", "--steps", "2",
+               "--log-every", "1"], "qwen2-1.5b train cli")
+    train_cli(["--arch", "anomaly-mlp", "--steps", "5"],
+              "anomaly-mlp train cli")
     mark("g_cli")
     emit("train_phase", seconds=time.perf_counter() - t_phase,
          seconds_by_part=parts, nvidia_smi=smi)
@@ -5210,9 +5532,10 @@ def family_train(mods, ref, smi: str, counts: dict) -> dict:
     rwkv = registry.get_config("rwkv6-7b")
     n = counts["rwkv6-7b"]
     emit("slice", run="rwkv6-7b train", trained=False, params=n,
-         reason=(f"{n} arena slots pass the sign count's 2^31 refusal "
-                 f"(kernels/sign_align.py), and a 2-client f32 arena alone "
-                 f"is {2 * 4 * n / 1e9:.1f} GB"), optimizer=rwkv.optimizer)
+         reason=(f"a 2-client f32 arena of its {n} parameters alone is "
+                 f"{2 * 4 * n / 1e9:.1f} GB of the card's 80 (the count "
+                 f"takes its 2^31 slots and more)"),
+         optimizer=rwkv.optimizer)
     for arch, (cell, flash, warm, steps, layers) in FAMILY_TRAIN.items():
         cfg = registry.get_config(arch).replace(attention_impl="blockwise")
         run = f"{arch} train blockwise"
@@ -5456,24 +5779,15 @@ def family_card_cpu(mods, parity, arch: str, layers, train_steps) -> dict:
 def family_clis() -> None:
     """9 (f): ``python -m repro_torch.launch.serve --arch rwkv6-7b
     --smoke`` and ``python -m repro_torch.launch.train --arch
-    whisper-tiny`` (full width) in subprocesses on the card, exit 0."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "rwkv6-7b", "--smoke", "--prompt-len", "32", "--decode-steps", "4"],
-        env=port_env(), capture_output=True, text=True, timeout=300)
-    lines = proc.stdout.strip().splitlines()
-    emit("slice", run="rwkv6-7b serve cli", returncode=proc.returncode,
-         stdout=lines, seconds=time.perf_counter() - t0)
-    if proc.returncode != 0 or not lines or not re.match(
-            r"prefill: 4x32 in .*decode: 4 steps", lines[-1]):
-        raise AssertionError(f"rwkv6-7b serve CLI: {proc.returncode}\n"
-                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
-    with tempfile.TemporaryDirectory() as tmp:
-        train_cli(["--arch", "whisper-tiny", "--clients", "2",
-                   "--per-client-batch", "1", "--seq", "64", "--steps", "2",
-                   "--log-every", "1", "--ckpt-dir",
-                   os.path.join(tmp, "whisper")], "whisper-tiny train cli")
+    whisper-tiny`` (full width) on the card, exit 0."""
+    cli_check("slice", "rwkv6-7b serve cli", [
+        "repro_torch.launch.serve", "--arch", "rwkv6-7b", "--smoke",
+        "--prompt-len", "32", "--decode-steps", "4"],
+        lambda lines: re.match(r"prefill: 4x32 in .*decode: 4 steps",
+                               lines[-1]))
+    train_cli(["--arch", "whisper-tiny", "--clients", "2",
+               "--per-client-batch", "1", "--seq", "64", "--steps", "2",
+               "--log-every", "1"], "whisper-tiny train cli")
 
 
 def phase_families(mods, parity, ref, smi: str) -> dict:
@@ -5963,6 +6277,231 @@ def phase_sim_lm(T, parity, mods, ref, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 11. the dry run (launch/dryrun.py, roofline/) held against the card
+# ---------------------------------------------------------------------------
+
+# the matrix products torch.profiler's with_flops counts, as the census does
+PROFILED_MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+DRYRUN_PREFILL = dict(batch=4, prompt_len=2048)      # phase 7's serve
+DRYRUN_PEAKS = ("internvl2-2b", "phi3-mini-3.8b")    # reckoned, not run
+
+
+def census_of(step, *args):
+    """The census of ``step(*args)`` on meta copies of the arguments
+    (weights, state and batch leaves become meta tensors of their shapes
+    and dtypes)."""
+    from repro_torch.roofline.census import Census
+    from repro_torch.tree import tree_map
+    meta = tree_map(lambda t: torch.empty_like(t, device="meta")
+                    if torch.is_tensor(t) else t, args)
+    census = Census()
+    census.hold(*meta)
+    with census:
+        step(*meta)
+    return census.analyze()
+
+
+def profiled(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` with FLOPs: the
+    profiler's FLOPs by matrix-product name, the aten operators it
+    recorded (nested ones included) and the CUDA runtime's launch and copy
+    calls, by name."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True, with_flops=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return dict(
+        flops_by_op={e.key: float(e.flops) for e in events
+                     if e.key in PROFILED_MATMULS and e.flops},
+        aten_ops=sum(e.count for e in events if e.key.startswith("aten::")),
+        runtime={e.key: e.count for e in events
+                 if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel",
+                                      "cudaMemcpy"))})
+
+
+def held_census(run: str, census: dict, card: dict, launches: dict,
+                want_launches: dict) -> list:
+    """Problems of a census against the card: matrix-product FLOPs equal
+    by name and in total (and none under a name the profiler does not
+    count), the hand-written kernels' launches equal to the card's and to
+    what the path makes."""
+    problems = []
+    ours = {k: v for k, v in census["flops_by_op"].items()
+            if k.startswith("aten::")}
+    if ours != card["flops_by_op"]:
+        problems.append(f"{run}: matrix-product FLOPs {ours} on meta, "
+                        f"{card['flops_by_op']} on the card")
+    if sum(ours.values()) != sum(card["flops_by_op"].values()):
+        problems.append(f"{run}: total FLOPs differ")
+    counted = {k: int(v) for k, v in census["kernel_launches"].items()}
+    card_launches = {k: v for k, v in launches.items() if v}
+    if counted != card_launches or counted != want_launches:
+        problems.append(f"{run}: kernel launches {counted} on meta, "
+                        f"{card_launches} on the card, {want_launches} "
+                        f"made by the path")
+    return problems
+
+
+def dryrun_line(run: str, cfg, shape, census: dict, card: dict,
+                launches: dict, wall_s: list, peak: int, smi: str) -> dict:
+    from repro_torch.roofline import analysis
+    roof = analysis.analyze(cfg.name, shape, "1x1", 1, census, cfg)
+    return dict(
+        run=run, census_flops_by_op=census["flops_by_op"],
+        card_flops_by_op=card["flops_by_op"],
+        census_kernel_launches=census["kernel_launches"],
+        card_kernel_launches={k: v for k, v in launches.items() if v},
+        census_peak_bytes=census["peak_bytes"],
+        max_memory_allocated=peak,
+        roofline=dict(t_compute_s=roof.t_compute, t_memory_s=roof.t_memory,
+                      t_collective_s=roof.t_collective,
+                      dominant=roof.dominant,
+                      useful_ratio=roof.useful_ratio),
+        measured_s=wall_s,
+        census_ops_dispatched=census["total_instructions"],
+        card_aten_ops_recorded=card["aten_ops"],
+        card_runtime_calls=card["runtime"],
+        nvidia_smi=smi)
+
+
+def dryrun_prefill(mods, smi: str) -> list:
+    """11 (a): qwen2-1.5b's blockwise prefill at B 4 × 2,048 on the card
+    (weights from seed 0) against its census on meta."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import fl_step
+    from repro_torch.models import api as model_api
+    cfg = registry.get_config("qwen2-1.5b").replace(
+        attention_impl="blockwise")
+    B, S = DRYRUN_PREFILL["batch"], DRYRUN_PREFILL["prompt_len"]
+    params = model_api.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    step = fl_step.build_prefill_step(cfg)
+    census = census_of(step, params, {"tokens": tokens})
+    with torch.no_grad():
+        step(params, {"tokens": tokens})                       # warm
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(mods)
+        card = profiled(lambda: step(params, {"tokens": tokens}))
+        launches = read_launches(mods)
+    peak = torch.cuda.max_memory_allocated()
+    run = f"qwen2-1.5b prefill blockwise {B}x{S}"
+    emit("dryrun", **dryrun_line(run, cfg, InputShape(run, S, B, "prefill"),
+                                 census, card, launches, walls, peak, smi))
+    del params, tokens
+    free_card()
+    return held_census(run, census, card, launches,
+                       {"flash_attention": cfg.num_layers})
+
+
+def dryrun_train(mods, smi: str) -> list:
+    """11 (b): qwen2-1.5b's training step at C 2 × 1 × 4,096 (blockwise,
+    remat, adamw, θ 0.65; weights from seed 0) on the card against its
+    census on meta: the census of one step, the card's second step
+    profiled and its third timed."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import fl_step
+    from repro_torch.launch import train as train_mod
+    cfg = registry.get_config("qwen2-1.5b").replace(
+        attention_impl="blockwise")
+    C, B, S = (TRAIN_CELL[k] for k in ("clients", "per_client", "seq"))
+    draw = train_mod.make_batch_fn(cfg, C, B, S, seed=0, device="cuda")
+    batches = [draw() for _ in range(3)]
+    census = census_of(fl_step.build_fl_train_step(
+        cfg, theta=TRAIN_CELL["theta"]), fl_step.init_state(
+            None, cfg, device="meta"), batches[0])
+    step = fl_step.build_fl_train_step(cfg, theta=TRAIN_CELL["theta"])
+    box = [fl_step.init_state(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, device="cuda")]
+    stepped(step, box, batches[0])                              # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    card = profiled(lambda: stepped(step, box, batches[1]))
+    launches = read_launches(mods)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stepped(step, box, batches[2])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = f"qwen2-1.5b train blockwise C {C} x {B} x {S}"
+    emit("dryrun", **dryrun_line(run, cfg, InputShape(run, S, C * B, "train"),
+                                 census, card, launches, [wall], peak, smi))
+    del box, batches
+    free_card()
+    return held_census(run, census, card, launches, {
+        "flash_attention": 2 * cfg.num_layers * C,
+        "per_client_sign_align": 1, "masked_agg": 1})
+
+
+def dryrun_peaks(smi: str) -> None:
+    """11 (c): the census's peak of one training step at the card's cell
+    (C 2 × 1 × 4,096, blockwise, remat, the config's optimizer) for the
+    configs not trained at full depth on the card, with their arena
+    rows; reckoned on meta, not run."""
+    from repro_torch.configs import registry
+    from repro_torch.core import fl_step
+    from repro_torch.kernels import arena as arena_mod
+    C, B, S = (TRAIN_CELL[k] for k in ("clients", "per_client", "seq"))
+    for arch in DRYRUN_PEAKS:
+        cfg = registry.get_config(arch).replace(attention_impl="blockwise")
+        state = fl_step.init_state(None, cfg, device="meta")
+        step = fl_step.build_fl_train_step(cfg, theta=TRAIN_CELL["theta"])
+        toks = S - (cfg.num_patches if cfg.family == "vlm" else 0)
+        batch = {"tokens": torch.empty((C, B, toks), dtype=torch.int64,
+                                       device="meta")}
+        batch["labels"] = torch.empty_like(batch["tokens"])
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.empty(
+                (C, B, cfg.num_patches, cfg.d_model),
+                dtype=cfg.compute_dtype, device="meta")
+        census = census_of(step, state, batch)
+        emit("dryrun", run=f"{arch} train blockwise C {C} x {B} x {S}",
+             reckoned_only=True, layers=cfg.num_layers,
+             arena_rows=arena_mod.ParamArena(state.params).rows,
+             census_peak_bytes=census["peak_bytes"],
+             census_flops=census["flops"],
+             census_kernel_launches=census["kernel_launches"],
+             card_bytes=torch.cuda.get_device_properties(0).total_memory,
+             nvidia_smi=smi)
+
+
+def phase_dryrun(mods, smi: str) -> dict:
+    """Phase 11: the dry run's census held against the card (module
+    docstring, 11 (a) to (d))."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    problems = dryrun_prefill(mods, smi) + dryrun_train(mods, smi)
+    dryrun_peaks(smi)
+    cli_check("dryrun", "cli --arch qwen2-1.5b", [
+        "repro_torch.launch.dryrun", "--arch", "qwen2-1.5b", "--results",
+        "{ckpt}/dry.jsonl"],
+        lambda lines: lines[-1] == "[dryrun] all combos traced on meta "
+        "successfully" and sum(line.startswith("[dryrun] qwen2-1.5b × ")
+                                for line in lines) == 4, keep=6)
+    emit("dryrun_phase", seconds=time.perf_counter() - t_phase,
+         problems=problems, nvidia_smi=smi)
+    if problems:
+        raise AssertionError("dry run vs card: " + "; ".join(problems))
+    return {}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6024,6 +6563,10 @@ def main() -> int:
         _build.build_all()
         phase_sim_lm(T, parity, mods, ref, smi)
         return 0
+    if sys.argv[1:] == ["--dryrun"]:
+        _build.build_all()
+        phase_dryrun(mods, smi)
+        return 0
     if sys.argv[1:] == ["--lazy-world"]:
         _build.build_all()
         cfg = quickstart_spec(T, "ours").resolve_model()
@@ -6051,8 +6594,14 @@ def main() -> int:
         if spills:
             raise AssertionError(f"flash_attn_wgmma spills: {spills}")
 
+    # every CLI check runs at the end, after phase 11, together
+    global DEFERRED_CLIS
+    DEFERRED_CLIS = []
+
     # 3. kernels
     rows = phase_kernels(sign_align, masked_agg, ref)
+    sign_chunk_edges(sign_align, _launch, ref)
+    sign_past_int32(sign_align, _launch, ref, smi)
     rows.update(phase_quantize(quantize, gather, _launch, ref))
     rows.update(phase_gather(quantize, gather, _launch, ref))
     phase_launch(quantize, gather, masked_agg, sign_align, _launch)
@@ -6200,6 +6749,13 @@ def main() -> int:
     # full width through the async megastep, the loop, the int8 megastep
     # and the int8 scanned path at 2 layers, card against CPU in f32
     launches.update(phase_sim_lm(T, parity, mods, ref, smi))
+
+    # 11. the dry run's census against the card: qwen2-1.5b's prefill and
+    # training step; then every CLI check of phases 6f-11, together
+    phase_dryrun(mods, smi)
+    t0 = time.perf_counter()
+    run_clis(DEFERRED_CLIS)
+    emit("cli_phase", seconds=time.perf_counter() - t0, nvidia_smi=smi)
 
     # launches on each kernel's main path: the megastep int8 run for the
     # three kernels it runs, the per-client int8 loop for the codec pair,

@@ -1,5 +1,5 @@
 """Architecture registry: ``--arch <id>`` resolution for launchers, over
-the JAX package's architectures."""
+the JAX package's architectures (``repro/configs/registry.py``)."""
 from __future__ import annotations
 
 from repro_torch.configs import (anomaly_mlp, arctic_480b, granite_34b,
@@ -23,6 +23,10 @@ _MODULES = {
 }
 
 
+# every architecture but the detector: the dry run's plan
+ASSIGNED_ARCHS = [k for k in _MODULES if k != "anomaly-mlp"]
+
+
 def list_archs():
     """Sorted list of the ``--arch`` ids the port runs."""
     return sorted(_MODULES)
@@ -33,6 +37,11 @@ def get_config(name: str, smoke: bool = False) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     mod = _MODULES[name]
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def all_configs(smoke: bool = False):
+    """{arch: config} over ``ASSIGNED_ARCHS``."""
+    return {name: get_config(name, smoke) for name in ASSIGNED_ARCHS}
 
 
 # long_500k applicability, as in the JAX package: the ssm and hybrid archs

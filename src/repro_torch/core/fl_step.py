@@ -172,9 +172,10 @@ def init_state(generator: Optional[torch.Generator], cfg, optimizer=None,
     optimizer = optimizer or optim_mod.for_config(cfg)
     dev = resolve_device(device)
     if params is None:
-        params = api.init_params(generator, cfg,
-                                 "cpu" if cfg.family == "mlp" else dev)
-    params = _params_on(params, cfg, dev)
+        params = api.init_params(generator, cfg, "cpu" if (
+            cfg.family == "mlp" and dev.type != "meta") else dev)
+    if dev.type != "meta":          # the dry run's weights: shapes only
+        params = _params_on(params, cfg, dev)
     ctl = None
     if control_plane is not None and control_plane.active():
         ctl = control_mod.init_control(

@@ -116,8 +116,8 @@ PyObject* pppilp(PyObject*, PyObject* const* args, Py_ssize_t n) {
 }
 
 // per_client_sign_align
-PyObject* pppiilp(PyObject*, PyObject* const* args, Py_ssize_t n) {
-  return call<P, P, P, int, int, L, P>(args, n);
+PyObject* ppppiilip(PyObject*, PyObject* const* args, Py_ssize_t n) {
+  return call<P, P, P, P, int, int, L, int, P>(args, n);
 }
 
 // fused_update
@@ -126,8 +126,8 @@ PyObject* pipppilp(PyObject*, PyObject* const* args, Py_ssize_t n) {
 }
 
 // sign_align_counts
-PyObject* pipplp(PyObject*, PyObject* const* args, Py_ssize_t n) {
-  return call<P, int, P, P, L, P>(args, n);
+PyObject* pippplip(PyObject*, PyObject* const* args, Py_ssize_t n) {
+  return call<P, int, P, P, P, L, int, P>(args, n);
 }
 
 // flash_attention (SIMT)
@@ -147,8 +147,8 @@ PyObject* ppppiiiiiiipiifp(PyObject*, PyObject* const* args, Py_ssize_t n) {
 
 PyMethodDef methods[] = {METHOD(ppplp),    METHOD(pppplp),
                          METHOD(pppllip),  METHOD(pppilp),
-                         METHOD(pppiilp),
-                         METHOD(pipppilp), METHOD(pipplp),
+                         METHOD(ppppiilip),
+                         METHOD(pipppilp), METHOD(pippplip),
                          METHOD(ppppiiiiiiiipiifp),
                          METHOD(ppppiiiiiiipiifp),
                          {nullptr, nullptr, 0, nullptr}};

@@ -27,7 +27,9 @@
 // there. sign_align_counts moves 5*n bytes for f32 g (0.28 MB at R = 54,
 // about 0.08 us): purely launch-bound.
 //
-// Design: one launch a call, which writes the final f32 counts into an
+// Design: one launch a call (a count of fewer than 2^23 slots, every
+// count of the anomaly-detection paths; "Past 2^31 slots" below says what
+// a longer one takes), which writes the final f32 counts into an
 // output the caller allocates uninitialised; nothing is carried between
 // calls (no zeroed counter, no atomics into the output, no second launch).
 // Each count is taken by one thread-block cluster of k blocks (grid
@@ -73,13 +75,28 @@
 // but one update of 4.4 MB in 11.8 (5.2): the cluster limit holds the
 // count to 8 SMs.
 //
-// Exactness: counts are int32 from the first thread to the last partial
-// (n < 2^31, which the wrappers enforce, so nothing wraps) and integer
-// addition does not depend on order; the one conversion, __int2float_rn,
-// rounds to nearest even as the plain version's int64 -> f32 .to does, so
-// the two are equal by bits. (The TPU kernels count in f32, exact only
-// below 2^24 matches.) sign(x) is (x > 0) - (x < 0): +0, -0 and NaN give
-// 0, as jnp.sign does for zeros; subnormals keep their sign (no flush).
+// Past 2^31 slots (chunks): a count of more slots than an int32 holds is
+// taken in chunks of at most 2^30 slots, the grid's z index the chunk;
+// the wrapper picks the number (kernels/sign_align.py::chunks) and also
+// splits a long count (2^22 slots a chunk or more) into enough chunks to
+// bring about 132 blocks to it, where the cluster limit would hold it to
+// 8 a count. sign_align_chunk_kernel counts a chunk with a cluster, in
+// int32, as sign_align_kernel counts a whole update (both inline one
+// body, cluster_count), and writes the int32 partial into a (C, chunks)
+// workspace the wrapper allocates; add_chunks_kernel, one thread a count,
+// adds a count's partials in int64 and converts once. So a chunked call
+// is two device operations, and an unchunked one (every count the
+// anomaly-detection paths make) stays one launch of sign_align_kernel.
+//
+// Exactness: counts are int32 from the first thread to a chunk's partial
+// (a chunk holds fewer than 2^31 slots, so nothing wraps), int64 across
+// chunks, and integer addition does not depend on order; the one
+// conversion, __int2float_rn of an unchunked count or __ll2float_rn of a
+// chunked one, rounds to nearest even as the plain version's int64 -> f32
+// .to does, so the two are equal by bits at any size. (The TPU kernels
+// count in f32, exact only below 2^24 matches.) sign(x) is (x > 0) -
+// (x < 0): +0, -0 and NaN give 0, as jnp.sign does for zeros; subnormals
+// keep their sign (no flush).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -173,6 +190,50 @@ __device__ __forceinline__ int block_sum(int count) {
   return count;
 }
 
+// The matches of xc[0 .. 4*len) against rc[0 .. len), counted by the
+// cluster: every thread of every block calls it once, with len > 0, and
+// it returns the cluster's total in rank 0's thread 0 and 0 elsewhere.
+// Both kernels below inline it, each instantiation with its own register
+// allocation; the caller forms its output's address only after it
+// returns. Kept live across the loop, that address let the compiler put
+// each count beside its load in the grouped f32 chunked count (32
+// registers, not 52; one H100 80GB HBM3, 700 W), which took 14.5 ms where
+// this takes 8.2 at C 2 x P 2 x R 2,200,000.
+template <typename T>
+__device__ __forceinline__ int cluster_count(const cg::cluster_group& cluster,
+                                             const T* __restrict__ xc,
+                                             const char4* __restrict__ rc,
+                                             long long len) {
+  const unsigned k = cluster.num_blocks();
+  const unsigned rank = cluster.block_rank();
+  cluster_arrive();
+  const long long stride = (long long)k * kThreads;   // the cluster's threads
+  const long long first = (long long)rank * kThreads + threadIdx.x;
+  int count = 0;
+  for (long long i0 = 0; i0 < len; i0 += stride * kBatch) {
+    float4 v[kBatch];
+    char4 s[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const long long i = i0 + first + j * stride;
+      v[j] = load4(xc, i, i < len);
+      s[j] = load_signs(rc, i, i < len);
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) count += matches(v[j], s[j]);
+  }
+  count = block_sum(count);
+  __shared__ int block_counts[kMaxCluster];
+  cluster_wait();               // every block of the cluster has started
+  if (threadIdx.x == 0)
+    *cluster.map_shared_rank(block_counts + rank, 0) = count;
+  cluster.sync();
+  int total = 0;
+  if (rank == 0 && threadIdx.x == 0)
+    for (unsigned j = 0; j < k; ++j) total += block_counts[j];
+  return total;
+}
+
 // counts[c] = the matches of x[c][0 .. 4*n4) against the reference, for
 // the cluster c of k blocks: grouped, r[blockIdx.y] and c = (blockIdx.y *
 // gridDim.x + blockIdx.x) / k (gridDim.x = k * clients a reference);
@@ -190,34 +251,50 @@ sign_align_kernel(const T* __restrict__ x, const char4* __restrict__ r,
     if (rank == 0 && threadIdx.x == 0) counts[c] = 0.0f;
     return;
   }
-  cluster_arrive();
-  const T* xc = x + c * n4 * 4;
-  const char4* rc = kGrouped ? r + blockIdx.y * n4 : r;
-  const long long stride = (long long)k * kThreads;   // the cluster's threads
-  const long long first = (long long)rank * kThreads + threadIdx.x;
-  int count = 0;
-  for (long long i0 = 0; i0 < n4; i0 += stride * kBatch) {
-    float4 v[kBatch];
-    char4 s[kBatch];
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      const long long i = i0 + first + j * stride;
-      v[j] = load4(xc, i, i < n4);
-      s[j] = load_signs(rc, i, i < n4);
-    }
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) count += matches(v[j], s[j]);
+  const int total = cluster_count(cluster, x + c * n4 * 4,
+                                  kGrouped ? r + blockIdx.y * n4 : r, n4);
+  if (rank == 0 && threadIdx.x == 0) counts[c] = __int2float_rn(total);
+}
+
+// The chunked count: partials[c * gridDim.z + z] = the matches of chunk
+// z = blockIdx.z of x[c], x[c][4*z*chunk4 ..) for chunk4 float4s or what
+// is left, in int32, for the cluster c of k blocks found as in
+// sign_align_kernel.
+template <typename T, bool kGrouped>
+__global__ void __launch_bounds__(kThreads)
+sign_align_chunk_kernel(const T* __restrict__ x, const char4* __restrict__ r,
+                        int* __restrict__ partials, long long n4,
+                        long long chunk4) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned k = cluster.num_blocks();
+  const unsigned rank = cluster.block_rank();
+  const long long c = kGrouped ? (blockIdx.y * gridDim.x + blockIdx.x) / k
+                               : blockIdx.x / k;
+  const long long start = blockIdx.z * chunk4;
+  long long len = n4 - start;
+  if (len > chunk4) len = chunk4;
+  if (len <= 0) {
+    if (rank == 0 && threadIdx.x == 0)
+      partials[c * gridDim.z + blockIdx.z] = 0;
+    return;
   }
-  count = block_sum(count);
-  __shared__ int partials[kMaxCluster];
-  cluster_wait();               // every block of the cluster has started
-  if (threadIdx.x == 0) *cluster.map_shared_rank(partials + rank, 0) = count;
-  cluster.sync();
-  if (rank == 0 && threadIdx.x == 0) {
-    int total = 0;
-    for (unsigned j = 0; j < k; ++j) total += partials[j];
-    counts[c] = __int2float_rn(total);
-  }
+  const int total = cluster_count(
+      cluster, x + (c * n4 + start) * 4,
+      (kGrouped ? r + blockIdx.y * n4 : r) + start, len);
+  if (rank == 0 && threadIdx.x == 0)
+    partials[c * gridDim.z + blockIdx.z] = total;
+}
+
+// counts[c] = the sum of partials[c * chunks ..] in int64, converted once.
+__global__ void __launch_bounds__(kThreads)
+add_chunks_kernel(const int* __restrict__ partials,
+                  float* __restrict__ counts, int clients, int chunks) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= clients) return;
+  long long total = 0;
+  for (int j = 0; j < chunks; ++j)
+    total += partials[(long long)c * chunks + j];
+  counts[c] = __ll2float_rn(total);
 }
 
 // Blocks a count: enough for about kBusyBlocks in all, no more than
@@ -230,13 +307,16 @@ int cluster_size(int clients, long long n4) {
   return k < 1 ? 1 : (int)k;
 }
 
-// One launch of clusters of k blocks, one cluster a count; returns the
-// launch's error or, if it has none, cudaGetLastError(), as an int.
+// One launch of clusters of k blocks, one cluster a count (a count's
+// chunk when chunks > 1, then a second launch that adds the chunks);
+// returns the first launch error or, if none, cudaGetLastError(), as an
+// int.
 template <typename T>
-int launch(const void* x, const void* r, void* counts, int clients,
-           int group, long long n, void* stream) {
+int launch(const void* x, const void* r, void* counts, void* partials,
+           int clients, int group, long long n, int chunks, void* stream) {
   const long long n4 = n / 4;
-  const int k = cluster_size(clients, n4);
+  const long long chunk4 = chunks > 1 ? (n4 + chunks - 1) / chunks : n4;
+  const int k = cluster_size(clients * chunks, chunk4);
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = (unsigned)k;
@@ -244,19 +324,33 @@ int launch(const void* x, const void* r, void* counts, int clients,
   cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3((unsigned)k * (unsigned)group,
-                        (unsigned)(clients / group));
+                        (unsigned)(clients / group), (unsigned)chunks);
   config.blockDim = dim3(kThreads);
   config.stream = (cudaStream_t)stream;
   config.attrs = &cluster;
   config.numAttrs = 1;
-  const cudaError_t launched =
-      group == clients
-          ? cudaLaunchKernelEx(&config, sign_align_kernel<T, false>,
-                               (const T*)x, (const char4*)r, (float*)counts,
-                               n4)
-          : cudaLaunchKernelEx(&config, sign_align_kernel<T, true>,
-                               (const T*)x, (const char4*)r, (float*)counts,
-                               n4);
+  const bool grouped = group != clients;
+  const T* xt = (const T*)x;
+  const char4* rt = (const char4*)r;
+  float* out = (float*)counts;
+  int* part = (int*)partials;
+  cudaError_t launched;
+  if (chunks > 1)
+    launched = grouped
+        ? cudaLaunchKernelEx(&config, sign_align_chunk_kernel<T, true>, xt,
+                             rt, part, n4, chunk4)
+        : cudaLaunchKernelEx(&config, sign_align_chunk_kernel<T, false>, xt,
+                             rt, part, n4, chunk4);
+  else
+    launched = grouped
+        ? cudaLaunchKernelEx(&config, sign_align_kernel<T, true>, xt, rt,
+                             out, n4)
+        : cudaLaunchKernelEx(&config, sign_align_kernel<T, false>, xt, rt,
+                             out, n4);
+  if (launched == cudaSuccess && chunks > 1) {
+    add_chunks_kernel<<<(clients + kThreads - 1) / kThreads, kThreads, 0,
+                        (cudaStream_t)stream>>>(part, out, clients, chunks);
+  }
   const cudaError_t last = cudaGetLastError();
   return (int)(launched != cudaSuccess ? launched : last);
 }
@@ -265,21 +359,29 @@ int launch(const void* x, const void* r, void* counts, int clients,
 
 // u: (C, n) f32, r: (C / group, n) int8, counts: (C,) f32, written whole;
 // client c is counted against r[c / group] (group >= 1 divides C); n is a
-// multiple of 4 below 2^31 (0 writes C zeros and loads nothing) and u, r
-// are 16-byte aligned. Launches on `stream` and returns the launch's CUDA
-// error as an int.
+// multiple of 4 (0 writes C zeros and loads nothing), counted in `chunks`
+// chunks (1 <= chunks <= 65535, each of fewer than 2^31 slots), and u, r
+// are 16-byte aligned. With chunks > 1, partials is a (C, chunks) int32
+// workspace, else unused. Launches on `stream` and returns the launch's
+// CUDA error as an int.
 extern "C" int per_client_sign_align(const void* u, const void* r,
-                                     void* counts, int clients, int group,
-                                     long long n, void* stream) {
-  return launch<float>(u, r, counts, clients, group, n, stream);
+                                     void* counts, void* partials,
+                                     int clients, int group, long long n,
+                                     int chunks, void* stream) {
+  return launch<float>(u, r, counts, partials, clients, group, n, chunks,
+                       stream);
 }
 
 // g: (n,) f32 (g_bf16 == 0) or bf16 (g_bf16 != 0), r: (n,) int8, count:
-// one f32, written; n is a multiple of 4 below 2^31, g and r 16-byte
+// one f32, written; n is a multiple of 4, counted in `chunks` chunks as
+// above (partials: `chunks` int32 when chunks > 1), g and r 16-byte
 // aligned. Launches on `stream` and returns the launch's CUDA error as an
 // int.
 extern "C" int sign_align_counts(const void* g, int g_bf16, const void* r,
-                                 void* count, long long n, void* stream) {
-  return g_bf16 ? launch<__nv_bfloat16>(g, r, count, 1, 1, n, stream)
-                : launch<float>(g, r, count, 1, 1, n, stream);
+                                 void* count, void* partials, long long n,
+                                 int chunks, void* stream) {
+  return g_bf16 ? launch<__nv_bfloat16>(g, r, count, partials, 1, 1, n,
+                                        chunks, stream)
+                : launch<float>(g, r, count, partials, 1, 1, n, chunks,
+                                stream);
 }

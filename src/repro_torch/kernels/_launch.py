@@ -40,11 +40,12 @@ ENTRY_POINTS = {
     "masked_agg": ("masked_agg", (_PTR, _PTR, _PTR, _I32, _I64, _PTR)),
     "fused_update": ("masked_agg",
                      (_PTR, _I32, _PTR, _PTR, _PTR, _I32, _I64, _PTR)),
-    # u, r, counts, clients, clients a reference, n, stream
-    "per_client_sign_align": ("sign_align",
-                              (_PTR, _PTR, _PTR, _I32, _I32, _I64, _PTR)),
+    # u, r, counts, partials, clients, clients a reference, n, chunks,
+    # stream
+    "per_client_sign_align": ("sign_align", (_PTR, _PTR, _PTR, _PTR, _I32,
+                                             _I32, _I64, _I32, _PTR)),
     "sign_align_counts": ("sign_align",
-                          (_PTR, _I32, _PTR, _PTR, _I64, _PTR)),
+                          (_PTR, _I32, _PTR, _PTR, _PTR, _I64, _I32, _PTR)),
     # in_bf16, out_bf16, B, H, K, S, Sk, hd
     "flash_attention": ("flash_attn", _FLASH + (_I32,) * 8 + _FLASH_TAIL),
     # out_bf16, B, H, K, S, Sk, hd
@@ -105,9 +106,14 @@ except AttributeError:          # a PyTorch built without CUDA
         raise RuntimeError("this PyTorch has no CUDA")
 
 
+CPU, META = -1, -2          # device_index's answers off the card
+
+
 def device_index(name: str, a: torch.Tensor, *others: torch.Tensor) -> int:
-    """-1 when the tensors lie on the CPU, the card's index when they lie
-    on one CUDA device; ValueError otherwise."""
+    """``CPU`` when the tensors lie on the CPU (the plain version),
+    ``META`` when they lie on the meta device (a shape-only call,
+    ``kernels/meta.py``), the card's index when they lie on one CUDA
+    device; ValueError otherwise."""
     if a.is_cuda:
         index = a.get_device()
         for t in others:
@@ -116,7 +122,9 @@ def device_index(name: str, a: torch.Tensor, *others: torch.Tensor) -> int:
         else:
             return index
     elif a.is_cpu and all(t.is_cpu for t in others):
-        return -1
+        return CPU
+    elif a.is_meta and all(t.is_meta for t in others):
+        return META
     for t in others:
         if t.device != a.device:
             raise ValueError(f"{name} takes its tensors on one device; got "

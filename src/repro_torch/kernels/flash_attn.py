@@ -11,7 +11,8 @@ strides.
 
 The tensor's device decides the implementation: on the CPU the plain
 version ``kernels/ref.py::flash_attention``, on a CUDA device a
-hand-written kernel or an exception. Which kernel is ``route(dtype, hd)``,
+hand-written kernel or an exception, on the meta device a shape-only call
+(``kernels/meta.py``) for the dry run. Which kernel is ``route(dtype, hd)``,
 a pure function decided before any launch: bf16 with hd 64, 96 or 128
 takes the tensor-core kernel ``csrc/flash_attn_wgmma.cu`` ("wgmma"); f32,
 and bf16 at any other hd, the SIMT kernel ``csrc/flash_attn.cu``
@@ -25,7 +26,7 @@ most 256; S <= Sk when causal or windowed (every row keeps its diagonal).
 Under grad, ``flash_attention_gqa`` is a ``torch.autograd.Function``: its
 forward is the call above (the kernel of ``route`` on the card), saving
 q, k, v and the output; its backward is ``flash_backward``, plain torch
-on both devices (the JAX package differentiates its ``lax.scan`` of
+on every device (the JAX package differentiates its ``lax.scan`` of
 ``blockwise_attention`` and has no backward kernel). It recomputes the
 scores one query block at a time, so no (B, H, S, Sk) tensor is held:
 with P = softmax(s) from the block's recomputed row log-sum-exp,
@@ -43,6 +44,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _launch
+from repro_torch.kernels import meta
 from repro_torch.kernels import ref
 
 TILE = 128                 # S and Sk must be multiples (the TPU contract)
@@ -70,8 +72,8 @@ def wgmma_smem_bytes(hd: int) -> int:
 
 
 def _check(q, k, v, causal, sliding_window, out_dtype) -> int:
-    """Refuse what neither version takes; -1 for CPU tensors, else the
-    index of their card."""
+    """Refuse what neither version takes; ``_launch.device_index``'s
+    answer for the tensors' device."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("expected q (B, S, H, hd) and k, v (B, Sk, K, hd)")
     B, S, H, hd = q.shape
@@ -136,7 +138,11 @@ def _enqueue(q, k, v, out, causal: bool, window: Optional[int],
 
 
 def _forward(q, k, v, causal, sliding_window, out_dtype) -> torch.Tensor:
-    if _check(q, k, v, causal, sliding_window, out_dtype) < 0:
+    device = _check(q, k, v, causal, sliding_window, out_dtype)
+    if device == _launch.META:
+        return meta.flash_attention(q, k, v, causal, sliding_window,
+                                    out_dtype)
+    if device == _launch.CPU:
         B, S, H, hd = q.shape
         Sk, K = k.shape[1], k.shape[2]
         flat = ref.flash_attention(

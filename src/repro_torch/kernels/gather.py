@@ -6,7 +6,8 @@ client ids idx (K,) int64 on the same device and returns
 out[k] = src[idx[k]] as (K, R, LANE) f32. The tensor's device decides the
 implementation: on the CPU the plain version in ``kernels/ref.py``, on a
 CUDA device the hand-written kernel in ``csrc/gather.cu`` or an
-exception. The kernel reads the indices on the device, so a call never
+exception; on the meta device a shape-only call (``kernels/meta.py``) for
+the dry run. The kernel reads the indices on the device, so a call never
 waits for the card. ``launches`` counts the kernel's launches.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _launch
+from repro_torch.kernels import meta
 from repro_torch.kernels import ref
 
 LANE = 1024
@@ -23,8 +25,8 @@ launches = 0
 
 
 def check_args(src: torch.Tensor, idx: torch.Tensor) -> int:
-    """Refuse what neither version takes; -1 for CPU tensors, else the
-    index of their card."""
+    """Refuse what neither version takes; ``_launch.device_index``'s
+    answer for the tensors' device."""
     shape = src.shape
     if len(shape) != 3 or shape[2] != LANE or shape[0] < 1 or shape[1] < 1:
         raise ValueError(f"src must be (N >= 1, R >= 1, {LANE}); got "
@@ -41,8 +43,10 @@ def check_args(src: torch.Tensor, idx: torch.Tensor) -> int:
 def cohort_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     global launches
     device = check_args(src, idx)
-    if device < 0:
+    if device == _launch.CPU:
         return ref.cohort_gather(src, idx)
+    if device == _launch.META:
+        return meta.cohort_gather(src, idx)
     psrc = _launch.aligned_pointer("cohort_gather", src)
     if not idx.is_contiguous():
         raise ValueError("the cohort_gather kernel takes a contiguous idx")

@@ -9,7 +9,8 @@ w_lr = lr·mask·weight, from the parameters p (R, LANE), f32 or bf16, in
 one pass, and returns a new tensor in p's dtype. The tensor's device
 decides the implementation: on the CPU the plain versions in
 ``kernels/ref.py``, on a CUDA device the hand-written kernels in
-``csrc/masked_agg.cu`` or an exception. ``launches`` counts each kernel's
+``csrc/masked_agg.cu`` or an exception; on the meta device a shape-only
+call (``kernels/meta.py``) for the dry run. ``launches`` counts each kernel's
 launches, by function name.
 """
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _launch
+from repro_torch.kernels import meta
 from repro_torch.kernels import ref
 
 LANE = 1024
@@ -25,8 +27,8 @@ launches = {"masked_agg": 0, "fused_update": 0}
 
 
 def check_args(u: torch.Tensor, w: torch.Tensor) -> int:
-    """Refuse what neither version of ``masked_agg`` takes; -1 for CPU
-    tensors, else the index of their card."""
+    """Refuse what neither version of ``masked_agg`` takes;
+    ``_launch.device_index``'s answer for the tensors' device."""
     if u.dim() != 3 or u.shape[2] != LANE or u.shape[0] < 1:
         raise ValueError(f"u must be (C >= 1, R, {LANE}); got {tuple(u.shape)}")
     if tuple(w.shape) != (u.shape[0],):
@@ -38,8 +40,10 @@ def check_args(u: torch.Tensor, w: torch.Tensor) -> int:
 
 def masked_agg(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     device = check_args(u, w)
-    if device < 0:
+    if device == _launch.CPU:
         return ref.masked_agg(u, w)
+    if device == _launch.META:
+        return meta.masked_agg(u, w)
     pu = _launch.aligned_pointer("masked_agg", u)
     if not w.is_contiguous():
         raise ValueError("the masked_agg kernel takes a contiguous w")
@@ -53,8 +57,8 @@ def masked_agg(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def check_fused_args(p: torch.Tensor, u: torch.Tensor,
                      w_lr: torch.Tensor) -> int:
-    """Refuse what neither version of ``fused_update`` takes; -1 for CPU
-    tensors, else the index of their card."""
+    """Refuse what neither version of ``fused_update`` takes;
+    ``_launch.device_index``'s answer for the tensors' device."""
     check_args(u, w_lr)
     if tuple(p.shape) != tuple(u.shape[1:]):
         raise ValueError(f"p must be {tuple(u.shape[1:])}; got "
@@ -67,8 +71,10 @@ def check_fused_args(p: torch.Tensor, u: torch.Tensor,
 def fused_update(p: torch.Tensor, u: torch.Tensor,
                  w_lr: torch.Tensor) -> torch.Tensor:
     device = check_fused_args(p, u, w_lr)
-    if device < 0:
+    if device == _launch.CPU:
         return ref.fused_update(p, u, w_lr)
+    if device == _launch.META:
+        return meta.fused_update(p, u, w_lr)
     pp = _launch.aligned_pointer("fused_update", p)
     pu = _launch.aligned_pointer("fused_update", u)
     if not w_lr.is_contiguous():

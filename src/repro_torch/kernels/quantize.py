@@ -10,13 +10,15 @@ returns (restored, residual) = (dequantize_q8(*quantize_q8(c)),
 c − restored), each (M, LANE) f32. The tensor's device decides the
 implementation: on the CPU the plain versions in ``kernels/ref.py``, on a
 CUDA device the hand-written kernels in ``csrc/quantize.cu`` or an
-exception. ``launches`` counts each kernel's launches, by function name.
+exception; on the meta device a shape-only call (``kernels/meta.py``) for
+the dry run. ``launches`` counts each kernel's launches, by function name.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _launch
+from repro_torch.kernels import meta
 from repro_torch.kernels import ref
 
 LANE = 1024
@@ -34,15 +36,15 @@ def _check_rows(name: str, t: torch.Tensor) -> None:
 
 
 def check_quantize(x: torch.Tensor) -> int:
-    """Refuse what neither version of ``quantize_q8`` takes; -1 for a CPU
-    tensor, else the index of its card."""
+    """Refuse what neither version of ``quantize_q8`` takes;
+    ``_launch.device_index``'s answer for the tensor's device."""
     _check_rows("x", x)
     return _launch.device_index("quantize_q8", x)
 
 
 def check_round_trip(d: torch.Tensor, e: torch.Tensor) -> int:
-    """Refuse what neither version of ``ef_round_trip`` takes; -1 for CPU
-    tensors, else the index of their card."""
+    """Refuse what neither version of ``ef_round_trip`` takes;
+    ``_launch.device_index``'s answer for the tensors' device."""
     _check_rows("d", d)
     _check_rows("e", e)
     if e.shape != d.shape:
@@ -52,8 +54,8 @@ def check_round_trip(d: torch.Tensor, e: torch.Tensor) -> int:
 
 
 def check_dequantize(q: torch.Tensor, scale: torch.Tensor) -> int:
-    """Refuse what neither version of ``dequantize_q8`` takes; -1 for CPU
-    tensors, else the index of their card."""
+    """Refuse what neither version of ``dequantize_q8`` takes;
+    ``_launch.device_index``'s answer for the tensors' device."""
     shape = q.shape
     if len(shape) != 2 or shape[1] != LANE or shape[0] < 1:
         raise ValueError(f"q must be (R >= 1, {LANE}); got {tuple(shape)}")
@@ -69,8 +71,10 @@ def check_dequantize(q: torch.Tensor, scale: torch.Tensor) -> int:
 
 def quantize_q8(x: torch.Tensor):
     device = check_quantize(x)
-    if device < 0:
+    if device == _launch.CPU:
         return ref.quantize_q8(x)
+    if device == _launch.META:
+        return meta.quantize_q8(x)
     px = _launch.aligned_pointer("quantize_q8", x)
     R = x.shape[0]
     q = torch.empty_like(x, dtype=torch.int8)
@@ -83,8 +87,10 @@ def quantize_q8(x: torch.Tensor):
 
 def dequantize_q8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     device = check_dequantize(q, scale)
-    if device < 0:
+    if device == _launch.CPU:
         return ref.dequantize_q8(q, scale)
+    if device == _launch.META:
+        return meta.dequantize_q8(q, scale)
     pq = _launch.aligned_pointer("dequantize_q8", q)
     ps = _launch.aligned_pointer("dequantize_q8", scale)
     out = torch.empty_like(q, dtype=torch.float32)
@@ -96,8 +102,10 @@ def dequantize_q8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def ef_round_trip(d: torch.Tensor, e: torch.Tensor):
     device = check_round_trip(d, e)
-    if device < 0:
+    if device == _launch.CPU:
         return ref.ef_round_trip(d, e)
+    if device == _launch.META:
+        return meta.ef_round_trip(d, e)
     pd = _launch.aligned_pointer("ef_round_trip", d)
     pe = _launch.aligned_pointer("ef_round_trip", e)
     restored = torch.empty_like(d)

@@ -20,10 +20,31 @@ def sign(x: torch.Tensor) -> torch.Tensor:
     return ((x > 0).to(torch.int8) - (x < 0).to(torch.int8))
 
 
+COUNT_SLOTS = 2 ** 28      # the most slots the counts compare at once
+
+
+def _rows_a_chunk(clients: int, lane: int) -> int:
+    """Rows of ``clients`` updates that hold at most ``COUNT_SLOTS``
+    slots together (at least one)."""
+    return max(1, COUNT_SLOTS // (clients * lane))
+
+
+def _sign_into(x: torch.Tensor) -> torch.Tensor:
+    """``sign(x)`` as a new contiguous int8 tensor: the two comparisons'
+    bools read as int8 (0 or 1), one subtraction."""
+    return torch.gt(x, 0).view(torch.int8) - torch.lt(x, 0).view(torch.int8)
+
+
 def sign_align_counts(g: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """g: (R, LANE) f32 or bf16; r: (R, LANE) int8 -> 0-dim f32 count of
-    the slots where sign(g) == r, taken in int64 and converted once."""
-    return (sign(g) == r).sum().to(torch.float32)
+    the slots where sign(g) == r, taken in int64 over chunks of rows (so
+    the temporaries stay bounded at any size) and converted once."""
+    total = torch.zeros((), dtype=torch.int64, device=g.device)
+    step = _rows_a_chunk(1, g.shape[1])
+    for r0 in range(0, g.shape[0], step):
+        total += torch.count_nonzero(
+            _sign_into(g[r0:r0 + step]).eq_(r[r0:r0 + step]))
+    return total.to(torch.float32)
 
 
 def per_client_sign_align(u: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -31,12 +52,22 @@ def per_client_sign_align(u: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     dividing C, client c counted against r[c // (C / P)] -> (C,) f32
     aligned counts.
 
-    Counts are taken in int64 and converted once, so they are exact at
-    any arena size (the -2 padding sentinel never matches a sign)."""
+    Counts are taken in int64 over chunks of rows (the temporaries hold
+    at most ``COUNT_SLOTS`` slots) and converted once, so they are exact
+    at any arena size (the -2 padding sentinel never matches a sign)."""
     refs = r[None] if r.dim() == 2 else r
-    C, P, n = u.shape[0], refs.shape[0], u.shape[1] * u.shape[2]
-    eq = sign(u).reshape(P, C // P, n) == refs.reshape(P, 1, n)
-    return eq.reshape(C, n).sum(dim=1).to(torch.float32)
+    C, R, lane = u.shape
+    P = refs.shape[0]
+    total = torch.zeros(C, dtype=torch.int64, device=u.device)
+    step = _rows_a_chunk(C, lane)
+    for r0 in range(0, R, step):
+        s = _sign_into(u[:, r0:r0 + step])
+        rows = s.shape[1]
+        s.view(P, C // P, rows, lane).eq_(refs[:, None, r0:r0 + step])
+        # one count a client: count_nonzero over a whole row is the fast
+        # reduction (its dim= form and sum(dim=) are an order slower)
+        total += torch.stack([torch.count_nonzero(row) for row in s])
+    return total.to(torch.float32)
 
 
 def masked_agg(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -12,34 +12,65 @@ f32 or bf16, and returns a 0-dim f32 tensor on g's device (the kernel
 path reads nothing back). The tensor's device decides the
 implementation: on the CPU the plain versions in ``kernels/ref.py``, on a
 CUDA device the hand-written kernels in ``csrc/sign_align.cu`` or an
-exception. On the card a call is one device operation: the kernel writes
-the f32 counts into the ``torch.empty`` output that the wrapper returns.
-Both versions count exactly and refuse n = R·1024 ≥ 2^31 slots, where
-the kernel's int32 count would wrap. ``launches`` counts each kernel's
-launches, by function name.
+exception; on the meta device a shape-only call (``kernels/meta.py``) for
+the dry run. Below 2^23 slots a count (every count of the anomaly-detection
+paths) a call on the card is one device operation: the kernel writes the
+f32 counts into the ``torch.empty`` output that the wrapper returns. A
+longer count is taken in ``chunks(C, n)`` chunks of fewer than 2^31 slots
+each (enough to bring about 132 blocks to it), each counted in int32 into a
+workspace and added in int64 by a second launch. Both versions count
+exactly at any size and convert to f32 once. ``launches`` counts each
+kernel's calls, by function name.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _launch
+from repro_torch.kernels import meta
 from repro_torch.kernels import ref
 
 LANE = 1024
-MAX_SLOTS = 2 ** 31 - 1     # the kernel counts in int32
+CHUNK_SLOTS = 2 ** 30       # the most slots one cluster counts in int32
+SPREAD_SLOTS = 2 ** 22      # the least slots of a chunk split off to fill
+#                             the card
+# The kernel's launch picks a chunk's cluster of blocks from the same two
+# numbers (``cluster_size`` in csrc/sign_align.cu): the chunks are chosen
+# here because the workspace is allocated here, and
+# tests/test_torch_launch.py holds these two to the source's kBusyBlocks
+# and kMaxCluster.
+BUSY_BLOCKS = 132           # the H100's SMs
+MAX_CLUSTER = 8             # the portable limit of a cluster's blocks
 
 launches = {"per_client_sign_align": 0, "sign_align_counts": 0}
 
 
-def check_slots(n: int) -> None:
-    """Refuse more slots a count than the kernel's int32 count holds."""
-    if n > MAX_SLOTS:
-        raise ValueError(f"at most {MAX_SLOTS} slots a count; got {n}")
+def chunks(clients: int, n: int) -> int:
+    """The chunks the kernel takes each of ``clients`` counts of ``n``
+    slots in: enough that none holds 2^31 slots, and, where a count's
+    cluster of 8 blocks leaves most of the card idle, enough to bring
+    about ``BUSY_BLOCKS`` blocks to the call, each chunk of at least
+    ``SPREAD_SLOTS`` slots. One below 2^23 slots a count."""
+    need = -(-n // CHUNK_SLOTS)
+    spread = min(-(-BUSY_BLOCKS // (MAX_CLUSTER * clients)),
+                 n // SPREAD_SLOTS)
+    return max(need, spread, 1)
+
+
+def _workspace(like: torch.Tensor, clients: int, n: int):
+    """(chunks, the data pointer of an int32 (clients, chunks) workspace
+    on ``like``'s card or 0 for one chunk, the workspace), which the
+    caller holds until its launch is enqueued."""
+    k = chunks(clients, n)
+    if k == 1:
+        return 1, 0, None
+    partials = torch.empty(clients * k, dtype=torch.int32, device=like.device)
+    return k, partials.data_ptr(), partials
 
 
 def check_args(u: torch.Tensor, r: torch.Tensor) -> int:
-    """Refuse what neither version of ``per_client_sign_align`` takes; -1
-    for CPU tensors, else the index of their card."""
+    """Refuse what neither version of ``per_client_sign_align`` takes;
+    ``_launch.device_index``'s answer for the tensors' device."""
     shape = u.shape
     if len(shape) != 3 or shape[2] != LANE or shape[0] < 1:
         raise ValueError(f"u must be (C >= 1, R, {LANE}); got {tuple(shape)}")
@@ -52,29 +83,31 @@ def check_args(u: torch.Tensor, r: torch.Tensor) -> int:
     if u.dtype != torch.float32 or r.dtype != torch.int8:
         raise TypeError(f"expected u float32 and r int8; got {u.dtype}, "
                         f"{r.dtype}")
-    check_slots(shape[1] * LANE)
     return _launch.device_index("per_client_sign_align", u, r)
 
 
 def per_client_sign_align(u: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     device = check_args(u, r)
-    if device < 0:
+    if device == _launch.CPU:
         return ref.per_client_sign_align(u, r)
+    if device == _launch.META:
+        return meta.per_client_sign_align(u, r)
     pu = _launch.aligned_pointer("per_client_sign_align", u)
     pr = _launch.aligned_pointer("per_client_sign_align", r)
     C, R, _ = u.shape
     counts = u.new_empty(C)
+    k, pp, _partials = _workspace(u, C, R * LANE)
     _launch.entries["per_client_sign_align"](
-        pu, pr, counts.data_ptr(), C,
-        C if r.dim() == 2 else C // r.shape[0], R * LANE,
+        pu, pr, counts.data_ptr(), pp, C,
+        C if r.dim() == 2 else C // r.shape[0], R * LANE, k,
         _launch.stream(device))
     launches["per_client_sign_align"] += 1
     return counts
 
 
 def check_count_args(g: torch.Tensor, r: torch.Tensor) -> int:
-    """Refuse what neither version of ``sign_align_counts`` takes; -1 for
-    CPU tensors, else the index of their card."""
+    """Refuse what neither version of ``sign_align_counts`` takes;
+    ``_launch.device_index``'s answer for the tensors' device."""
     if g.dim() != 2 or g.shape[1] != LANE or g.shape[0] < 1:
         raise ValueError(f"g must be (R >= 1, {LANE}); got {tuple(g.shape)}")
     if tuple(r.shape) != tuple(g.shape):
@@ -82,19 +115,21 @@ def check_count_args(g: torch.Tensor, r: torch.Tensor) -> int:
     if g.dtype not in (torch.float32, torch.bfloat16) or r.dtype != torch.int8:
         raise TypeError(f"expected g float32 or bfloat16 and r int8; got "
                         f"{g.dtype}, {r.dtype}")
-    check_slots(r.numel())
     return _launch.device_index("sign_align_counts", g, r)
 
 
 def sign_align_counts(g: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     device = check_count_args(g, r)
-    if device < 0:
+    if device == _launch.CPU:
         return ref.sign_align_counts(g, r)
+    if device == _launch.META:
+        return meta.sign_align_counts(g, r)
     pg = _launch.aligned_pointer("sign_align_counts", g)
     pr = _launch.aligned_pointer("sign_align_counts", r)
     count = g.new_empty((), dtype=torch.float32)
+    k, pp, _partials = _workspace(g, 1, g.numel())
     _launch.entries["sign_align_counts"](
-        pg, int(g.dtype == torch.bfloat16), pr, count.data_ptr(), g.numel(),
-        _launch.stream(device))
+        pg, int(g.dtype == torch.bfloat16), pr, count.data_ptr(), pp,
+        g.numel(), k, _launch.stream(device))
     launches["sign_align_counts"] += 1
     return count

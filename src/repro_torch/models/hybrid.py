@@ -109,17 +109,28 @@ def _causal_conv(mp, x1):
     return out + mp["conv_b"]
 
 
+def _ssm_step(x_t, dt_t, B_t, C_t, A, D, h):
+    """One step in the JAX package's order: x_t, dt_t (B,di); B_t, C_t
+    (B,n); h (B,di,n) f32 -> (y_t, h)."""
+    dA = torch.exp(dt_t[..., None] * A)                   # (B,di,n)
+    h = dA * h + (dt_t * x_t)[..., None] * B_t[:, None, :]
+    return (h * C_t[:, None, :]).sum(dim=-1) + D * x_t, h
+
+
 def _ssm_scan(mp, x1, dt, Bm, Cm, h0):
     """x1, dt: (B,T,di); Bm, Cm: (B,T,n); h0: (B,di,n) f32. Returns
-    (y (B,T,di) f32, h_T), each step in the JAX package's order."""
+    (y (B,T,di) f32, h_T). On the meta device (the dry run) one step,
+    counted T times."""
     A = -torch.exp(mp["A_log"])                           # (di,n)
     x1 = x1.to(torch.float32)
+    if x1.is_meta:
+        return L.meta_scan(_ssm_step, (x1, dt, Bm, Cm),
+                           (A, mp["D"], h0), "ssm_scan")
     h, ys = h0, []
     for t in range(x1.shape[1]):
-        x_t, dt_t = x1[:, t], dt[:, t]                    # (B,di)
-        dA = torch.exp(dt_t[..., None] * A)               # (B,di,n)
-        h = dA * h + (dt_t * x_t)[..., None] * Bm[:, t, None, :]
-        ys.append((h * Cm[:, t, None, :]).sum(dim=-1) + mp["D"] * x_t)
+        y, h = _ssm_step(x1[:, t], dt[:, t], Bm[:, t], Cm[:, t], A,
+                         mp["D"], h)
+        ys.append(y)
     return torch.stack(ys, dim=1), h
 
 

@@ -19,10 +19,26 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import loops
 
 # --------------------------------------------------------------------------
 # initializers
 # --------------------------------------------------------------------------
+
+class MetaDraws:
+    """The generator of weights on the meta device (the dry run's): a
+    draw gives an empty meta tensor of its shape, no values."""
+    device = torch.device("meta")
+
+
+def _normal(generator, shape) -> torch.Tensor:
+    """Standard normal f32 on the generator's device (shapes only from
+    ``MetaDraws``)."""
+    if isinstance(generator, MetaDraws):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device)
+
 
 def dense_init(generator: torch.Generator, shape, dtype=torch.float32,
                scale: float = 1.0) -> torch.Tensor:
@@ -33,13 +49,11 @@ def dense_init(generator: torch.Generator, shape, dtype=torch.float32,
     std = scale / math.sqrt(fan_in)
     # scaled in place: one f32 copy of the tensor at a time (arctic's
     # experts are 17.8 GB each in f32)
-    return torch.randn(shape, generator=generator, dtype=torch.float32,
-                       device=generator.device).mul_(std).to(dtype)
+    return _normal(generator, shape).mul_(std).to(dtype)
 
 
 def embed_init(generator: torch.Generator, shape, dtype) -> torch.Tensor:
-    return torch.randn(shape, generator=generator, dtype=torch.float32,
-                       device=generator.device).mul_(0.02).to(dtype)
+    return _normal(generator, shape).mul_(0.02).to(dtype)
 
 
 # --------------------------------------------------------------------------
@@ -252,12 +266,13 @@ def blockwise_attention(q, k, v, *, causal: bool, sliding_window=None,
     (B,Sk,K,hd) -> (B,S,H*hd) in ``out_dtype``.
 
     The tensor's device decides. On a CUDA device this is the flash
-    kernel (``kernels/flash_attn.py``), which tiles on its own. On the CPU
+    kernel (``kernels/flash_attn.py``), which tiles on its own, and on the
+    meta device (the dry run) that kernel's shape-only call. On the CPU
     it is the JAX package's loop, step for step: (m, l, acc) carried in
     f32 across KV blocks of ``block``, masked scores at −1e30, fully
     masked tiles still computed (their contribution multiplies to zero).
     """
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         from repro_torch.kernels import flash_attn
         out = flash_attn.flash_attention_gqa(
             q, k, v, causal=causal, sliding_window=sliding_window,
@@ -371,6 +386,62 @@ def ffn(cfg, p, x):
         return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
     # jax.nn.gelu's default is the tanh approximation
     return F.gelu(x @ p["w1"] + p["b1"], approximate="tanh") @ p["w2"] + p["b2"]
+
+
+# --------------------------------------------------------------------------
+# recurrences on the meta device (the dry run)
+# --------------------------------------------------------------------------
+
+def _repeat(y: torch.Tensor, T: int) -> torch.Tensor:
+    """y (B, ...) as a new (B, T, ...) tensor: one copy, as the stack of
+    the loop's T outputs is."""
+    return y.unsqueeze(1).expand(y.shape[0], T, *y.shape[1:]).contiguous()
+
+
+class _MetaScan(torch.autograd.Function):
+    """A recurrence over dim 1 of ``xs`` on the meta device: its step run
+    once forward (and once backward) under ``loops.loop(name, T)``."""
+
+    @staticmethod
+    def forward(ctx, step, name, n_xs, *tensors):
+        xs, rest = tensors[:n_xs], tensors[n_xs:]
+        T = xs[0].shape[1]
+        with torch.enable_grad(), loops.loop(name, T):
+            ins = [t.detach().requires_grad_(t.requires_grad)
+                   for t in (*(x[:, 0] for x in xs), *rest)]
+            y, carry = step(*ins)
+        ctx.ins, ctx.outs, ctx.name, ctx.T, ctx.n_xs = (
+            ins, (y, carry), name, T, n_xs)
+        return _repeat(y.detach(), T), carry.detach()
+
+    @staticmethod
+    def backward(ctx, dys, dcarry):
+        wanted = [t for t in ctx.ins if t.requires_grad]
+        grads = iter(())
+        if wanted:
+            with loops.loop(ctx.name, ctx.T):
+                grads = iter(torch.autograd.grad(
+                    ctx.outs, wanted, (dys[:, 0], dcarry),
+                    allow_unused=True))
+        out = []
+        for i, t in enumerate(ctx.ins):
+            g = next(grads) if t.requires_grad else None
+            if g is not None and i < ctx.n_xs:
+                g = _repeat(g, ctx.T)
+            out.append(g)
+        return (None, None, None, *out)
+
+
+def meta_scan(step, xs, rest, name: str):
+    """``(stack_t y_t, carry_T)`` of a recurrence on the meta device.
+
+    ``step(*x_t, *rest) -> (y_t, carry)`` is one step, ``xs`` the inputs
+    with time on dim 1 (T steps), ``rest`` every other tensor it reads,
+    the incoming carry among them: run once, forward and backward, and
+    counted T times by the dry run's census (``loops.loop``). Only shapes
+    come out: the carry of a step has the shape of the carry it took, and
+    y_t is repeated T times."""
+    return _MetaScan.apply(step, name, len(xs), *xs, *rest)
 
 
 # --------------------------------------------------------------------------

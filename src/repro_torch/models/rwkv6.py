@@ -106,18 +106,26 @@ def _decay(tp, x_w):
     return torch.exp(-torch.exp(tp["w0"] + ddd.to(torch.float32)))
 
 
+def _wkv_step(r_t, k_t, v_t, w_t, uu, S):
+    """One step in the JAX package's order, in f32: a = k⊗v, then
+    o = Σ_i (S + u·a)·r over the key index i, then S = w·S + a."""
+    a = k_t[..., None] * v_t[..., None, :]                     # (B,H,hd,hd)
+    o = ((S + uu * a) * r_t[..., None]).sum(dim=-2)
+    return o, w_t[..., None] * S + a
+
+
 def _wkv_scan(r, k, v, w, u, S0):
     """r,k,v,w: (B,T,H,hd); u: (H,hd); S0: (B,H,hd,hd) f32 -> (o, S_T).
-
-    Each step in the JAX package's order, in f32: a = k⊗v, then
-    o = Σ_i (S + u·a)·r over the key index i, then S = w·S + a."""
+    On the meta device (the dry run) one step, counted T times."""
     r, k, v, w = (t.to(torch.float32) for t in (r, k, v, w))
     uu = u[None, :, :, None]
+    if r.is_meta:
+        return L.meta_scan(_wkv_step, (r, k, v, w), (uu, S0),
+                           "wkv_scan")
     S, outs = S0, []
     for t in range(r.shape[1]):
-        a = k[:, t, :, :, None] * v[:, t, :, None, :]          # (B,H,hd,hd)
-        outs.append(((S + uu * a) * r[:, t, :, :, None]).sum(dim=-2))
-        S = w[:, t, :, :, None] * S + a
+        o, S = _wkv_step(r[:, t], k[:, t], v[:, t], w[:, t], uu, S)
+        outs.append(o)
     return torch.stack(outs, dim=1), S                         # (B,T,H,hd)
 
 

@@ -290,6 +290,14 @@ def test_cohort_gather_matches_the_pallas_kernel_on_finite_inputs(N, R, idx):
     assert not np.signbit(pallas[:, :, :8]).any()
 
 
+def _on_xpu(t):
+    """A fake tensor of ``t``'s shape and dtype on an XPU, a device with
+    neither a kernel nor a plain version of the port's (no data)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        return torch.empty(t.shape, dtype=t.dtype, device="xpu")
+
+
 def _bad_gathers():
     src = torch.zeros((3, 2, 1024))
     idx = torch.tensor([0, 2])
@@ -301,7 +309,8 @@ def _bad_gathers():
         "idx dtype": (src, idx.to(torch.int32)),
         "idx 2-D": (src, idx[None]),
         "idx empty": (src, idx[:0]),
-        "device": (src.to("meta"), idx.to("meta")),
+        # a device with no kernel (meta tensors take the shape-only call)
+        "device": (_on_xpu(src), _on_xpu(idx)),
         "devices differ": (src, idx.to("meta")),
     }
 

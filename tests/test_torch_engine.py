@@ -127,7 +127,9 @@ def test_import_leaves_jax_out():
             "repro_torch.optim.adamw, repro_torch.optim.schedule,"
             "repro_torch.optim.scaler, repro_torch.launch.train,"
             "repro_torch.models.moe, repro_torch.tree,"
-            "repro_torch.data.synthetic;"
+            "repro_torch.data.synthetic, repro_torch.kernels.meta,"
+            "repro_torch.roofline.census, repro_torch.roofline.analysis,"
+            "repro_torch.launch.dryrun, repro_torch.loops;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             "assert not bad, bad")
@@ -161,7 +163,12 @@ def test_sources_import_neither_jax_nor_repro():
             "src/repro_torch/optim/schedule.py",
             "src/repro_torch/optim/scaler.py",
             "src/repro_torch/launch/train.py",
-            "src/repro_torch/tree.py"} <= scanned
+            "src/repro_torch/tree.py",
+            "src/repro_torch/kernels/meta.py",
+            "src/repro_torch/roofline/census.py",
+            "src/repro_torch/roofline/analysis.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/loops.py"} <= scanned
 
 
 def _asks_for_torch(node) -> bool:

@@ -120,18 +120,46 @@ def test_sign_align_takes_zero_rows():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("R,refused", [(2 ** 21 - 1, False), (2 ** 21, True)])
-def test_sign_align_refuses_counts_past_int32(R, refused):
-    """n = R·1024 ≥ 2^31 slots would wrap the kernel's int32 counts, so
-    ``check_args`` refuses it for either device; one slot row fewer
-    passes. Broadcast views: nothing of that size is allocated."""
-    u = torch.zeros(()).expand(2, R, 1024)
-    r = torch.zeros((), dtype=torch.int8).expand(R, 1024)
-    if refused:
-        with pytest.raises(ValueError, match="slots a count"):
-            tsa.per_client_sign_align(u, r)
-    else:
-        assert tsa.check_args(u, r) == -1
+def past_int32_rows(seed: int, odd: bool, dtype=np.float32):
+    """One row of updates with every finite sign case (±0, subnormals,
+    -2 padding in the reference), its reference signs, and the matches m
+    of the row, counted by numpy; m is odd or even as asked (slot 6's
+    reference set to match or to miss)."""
+    rng = np.random.default_rng(seed)
+    row = rng.standard_normal(1024).astype(dtype)
+    row[:6] = [0.0, -0.0, 1e-40, -1e-40, 0.0, -0.0]
+    r = rng.integers(-2, 2, 1024).astype(np.int8)
+    signs = np.sign(row.astype(np.float64)).astype(np.int8)
+    if int(np.sum(signs == r)) % 2 != odd:
+        r[6] = -2 if r[6] == signs[6] else signs[6]
+    return row, r, int(np.sum(signs == r))
+
+
+# (rows, whether R·m is exact in f32): n = R·1024 = 2^31 slots exactly,
+# whose count R·m is a multiple of 2^21 (exact), and one row more with an
+# odd m, an odd count past 2^24 that rounds
+PAST_INT32 = [pytest.param(2 ** 21, True, id="2^31-slots-exact"),
+              pytest.param(2 ** 21 + 1, False, id="2^31+1024-slots-rounds")]
+
+
+@pytest.mark.parametrize("R,exact", PAST_INT32)
+def test_sign_align_refuses_counts_past_int32(R, exact):
+    """Counts past 2^31 slots are exact (the test keeps the name it had
+    while the wrappers refused them): the plain version counts
+    a (1, R, 1024) broadcast view of one row (nothing of that size is
+    allocated) exactly, R·m for m matches a row, converted to f32 once
+    (round to nearest even, as numpy's int -> float32), chunk by chunk of
+    rows in int64; the exact case against (R, 1024) reference signs, the
+    rounding one against P = 1 references (1, R, 1024)."""
+    row, r, m = past_int32_rows(5, odd=not exact)
+    u = torch.from_numpy(row).expand(1, R, 1024)
+    rr = torch.from_numpy(r).expand(R, 1024)
+    want = np.array([R * m], dtype=np.float32)
+    assert (float(want[0]) == R * m) == exact
+    got = tsa.per_client_sign_align(u, rr if exact else rr[None])
+    assert got.dtype == torch.float32 and got.shape == (1,)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
 
 
 def test_sign_is_zero_on_signed_zeros_and_never_matches_sentinel():
@@ -159,7 +187,9 @@ def test_sign_kernel_waits_on_the_cluster_before_remote_shared_memory():
     """Guards the CUDA C++ Programming Guide's rule for distributed shared
     memory: a block may touch another block's shared memory only once a
     cluster barrier it has waited on guarantees that block has started.
-    Inside ``sign_align_kernel`` a wait (``cluster.sync()``,
+    ``sign_align_kernel`` and the chunked count's ``sign_align_chunk_kernel``
+    count through one inlined body, ``cluster_count``, and touch no remote
+    shared memory of their own; inside that body a wait (``cluster.sync()``,
     ``barrier.cluster.wait`` or a helper that executes it) must come
     before the first ``map_shared_rank``, and a split barrier's arrive
     before its wait."""
@@ -171,14 +201,21 @@ def test_sign_kernel_waits_on_the_cluster_before_remote_shared_memory():
                  if ptx in _function_body(text, h)]
         return re.compile("|".join([re.escape(ptx), *also, *names]))
 
-    body = _function_body(text, "sign_align_kernel")
+    for kernel in ("sign_align_kernel", "sign_align_chunk_kernel"):
+        body = _function_body(text, kernel)
+        assert re.search(r"\bcluster_count\(", body), (
+            f"{kernel} does not count through cluster_count")
+        assert "map_shared_rank" not in body, kernel
+    body = _function_body(text, "cluster_count")
     remote = body.index("map_shared_rank")
     wait = calls("barrier.cluster.wait", r"\bcluster\.sync\(\)").search(body)
     assert wait and wait.start() < remote, (
-        "map_shared_rank comes before any cluster barrier wait")
+        "cluster_count: map_shared_rank comes before any cluster barrier "
+        "wait")
     arrive = calls("barrier.cluster.arrive").search(body)
     if arrive:
-        assert arrive.start() < wait.start(), "the wait precedes its arrive"
+        assert arrive.start() < wait.start(), (
+            "cluster_count: the wait precedes its arrive")
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "lane"])

@@ -226,14 +226,16 @@ def _wrapper_cases():
         "fused_update": (lambda: tma.fused_update(p16, u, w),
                          lambda out: (p16.data_ptr(), 1, *ptrs(u, w, out), 5,
                                       2 * LANE, 77)),
-        # the f32 counts: the kernel writes the tensor the wrapper returns
-        # clients, clients a reference (one reference: all of them), n
+        # the f32 counts: the kernel writes the tensor the wrapper returns;
+        # no workspace (0), clients, clients a reference (one reference:
+        # all of them), n, one chunk
         "per_client_sign_align": (
             lambda: tsa.per_client_sign_align(u, r),
-            lambda out: (*ptrs(u, r, out), 5, 5, 2 * LANE, 77)),
+            lambda out: (*ptrs(u, r, out), 0, 5, 5, 2 * LANE, 1, 77)),
         "sign_align_counts": (
             lambda: tsa.sign_align_counts(p16, r),
-            lambda out: (p16.data_ptr(), 1, *ptrs(r, out), 2 * LANE, 77)),
+            lambda out: (p16.data_ptr(), 1, *ptrs(r, out), 0, 2 * LANE, 1,
+                         77)),
         # f32 takes the SIMT kernel: in_bf16, out_bf16, B, H, K, S, Sk, hd
         "flash_attention": (
             lambda: tfa.flash_attention_gqa(qf, kf, kf, causal=True),
@@ -285,12 +287,60 @@ def test_grouped_sign_align_passes_clients_a_reference(fake_card, P):
     u = torch.randn((6, 2, LANE), generator=g)
     r = torch.randint(-1, 2, (P, 2, LANE), generator=g, dtype=torch.int8)
     out = tsa.per_client_sign_align(u, r)
-    assert fake_card.calls == [("per_client_sign_align", "pppiilp",
+    assert fake_card.calls == [("per_client_sign_align", "ppppiilip",
                                 (u.data_ptr(), r.data_ptr(), out.data_ptr(),
-                                 6, 6 // P, 2 * LANE, 77))]
+                                 0, 6, 6 // P, 2 * LANE, 1, 77))]
     for bad in ((4, 2, LANE), (0, 2, LANE), (2, 3, LANE), (1, 1, 2, LANE)):
         with pytest.raises(ValueError, match="r must be"):
             tsa.per_client_sign_align(u, torch.zeros(bad, dtype=torch.int8))
+
+
+def test_sign_count_chunks():
+    """A count is split into chunks of fewer than 2^31 slots, and a long
+    one into enough chunks for about 132 blocks of 8; every count of the
+    anomaly-detection paths (at most 864 rows) stays one chunk."""
+    for clients, rows in ((16, 54), (64, 54), (1, 864), (257, 1),
+                          (1, 8191)):
+        assert tsa.chunks(clients, rows * LANE) == 1
+    assert tsa.chunks(2, 1_735_822 * LANE) == 9       # qwen2-1.5b's arena
+    assert tsa.chunks(1, 2_200_000 * LANE) == 17
+    assert tsa.chunks(2, 2_200_000 * LANE) == 9
+    for clients, n in ((1, 2 ** 31), (133, 2 ** 34), (1, 2 ** 40)):
+        k = tsa.chunks(clients, n)
+        assert -(-n // k) < 2 ** 31, (clients, n)
+
+
+@pytest.mark.parametrize("python_name, c_name", [
+    ("BUSY_BLOCKS", "kBusyBlocks"), ("MAX_CLUSTER", "kMaxCluster")])
+def test_sign_count_chunks_read_the_kernels_numbers(python_name, c_name):
+    """``chunks`` spreads a long count over the blocks that the kernel's
+    launch gives a chunk: its two numbers are the source's constants."""
+    text = (_build.CSRC / "sign_align.cu").read_text()
+    found = re.search(rf"constexpr int {c_name} = (\d+);", text)
+    assert found, f"no {c_name} in sign_align.cu"
+    assert getattr(tsa, python_name) == int(found.group(1))
+
+
+def test_long_sign_counts_pass_a_workspace(fake_card):
+    """At 2^23 slots a count the wrappers take two chunks: each passes an
+    int32 workspace of (clients, chunks) and the chunk count, and makes
+    no tensor operation but its output and that workspace."""
+    u = torch.zeros((2, 8192, LANE))
+    r = torch.zeros((8192, LANE), dtype=torch.int8)
+    g = u[0]
+    with _AtenCalls() as ops:
+        out = tsa.per_client_sign_align(u, r)
+        count = tsa.sign_align_counts(g, r)
+    assert ops.names == ["aten.new_empty.default",
+                         "aten.empty.memory_format"] * 2
+    (name, code, args), (name2, code2, args2) = fake_card.calls
+    assert (name, code, name2, code2) == (
+        "per_client_sign_align", "ppppiilip", "sign_align_counts", "pippplip")
+    assert args[:3] == (u.data_ptr(), r.data_ptr(), out.data_ptr())
+    assert args[3] != 0 and args[4:] == (2, 2, 8192 * LANE, 2, 77)
+    assert args2[:4] == (g.data_ptr(), 0, r.data_ptr(), count.data_ptr())
+    assert args2[4] != 0
+    assert args2[5:] == (8192 * LANE, 2, 77)
 
 
 class _AtenCalls(TorchDispatchMode):
@@ -464,13 +514,14 @@ def test_aligned_pointer_takes_the_pointer_once_checked():
 def _device_cases():
     cpu, meta = torch.zeros(2), torch.zeros(2, device="meta")
     return {
-        "cpu": ((cpu,), -1),
-        "cpu cpu": ((cpu, cpu), -1),
-        "meta": ((meta,), ValueError),
-        "meta meta": ((meta, meta), ValueError),
+        "cpu": ((cpu,), _launch.CPU),
+        "cpu cpu": ((cpu, cpu), _launch.CPU),
+        # meta tensors take the shape-only calls of kernels/meta.py
+        "meta": ((meta,), _launch.META),
+        "meta meta": ((meta, meta), _launch.META),
         "cpu meta": ((cpu, meta), ValueError),
         "meta cpu": ((meta, cpu), ValueError),
-        "cpu cpu cpu": ((cpu, cpu, cpu), -1),
+        "cpu cpu cpu": ((cpu, cpu, cpu), _launch.CPU),
         "cpu cpu meta": ((cpu, cpu, meta), ValueError),
     }
 

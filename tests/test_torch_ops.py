@@ -198,18 +198,33 @@ def test_wrappers_check_their_arguments(call, args, err):
             tma.fused_update(p, u, w)
 
 
-@pytest.mark.parametrize("R,refused", [(2 ** 21 - 1, False), (2 ** 21, True)])
-def test_sign_align_counts_refuses_counts_past_int32(R, refused):
-    """n = R·1024 ≥ 2^31 slots would wrap the kernel's int32 count, so
-    ``check_count_args`` refuses it for either device; one row fewer
-    passes. Broadcast views: nothing of that size is allocated."""
-    g = torch.zeros((), dtype=torch.bfloat16).expand(R, LANE)
-    r = torch.zeros((), dtype=torch.int8).expand(R, LANE)
-    if refused:
-        with pytest.raises(ValueError, match="slots a count"):
-            tsa.sign_align_counts(g, r)
-    else:
-        assert tsa.check_count_args(g, r) == -1
+# (rows, whether the count is exact in f32), as in test_torch_kernels.py
+PAST_INT32 = [pytest.param(2 ** 21, True, id="2^31-slots-exact"),
+              pytest.param(2 ** 21 + 1, False, id="2^31+1024-slots-rounds")]
+
+
+@pytest.mark.parametrize("R,exact", PAST_INT32)
+def test_sign_align_counts_refuses_counts_past_int32(R, exact):
+    """Counts past 2^31 slots are exact (the test keeps the name it had
+    while the wrapper refused them): the plain
+    ``sign_align_counts`` counts a bf16 (R, 1024) broadcast view of one row
+    (nothing of that size is allocated) exactly, R·m for m matches a row
+    (an even m at 2^31 slots, exact in f32; an odd m a row more, which
+    rounds), converted to f32 once as numpy's int -> float32 rounds."""
+    rng = np.random.default_rng(6)
+    row = torch.from_numpy(rng.standard_normal(LANE).astype(np.float32))
+    row[:4] = torch.tensor([0.0, -0.0, 1e-40, -1e-40])
+    row = row.to(torch.bfloat16)
+    r = torch.from_numpy(rng.integers(-2, 2, LANE).astype(np.int8))
+    signs = torch.sign(row.float()).to(torch.int8)
+    if int((signs == r).sum()) % 2 == exact:
+        r[4] = -2 if r[4] == signs[4] else signs[4]
+    m = int((signs == r).sum())
+    want = np.array(R * m, dtype=np.float32)
+    assert (float(want) == R * m) == exact
+    got = tsa.sign_align_counts(row.expand(R, LANE), r.expand(R, LANE))
+    assert got.dtype == torch.float32 and got.shape == ()
+    assert got.numpy().view(np.int32) == want.view(np.int32)
 
 
 def test_cpu_tensors_launch_no_kernel():

@@ -250,6 +250,14 @@ def test_wire_bytes_and_buffers_match_jax():
     assert not any(v.any() for v in state.values())
 
 
+def _on_xpu(t):
+    """A fake tensor of ``t``'s shape and dtype on an XPU, a device with
+    neither a kernel nor a plain version of the port's (no data)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        return torch.empty(t.shape, dtype=t.dtype, device="xpu")
+
+
 def _bad_calls():
     x = torch.zeros((3, LANE))
     q = torch.zeros((3, LANE), dtype=torch.int8)
@@ -259,14 +267,15 @@ def _bad_calls():
         "x 1-D": (tq.quantize_q8, (x[0],)),
         "x lane": (tq.quantize_q8, (x[:, :512],)),
         "x no rows": (tq.quantize_q8, (x[:0],)),
-        "x device": (tq.quantize_q8, (x.to("meta"),)),
+        # a device with no kernel (meta tensors take the shape-only call)
+        "x device": (tq.quantize_q8, (_on_xpu(x),)),
         "q dtype": (tq.dequantize_q8, (q.to(torch.int16), s)),
         "q lane": (tq.dequantize_q8, (q[:, :512], s)),
         "scale shape": (tq.dequantize_q8, (q, s[:, 0])),
         "scale rows": (tq.dequantize_q8, (q, s[:2])),
         "scale dtype": (tq.dequantize_q8, (q, s.double())),
         "scale device": (tq.dequantize_q8, (q, s.to("meta"))),
-        "q device": (tq.dequantize_q8, (q.to("meta"), s.to("meta"))),
+        "q device": (tq.dequantize_q8, (_on_xpu(q), _on_xpu(s))),
         "d dtype": (tq.ef_round_trip, (x.double(), x)),
         "e dtype": (tq.ef_round_trip, (x, x.to(torch.bfloat16))),
         "d no rows": (tq.ef_round_trip, (x[:0], x[:0])),
