@@ -479,15 +479,43 @@ Phases, each printing JSON lines:
                beside the card's memory; (d) ``python -m
                repro_torch.launch.dryrun --arch qwen2-1.5b`` (4 rows); the
                phase's seconds (``"phase": "dryrun_phase"``).
+  12. mesh   — the port on a mesh (``launch/mesh.py``, ``launch/
+               sharding.py``) over a real one-rank NCCL process group
+               (``file://`` rendezvous, no network): (a) qwen2-1.5b at full
+               width cut to ``MESH_STEP_LAYERS`` layers (blockwise, remat,
+               adamw, θ 0.65), C 2 × 1 × 4,096, through ``make_raw_step``
+               on the 1 × 1 debug mesh, its state and batches DTensors
+               laid out by the sharding rules, beside the unsharded step
+               from the same state and batches: weights, optimizer state,
+               reference signs, counters and metrics equal by bits every
+               step, and each path's launches held (one count, one
+               aggregation and 2·L·C flash calls a step) (``"phase":
+               "mesh"`` ``run`` ``qwen2-1.5b sharded step``), then the
+               int64 counts that a row-sharded count all-reduces, the
+               kernel's (its adding launch left out) equal by bits to the
+               plain version's, one launch each (``run`` ``int64
+               counts``); (b) the
+               population plane at 1,000,000 clients, cohort 64, frac
+               0.02 and single-stage, on the one-rank "data" mesh against
+               the single-device round (``candidate_shards=1``, the same
+               rows in one shard) over 3 rounds, cohorts and state equal
+               by bits, ms a round of both beside nvidia-smi's name and
+               power limit (``run`` ``population 1M``); (c) ``python -m
+               repro_torch.launch.dryrun --arch qwen2-1.5b --shape
+               train_4k --mesh both`` in the CLI wave (a fake world of 512
+               ranks on meta): each row's per-device FLOPs, collective
+               bytes by kind and mesh dims, and its three terms; the
+               phase's seconds (``"phase": "mesh_phase"``).
 
-Every CLI check of phases 6f-11 (the serve, train and dry-run launchers in
-subprocesses, each exiting 0 with its output held) runs after phase 11,
+Every CLI check of phases 6f-12 (the serve, train and dry-run launchers in
+subprocesses, each exiting 0 with its output held) runs after phase 12,
 all at once in two waves (the two full-width serves, then the rest, the
 one full-width trainer among them), each line with its seconds from its
 wave's start (``"phase": "cli_phase"`` the waves' seconds); a phase run
 alone by its flag runs its own at its end.
 
-Then the ``kernels`` summary line, the nvidia-smi line, and last
+Every ``"phase"`` line carries ``at_s``, its seconds since the script
+started. Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It needs a CUDA device and the repository
 around it.
@@ -531,7 +559,12 @@ and
 
     python3 chip_smoke.py --dryrun
 
-only phase 11 (the dry run's census against the card), after the build.
+only phase 11 (the dry run's census against the card), after the build;
+and
+
+    python3 chip_smoke.py --mesh
+
+only phase 12 (the port on a mesh), after the build.
 """
 from __future__ import annotations
 
@@ -574,8 +607,13 @@ QUANT_ROWS = (16 * 54, 54, 35)  # cohort folded, one client, ragged
 CODEC_CHECK_ROWS = QUANT_ROWS + (432, 433)
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``at_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": time.perf_counter() - T_START}), flush=True)
 
 
 def quickstart_spec(T, strategy: str, quantize: bool = False,
@@ -6502,6 +6540,208 @@ def phase_dryrun(mods, smi: str) -> dict:
     return {}
 
 
+# ---------------------------------------------------------------------------
+# 12. the port on a mesh: one-rank NCCL, the sharded step and population,
+# the production meshes' dry run
+# ---------------------------------------------------------------------------
+
+MESH_STEP_LAYERS = 4          # qwen2-1.5b's 28 cut in depth, full width
+MESH_STEP_STEPS = 3
+
+
+def start_nccl_world(tmp: str) -> None:
+    """A one-rank NCCL process group meeting through a file (no network;
+    NCCL's own bootstrap kept on the loopback interface)."""
+    from repro_torch.launch import mesh as mesh_mod
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    mesh_mod.start_world("nccl", 0, 1, os.path.join(tmp, "rendezvous"))
+
+
+def mesh_step(mods, smi: str) -> dict:
+    """12 (a): the step on DTensors against the unsharded step, by bits."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.core import fl_step
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw
+    cfg = registry.get_config("qwen2-1.5b").replace(
+        attention_impl="blockwise", num_layers=MESH_STEP_LAYERS)
+    C, B, S = (TRAIN_CELL[k] for k in ("clients", "per_client", "seq"))
+    opt = adamw.for_config(cfg)
+    mesh = mesh_mod.make_debug_mesh()
+    state = fl_step.init_state(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, opt, device="cuda")
+    dstate = sharding.distribute(tree.tree_map(torch.clone, state), mesh,
+                                 sharding.state_pspecs(cfg, mesh, opt))
+    plain = fl_step.make_raw_step(cfg, opt, theta=TRAIN_CELL["theta"])
+    on_mesh = fl_step.make_raw_step(cfg, opt, theta=TRAIN_CELL["theta"])
+    draw = train_mod.make_batch_fn(cfg, C, B, S, seed=0, device="cuda")
+    flash = 2 * cfg.num_layers * C          # the forward, remat's recompute
+    problems, steps = [], []
+    for s in range(MESH_STEP_STEPS):
+        batch = draw()
+        dbatch = sharding.distribute(batch, mesh, sharding.train_batch_pspecs(
+            cfg, mesh, batch))
+        row = {}
+        for name, fn, args in (("plain", plain, (state, batch)),
+                               ("mesh", on_mesh, (dstate, dbatch))):
+            torch.cuda.synchronize()
+            reset_launches(mods)
+            t0 = time.perf_counter()
+            out, metrics = fn(*args)
+            torch.cuda.synchronize()
+            row[name] = dict(step_s=time.perf_counter() - t0,
+                             launches=read_launches(mods),
+                             loss=float(metrics["loss"]),
+                             ratios=metrics["ratios"].tolist())
+            if name == "plain":
+                state, m_plain = out, metrics
+            else:
+                dstate, m_mesh = out, metrics
+            want = dict.fromkeys(row[name]["launches"], 0)
+            want.update(per_client_sign_align=1, masked_agg=1,
+                        flash_attention=flash)
+            if row[name]["launches"] != want:
+                problems.append(f"step {s} {name}: launches "
+                                f"{row[name]['launches']}, not {want}")
+        pairs = list(zip(tree.leaves(state), tree.leaves(dstate)))
+        state_equal = all(torch.equal(a, b.full_tensor()) for a, b in pairs)
+        metrics_equal = all(torch.equal(m_plain[k], m_mesh[k])
+                            for k in m_plain)
+        dtensors = sum(hasattr(b, "full_tensor") for _, b in pairs)
+        if not (state_equal and metrics_equal and dtensors == len(pairs)):
+            problems.append(f"step {s}: state equal {state_equal}, metrics "
+                            f"equal {metrics_equal}, {dtensors} of "
+                            f"{len(pairs)} leaves DTensors")
+        steps.append(dict(step=s, state_equal_by_bits=state_equal,
+                          metrics_equal_by_bits=metrics_equal, **row))
+    line = dict(run="qwen2-1.5b sharded step", arch=cfg.name,
+                layers=cfg.num_layers, full_depth=28,
+                cuts=["depth: 28 -> 4 layers (full width)"],
+                mesh=mesh_name(mesh), backend="nccl", clients=C,
+                per_client_batch=B, seq=S, steps=steps,
+                flash_launches_per_step_expected=flash, problems=problems,
+                nvidia_smi=smi)
+    emit("mesh", **line)
+    return line
+
+
+def mesh_int64_counts(smi: str) -> dict:
+    """12 (a): the int64 counts that the row-sharded placement rules
+    all-reduce (kernels/sharded.py), the kernel's (two chunks at the
+    least, its adding launch left out) against the plain version's by
+    bits, one launch each."""
+    from repro_torch.kernels import ref, sharded, sign_align
+    g = torch.Generator(device="cuda").manual_seed(7)
+    u = torch.randn((3, 40, 1024), generator=g, device="cuda")
+    u[u.abs() < 0.05] = 0.0
+    r = torch.randint(-1, 2, (40, 1024), generator=g, device="cuda",
+                      dtype=torch.int8)
+    r.view(-1)[-100:] = -2                          # padding sentinel
+    before = dict(sign_align.launches)
+    got = sharded._counts_int64(u, r)
+    got1 = sharded._count_int64(u[0].to(torch.bfloat16), r)
+    torch.cuda.synchronize()
+    launched = {k: sign_align.launches[k] - before[k] for k in before}
+    want = ref.per_client_sign_align_int64(u.cpu(), r.cpu())
+    want1 = ref.sign_align_counts_int64(u[0].to(torch.bfloat16).cpu(),
+                                        r.cpu())
+    equal = (got.dtype == torch.int64 and torch.equal(got.cpu(), want)
+             and got1.dtype == torch.int64 and torch.equal(got1.cpu(),
+                                                           want1))
+    problems = []
+    if not equal:
+        problems.append(f"int64 counts {got.tolist()} / {got1.item()}, "
+                        f"plain {want.tolist()} / {want1.item()}")
+    if launched != {"per_client_sign_align": 1, "sign_align_counts": 1}:
+        problems.append(f"int64 counts launched {launched}")
+    line = dict(run="int64 counts", equal_by_bits=equal, launches=launched,
+                counts=got.tolist(), count_bf16=int(got1), problems=problems,
+                nvidia_smi=smi)
+    emit("mesh", **line)
+    return line
+
+
+def mesh_name(mesh) -> str:
+    return "x".join(str(s) for s in mesh.shape)
+
+
+def mesh_population(smi: str) -> dict:
+    """12 (b): the 1,000,000-client population round on the one-rank
+    "data" mesh against the single-device round, by bits; ms a round."""
+    from repro_torch.core import control, population
+    from repro_torch.launch import mesh as mesh_mod
+    n = POP_CLIENTS[-1]
+    mesh = mesh_mod.make_population_mesh()
+    problems, runs = [], {}
+    for name, frac in (("two_stage", POP_FRAC), ("single", None)):
+        on_mesh = population.build_population_round(
+            n, POP_K, candidate_frac=frac, mesh=mesh, device="cuda")
+        one = population.build_population_round(
+            n, POP_K, candidate_frac=frac, candidate_shards=1,
+            device="cuda")
+        a, ca = pop_rounds(on_mesh, seeded_state(control, n, "cuda"), 3)
+        b, cb = pop_rounds(one, seeded_state(control, n, "cuda"), 3)
+        cohorts = all(torch.equal(x, y) for x, y in zip(ca, cb))
+        fields = all(torch.equal(getattr(a, f).full_tensor(), getattr(b, f))
+                     for f in population._FIELDS)
+        state = seeded_state(control, n, "cuda")
+        ms_mesh, ms_one = [], []
+        for _turn in range(2):                      # mesh, one, one, mesh
+            ms_mesh.append(pop_ms(on_mesh, state, POP_ROUNDS))
+            ms_one.append(pop_ms(one, state, POP_ROUNDS))
+        runs[name] = dict(cohorts_equal_by_bits=cohorts,
+                          state_equal_by_bits=fields,
+                          ms_per_round_mesh=ms_mesh,
+                          ms_per_round_single_device=ms_one)
+        if not (cohorts and fields):
+            problems.append(f"{name}: cohorts equal {cohorts}, state equal "
+                            f"{fields}")
+    line = dict(run="population 1M", clients=n, cohort=POP_K,
+                candidate_frac=POP_FRAC, rounds_held=3,
+                rounds_timed=POP_ROUNDS, mesh=mesh_name(mesh),
+                backend="nccl", runs=runs, problems=problems,
+                nvidia_smi=smi)
+    emit("mesh", **line)
+    return line
+
+
+def phase_mesh(mods, smi: str) -> dict:
+    """Phase 12 (module docstring, (a) to (c))."""
+    import torch.distributed as tdist
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        start_nccl_world(tmp)
+        seconds["start_world"] = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            lines = [mesh_step(mods, smi), mesh_int64_counts(smi)]
+            seconds["step"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            lines.append(mesh_population(smi))
+            seconds["population"] = time.perf_counter() - t0
+        finally:
+            tdist.destroy_process_group()
+    free_card()
+    cli_check("mesh", "dryrun --mesh both qwen2-1.5b train_4k", [
+        "repro_torch.launch.dryrun", "--arch", "qwen2-1.5b", "--shape",
+        "train_4k", "--mesh", "both", "--results", "{ckpt}/dry.jsonl"],
+        lambda lines: lines[-1] == "[dryrun] all combos traced on meta "
+        "successfully" and sum(line.startswith(
+            "[dryrun] qwen2-1.5b × train_4k × ") for line in lines) == 2)
+    problems = [p for line in lines for p in line["problems"]]
+    emit("mesh_phase", seconds=time.perf_counter() - t_phase,
+         seconds_by_part=seconds, problems=problems, nvidia_smi=smi)
+    if problems:
+        raise AssertionError("mesh: " + "; ".join(problems))
+    return {}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6566,6 +6806,10 @@ def main() -> int:
     if sys.argv[1:] == ["--dryrun"]:
         _build.build_all()
         phase_dryrun(mods, smi)
+        return 0
+    if sys.argv[1:] == ["--mesh"]:
+        _build.build_all()
+        phase_mesh(mods, smi)
         return 0
     if sys.argv[1:] == ["--lazy-world"]:
         _build.build_all()
@@ -6751,8 +6995,13 @@ def main() -> int:
     launches.update(phase_sim_lm(T, parity, mods, ref, smi))
 
     # 11. the dry run's census against the card: qwen2-1.5b's prefill and
-    # training step; then every CLI check of phases 6f-11, together
+    # training step
     phase_dryrun(mods, smi)
+
+    # 12. the port on a mesh: the sharded step and population over a
+    # one-rank NCCL group, the production meshes' dry run; then every CLI
+    # check of phases 6f-12, together
+    phase_mesh(mods, smi)
     t0 = time.perf_counter()
     run_clis(DEFERRED_CLIS)
     emit("cli_phase", seconds=time.perf_counter() - t0, nvidia_smi=smi)

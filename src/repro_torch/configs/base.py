@@ -11,8 +11,9 @@ reads the same in both packages. Families:
   vlm    — InternVL2: stubbed patch embeddings, projected and prepended
            to the token embeddings
   mlp    — the paper's own 256-128-64 anomaly-detection MLP
-``expert_parallel`` and ``client_axes`` come with sharding, which reads
-them (ROADMAP.md queue 1 item 14g).
+``expert_parallel`` and ``client_axes`` are read by the sharding rules
+(``launch/sharding.py``) and the mesh's client count
+(``launch/mesh.py``).
 """
 from __future__ import annotations
 
@@ -52,6 +53,10 @@ class ArchConfig:
     moe_dispatch: str = "gather"           # gather | scatter (one function)
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01        # load-balance loss weight
+
+    # distribution -----------------------------------------------------------
+    expert_parallel: bool = False    # shard expert dim over client ("data") axis
+    client_axes: Tuple[str, ...] = ("pod", "data")  # mesh axes hosting FL clients
 
     # ssm / hybrid -----------------------------------------------------------
     ssm_state: int = 0               # mamba state size (hymba) / 0

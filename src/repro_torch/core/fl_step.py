@@ -64,6 +64,41 @@ and metrics are those of the same step without it.
 With ``ControlPlane.candidate_frac`` selection is two-stage
 (``control.two_stage_select``) on the same draws. The prefill and serve steps at the end serve the dense language
 models.
+
+On a mesh (the JAX package's ``jax.jit(step, in_shardings=...)``): the
+same ``make_raw_step``, ``build_prefill_step`` and ``build_serve_step``
+take a state, weights, batches and caches distributed as DTensors by
+``launch/sharding.py``'s specs. The prefill and decode steps run the
+model on the DTensors as they come, DTensor choosing each operator's
+collectives (and a DTensor cache written by a masked select, not a slot
+copy). The training step of a language model lays out its arena so:
+
+  * the arena's CLIENT dim is sharded over the config's client axes in
+    the mesh (``client_axes_in_mesh``: "data", and "pod" on 2×16×16;
+    arctic's "pod" only), its rows whole: each rank packs its own
+    clients. Each client's loss and gradient run on the mesh's other
+    axes (the weights tensor-parallel over "model", arctic's expert banks
+    and per-client batch over "data" too), and each gradient leaf is
+    gathered whole (``full_tensor``: an all-gather over "model" of every
+    tensor-parallel leaf, an all-reduce of a partial one) before it is
+    packed into the client's slab;
+  * the count is then per client, on local slabs (``per_client_sign_align``
+    ``Shard(0)``), its (C,) ratios all-gathered so that the θ mask, the
+    fallback and the weights are computed on every rank alike; the
+    aggregation is a local weighted sum and one all-reduce over the client
+    axes (``kernels/sharded.py``);
+  * the aggregate is split back to each weight's placement without a
+    collective, and the optimizer runs on the DTensor weights and state.
+
+At qwen2-1.5b × train_4k on 16×16 (C 16, one client a "data" rank, 16 ×
+4,096 tokens a client) this costs, a rank and a step, the gradient's
+gather over "model" (each tensor-parallel leaf's 15/16 that the rank does
+not hold, in bf16), the f32 arena's all-reduce over "data" (1,735,822 ×
+1,024 × 4 bytes = 7.11 GB of result) and the reference signs' gather;
+``launch/dryrun.py --mesh single`` prints them by kind and mesh dims
+(torch 2.13: 3.72·10^10 bytes of all-gather over "model" a rank, the
+model's own activations' gathers among them, and 7.11·10^9 of all-reduce
+over "data").
 """
 from __future__ import annotations
 
@@ -72,6 +107,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import dist
 from repro_torch import tree as tree_mod
 from repro_torch.convert import lm_params_from_jax, params_from_jax
 from repro_torch.core import alignment, compression
@@ -247,18 +283,112 @@ def _lm_client_grads(params, batch, cfg, arena) -> Tuple[torch.Tensor,
     return torch.stack(losses), u
 
 
-def _keep_in_place(keep: torch.Tensor, new, old) -> None:
-    """``new`` becomes where(keep, new, old), leaf by leaf, written into
+def _keep(keep: torch.Tensor, new, old):
+    """``new`` as where(keep, new, old), leaf by leaf, written into
     ``new``'s own tensors (one leaf's temporary at a time); a tensor that
     appears twice in ``new`` (adamw's f32 weights are its master copy) is
-    written once."""
-    seen = set()
-    for (_, n), (_, o) in zip(tree_mod.named_leaves(new),
-                              tree_mod.named_leaves(old)):
-        if id(n) in seen:
-            continue
-        seen.add(id(n))
-        torch.where(keep, n, o, out=n)
+    written once and stays one tensor. A DTensor leaf is written shard by
+    shard in the old leaf's layout, redistributed to it first where it
+    holds a partial sum or another sharding (as ``out_shardings`` lays out
+    the JAX step's state)."""
+    done = {}
+
+    def one(n, o):
+        key = id(n)
+        if key not in done:
+            if dist.is_dtensor(n):
+                if tuple(n.placements) != tuple(o.placements):
+                    n = n.redistribute(o.device_mesh, o.placements)
+                torch.where(keep, n.to_local(), o.to_local(),
+                            out=n.to_local())
+            else:
+                torch.where(keep, n, o, out=n)
+            done[key] = n
+        return done[key]
+
+    return tree_mod.tree_map(one, new, old)
+
+
+def _whole(t):
+    """A DTensor gathered whole (what every rank reads alike: the θ test's
+    reference signs and ratios, the step counter, the loss); a plain
+    tensor as it is."""
+    return t.full_tensor() if dist.is_dtensor(t) else t
+
+
+def _aggregate_as_grads(agg, arena, params):
+    """The aggregated arena as a gradient nest of f32 leaves. On a mesh
+    each leaf is a DTensor laid out as its weight: the aggregate is whole
+    on every rank, so each keeps its own piece, no collective."""
+    if not dist.is_dtensor(agg):
+        return arena.unpack(agg, dtype=torch.float32)
+    from torch.distributed.tensor import DTensor
+
+    def like(g, p):
+        rep = DTensor.from_local(g, p.device_mesh,
+                                 dist.placements(p.device_mesh, {}),
+                                 run_check=False)
+        return rep.redistribute(p.device_mesh, p.placements)
+
+    return tree_mod.tree_map(like, arena.unpack(_whole(agg),
+                                                dtype=torch.float32), params)
+
+
+def _lm_client_grads_on_mesh(params, batch, cfg, arena, mesh):
+    """The sharded ``_lm_client_grads``: (the (C,) losses, the (C, rows,
+    LANE) f32 arena), both DTensors ``Shard(0)`` over the client axes.
+    This rank's clients (its slice of the batch's client dim) run one
+    after another on the mesh's other axes, the weights as they are
+    distributed there; each gradient is gathered whole and packed into
+    the client's slab (the module's docstring)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import mesh as mesh_mod
+    names = mesh_mod.axis_names(mesh)
+    client = mesh_mod.client_axes_in_mesh(cfg, mesh)
+    cdims = [names.index(a) for a in client]
+    sdims = [i for i in range(len(names)) if i not in cdims]
+    sub = mesh[tuple(names[i] for i in sdims)]
+
+    def on_sub(t, lead: int):
+        """A DTensor on ``mesh`` (its first ``lead`` dims this rank's own
+        and dropped) as a DTensor on ``sub``; client axes must not shard
+        what is kept."""
+        pl = t.placements
+        for d in cdims:
+            if pl[d].is_shard() and pl[d].dim >= lead:
+                raise ValueError(f"a leaf sharded over client axis "
+                                 f"{names[d]!r}: {pl}")
+        keep = [Shard(pl[d].dim - lead) if pl[d].is_shard() else Replicate()
+                for d in sdims]
+        return keep
+
+    C = batch["tokens"].shape[0]
+    local = {k: v.to_local() for k, v in batch.items()}
+    C_l = local["tokens"].shape[0]
+    dev = local["tokens"].device
+    u = torch.empty((C_l, arena.rows, arena.lane), dtype=torch.float32,
+                    device=dev)
+    bpl = {k: on_sub(v, 1) for k, v in batch.items()}
+    losses = []
+    for c in range(C_l):
+        p = tree_mod.tree_map(
+            lambda t: dist.wrap(t.to_local(), sub, on_sub(t, 0),
+                                t.shape).requires_grad_(True), params)
+        leaves = arena.leaves(p)
+        b = {k: dist.wrap(v[c], sub, bpl[k], batch[k].shape[1:])
+             for k, v in local.items()}
+        with torch.enable_grad(), implicit_replication():
+            loss = api.loss_fn(p, b, cfg)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        arena.pack_into(u[c], tree_mod.from_paths(arena.paths, [
+            torch.zeros(t.shape, dtype=t.dtype, device=dev) if g is None
+            else g.full_tensor() for g, t in zip(grads, leaves)]))
+        losses.append(loss.full_tensor().to(torch.float32))
+        del p, leaves, grads, loss, b
+    shards = {d: 0 for d in cdims}
+    return (dist.from_local(torch.stack(losses), mesh, shards, (C,)),
+            dist.from_local(u, mesh, shards, (C, arena.rows, arena.lane)))
 
 
 def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
@@ -280,7 +410,9 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
     ((classes, features) f32) with a drift. topology: a hierarchical
     topology of ``num_clients`` clients (or the control plane's), links
     priced off ``comm``, advanced in ``FLState.topology``. Without an
-    ``optimizer``, the config's (``optim.for_config``).
+    ``optimizer``, the config's (``optim.for_config``). A state of
+    DTensors runs the same step on their mesh (the module's docstring): a
+    language model without a control plane, scenario or topology.
     """
     optimizer = optimizer or optim_mod.for_config(cfg)
     lm = cfg.family != "mlp"
@@ -317,7 +449,16 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
 
     @torch.no_grad()
     def step(state: FLState, batch, draws=None, world=None):
-        dev = state.step.device
+        mesh = (state.step.device_mesh if dist.is_dtensor(state.step)
+                else None)
+        if mesh is not None and (not lm or cp is not None or scn is not None
+                                 or topology is not None
+                                 or draws is not None):
+            raise ValueError("the step on a mesh trains a language model "
+                             "without a control plane, scenario or "
+                             "topology")
+        dev = (state.step.to_local() if mesh is not None
+               else state.step).device
         if not layout:
             layout["arena"] = arena_mod.ParamArena(state.params)
             layout["wire_bytes"] = (
@@ -337,7 +478,10 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
                 batch = scenario_mod.apply_drift(batch, ws.drift_amp,
                                                  dirs[dev])
         # (1) per-client gradients at the shared weights
-        if lm:
+        if lm and mesh is not None:
+            loss, u = _lm_client_grads_on_mesh(state.params, batch, cfg,
+                                               arena, mesh)
+        elif lm:
             loss, u = _lm_client_grads(state.params, batch, cfg, arena)
         else:
             loss, grads = _per_client_grads(state.params, batch, cfg)
@@ -415,19 +559,22 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
             ratios = torch.ones((C,), dtype=torch.float32, device=dev)
             passed = mask = f_active
         else:
-            ratios = alignment.cohort_alignment(
-                u, arena.pack_signs(state.ref_sign), arena.n)
+            ratios = _whole(alignment.cohort_alignment(
+                u, arena.pack_signs(tree_mod.tree_map(_whole,
+                                                      state.ref_sign)),
+                arena.n))
             passed = alignment.selection_mask(ratios, theta)
             # round 0 has no reference direction yet: accept all
-            passed = torch.where(state.step == 0, torch.ones_like(passed),
-                                 passed)
+            passed = torch.where(_whole(state.step) == 0,
+                                 torch.ones_like(passed), passed)
             passed = passed * f_active
             # if NO participating client passes θ, accept all participants
             # rather than stall (the JAX package's production fallback)
             mask = torch.where(passed.sum() > 0, passed, f_active)
         w = mask / torch.clamp_min(mask.sum(), 1e-9)
-        agg = arena.unpack(arena_mod.weighted_sum(u, w, compute_dtype=agg_dtype),
-                           dtype=torch.float32)
+        agg = _aggregate_as_grads(
+            arena_mod.weighted_sum(u, w, compute_dtype=agg_dtype), arena,
+            state.params)
         any_accepted = mask.sum() > 0
 
         # (4) hierarchical topology: leaf-pod accumulation of the SAME
@@ -441,14 +588,15 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
         u = None                     # the arena is released here
 
         # (4b) optimizer update; hold position if nothing was accepted
-        lr_now = lr_schedule(state.step) if lr_schedule else None
-        new_params, new_opt = optimizer.update(agg, state.opt_state,
-                                               state.params, lr_now=lr_now)
-        new_ref = tree_mod.tree_map(
-            lambda a, r: torch.where(any_accepted, _ref.sign(a), r),
-            agg, state.ref_sign)
-        _keep_in_place(any_accepted, (new_params, new_opt),
-                       (state.params, state.opt_state))
+        with _on_mesh(state.params):
+            lr_now = lr_schedule(state.step) if lr_schedule else None
+            new_params, new_opt = optimizer.update(
+                agg, state.opt_state, state.params, lr_now=lr_now)
+            new_ref = tree_mod.tree_map(
+                lambda a, r: torch.where(any_accepted, _ref.sign(a), r),
+                agg, state.ref_sign)
+            new_params, new_opt = _keep(any_accepted, (new_params, new_opt),
+                                        (state.params, state.opt_state))
 
         # (5) control-plane statistics for the next round's selection
         if cp is not None:
@@ -469,7 +617,7 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
         n_sel = (selected if scn is None
                  else selected & ws.live).sum().to(torch.float32)
         metrics = {
-            "loss": loss.mean(),
+            "loss": _whole(loss).mean(),
             # pre-fallback pass fraction over the selected cohort
             "accept_rate": passed.sum() / torch.clamp_min(n_sel, 1.0),
             "alignment_mean": ratios.mean(),
@@ -487,8 +635,9 @@ def make_raw_step(cfg, optimizer=None, theta: Optional[float] = 0.65,
             # metrics, read by the driver's θ-band bookkeeping
             "ratios": ratios,
         }
-        run = {"accepted": state.metrics["accepted"] + mask.sum(),
-               "rounds": state.metrics["rounds"] + 1.0}
+        with _on_mesh(state.params):
+            run = {"accepted": state.metrics["accepted"] + mask.sum(),
+                   "rounds": state.metrics["rounds"] + 1.0}
         return FLState(new_params, new_opt, new_ref, state.step + 1, run,
                        ctl, ws, topo), metrics
 
@@ -561,13 +710,26 @@ def _update_bytes(params) -> float:
 # serving / prefill steps (the dense language models)
 # ---------------------------------------------------------------------------
 
+def _on_mesh(*trees):
+    """implicit replication (plain tensors read as replicated) when any
+    leaf is a DTensor, else nothing."""
+    import contextlib
+    if any(dist.is_dtensor(t) for tr in trees for t in tree_mod.leaves(tr)):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
 def build_prefill_step(cfg):
     def step(params, batch):
-        return api.prefill(params, batch, cfg)
+        with _on_mesh(params, batch):
+            return api.prefill(params, batch, cfg)
     return step
 
 
 def build_serve_step(cfg):
     def step(params, cache, batch):
-        return api.decode_step(params, cache, batch, cfg)
+        with _on_mesh(params, cache, batch):
+            return api.decode_step(params, cache, batch, cfg)
     return step

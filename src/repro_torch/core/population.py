@@ -25,9 +25,22 @@ top-k from it, ordered (score desc, id asc) like the single-stage stable
 sort, so the two-stage cohort equals the single-stage one by bits whenever
 quota >= k (always at ``candidate_frac=1.0``).
 
-The mesh variants of the JAX package (``round_update_sharded``,
-``sharded_candidates``, ``shard_map`` over devices) come with ROADMAP.md
-queue 1 item 14g.
+Over a mesh (the JAX package's ``shard_map`` over devices) each rank of
+the mesh's "data" axis holds its slice of the population:
+``round_update_sharded`` runs the same kernel on the rank's slice with its
+offset (rank × per, per = ceil(N / ranks), the last slice zero-padded
+and sliced back), the cohort observations replicated; ``sharded_candidates``
+ranks the rank's own rows (−inf-padded when ragged) and one all-gather of
+the (quota,) winners and their global ids builds the union in rank order,
+the order ``shard_map``'s ``out_specs=P("data")`` gives. Both equal their
+single-device twins (``round_update``, ``logical_candidates(shards=
+ranks)``) by bits. The state of a mesh round is a DTensor ``Shard(0)`` over
+"data": it carries the population's global length and the mesh, so a
+ragged population needs no side record of its padding (DTensor chunks
+rows as ``torch.chunk`` does: slices of ceil(N / ranks), the JAX
+package's ``per``), and ``full_tensor()`` gathers it for a check; a
+replicated DTensor or a plain tensor (the whole population on every rank)
+is taken too, each rank slicing out its own rows without a collective.
 """
 from __future__ import annotations
 
@@ -35,8 +48,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch import dist
 from repro_torch.core import control, selection
 from repro_torch.core.draws import PopulationDraws
+from repro_torch.launch import mesh as mesh_mod
 
 # the (num_clients,)-shaped ControlState fields the kernel shards; the
 # error-feedback arena ``ef`` is cohort-indexed and stays outside
@@ -156,6 +171,87 @@ def round_update_logical(state, cohort, *, shards: int, failed, active,
 
 
 # ---------------------------------------------------------------------------
+# the same kernel over a mesh's "data" axis
+# ---------------------------------------------------------------------------
+
+def _data_layout(n: int, mesh):
+    """(ranks on "data", per, this rank's index on "data")."""
+    ranks = mesh_mod.axis_size(mesh, "data")
+    return ranks, -(-n // ranks), mesh.get_local_rank("data")
+
+
+def _local_rows(x, mesh, per: int, rank: int) -> torch.Tensor:
+    """This rank's rows [rank·per, (rank + 1)·per) of a population leaf: a
+    DTensor's local shard once it is ``Shard(0)`` over "data" (a
+    replicated one is split without a collective), or a slice of a plain
+    tensor that holds the whole population."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return x.redistribute(x.device_mesh, _row_placements(mesh)).to_local()
+    return x[rank * per:(rank + 1) * per]
+
+
+def _row_placements(mesh) -> tuple:
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(0) if a == "data" else Replicate()
+                 for a in mesh_mod.axis_names(mesh))
+
+
+def _sharded(local: torch.Tensor, mesh, n: int):
+    """The rank's rows as a DTensor ``Shard(0)`` over "data" of length n."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, mesh, _row_placements(mesh),
+                              run_check=False, shape=(n,), stride=(1,))
+
+
+def _replicated(x):
+    """A replicated DTensor's local tensor; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def round_update_sharded(state, cohort, *, mesh, failed, active, passed,
+                         round_time, sent, norms, ema: float = 0.8):
+    """``round_update`` over ``mesh``'s "data" axis: each rank runs the
+    shard-local kernel on its slice of the 8 per-client leaves with its
+    offset; the cohort observations are replicated. Returns the state
+    with those leaves as DTensors ``Shard(0)`` over "data", equal by bits
+    to ``round_update``, ragged populations included."""
+    n = state.avail.shape[0]
+    _, per, rank = _data_layout(n, mesh)
+    obs = [_replicated(x) for x in (cohort, failed, active, passed,
+                                     round_time, sent, norms)]
+    leaves = tuple(_pad_leaf(_local_rows(getattr(state, f), mesh, per, rank),
+                             per)[None]
+                   for f in _FIELDS)
+    offsets = torch.tensor([rank * per], device=obs[0].device)
+    out = _round_kernel(leaves, *obs, offsets, ema)
+    local_n = max(0, min(per, n - rank * per))
+    return state._replace(**{f: _sharded(o[0, :local_n], mesh, n)
+                             for f, o in zip(_FIELDS, out)})
+
+
+def sharded_candidates(scores, k: int, frac: float, *, mesh):
+    """Stage 1 over ``mesh``'s "data" axis: each rank keeps the top
+    ``quota`` of its own rows (−inf-padded when the population is ragged;
+    ties to the lower index) as (score, global id), and one all-gather
+    builds the (ranks·quota,) union in rank order, replicated. Equal by
+    bits to ``logical_candidates(scores, k, frac, ranks)``."""
+    n = scores.shape[0]
+    ranks, per, rank = _data_layout(n, mesh)
+    quota = selection.candidate_quota(n, k, frac, ranks)
+    local = _local_rows(scores, mesh, per, rank)
+    if local.shape[0] < per:
+        local = torch.cat([local, local.new_full((per - local.shape[0],),
+                                                 -torch.inf)])
+    v, i = control.shard_top(local[None], quota)
+    gid = i[0] + rank * per
+    data = mesh_mod.axis_names(mesh).index("data")
+    return (dist.all_gather(v[0], mesh, data),
+            dist.all_gather(gid, mesh, data))
+
+
+# ---------------------------------------------------------------------------
 # two-stage selection over the logical shards
 # ---------------------------------------------------------------------------
 
@@ -201,12 +297,13 @@ def build_population_round(num_clients: int, select_k: int, *,
     failed, passed, round time and update norms of the K slots; by
     default a ``PopulationDraws(seed, select_k, device)``), keyed by the
     absolute round index. Returns ``round_fn(state, r) -> (state,
-    cohort)``; nothing in a round reads a value on the host."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the population plane over a device mesh (the JAX package's "
-            "round_update_sharded and sharded_candidates under shard_map) "
-            "is not ported yet; it comes with ROADMAP.md queue 1 item 14g")
+    cohort)``; nothing in a round reads a value on the host.
+
+    With ``mesh`` the state transitions run on each rank's rows
+    (``round_update_sharded``) and stage 1 ranks each rank's rows
+    (``sharded_candidates``); the state comes back as DTensors ``Shard(0)``
+    over "data". Single-stage selection over a mesh gathers the scores
+    first (one stable sort of all N, as on one device)."""
     k = int(select_k)
     if draws is None:
         draws = PopulationDraws(seed, k, device or "cpu")
@@ -214,16 +311,23 @@ def build_population_round(num_clients: int, select_k: int, *,
     def round_fn(state, r: int):
         scores = control.score(state)
         if candidate_frac is not None:
-            v, i = logical_candidates(scores, k, candidate_frac,
-                                      candidate_shards)
+            if mesh is not None:
+                v, i = sharded_candidates(scores, k, candidate_frac,
+                                          mesh=mesh)
+            else:
+                v, i = logical_candidates(scores, k, candidate_frac,
+                                          candidate_shards)
             cohort = topk_from_candidates(v, i, k)
         else:
-            cohort = control.select_topk_epsilon(scores, k)
+            cohort = control.select_topk_epsilon(_replicated(scores), k)
         failed, passed, rt, norms = draws.round(r)
         active = ~failed
-        state = round_update(state, cohort, failed=failed, active=active,
-                             passed=passed & active, round_time=rt,
-                             sent=active, norms=norms, ema=ema)
+        kwargs = dict(failed=failed, active=active, passed=passed & active,
+                      round_time=rt, sent=active, norms=norms, ema=ema)
+        if mesh is not None:
+            state = round_update_sharded(state, cohort, mesh=mesh, **kwargs)
+        else:
+            state = round_update(state, cohort, **kwargs)
         return state, cohort
 
     return round_fn

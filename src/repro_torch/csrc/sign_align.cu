@@ -347,7 +347,7 @@ int launch(const void* x, const void* r, void* counts, void* partials,
                              out, n4)
         : cudaLaunchKernelEx(&config, sign_align_kernel<T, false>, xt, rt,
                              out, n4);
-  if (launched == cudaSuccess && chunks > 1) {
+  if (launched == cudaSuccess && chunks > 1 && counts != nullptr) {
     add_chunks_kernel<<<(clients + kThreads - 1) / kThreads, kThreads, 0,
                         (cudaStream_t)stream>>>(part, out, clients, chunks);
   }
@@ -362,8 +362,10 @@ int launch(const void* x, const void* r, void* counts, void* partials,
 // multiple of 4 (0 writes C zeros and loads nothing), counted in `chunks`
 // chunks (1 <= chunks <= 65535, each of fewer than 2^31 slots), and u, r
 // are 16-byte aligned. With chunks > 1, partials is a (C, chunks) int32
-// workspace, else unused. Launches on `stream` and returns the launch's
-// CUDA error as an int.
+// workspace, else unused; with chunks > 1 and a null counts the chunks'
+// partials are left there and the adding launch is left out (the caller
+// adds them: an int64 count of a row shard). Launches on `stream` and
+// returns the launch's CUDA error as an int.
 extern "C" int per_client_sign_align(const void* u, const void* r,
                                      void* counts, void* partials,
                                      int clients, int group, long long n,
@@ -373,10 +375,10 @@ extern "C" int per_client_sign_align(const void* u, const void* r,
 }
 
 // g: (n,) f32 (g_bf16 == 0) or bf16 (g_bf16 != 0), r: (n,) int8, count:
-// one f32, written; n is a multiple of 4, counted in `chunks` chunks as
-// above (partials: `chunks` int32 when chunks > 1), g and r 16-byte
-// aligned. Launches on `stream` and returns the launch's CUDA error as an
-// int.
+// one f32, written (or null, as above); n is a multiple of 4, counted in
+// `chunks` chunks as above (partials: `chunks` int32 when chunks > 1), g
+// and r 16-byte aligned. Launches on `stream` and returns the launch's
+// CUDA error as an int.
 extern "C" int sign_align_counts(const void* g, int g_bf16, const void* r,
                                  void* count, void* partials, long long n,
                                  int chunks, void* stream) {

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as _tree
+from repro_torch import dist as _dist
 from repro_torch.kernels import gather as _gather
 from repro_torch.kernels import masked_agg as _agg
 from repro_torch.kernels import ref as _ref
@@ -158,7 +159,12 @@ def weighted_sum(u: torch.Tensor, w: torch.Tensor,
     the CPU: bf16 is one einsum over bf16-rounded inputs, rounded to bf16
     once (what the JAX package's oracle computes, bit for bit). The CUDA
     kernel reduces in f32 whatever it is asked, as the Pallas kernels do.
+    DTensors take ``kernels/sharded.py``'s rule (a local sum, then one
+    all-reduce over the clients' mesh dims).
     """
+    if _dist.is_dtensor(u, w):
+        from repro_torch.kernels import sharded
+        return sharded.weighted_sum(u, w, compute_dtype)
     if u.device.type == "cpu" and compute_dtype != torch.float32:
         return torch.einsum("crl,c->rl", u.to(compute_dtype),
                             w.to(compute_dtype)).to(torch.float32)

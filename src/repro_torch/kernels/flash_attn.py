@@ -12,7 +12,8 @@ strides.
 The tensor's device decides the implementation: on the CPU the plain
 version ``kernels/ref.py::flash_attention``, on a CUDA device a
 hand-written kernel or an exception, on the meta device a shape-only call
-(``kernels/meta.py``) for the dry run. Which kernel is ``route(dtype, hd)``,
+(``kernels/meta.py``) for the dry run; DTensors take their placement
+rule (``kernels/sharded.py``). Which kernel is ``route(dtype, hd)``,
 a pure function decided before any launch: bf16 with hd 64, 96 or 128
 takes the tensor-core kernel ``csrc/flash_attn_wgmma.cu`` ("wgmma"); f32,
 and bf16 at any other hd, the SIMT kernel ``csrc/flash_attn.cu``
@@ -43,6 +44,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import dist
 from repro_torch.kernels import _launch
 from repro_torch.kernels import meta
 from repro_torch.kernels import ref
@@ -233,6 +235,11 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> torch.Tensor:
     """q (B, S, H, hd), k/v (B, Sk, K, hd) -> (B, S, H, hd) in
     ``out_dtype`` (q's dtype by default); differentiable in q, k, v."""
+    if dist.is_dtensor(q, k, v):
+        from repro_torch.kernels import sharded
+        return sharded.flash_attention_gqa(q, k, v, causal=causal,
+                                           sliding_window=sliding_window,
+                                           out_dtype=out_dtype)
     out_dtype = q.dtype if out_dtype is None else out_dtype
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

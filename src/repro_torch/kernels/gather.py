@@ -7,13 +7,15 @@ out[k] = src[idx[k]] as (K, R, LANE) f32. The tensor's device decides the
 implementation: on the CPU the plain version in ``kernels/ref.py``, on a
 CUDA device the hand-written kernel in ``csrc/gather.cu`` or an
 exception; on the meta device a shape-only call (``kernels/meta.py``) for
-the dry run. The kernel reads the indices on the device, so a call never
-waits for the card. ``launches`` counts the kernel's launches.
+the dry run; a DTensor takes its placement rule (``kernels/sharded.py``).
+The kernel reads the indices on the device, so a call never waits for the
+card. ``launches`` counts the kernel's launches.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import dist
 from repro_torch.kernels import _launch
 from repro_torch.kernels import meta
 from repro_torch.kernels import ref
@@ -42,6 +44,9 @@ def check_args(src: torch.Tensor, idx: torch.Tensor) -> int:
 
 def cohort_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     global launches
+    if dist.is_dtensor(src, idx):
+        from repro_torch.kernels import sharded
+        return sharded.cohort_gather(src, idx)
     device = check_args(src, idx)
     if device == _launch.CPU:
         return ref.cohort_gather(src, idx)

@@ -10,13 +10,15 @@ one pass, and returns a new tensor in p's dtype. The tensor's device
 decides the implementation: on the CPU the plain versions in
 ``kernels/ref.py``, on a CUDA device the hand-written kernels in
 ``csrc/masked_agg.cu`` or an exception; on the meta device a shape-only
-call (``kernels/meta.py``) for the dry run. ``launches`` counts each kernel's
+call (``kernels/meta.py``) for the dry run; a DTensor takes its placement
+rule (``kernels/sharded.py``). ``launches`` counts each kernel's
 launches, by function name.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import dist
 from repro_torch.kernels import _launch
 from repro_torch.kernels import meta
 from repro_torch.kernels import ref
@@ -39,6 +41,9 @@ def check_args(u: torch.Tensor, w: torch.Tensor) -> int:
 
 
 def masked_agg(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if dist.is_dtensor(u, w):
+        from repro_torch.kernels import sharded
+        return sharded.masked_agg(u, w)
     device = check_args(u, w)
     if device == _launch.CPU:
         return ref.masked_agg(u, w)
@@ -70,6 +75,9 @@ def check_fused_args(p: torch.Tensor, u: torch.Tensor,
 
 def fused_update(p: torch.Tensor, u: torch.Tensor,
                  w_lr: torch.Tensor) -> torch.Tensor:
+    if dist.is_dtensor(p, u, w_lr):
+        from repro_torch.kernels import sharded
+        return sharded.fused_update(p, u, w_lr)
     device = check_fused_args(p, u, w_lr)
     if device == _launch.CPU:
         return ref.fused_update(p, u, w_lr)

@@ -11,12 +11,14 @@ c − restored), each (M, LANE) f32. The tensor's device decides the
 implementation: on the CPU the plain versions in ``kernels/ref.py``, on a
 CUDA device the hand-written kernels in ``csrc/quantize.cu`` or an
 exception; on the meta device a shape-only call (``kernels/meta.py``) for
-the dry run. ``launches`` counts each kernel's launches, by function name.
+the dry run; a DTensor takes its placement rule (``kernels/sharded.py``).
+``launches`` counts each kernel's launches, by function name.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import dist
 from repro_torch.kernels import _launch
 from repro_torch.kernels import meta
 from repro_torch.kernels import ref
@@ -70,6 +72,9 @@ def check_dequantize(q: torch.Tensor, scale: torch.Tensor) -> int:
 
 
 def quantize_q8(x: torch.Tensor):
+    if dist.is_dtensor(x):
+        from repro_torch.kernels import sharded
+        return sharded.quantize_q8(x)
     device = check_quantize(x)
     if device == _launch.CPU:
         return ref.quantize_q8(x)
@@ -86,6 +91,9 @@ def quantize_q8(x: torch.Tensor):
 
 
 def dequantize_q8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    if dist.is_dtensor(q, scale):
+        from repro_torch.kernels import sharded
+        return sharded.dequantize_q8(q, scale)
     device = check_dequantize(q, scale)
     if device == _launch.CPU:
         return ref.dequantize_q8(q, scale)
@@ -101,6 +109,9 @@ def dequantize_q8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def ef_round_trip(d: torch.Tensor, e: torch.Tensor):
+    if dist.is_dtensor(d, e):
+        from repro_torch.kernels import sharded
+        return sharded.ef_round_trip(d, e)
     device = check_round_trip(d, e)
     if device == _launch.CPU:
         return ref.ef_round_trip(d, e)

@@ -39,12 +39,19 @@ def sign_align_counts(g: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """g: (R, LANE) f32 or bf16; r: (R, LANE) int8 -> 0-dim f32 count of
     the slots where sign(g) == r, taken in int64 over chunks of rows (so
     the temporaries stay bounded at any size) and converted once."""
+    return sign_align_counts_int64(g, r).to(torch.float32)
+
+
+def sign_align_counts_int64(g: torch.Tensor, r: torch.Tensor
+                            ) -> torch.Tensor:
+    """``sign_align_counts`` before its one conversion: the 0-dim int64
+    count."""
     total = torch.zeros((), dtype=torch.int64, device=g.device)
     step = _rows_a_chunk(1, g.shape[1])
     for r0 in range(0, g.shape[0], step):
         total += torch.count_nonzero(
             _sign_into(g[r0:r0 + step]).eq_(r[r0:r0 + step]))
-    return total.to(torch.float32)
+    return total
 
 
 def per_client_sign_align(u: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -55,6 +62,12 @@ def per_client_sign_align(u: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     Counts are taken in int64 over chunks of rows (the temporaries hold
     at most ``COUNT_SLOTS`` slots) and converted once, so they are exact
     at any arena size (the -2 padding sentinel never matches a sign)."""
+    return per_client_sign_align_int64(u, r).to(torch.float32)
+
+
+def per_client_sign_align_int64(u: torch.Tensor, r: torch.Tensor
+                                ) -> torch.Tensor:
+    """``per_client_sign_align`` before its one conversion: (C,) int64."""
     refs = r[None] if r.dim() == 2 else r
     C, R, lane = u.shape
     P = refs.shape[0]
@@ -67,7 +80,7 @@ def per_client_sign_align(u: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         # one count a client: count_nonzero over a whole row is the fast
         # reduction (its dim= form and sum(dim=) are an order slower)
         total += torch.stack([torch.count_nonzero(row) for row in s])
-    return total.to(torch.float32)
+    return total
 
 
 def masked_agg(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

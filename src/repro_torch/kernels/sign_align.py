@@ -19,13 +19,19 @@ f32 counts into the ``torch.empty`` output that the wrapper returns. A
 longer count is taken in ``chunks(C, n)`` chunks of fewer than 2^31 slots
 each (enough to bring about 132 blocks to it), each counted in int32 into a
 workspace and added in int64 by a second launch. Both versions count
-exactly at any size and convert to f32 once. ``launches`` counts each
-kernel's calls, by function name.
+exactly at any size and convert to f32 once. A DTensor argument takes its
+placement rule in ``kernels/sharded.py``; where that rule splits a count
+over row shards, it asks ``_count_clients`` / ``_count_one`` for the
+int64 count before the conversion (the kernel counts in two chunks at the
+least, leaves the adding launch out and the wrapper adds the int32
+partials), all-reduces it in int64 and converts once. ``launches`` counts
+each kernel's calls, by function name.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import dist
 from repro_torch.kernels import _launch
 from repro_torch.kernels import meta
 from repro_torch.kernels import ref
@@ -57,11 +63,12 @@ def chunks(clients: int, n: int) -> int:
     return max(need, spread, 1)
 
 
-def _workspace(like: torch.Tensor, clients: int, n: int):
+def _workspace(like: torch.Tensor, clients: int, n: int,
+               least_chunks: int = 1):
     """(chunks, the data pointer of an int32 (clients, chunks) workspace
     on ``like``'s card or 0 for one chunk, the workspace), which the
     caller holds until its launch is enqueued."""
-    k = chunks(clients, n)
+    k = max(chunks(clients, n), least_chunks)
     if k == 1:
         return 1, 0, None
     partials = torch.empty(clients * k, dtype=torch.int32, device=like.device)
@@ -87,21 +94,35 @@ def check_args(u: torch.Tensor, r: torch.Tensor) -> int:
 
 
 def per_client_sign_align(u: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    if dist.is_dtensor(u, r):
+        from repro_torch.kernels import sharded
+        return sharded.per_client_sign_align(u, r)
     device = check_args(u, r)
     if device == _launch.CPU:
         return ref.per_client_sign_align(u, r)
     if device == _launch.META:
         return meta.per_client_sign_align(u, r)
+    return _count_clients(device, u, r)
+
+
+def _count_clients(device: int, u: torch.Tensor, r: torch.Tensor,
+                   int64: bool = False) -> torch.Tensor:
+    """One launch of the count: the (C,) f32 counts or, with ``int64``,
+    the (C,) int64 counts before their one conversion (the kernel then
+    counts in two chunks at the least and leaves the int32 partials,
+    which are added here)."""
     pu = _launch.aligned_pointer("per_client_sign_align", u)
     pr = _launch.aligned_pointer("per_client_sign_align", r)
     C, R, _ = u.shape
-    counts = u.new_empty(C)
-    k, pp, _partials = _workspace(u, C, R * LANE)
+    counts = None if int64 else u.new_empty(C)
+    k, pp, partials = _workspace(u, C, R * LANE, 2 if int64 else 1)
     _launch.entries["per_client_sign_align"](
-        pu, pr, counts.data_ptr(), pp, C,
+        pu, pr, 0 if int64 else counts.data_ptr(), pp, C,
         C if r.dim() == 2 else C // r.shape[0], R * LANE, k,
         _launch.stream(device))
     launches["per_client_sign_align"] += 1
+    if int64:
+        return partials.view(C, k).sum(dim=1, dtype=torch.int64)
     return counts
 
 
@@ -119,17 +140,30 @@ def check_count_args(g: torch.Tensor, r: torch.Tensor) -> int:
 
 
 def sign_align_counts(g: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    if dist.is_dtensor(g, r):
+        from repro_torch.kernels import sharded
+        return sharded.sign_align_counts(g, r)
     device = check_count_args(g, r)
     if device == _launch.CPU:
         return ref.sign_align_counts(g, r)
     if device == _launch.META:
         return meta.sign_align_counts(g, r)
+    return _count_one(device, g, r)
+
+
+def _count_one(device: int, g: torch.Tensor, r: torch.Tensor,
+               int64: bool = False) -> torch.Tensor:
+    """One launch of the count: the 0-dim f32 count or, with ``int64``,
+    the 0-dim int64 count before its conversion (as ``_count_clients``)."""
     pg = _launch.aligned_pointer("sign_align_counts", g)
     pr = _launch.aligned_pointer("sign_align_counts", r)
-    count = g.new_empty((), dtype=torch.float32)
-    k, pp, _partials = _workspace(g, 1, g.numel())
+    count = None if int64 else g.new_empty((), dtype=torch.float32)
+    k, pp, partials = _workspace(g, 1, g.numel(), 2 if int64 else 1)
     _launch.entries["sign_align_counts"](
-        pg, int(g.dtype == torch.bfloat16), pr, count.data_ptr(), pp,
-        g.numel(), k, _launch.stream(device))
+        pg, int(g.dtype == torch.bfloat16), pr,
+        0 if int64 else count.data_ptr(), pp, g.numel(), k,
+        _launch.stream(device))
     launches["sign_align_counts"] += 1
+    if int64:
+        return partials.sum(dtype=torch.int64)
     return count

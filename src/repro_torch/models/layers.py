@@ -191,6 +191,43 @@ def attn_params(cfg, generator, dtype, lead=()):
     return p
 
 
+def reshape(x: torch.Tensor, *shape) -> torch.Tensor:
+    """``x.reshape(*shape)``; a DTensor whose sharding the new shape
+    would split unevenly (heads not divisible by the mesh axis, say) is
+    first gathered on every dim the reshape changes, as GSPMD reshards
+    before such a reshape, and its gradient likewise in the backward."""
+    from repro_torch import dist
+    if dist.is_dtensor(x):
+        return _MeshReshape.apply(x, shape)
+    return x.reshape(*shape)
+
+
+def _mesh_reshape(x, shape):
+    try:
+        return x.reshape(*shape)
+    except RuntimeError:
+        from repro_torch import dist
+        keep = 0
+        while (keep < min(x.dim(), len(shape))
+               and x.shape[keep] == shape[keep]):
+            keep += 1
+        return dist.keep_shards(x, range(keep)).reshape(*shape)
+
+
+class _MeshReshape(torch.autograd.Function):
+    """A DTensor's reshape whose backward reshapes the gradient back the
+    same way (a gradient may come sharded where the input was not)."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.in_shape = tuple(x.shape)
+        return _mesh_reshape(x, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _mesh_reshape(g, ctx.in_shape), None
+
+
 def _project_qkv(cfg, p, x, xkv=None):
     """q from x, k and v from ``xkv`` (cross attention) or from x."""
     B, S, _ = x.shape
@@ -202,8 +239,8 @@ def _project_qkv(cfg, p, x, xkv=None):
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     Sk = xkv.shape[1]
-    return (q.reshape(B, S, H, hd), k.reshape(B, Sk, K, hd),
-            v.reshape(B, Sk, K, hd))
+    return (reshape(q, B, S, H, hd), reshape(k, B, Sk, K, hd),
+            reshape(v, B, Sk, K, hd))
 
 
 def _gqa_scores(q, k):
@@ -211,7 +248,7 @@ def _gqa_scores(q, k):
     head h reads KV head h // G."""
     B, Sq, H, hd = q.shape
     K = k.shape[2]
-    qg = q.reshape(B, Sq, K, H // K, hd)
+    qg = reshape(q, B, Sq, K, H // K, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
                      k.to(torch.float32))
     return s / math.sqrt(hd)
@@ -221,7 +258,7 @@ def _gqa_out(probs, v, dtype):
     """probs: (B,K,G,Sq,Sk) v: (B,Sk,K,hd) -> (B,Sq,H*hd)."""
     B, K, G, Sq, Sk = probs.shape
     o = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(torch.float32))
-    return o.reshape(B, Sq, K * G * v.shape[-1]).to(dtype)
+    return reshape(o, B, Sq, K * G * v.shape[-1]).to(dtype)
 
 
 # full_attention takes the blockwise (flash) branch when the config asks
@@ -333,7 +370,7 @@ def decode_attention(cfg, p, x, cache_k, cache_v, step: int, *,
         q = x @ p["wq"]
         if "bq" in p:
             q = q + p["bq"]
-        q = q.reshape(B, 1, cfg.num_heads, cfg.hd)
+        q = reshape(q, B, 1, cfg.num_heads, cfg.hd)
         probs = torch.softmax(_gqa_scores(q, cache_k), dim=-1)
         return _gqa_out(probs, cache_v, x.dtype) @ p["wo"]
     q, k_new, v_new = _project_qkv(cfg, p, x)

@@ -27,6 +27,16 @@ weight gradient before its sum.
 
 The aux loss is the Switch load-balance term E·Σ_e f_e/k·p_e (f_e the
 choices routed to e per token, p_e the mean router probability of e).
+
+On a mesh (DTensor inputs) the capacity positions are a scan over every
+token of the call, as in the JAX package's global semantics, so the
+tokens are gathered whole onto every rank first (an all-gather over the
+mesh dims that shard them); the routing, dispatch and combine run on
+those local tensors alike on every rank, and the expert products run on
+DTensors against the expert banks as they are distributed (replicated
+for training, ff over "model" for serving, arctic's experts over
+"data"), DTensor reducing their partial sums. The output is split back
+to the input's layout without a collective.
 """
 from __future__ import annotations
 
@@ -195,8 +205,35 @@ def experts(p, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["wd"])
 
 
+def _moe_ffn_on_mesh(cfg, p, x):
+    """``moe_ffn`` on DTensors (the module's docstring)."""
+    from repro_torch import dist
+    mesh = x.device_mesh
+    rep = dist.placements(mesh, {})
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    T = B * S
+    xt = x.redistribute(mesh, rep).to_local().reshape(T, d)
+    r = route(cfg, p["router"].redistribute(mesh, rep).to_local(), xt)
+    C = r.capacity
+    xe = dist.wrap(dispatch(cfg, xt, r), mesh, rep, (E, C, d))
+    ye = experts(p, xe).redistribute(mesh, rep).to_local().reshape(E * C, d)
+    w = (r.topv.reshape(T * k) * r.keep).to(x.dtype)
+    out = dist.wrap(combine(cfg, ye, r, w).reshape(B, S, d), mesh, rep,
+                    (B, S, d)).redistribute(mesh, x.placements)
+    if cfg.moe_dense_residual:
+        out = out + L.ffn(cfg, p["dense"], x)
+    f_e = r.load.to(torch.float32) / T
+    p_e = r.gates.mean(dim=0)
+    aux = E * torch.sum(f_e / k * p_e)
+    return out, dist.wrap(aux, mesh, rep, ())
+
+
 def moe_ffn(cfg, p, x: torch.Tensor):
     """x: (B, S, d) -> (out (B, S, d), aux_loss f32 scalar)."""
+    from repro_torch import dist
+    if dist.is_dtensor(x):
+        return _moe_ffn_on_mesh(cfg, p, x)
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     T = B * S

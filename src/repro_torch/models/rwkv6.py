@@ -93,7 +93,7 @@ def _ddlerp(tp, x, xx):
     base = x + delta * tp["mu_base"]
     lo = torch.tanh(base @ tp["W1"])                    # (B,S,5*lora)
     B, S, _ = lo.shape
-    lo = lo.reshape(B, S, 5, -1)
+    lo = L.reshape(lo, B, S, 5, -1)
     off = torch.einsum("bstl,tld->bstd", lo, tp["W2"])  # (B,S,5,d)
     mix = tp["mus"][None, None] + off
     outs = x[:, :, None, :] + delta[:, :, None, :] * mix
@@ -133,7 +133,7 @@ def _group_norm(x, w, b, H, eps=1e-5):
     """Per-head layernorm over hd. x: (..., d) viewed as (..., H, hd); the
     variance divides by hd, as ``jnp.var`` does."""
     shp = x.shape
-    xf = x.to(torch.float32).reshape(shp[:-1] + (H, shp[-1] // H))
+    xf = L.reshape(x.to(torch.float32), *shp[:-1], H, shp[-1] // H)
     mu = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, keepdim=True, correction=0)
     xf = (xf - mu) * torch.rsqrt(var + eps)
@@ -145,11 +145,11 @@ def _time_mix(cfg, tp, x, xx, S0):
     B, T, d = x.shape
     H, hd = _heads(cfg), cfg.rwkv_head_dim
     x_w, x_k, x_v, x_r, x_g = _ddlerp(tp, x, xx)
-    r = (x_r @ tp["Wr"]).reshape(B, T, H, hd)
-    k = (x_k @ tp["Wk"]).reshape(B, T, H, hd)
-    v = (x_v @ tp["Wv"]).reshape(B, T, H, hd)
+    r = L.reshape(x_r @ tp["Wr"], B, T, H, hd)
+    k = L.reshape(x_k @ tp["Wk"], B, T, H, hd)
+    v = L.reshape(x_v @ tp["Wv"], B, T, H, hd)
     g = F.silu(x_g @ tp["Wg"])
-    w = _decay(tp, x_w).reshape(B, T, H, hd)
+    w = L.reshape(_decay(tp, x_w), B, T, H, hd)
     o, S_T = _wkv_scan(r, k, v, w, tp["u"], S0)
     o = _group_norm(o.reshape(B, T, d).to(x.dtype), tp["gn_w"], tp["gn_b"], H)
     return (o * g) @ tp["Wo"], S_T

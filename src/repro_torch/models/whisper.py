@@ -88,7 +88,7 @@ def _cross_kv(lp, enc_out, cfg):
     v = enc_out @ lp["cross_attn"]["wv"]
     if "bk" in lp["cross_attn"]:
         k, v = k + lp["cross_attn"]["bk"], v + lp["cross_attn"]["bv"]
-    return k.reshape(B, Se, K, hd), v.reshape(B, Se, K, hd)
+    return L.reshape(k, B, Se, K, hd), L.reshape(v, B, Se, K, hd)
 
 
 def _dec_block(cfg, lp, h, enc_out):

@@ -4,11 +4,18 @@ peaks instead of the TPU's.
 
   compute term    = FLOPs / (989 TFLOP/s, bf16 dense tensor cores)
   memory term     = traffic bytes / (3.35 TB/s HBM)
-  collective term = collective bytes / (450 GB/s NVLink each way)
+  collective term = bytes of collectives within one node / (450 GB/s
+                    NVLink each way) + bytes of collectives across nodes /
+                    (50 GB/s InfiniBand a card)
 
-All three are NVIDIA's data-sheet figures for the H100 SXM at its 700 W
-limit (the NVLink figure is the data sheet's 900 GB/s to the host's other
-cards, 450 each way); a card set below 700 W runs slower. FLOPs, traffic
+The first three figures are NVIDIA's data sheet for the H100 SXM at its
+700 W limit (the NVLink figure is the data sheet's 900 GB/s to the host's
+other cards, 450 each way); a card set below 700 W runs slower. An HGX
+H100 node joins 8 cards by NVLink; a collective whose group spans more
+than one node of 8 consecutive ranks (any group over a mesh dim of 16,
+and the "pod" and "data" axes of the production meshes) runs over the
+node's InfiniBand, NDR 400 Gb/s, 50 GB/s a card (the ConnectX-7 data
+sheet, one port a card). FLOPs, traffic
 and collective bytes come from the dry run's census
 (``roofline/census.py``), per device. MODEL_FLOPS = 6·N·D for training
 (N the active parameters, D the tokens), 2·N·D for a prefill and 2·N a
@@ -26,6 +33,8 @@ from typing import Optional
 PEAK_FLOPS_BF16 = 989e12       # FLOP/s a card, tensor cores, bf16
 HBM_BW = 3.35e12               # bytes/s a card
 NVLINK_BW = 450e9              # bytes/s a card, each way (data sheet: 900)
+IB_BW = 50e9                   # bytes/s a card: NDR InfiniBand, 400 Gb/s
+NODE_CARDS = 8                 # cards an HGX H100 node joins by NVLink
 
 
 @dataclasses.dataclass
@@ -63,6 +72,32 @@ def model_flops(cfg, shape) -> float:
     return 2.0 * n_active * shape.global_batch      # decode: one token each
 
 
+def link(row: dict) -> str:
+    """``"nvlink"`` for a collective whose group lies in one node of
+    ``NODE_CARDS`` consecutive ranks (``row["nodes"]`` == 1, or, where the
+    census did not record the nodes, a group of at most ``NODE_CARDS``
+    ranks), ``"infiniband"`` otherwise."""
+    nodes = row.get("nodes")
+    if nodes is None:
+        return "nvlink" if (row.get("group_size") or 1) <= NODE_CARDS \
+            else "infiniband"
+    return "nvlink" if nodes <= 1 else "infiniband"
+
+
+def collective_times(census: dict) -> tuple:
+    """(seconds over NVLink, seconds over InfiniBand) of a census's
+    collectives, per device; bytes the census could not name a group for
+    are charged to NVLink."""
+    rows = census.get("collectives") or []
+    by_link = {"nvlink": 0.0, "infiniband": 0.0}
+    for row in rows:
+        by_link[link(row)] += float(row["bytes"])
+    unnamed = float(census.get("collective_bytes", 0.0) or 0.0) - \
+        sum(by_link.values())
+    by_link["nvlink"] += max(unnamed, 0.0)
+    return by_link["nvlink"] / NVLINK_BW, by_link["infiniband"] / IB_BW
+
+
 def analyze(arch: str, shape, mesh_name: str, chips: int, census: dict,
             cfg, memory_stats=None) -> Roofline:
     """The roofline of one step from its census (per device)."""
@@ -71,7 +106,8 @@ def analyze(arch: str, shape, mesh_name: str, chips: int, census: dict,
     coll_dev = float(census.get("collective_bytes", 0.0) or 0.0)
     t_c = flops_dev / PEAK_FLOPS_BF16
     t_m = bytes_dev / HBM_BW
-    t_x = coll_dev / NVLINK_BW
+    t_nv, t_ib = collective_times(census)
+    t_x = t_nv + t_ib
     mf = model_flops(cfg, shape)
     dominant = max((("compute", t_c), ("memory", t_m), ("collective", t_x)),
                    key=lambda kv: kv[1])[0]
@@ -87,10 +123,24 @@ def analyze(arch: str, shape, mesh_name: str, chips: int, census: dict,
         op_counts=census.get("op_counts"))
 
 
-def save_jsonl(path: str, rows) -> None:
+def collective_fields(census: dict) -> dict:
+    """What a dry-run row adds to the JAX package's ``Roofline`` fields:
+    per device, the collective bytes by kind, the census's collective
+    rows (kind, mesh dims, ranks, nodes, calls, bytes) and the collective
+    term's two links (seconds)."""
+    t_nv, t_ib = collective_times(census)
+    return {"per_op_bytes": dict(census.get("per_op_bytes") or {}),
+            "collectives": list(census.get("collectives") or []),
+            "t_collective_nvlink": t_nv, "t_collective_ib": t_ib}
+
+
+def save_jsonl(path: str, rows, extras=None) -> None:
+    """Append each ``Roofline`` as a JSON line, with the keys of its
+    ``extras`` dict (one a row) beside its fields."""
+    extras = extras or [{}] * len(rows)
     with open(path, "a") as f:
-        for r in rows:
-            f.write(json.dumps(dataclasses.asdict(r)) + "\n")
+        for r, extra in zip(rows, extras):
+            f.write(json.dumps({**dataclasses.asdict(r), **extra}) + "\n")
 
 
 def load_jsonl(path: str) -> list:

@@ -129,7 +129,10 @@ def test_import_leaves_jax_out():
             "repro_torch.models.moe, repro_torch.tree,"
             "repro_torch.data.synthetic, repro_torch.kernels.meta,"
             "repro_torch.roofline.census, repro_torch.roofline.analysis,"
-            "repro_torch.launch.dryrun, repro_torch.loops;"
+            "repro_torch.launch.dryrun, repro_torch.loops,"
+            "repro_torch.launch.mesh, repro_torch.launch.sharding,"
+            "repro_torch.kernels.sharded, repro_torch.dist,"
+            "repro_torch.core.population;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             "assert not bad, bad")

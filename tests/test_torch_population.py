@@ -249,8 +249,9 @@ def test_population_round_matches_jax(frac):
         tst, tc = tfn(tst, r)
         assert tc.tolist() == np.asarray(jc).tolist(), r
         assert not _state_problems(tst, jst), r
-    with pytest.raises(NotImplementedError, match="item 14g"):
-        tpop.build_population_round(n, k, mesh=object())
+    # over a mesh the round builds (tests/test_torch_population_mesh.py
+    # runs it on four gloo ranks)
+    assert callable(tpop.build_population_round(n, k, mesh=object()))
 
 
 def test_population_draws_are_keyed_by_the_round():
