@@ -504,8 +504,15 @@ Phases, each printing JSON lines:
                repro_torch.launch.dryrun --arch qwen2-1.5b --shape
                train_4k --mesh both`` in the CLI wave (a fake world of 512
                ranks on meta): each row's per-device FLOPs, collective
-               bytes by kind and mesh dims, and its three terms; the
-               phase's seconds (``"phase": "mesh_phase"``).
+               bytes by kind and mesh dims, and its three terms; the 16 ×
+               16 row held to the JAX package's compiled step on the same
+               mesh (``JAX_QWEN2_TRAIN_16X16``, constants from ``python -m
+               repro.launch.dryrun`` on the CPU): FLOPs a device within 5%,
+               none of the largest products spanning the whole d_ff, the
+               collective bytes by kind and the peak a device printed
+               beside JAX's (``"phase": "mesh"`` ``run`` ``qwen2-1.5b
+               train_4k 16x16 census vs jax``); the phase's seconds
+               (``"phase": "mesh_phase"``).
 
 Every CLI check of phases 6f-12 (the serve, train and dry-run launchers in
 subprocesses, each exiting 0 with its output held) runs after phase 12,
@@ -513,6 +520,26 @@ all at once in two waves (the two full-width serves, then the rest, the
 one full-width trainer among them), each line with its seconds from its
 wave's start (``"phase": "cli_phase"`` the waves' seconds); a phase run
 alone by its flag runs its own at its end.
+
+The CPU halves of the card-vs-CPU checks of phases 7-10 (7's three 2-layer
+f32 serves, 8 (e), 9 (e), 10 (c): each CPU run, and the states, logits,
+routings and gradients its card half replays and holds) run in one
+spawned worker process (``CpuHalves``), started after the build with all
+but two of the host's cores, while the main process drives the card: the
+worker is stopped while phases 3, 4, 6, 6d and 6f run and while 6b and 6c
+run a timed scenario or topology (their host µs, turns, s a round,
+population ms and serving latencies are timed on the host), and starts no
+half while the results it sent and the main process has not taken hold
+more than ``CPU_HALF_BUDGET`` bytes of host memory (each result's tensors
+move into shared memory once). Between phases the main process runs the
+card halves of the CPU halves done so far, and after the CLI waves the
+rest, in order, each waiting for its CPU half. Each card half prints its
+check's lines as before and a ``"phase": "cpu_half"`` line (the CPU
+half's ``start_s``, ``end_s`` and ``stopped_s``, the card half's
+``card_half_s``, ``waited_s``, its host bytes); ``"phase": "cpu_halves"``
+at the end has the whole schedule. An exception in a CPU half, or the
+worker's death, fails the script when its card half takes it. A phase run
+alone by its flag runs its halves in line.
 
 Every ``"phase"`` line carries ``at_s``, its seconds since the script
 started. Then the ``kernels`` summary line, the nvidia-smi line, and last
@@ -614,6 +641,355 @@ def emit(phase: str, **kw) -> None:
     """One JSON line; ``at_s``: seconds since the script started."""
     print(json.dumps({"phase": phase, **kw,
                       "at_s": time.perf_counter() - T_START}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the CPU halves of the card-vs-CPU checks, in a worker process beside the card
+# ---------------------------------------------------------------------------
+
+class CpuHalves:
+    """The CPU halves of phases 7-10's card-vs-CPU checks, computed in a
+    spawned worker process while the main process drives the card.
+
+    Each check is split in two: a CPU half, which needs nothing from the
+    card (its weights drawn on the CPU, or, phase 10's, drawn on the card
+    and copied to the host before the worker starts), and a card half,
+    which replays the card from the CPU half's states and holds the two by
+    ``api/parity.py``. The worker (``_cpu_worker``) runs the CPU halves in
+    the order added, on ``threads`` of the host's cores, and sends each
+    result as it finishes: its tensors move into shared memory once, and
+    the main process maps them, no copy through a pipe or a file. The
+    worker starts no half while the results sent and not yet taken hold
+    more than ``budget`` bytes. The main process runs a card half where it
+    drains (``drain``: the halves that are done, between phases) and the
+    rest at the end (``finish``). A process, not a thread: a thread's
+    every operator waits for the interpreter lock that the main thread's
+    Python holds (on the card's host the CPU halves ran 2-4x slower on a
+    thread, with the lock handed over every 5 ms or every 0.1 ms alike,
+    and the main thread's phases up to 2x slower).
+
+    Timed host work (phase 3's host µs and turns, the quickstart's s a
+    round, serving's latencies) runs inside ``quiet()``: the worker is
+    stopped (SIGSTOP) for the block and continued after it. An exception
+    in a CPU half is raised in the main process when its card half takes
+    it, as is the worker's death; the worker then runs no more."""
+
+    def __init__(self, threads: int, budget: int):
+        self.threads, self.budget = threads, budget
+        self.jobs, self.order = {}, []
+        self._proc = None
+        self._depth = 0             # quiet blocks entered
+        self._stopped_at = None
+        self._stops = []            # (start, end) of each quiet block
+        self.started_at = None
+
+    def add(self, name: str, cpu, card) -> None:
+        """``cpu()`` in the worker (picklable: a module-level function or a
+        partial of one, with picklable arguments); ``card(result)`` ->
+        launches in the main process."""
+        self.jobs[name] = dict(card=card, result=None, error=None,
+                               done=False, taken=False, bytes=0,
+                               start_s=None, end_s=None)
+        self.order.append((name, cpu))
+
+    def start(self) -> None:
+        """The worker starts, and the main process keeps the host's other
+        cores until ``finish``."""
+        import atexit
+        import torch.multiprocessing as tmp
+        ctx = tmp.get_context("spawn")
+        self._results, self._acks = ctx.Queue(), ctx.Queue()
+        self._proc = ctx.Process(
+            target=_cpu_worker, daemon=True, name="cpu-halves",
+            args=(self.order, self._results, self._acks, self.threads,
+                  self.budget))
+        self._proc.start()
+        atexit.register(self._kill)
+        self.started_at = time.perf_counter() - T_START
+        torch.set_num_threads(max(1, HOST_CORES - self.threads))
+
+    def _kill(self) -> None:
+        """At exit: a stopped worker never handles SIGTERM."""
+        if self._proc is not None and self._proc.is_alive():
+            import signal
+            os.kill(self._proc.pid, signal.SIGKILL)
+
+    # -- main process ------------------------------------------------------
+    @contextlib.contextmanager
+    def quiet(self):
+        """The block runs with the worker stopped, and the main process on
+        all of the host's cores."""
+        import signal
+        alive = self._proc is not None and self._proc.is_alive()
+        if alive and self._depth == 0:
+            os.kill(self._proc.pid, signal.SIGSTOP)
+            self._stopped_at = time.perf_counter()
+        self._depth += 1
+        threads = torch.get_num_threads()
+        torch.set_num_threads(HOST_CORES)
+        try:
+            yield
+        finally:
+            torch.set_num_threads(threads)
+            self._depth -= 1
+            if self._depth == 0 and self._stopped_at is not None:
+                os.kill(self._proc.pid, signal.SIGCONT)
+                self._stops.append((self._stopped_at, time.perf_counter()))
+                self._stopped_at = None
+
+    def _receive(self, block: bool) -> bool:
+        """One result from the worker into its job; False if none came.
+        Blocking, it fails when the worker dies or sends nothing for
+        ``CPU_HALF_STALL_S`` (the longest half took 215 s, stops included,
+        on the slowest host seen)."""
+        import queue
+        since = time.perf_counter()
+        while True:
+            try:
+                msg = self._results.get(timeout=1.0 if block else 0.0)
+                break
+            except queue.Empty:
+                if not block:
+                    return False
+                if not self._proc.is_alive():
+                    raise RuntimeError(
+                        f"the CPU halves' worker died (exit code "
+                        f"{self._proc.exitcode})")
+                if time.perf_counter() - since > CPU_HALF_STALL_S:
+                    raise RuntimeError(
+                        f"no result from the CPU halves' worker in "
+                        f"{CPU_HALF_STALL_S} s")
+        kind, name, payload, t0, t1, nbytes = msg
+        job = self.jobs[name]
+        job["start_s"], job["end_s"] = t0 - T_START, t1 - T_START
+        job["bytes"] = nbytes
+        if kind == "ok":
+            from multiprocessing.reduction import ForkingPickler
+            job["result"] = ForkingPickler.loads(payload)
+        else:
+            job["error"] = RuntimeError(payload)
+        job["done"] = True
+        return True
+
+    def _stopped_within(self, t0: float, t1: float) -> float:
+        return sum(max(0.0, min(b, t1) - max(a, t0))
+                   for a, b in self._stops)
+
+    def _take(self, name: str):
+        job = self.jobs[name]
+        while not job["done"]:
+            self._receive(block=True)
+        taken_s = time.perf_counter() - T_START
+        result, error = job["result"], job["error"]
+        job["result"], job["taken"] = None, True
+        self._acks.put(job["bytes"])
+        emit("cpu_half", run=name, start_s=job["start_s"],
+             end_s=job["end_s"], seconds=job["end_s"] - job["start_s"],
+             stopped_s=self._stopped_within(job["start_s"] + T_START,
+                                            job["end_s"] + T_START),
+             card_half_s=taken_s, waited_s=max(0.0, job["end_s"] - taken_s),
+             host_bytes=job["bytes"], threads=self.threads,
+             failed=error is not None)
+        if error is not None:
+            raise RuntimeError(f"the CPU half of {name!r} failed") from error
+        # a card half turns TF32 off (the phase around it keeps its own)
+        # and has the host's cores for its CPU work (an optimizer replay)
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(HOST_CORES)
+        try:
+            return job["card"](result)
+        finally:
+            torch.set_num_threads(threads)
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = flags
+
+    def drain(self, launches: dict) -> None:
+        """The card halves of every CPU half done so far, in order."""
+        while self._receive(block=False):
+            pass
+        for name, _cpu in self.order:
+            job = self.jobs[name]
+            if job["done"] and not job["taken"]:
+                launches.update(self._take(name))
+                free_card()
+
+    def finish(self, launches: dict) -> None:
+        """The remaining card halves, each once its CPU half is done."""
+        for name, _cpu in self.order:
+            if not self.jobs[name]["taken"]:
+                launches.update(self._take(name))
+                free_card()
+        self._proc.join(timeout=60)
+        torch.set_num_threads(HOST_CORES)
+        import resource
+        emit("cpu_halves", started_s=self.started_at, threads=self.threads,
+             budget_bytes=self.budget, worker_exitcode=self._proc.exitcode,
+             host_max_rss_bytes=resource.getrusage(
+                 resource.RUSAGE_SELF).ru_maxrss * 1024,
+             worker_max_rss_bytes=resource.getrusage(
+                 resource.RUSAGE_CHILDREN).ru_maxrss * 1024,
+             stopped=[[a - T_START, b - T_START] for a, b in self._stops],
+             schedule=[dict(run=n, start_s=self.jobs[n]["start_s"],
+                            end_s=self.jobs[n]["end_s"],
+                            host_bytes=self.jobs[n]["bytes"])
+                       for n, _cpu in self.order])
+
+
+def _cpu_worker(order, results, acks, threads: int, budget: int) -> None:
+    """The CPU halves' worker process: each half in order, its result (or
+    its error) sent with its start and end on the shared monotonic clock
+    and its bytes; no half starts while the results sent and not taken
+    (``acks`` brings each taken result's bytes) exceed ``budget``. After a
+    failure it runs no more. It stays until every result sent is taken:
+    the main process receives a result's shared memory through this
+    process's file descriptors."""
+    import queue
+    import traceback
+    from multiprocessing.reduction import ForkingPickler
+    import torch.multiprocessing  # noqa: F401  (tensors into shared memory)
+    # the halves' own prints (serve_lm's) go to stderr a line at a time:
+    # the main process's JSON lines alone make up stdout
+    sys.stdout = sys.stderr
+    torch.set_num_threads(threads)
+    held, sent, taken = 0, 0, 0
+
+    def ack(block: bool) -> bool:
+        nonlocal held, taken
+        try:
+            held -= acks.get() if block else acks.get_nowait()
+        except queue.Empty:
+            return False
+        taken += 1
+        return True
+
+    for name, cpu in order:
+        while held > budget:
+            ack(True)
+        while ack(False):
+            pass
+        t0 = time.perf_counter()
+        try:
+            result = cpu()
+        except BaseException:
+            results.put(("error", name, traceback.format_exc(), t0,
+                         time.perf_counter(), 0))
+            break
+        nbytes = host_bytes(result)
+        try:
+            # pickled here, not by the queue's feeder thread, whose
+            # failures would be printed and the result lost
+            result = detached(result)
+            to_shared_memory(result)
+            payload = ForkingPickler.dumps(result)
+        except BaseException:
+            results.put(("error", name, traceback.format_exc(), t0,
+                         time.perf_counter(), 0))
+            break
+        held += nbytes
+        sent += 1
+        results.put(("ok", name, bytes(payload), t0, time.perf_counter(),
+                     nbytes))
+        del result, payload
+    while taken < sent:
+        ack(True)
+
+
+def _tensors(tree):
+    """The tensors in a nest of dicts, lists, tuples and named tuples."""
+    stack = [tree]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif hasattr(x, "_asdict"):
+            stack.extend(x._asdict().values())
+
+
+def detached(tree):
+    """A nest of dicts, lists, tuples and named tuples with every tensor
+    detached (the routing a training step records is part of its graph,
+    and a tensor in a graph does not cross processes)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach()
+    if isinstance(tree, dict):
+        return {k: detached(v) for k, v in tree.items()}
+    if hasattr(tree, "_asdict"):
+        return type(tree)(*(detached(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(detached(v) for v in tree)
+    return tree
+
+
+SHM_TRIES = 20
+
+
+def to_shared_memory(tree) -> None:
+    """Each tensor of a CPU half's result moved into shared memory here,
+    in the worker's main thread, before the queue's feeder thread pickles
+    it (a failure there would be printed and the result lost). A stop and
+    continue of the worker (``quiet``) can interrupt the allocation of a
+    large segment (the allocation then returns an error): each tensor is
+    tried again, ``SHM_TRIES`` times."""
+    for t in _tensors(tree):
+        for attempt in range(SHM_TRIES):
+            try:
+                t.share_memory_()
+                break
+            except RuntimeError:
+                if attempt == SHM_TRIES - 1:
+                    raise
+                time.sleep(0.05)
+
+
+def host_bytes(tree) -> int:
+    """Bytes of the distinct tensor storages in a nest (``_tensors``: a
+    CPU half's result)."""
+    seen, total = set(), 0
+    for x in _tensors(tree):
+        key = x.untyped_storage().data_ptr()
+        if key not in seen:
+            seen.add(key)
+            total += x.untyped_storage().nbytes()
+    return total
+
+
+# the whole script's CPU halves (``main``); None when a phase runs alone by
+# its flag, which then runs its checks' halves in line (``run_halves``)
+CPU_HALVES = None
+HOST_CORES = len(os.sched_getaffinity(0))
+CPU_HALF_THREADS = max(1, HOST_CORES - 2)  # the main process keeps two
+CPU_HALF_BUDGET = 28 * 2 ** 30   # finished CPU halves' bytes held at once
+CPU_HALF_STALL_S = 400.0
+
+
+@contextlib.contextmanager
+def quiet():
+    """Timed host work: the CPU halves' worker stopped while it runs."""
+    if CPU_HALVES is None:
+        yield
+    else:
+        with CPU_HALVES.quiet():
+            yield
+
+
+def drain(launches: dict) -> None:
+    """Between phases: the card halves of the CPU halves done so far."""
+    if CPU_HALVES is not None:
+        CPU_HALVES.drain(launches)
+
+
+def run_halves(halves, launches: dict) -> None:
+    """Each (name, cpu, card) check of a phase run alone: its CPU half,
+    then its card half, in line."""
+    for _name, cpu, card in halves:
+        launches.update(card(cpu()))
+        free_card()
 
 
 def quickstart_spec(T, strategy: str, quantize: bool = False,
@@ -2109,8 +2485,9 @@ def phase_scenario(T, parity, params, mods, smi: str) -> dict:
         for scn in (None,) + SCENARIOS:
             spec = dataclasses.replace(base, scenario=scn)
             name = f"{run} {scn}" if scn else run
-            card, recs, wall, got, rows = run_path_card(T, spec, params,
-                                                         mods)
+            with quiet():       # its s a round is timed on the host
+                card, recs, wall, got, rows = run_path_card(T, spec, params,
+                                                             mods)
             walls[scn or "static"] = wall / spec.rounds
             if scn is None:
                 continue
@@ -2379,17 +2756,23 @@ def phase_topology(T, parity, sign_align, ref, params, mods,
     """The topology phase (module docstring, 6c). Returns each run's
     launches."""
     t0 = time.perf_counter()
-    grouped_sign_kernel(sign_align, ref, smi)
-    launches = {"hierarchical": full_width_topology(T, params, mods, smi)}
+    # the kernels' eager turns and every run's s a round are timed on the
+    # host: the CPU halves' worker stopped
+    with quiet():
+        grouped_sign_kernel(sign_align, ref, smi)
+        launches = {"hierarchical": full_width_topology(T, params, mods,
+                                                        smi)}
     problems = []
     for run, (base, needed) in scenario_runs(T).items():
-        flat, flat_recs, flat_wall, flat_launches, _ = run_path_card(
-            T, base, params, mods)
+        with quiet():
+            flat, flat_recs, flat_wall, flat_launches, _ = run_path_card(
+                T, base, params, mods)
         for preset in TOPOLOGY_PRESETS_RUN:
             spec = dataclasses.replace(base, topology=preset)
             name = f"{run} {preset}"
-            card, recs, wall, got, rows = run_path_card(T, spec, params,
-                                                         mods)
+            with quiet():
+                card, recs, wall, got, rows = run_path_card(T, spec, params,
+                                                             mods)
             held_launches(name, got, needed, rows)
             equal_to_flat = same_records(recs, flat_recs)
             found = [] if equal_to_flat else [
@@ -3625,26 +4008,51 @@ def phase_lm(mods) -> dict:
          prompt_len=prompt_len, **line)
     del params, prompt
 
-    # two layers in f32, card (kernel) against CPU (plain), same weights
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    small = blockwise.replace(num_layers=2, dtype="float32")
-    cpu_params = model_api.init_params(torch.Generator().manual_seed(0), small,
-                                       "cpu")
-    card_params = transformer.tree_to(cpu_params, "cuda")
-    # the CPU's greedy tokens after serve_lm's prompt (seed 0) are fed to
-    # both devices' decode steps
+    out = {"qwen2-1.5b serve blockwise": launches}
+    if CPU_HALVES is None:      # else the worker and ``drain`` run them
+        run_halves(lm_halves(mods), out)
+    return out
+
+
+def lm_f32_cpu() -> dict:
+    """The CPU half of phase 7's 2-layer f32 qwen2-1.5b check: weights from
+    seed 0 on the CPU, serve_lm's prompt (seed 0), the CPU's greedy tokens
+    after it (fed to both devices' decode steps) and the CPU's logits of
+    the prefill and four teacher-forced decode steps."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import api as model_api
+    small = registry.get_config("qwen2-1.5b").replace(
+        attention_impl="blockwise", num_layers=2, dtype="float32")
+    params = model_api.init_params(torch.Generator().manual_seed(0), small,
+                                   "cpu")
     prompt = torch.as_tensor(np.random.default_rng(0).integers(
         0, small.vocab_size, size=(1, 512)))
     feed = serve.serve_lm(small, 1, 512, 4, device="cpu",
-                          params=cpu_params)[:, :4]
+                          params=params)[:, :4]
     with torch.no_grad():
-        cpu_logits = teacher_forced(model_api, serve, small, cpu_params,
-                                    {"tokens": prompt}, feed, "cpu")[0]
+        logits = teacher_forced(model_api, serve, small, params,
+                                {"tokens": prompt}, feed, "cpu")[0]
+    return dict(cfg=small, params=params, prompt=prompt, feed=feed,
+                logits=logits)
+
+
+def lm_f32_card(mods, cpu: dict) -> dict:
+    """Its card half: the same weights on the card (kernel) against the
+    CPU (plain), TF32 off, within 1e-4 of max|logit|, two SIMT launches."""
+    from repro_torch.launch import serve
+    from repro_torch.models import api as model_api
+    from repro_torch.models import transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small, cpu_logits = cpu["cfg"], cpu["logits"]
+    card_params = transformer.tree_to(cpu["params"], "cuda")
+    with torch.no_grad():
         torch.cuda.synchronize()
         reset_launches(mods)
         card_logits = teacher_forced(model_api, serve, small, card_params,
-                                     {"tokens": prompt}, feed, "cuda")[0]
+                                     {"tokens": cpu["prompt"]}, cpu["feed"],
+                                     "cuda")[0]
         torch.cuda.synchronize()
         card_launches = mods["flash_attn"].launches
         f32_launches = read_launches(mods)
@@ -3667,8 +4075,13 @@ def phase_lm(mods) -> dict:
          logit_gap_rel=gaps, flash_launches=card_launches, problems=problems)
     if problems:
         raise AssertionError("qwen2 card vs CPU: " + "; ".join(problems))
-    return {"qwen2-1.5b serve blockwise": launches,
-            "qwen2-1.5b 2-layer f32": f32_launches}
+    return {"qwen2-1.5b 2-layer f32": f32_launches}
+
+
+def lm_halves(mods) -> list:
+    """Phase 7's qwen2 check as (name, CPU half, card half)."""
+    return [("qwen2-1.5b 2-layer f32", lm_f32_cpu,
+             functools.partial(lm_f32_card, mods))]
 
 
 # phase 7's moe and vlm serves: run -> (arch, layers (None: all), batch,
@@ -3839,51 +4252,68 @@ def moe_trace(run_once, router_shapes) -> dict:
                     sorted(ops, key=lambda o: -o[2])[:8]])
 
 
-def moe_card_cpu(mods, parity, arch: str) -> dict:
-    """One arch at full width, 2 layers deep, f32 (TF32 off): the card
-    (SIMT flash kernel) against the CPU (plain) from the same weights,
-    prefill and four teacher-forced decode steps within 1e-4 of
-    max|logit|; every routed call of the card held by
-    ``parity.routing_problems`` to the CPU's routing of the same layer
-    input (the card's, replayed), the two runs' routing against each
-    other printed (their layer inputs part by the earlier layers'
-    rounding: ``api/parity.py``); the aux gap printed. Returns the card
-    run's launches."""
+def moe_f32_cpu(arch: str) -> dict:
+    """The CPU half of phase 7's 2-layer f32 check of a moe or vlm arch:
+    weights from seed 0, serve_lm's prompt (seed 0) and the CPU's greedy
+    tokens after it, the CPU's logits of the prefill and four
+    teacher-forced decode steps with its routing, and its aux."""
     from repro_torch.configs import registry
     from repro_torch.launch import serve
     from repro_torch.models import api as model_api
     from repro_torch.models import moe, transformer
     cfg = registry.get_config(arch).replace(
         num_layers=2, dtype="float32", attention_impl="blockwise")
-    cpu_params = model_api.init_params(torch.Generator().manual_seed(0), cfg,
-                                       "cpu")
-    card_params = transformer.tree_to(cpu_params, "cuda")
+    params = model_api.init_params(torch.Generator().manual_seed(0), cfg,
+                                   "cpu")
     patches = cfg.num_patches if cfg.family == "vlm" else 0
-    # serve_lm's prompt (seed 0); its greedy tokens on the CPU are fed to
-    # both devices' decode steps
     prompt = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(1, 512 - patches)))}
     if patches:
         prompt["patch_embeds"] = torch.zeros((1, patches, cfg.d_model))
     feed = serve.serve_lm(cfg, 1, 512, 4, device="cpu",
-                          params=cpu_params)[:, :4]
+                          params=params)[:, :4]
     with torch.no_grad():
-        with RoutingRecorder(moe) as cpu_rec:
-            cpu_logits = teacher_forced(model_api, serve, cfg, cpu_params,
-                                        prompt, feed, "cpu")[0]
+        with RoutingRecorder(moe) as rec:
+            logits = teacher_forced(model_api, serve, cfg, params, prompt,
+                                    feed, "cpu")[0]
+        aux = (float(transformer.forward(params, prompt, cfg)[2])
+               if cfg.num_experts else 0.0)
+    return dict(cfg=cfg, params=params, prompt=prompt, feed=feed,
+                logits=logits, calls=rec.calls, aux=aux, patches=patches)
+
+
+def moe_f32_card(mods, parity, cpu: dict) -> dict:
+    """Its card half, one arch at full width, 2 layers deep, f32 (TF32
+    off): the card (SIMT flash kernel) against the CPU (plain) from the
+    same weights, prefill and four teacher-forced decode steps within 1e-4
+    of max|logit|; every routed call of the card held by
+    ``parity.routing_problems`` to the CPU's routing of the same layer
+    input (the card's, replayed), the two runs' routing against each
+    other printed (their layer inputs part by the earlier layers'
+    rounding: ``api/parity.py``); the aux gap printed. Returns the card
+    run's launches."""
+    from repro_torch.launch import serve
+    from repro_torch.models import api as model_api
+    from repro_torch.models import moe, transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, prompt, cpu_logits = cpu["cfg"], cpu["prompt"], cpu["logits"]
+    arch, patches = cfg.name, cpu["patches"]
+    card_params = transformer.tree_to(cpu["params"], "cuda")
+    with torch.no_grad():
         torch.cuda.synchronize()
         reset_launches(mods)
         with RoutingRecorder(moe, inputs=True) as card_rec:
             card_logits = teacher_forced(model_api, serve, cfg, card_params,
-                                         prompt, feed, "cuda")[0]
+                                         prompt, cpu["feed"], "cuda")[0]
         torch.cuda.synchronize()
         launches = read_launches(mods)
         replayed = [moe.route(c, router.cpu(), xt.cpu())
                     for c, router, xt in card_rec.inputs]
         aux = [float(transformer.forward(
-            p, {k: v.to(dev) for k, v in prompt.items()}, cfg)[2])
-            for p, dev in ((card_params, "cuda"), (cpu_params, "cpu"))
-        ] if cfg.num_experts else [0.0, 0.0]
+            card_params, {k: v.to("cuda") for k, v in prompt.items()},
+            cfg)[2]), cpu["aux"]] if cfg.num_experts else [0.0, 0.0]
+    cpu_calls = cpu["calls"]
     problems, gaps = [], []
     for i, (c, g) in enumerate(zip(card_logits, cpu_logits)):
         gap = float((c - g).abs().max() / g.abs().max())
@@ -3907,7 +4337,7 @@ def moe_card_cpu(mods, parity, arch: str) -> dict:
     if cfg.num_experts:
         k = cfg.top_k
         kth = [torch.sort(r.logits, dim=1, descending=True).values
-               for r in cpu_rec.calls]
+               for r in cpu_calls]
 
         def gap_max(a, b):
             return max(float((x.logits.cpu() - y.logits).abs().max())
@@ -3916,16 +4346,26 @@ def moe_card_cpu(mods, parity, arch: str) -> dict:
         line.update(
             routed_calls=len(card_rec.calls),
             router_logit_gap_max_replayed=gap_max(card_rec.calls, replayed),
-            router_logit_gap_max_run=gap_max(card_rec.calls, cpu_rec.calls),
+            router_logit_gap_max_run=gap_max(card_rec.calls, cpu_calls),
             kth_logit_gap_min=min(float((z[:, k - 1] - z[:, k]).min())
                                   for z in kth),
             routing_run_vs_run=parity.routing_problems(card_rec.calls,
-                                                       cpu_rec.calls),
-            routing=routing_line(cfg, cpu_rec.calls))
+                                                       cpu_calls),
+            routing=routing_line(cfg, cpu_calls))
     emit("card_vs_cpu", **line, problems=problems)
     if problems:
         raise AssertionError(f"{arch} card vs CPU: " + "; ".join(problems))
-    return launches
+    return {f"{arch} 2-layer f32": launches}
+
+
+MOE_CARD_CPU = ("granite-moe-1b-a400m", "internvl2-2b")
+
+
+def moe_halves(mods, parity) -> list:
+    """Phase 7's moe and vlm checks as (name, CPU half, card half)."""
+    return [(f"{arch} 2-layer f32", functools.partial(moe_f32_cpu, arch),
+             functools.partial(moe_f32_card, mods, parity))
+            for arch in MOE_CARD_CPU]
 
 
 # The CLI checks: each runs ``python -m <module> ...`` in a subprocess on
@@ -4041,10 +4481,10 @@ def phase_moe(mods, parity, smi: str) -> dict:
             del prompt
         del params
         free_card()
-    for arch in ("granite-moe-1b-a400m", "internvl2-2b"):
-        launches[f"{arch} 2-layer f32"] = moe_card_cpu(mods, parity, arch)
+    if CPU_HALVES is None:
+        run_halves(moe_halves(mods, parity), launches)
     free_card()
-    for arch in ("granite-moe-1b-a400m", "internvl2-2b"):
+    for arch in MOE_CARD_CPU:
         lm_cli(arch)
     emit("moe_phase", seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
     return launches
@@ -5112,12 +5552,40 @@ def phase_train_moe(mods, smi: str) -> dict:
     return {run: line["launches"]}
 
 
-def train_card_cpu(mods, parity, arch: str) -> dict:
-    """8 (e): one arch at full width, 2 layers deep, f32 (TF32 off), C 2 ×
-    B 1 × 256 tokens (a vlm's 256 patch embeddings before them), θ 0.65,
-    the config's optimizer (adamw without master weights in f32), 2
-    steps on the CPU; each step replayed on the card from the CPU's
-    state before it. Records equal, loss within LOSS_RTOL, no θ ratio
+def train_f32_cpu(arch: str) -> dict:
+    """The CPU half of 8 (e): ``arch`` at full width, 2 layers deep, f32,
+    C 2 × B 1 × 256 tokens (a vlm's 256 patch embeddings before them),
+    θ 0.65, the config's optimizer (adamw without master weights in f32),
+    2 steps on the CPU from seed 0's weights: each step's batch, the state
+    before and after it, its metrics and its routing."""
+    from repro_torch.configs import registry
+    from repro_torch.core import fl_step
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import moe
+    cfg = registry.get_config(arch).replace(num_layers=2, dtype="float32")
+    seq = 256 + (cfg.num_patches if cfg.family == "vlm" else 0)
+    step = fl_step.make_raw_step(cfg, theta=TRAIN_CELL["theta"],
+                                 agg_dtype=torch.float32)
+    cpu = fl_step.init_state(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    draw = train_mod.make_batch_fn(cfg, TRAIN_CELL["clients"], 1, seq,
+                                   seed=1, device="cpu")
+    steps = []
+    for _ in range(2):
+        batch = draw()
+        t0 = time.perf_counter()
+        with RoutingRecorder(moe) as rec:
+            after, metrics = step(cpu, batch)
+        steps.append(dict(batch=batch, before=cpu, after=after,
+                          metrics=metrics, calls=rec.calls,
+                          cpu_step_s=time.perf_counter() - t0))
+        cpu = after
+    return dict(cfg=cfg, seq=seq, steps=steps)
+
+
+def train_f32_card(mods, parity, cpu: dict) -> dict:
+    """Its card half: each step replayed on the card from the CPU's state
+    before it, TF32 off. Records equal, loss within LOSS_RTOL, no θ ratio
     within THETA_BAND; the card's aggregated gradient (from its moments)
     within ``parity.grad_problems`` of the CPU's, each leaf's largest gap
     printed beside its bound; reference signs and weights by the adamw
@@ -5126,20 +5594,16 @@ def train_card_cpu(mods, parity, arch: str) -> dict:
     parts (a token within its margin), the step's gradients and weights
     are not comparable: the step says ``weights_held: false``, and its
     gaps are printed, not held."""
-    from repro_torch.configs import registry
     from repro_torch.core import fl_step
-    from repro_torch.launch import train as train_mod
     from repro_torch.models import moe
     from repro_torch.tree import named_leaves, tree_map
-    cfg = registry.get_config(arch).replace(num_layers=2, dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, seq = cpu["cfg"], cpu["seq"]
+    arch = cfg.name
     patches = cfg.num_patches if cfg.family == "vlm" else 0
-    seq = 256 + patches
     step = fl_step.make_raw_step(cfg, theta=TRAIN_CELL["theta"],
                                  agg_dtype=torch.float32)
-    cpu = fl_step.init_state(torch.Generator().manual_seed(0), cfg,
-                             device="cpu")
-    draw = train_mod.make_batch_fn(cfg, TRAIN_CELL["clients"], 1, seq,
-                                   seed=1, device="cpu")
     width = max(cfg.d_model, cfg.d_ff, cfg.padded_vocab, seq)
 
     def flat(tree):
@@ -5148,13 +5612,11 @@ def train_card_cpu(mods, parity, arch: str) -> dict:
                 for p, v in named_leaves(tree)}
 
     problems, launches, lines = [], None, []
-    for i in range(2):
-        batch = draw()
+    for i, rec in enumerate(cpu["steps"]):
+        batch, before, after, cm = (rec["batch"], rec["before"],
+                                    rec["after"], rec["metrics"])
         card = tree_map(lambda t: t.to("cuda") if torch.is_tensor(t) else t,
-                        cpu)
-        t0 = time.perf_counter()
-        with RoutingRecorder(moe) as cpu_rec:
-            after, cm = step(cpu, batch)
+                        before)
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         reset_launches(mods)
@@ -5187,12 +5649,12 @@ def train_card_cpu(mods, parity, arch: str) -> dict:
                     moe.route(c, router.cpu(), xt.cpu())
                     for c, router, xt in card_rec.inputs])
             run_vs_run = parity.routing_problems(card_rec.calls,
-                                                 cpu_rec.calls)
+                                                 rec["calls"])
             problems += [where + "replayed routing: " + p for p in replayed]
         # each run's aggregated gradient from its first moments, both
         # from the same m0: g = (m1 − 0.9·m0) / 0.1 (the recovery's own
         # rounding, a few f32 ulps of m, lies far inside grad_bound)
-        m0 = flat(cpu.opt_state["m"])
+        m0 = flat(before.opt_state["m"])
 
         def grads_of(state):
             m1 = flat(state.opt_state["m"])
@@ -5221,10 +5683,9 @@ def train_card_cpu(mods, parity, arch: str) -> dict:
                           grad_gap_over_bound=max(
                               (a / b for a, b in grad_gaps.values() if b > 0),
                               default=0.0),
-                          cpu_step_s=t1 - t0,
+                          cpu_step_s=rec["cpu_step_s"],
                           card_step_s=t2 - t1,
                           check_s=time.perf_counter() - t2))
-        cpu = after
         del card, g, g_card, m0
     line = dict(run=f"{arch} 2-layer f32 train", layers=2, clients=2,
                 batch=1, tokens=256, patches=patches, steps=lines,
@@ -5237,7 +5698,18 @@ def train_card_cpu(mods, parity, arch: str) -> dict:
     if problems:
         raise AssertionError(f"{arch} train card vs CPU: "
                              + "; ".join(problems))
-    return launches
+    return {f"{arch} 2-layer f32 train": launches}
+
+
+TRAIN_CARD_CPU = ("qwen2-1.5b", "granite-moe-1b-a400m", "internvl2-2b")
+
+
+def train_halves(mods, parity) -> list:
+    """Phase 8 (e) as (name, CPU half, card half) a arch."""
+    return [(f"{arch} 2-layer f32 train",
+             functools.partial(train_f32_cpu, arch),
+             functools.partial(train_f32_card, mods, parity))
+            for arch in TRAIN_CARD_CPU]
 
 
 def train_cli(argv, run: str) -> None:
@@ -5273,10 +5745,8 @@ def phase_train(mods, parity, ref, smi: str) -> dict:
     mark("c_flash")
     launches.update(phase_train_moe(mods, smi))
     mark("d_moe")
-    for arch in ("qwen2-1.5b", "granite-moe-1b-a400m", "internvl2-2b"):
-        launches[f"{arch} 2-layer f32 train"] = train_card_cpu(mods, parity,
-                                                               arch)
-        free_card()
+    if CPU_HALVES is None:
+        run_halves(train_halves(mods, parity), launches)
     mark("e_card_vs_cpu")
     train_cli(["--arch", "qwen2-1.5b", "--clients", "2",
                "--per-client-batch", "1", "--seq", "2048", "--steps", "2",
@@ -5610,40 +6080,31 @@ def family_train(mods, ref, smi: str, counts: dict) -> dict:
     return launches
 
 
-def family_card_cpu(mods, parity, arch: str, layers, train_steps) -> dict:
-    """9 (e): one arch at full width (``layers`` deep where given), f32,
-    TF32 off, blockwise (the SIMT flash kernel where a length reaches
-    it), card against CPU from the same weights. Serving: B 1 × 512
-    tokens (whisper with its 1,500 frames), prefill and four
-    teacher-forced decode steps within 1e-4 of max|logit|, every cache
-    leaf after the prefill and after the steps by
-    ``parity.state_problems``, greedy tokens equal where the CPU's top-2
-    margin is at least 1e-3. Training: C 2 × B 1 × 256 tokens,
-    θ 0.65, the config's optimizer (adafactor for rwkv6, adamw without
-    masters otherwise) recording its gradient on each device,
-    ``train_steps`` steps on the CPU, each replayed on the card from the
-    CPU's state before it:
-    records equal, loss within LOSS_RTOL, no θ ratio within THETA_BAND
-    (the second step; the first accepts every client), the gradients by
-    ``parity.grad_problems``, reference signs by ``ref_sign_problems`` and
-    weights by the adamw rule or the adafactor replay. Returns the card
-    runs' launches."""
+def family_f32_cfg(arch: str, layers):
     from repro_torch.configs import registry
+    cfg = registry.get_config(arch).replace(dtype="float32",
+                                            attention_impl="blockwise")
+    return cfg.replace(num_layers=layers) if layers else cfg
+
+
+def family_f32_cpu(arch: str, layers, train_steps) -> dict:
+    """The CPU half of 9 (e): one arch at full width (``layers`` deep where
+    given), f32, blockwise, weights from seed 0. Serving: B 1 × 512
+    tokens (whisper with its 1,500 frames), the CPU's greedy tokens, then
+    its prefill and four teacher-forced decode steps (logits and caches).
+    Training: C 2 × B 1 × 256 tokens, θ 0.65, the config's optimizer
+    (adafactor for rwkv6, adamw without masters otherwise) recording its
+    gradient, ``train_steps`` steps: each step's batch, the state before
+    and after it, its metrics and its gradient."""
     from repro_torch.core import fl_step
     from repro_torch.launch import serve
     from repro_torch.launch import train as train_mod
     from repro_torch.models import api as model_api
-    from repro_torch.models import transformer
     from repro_torch.optim import adamw as optim_mod
-    from repro_torch.tree import named_leaves, tree_map
-    cfg = registry.get_config(arch).replace(dtype="float32",
-                                            attention_impl="blockwise")
-    if layers:
-        cfg = cfg.replace(num_layers=layers)
-    problems = []
-    cpu_params = model_api.init_params(torch.Generator().manual_seed(0), cfg,
-                                       "cpu")
-    card_params = transformer.tree_to(cpu_params, "cuda")
+    from repro_torch.api import parity
+    cfg = family_f32_cfg(arch, layers)
+    params = model_api.init_params(torch.Generator().manual_seed(0), cfg,
+                                   "cpu")
     rng = np.random.default_rng(0)
     prompt = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                                      size=(1, 512)))}
@@ -5652,11 +6113,59 @@ def family_card_cpu(mods, parity, arch: str, layers, train_steps) -> dict:
             size=(1, cfg.encoder_seq, cfg.d_model))).float()
     t0 = time.perf_counter()
     feed = serve.serve_lm(cfg, 1, 512, 4, device="cpu",
-                          params=cpu_params)[:, :4]
+                          params=params)[:, :4]
     with torch.no_grad():
-        cpu_logits, cpu_pre, cpu_last = teacher_forced(
-            model_api, serve, cfg, cpu_params, prompt, feed, "cpu")
+        logits, pre, last = teacher_forced(model_api, serve, cfg, params,
+                                           prompt, feed, "cpu")
+    serve_s = time.perf_counter() - t0
+    opt, seen = parity.recording(optim_mod.for_config(cfg))
+    step = fl_step.make_raw_step(cfg, opt, theta=0.65,
+                                 agg_dtype=torch.float32)
+    state = fl_step.init_state(None, cfg, opt, params=params, device="cpu")
+    draw = train_mod.make_batch_fn(cfg, 2, 1, 256, seed=1, device="cpu")
+    steps = []
+    for _ in range(train_steps):
+        batch = draw()
         t1 = time.perf_counter()
+        after, metrics = step(state, batch)
+        steps.append(dict(batch=batch, before=state, after=after,
+                          metrics=metrics, grads=seen[-1],
+                          cpu_step_s=time.perf_counter() - t1))
+        seen.clear()
+        state = after
+    return dict(cfg=cfg, params=params, prompt=prompt, feed=feed,
+                logits=logits, pre=pre, last=last, serve_s=serve_s,
+                steps=steps)
+
+
+def family_f32_card(mods, parity, cpu: dict) -> dict:
+    """Its card half, TF32 off, card against CPU from the same weights (the
+    SIMT flash kernel where a length reaches it). Serving: the prefill and
+    four teacher-forced decode steps within 1e-4 of max|logit|, every
+    cache leaf after the prefill and after the steps by
+    ``parity.state_problems``, greedy tokens equal where the CPU's top-2
+    margin is at least 1e-3. Training: each step replayed on the card from
+    the CPU's state before it, its optimizer recording the gradient:
+    records equal, loss within LOSS_RTOL, no θ ratio within THETA_BAND
+    (the second step; the first accepts every client), the gradients by
+    ``parity.grad_problems``, reference signs by ``ref_sign_problems`` and
+    weights by the adamw rule or the adafactor replay. Returns the card
+    runs' launches."""
+    from repro_torch.core import fl_step
+    from repro_torch.launch import serve
+    from repro_torch.models import api as model_api
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw as optim_mod
+    from repro_torch.tree import named_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, prompt, feed = cpu["cfg"], cpu["prompt"], cpu["feed"]
+    cpu_logits, cpu_pre, cpu_last = cpu["logits"], cpu["pre"], cpu["last"]
+    arch = cfg.name
+    problems = []
+    card_params = transformer.tree_to(cpu["params"], "cuda")
+    t1 = time.perf_counter()
+    with torch.no_grad():
         torch.cuda.synchronize()
         reset_launches(mods)
         card_logits, card_pre, card_last = teacher_forced(
@@ -5698,22 +6207,16 @@ def family_card_cpu(mods, parity, arch: str, layers, train_steps) -> dict:
                         f"{want_flash} on the SIMT kernel")
     serve_line = dict(logit_gap_rel=gaps, state_gap_and_bound=state_gaps,
                       tokens_held=tokens_held, tokens_near_tie=tokens_near,
-                      cpu_serve_s=t1 - t0, card_serve_s=t2 - t1,
+                      cpu_serve_s=cpu["serve_s"], card_serve_s=t2 - t1,
                       launches=serve_launches)
     del card_params, card_pre, card_last
 
-    # training: 2 steps on the CPU, each replayed on the card
+    # training: each CPU step replayed on the card
     seq, C = 256, 2
-    tcpu = time.perf_counter()
-    cpu_opt, cpu_seen = parity.recording(optim_mod.for_config(cfg))
+    tcard = time.perf_counter()
     card_opt, card_seen = parity.recording(optim_mod.for_config(cfg))
-    cpu_step = fl_step.make_raw_step(cfg, cpu_opt, theta=0.65,
-                                     agg_dtype=torch.float32)
     card_step = fl_step.make_raw_step(cfg, card_opt, theta=0.65,
                                       agg_dtype=torch.float32)
-    cpu = fl_step.init_state(None, cfg, cpu_opt, params=cpu_params,
-                             device="cpu")
-    draw = train_mod.make_batch_fn(cfg, C, 1, seq, seed=1, device="cpu")
     gwidth = max(width, cfg.padded_vocab, seq)
 
     def flat(tree, device="cuda"):
@@ -5722,12 +6225,11 @@ def family_card_cpu(mods, parity, arch: str, layers, train_steps) -> dict:
                 for p, v in named_leaves(tree)}
 
     steps_lines, train_launches = [], None
-    for i in range(train_steps):
-        batch = draw()
+    for i, rec in enumerate(cpu["steps"]):
+        batch, before, after, cm = (rec["batch"], rec["before"],
+                                    rec["after"], rec["metrics"])
         card = tree_map(lambda t: t.to("cuda") if torch.is_tensor(t) else t,
-                        cpu)
-        ta = time.perf_counter()
-        after, cm = cpu_step(cpu, batch)
+                        before)
         tb = time.perf_counter()
         torch.cuda.synchronize()
         reset_launches(mods)
@@ -5753,7 +6255,7 @@ def family_card_cpu(mods, parity, arch: str, layers, train_steps) -> dict:
             problems += [where + p for p in parity.theta_band_violations(
                 [(i, c, float(x)) for c, x in enumerate(km["ratios"])],
                 0.65)]
-        g, g_card = flat(cpu_seen[-1]), flat(card_seen[-1])
+        g, g_card = flat(rec["grads"]), flat(card_seen[-1])
         scales = (parity.null_bias_scales(g, [k for k in g
                                               if k.endswith("attn/bk")])
                   if cfg.family == "audio" else {})
@@ -5766,8 +6268,8 @@ def family_card_cpu(mods, parity, arch: str, layers, train_steps) -> dict:
                                              bounds, where)
         if cfg.optimizer == "adafactor":
             replay, rstate = optim_mod.for_config(cfg).update(
-                tree_map(lambda t: t.cpu(), card_seen[-1]), cpu.opt_state,
-                cpu.params)
+                tree_map(lambda t: t.cpu(), card_seen[-1]),
+                before.opt_state, before.params)
             stats = {}
             for k, v in flat(rstate["stats"]).items():
                 leaf, stat = k.rsplit("/", 1)
@@ -5789,18 +6291,16 @@ def family_card_cpu(mods, parity, arch: str, layers, train_steps) -> dict:
             grad_gap_and_bound_top3=sorted(
                 ([k, a, b] for k, (a, b) in gg.items() if b > 0),
                 key=lambda x: -x[1] / x[2])[:3],
-            cpu_step_s=tb - ta, card_step_s=tc_ - tb,
+            cpu_step_s=rec["cpu_step_s"], card_step_s=tc_ - tb,
             check_s=time.perf_counter() - tc_))
-        cpu = after
         del card, g, g_card
-        cpu_seen.clear()
         card_seen.clear()
     line = dict(run=f"{arch} f32 card vs cpu", layers=cfg.num_layers,
                 encoder_layers=cfg.encoder_layers or None,
                 optimizer=cfg.optimizer, serve=serve_line,
                 train=dict(clients=C, batch=1, tokens=seq, steps=steps_lines,
                            launches=train_launches,
-                           seconds=time.perf_counter() - tcpu),
+                           seconds=time.perf_counter() - tcard),
                 allow_tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
                                 cudnn=torch.backends.cudnn.allow_tf32),
                 problems=problems)
@@ -5812,6 +6312,14 @@ def family_card_cpu(mods, parity, arch: str, layers, train_steps) -> dict:
         raise AssertionError(f"{arch} card vs CPU: " + "; ".join(problems))
     return {f"{arch} f32 serve": serve_launches,
             f"{arch} f32 train": train_launches}
+
+
+def family_halves(mods, parity) -> list:
+    """Phase 9 (e) as (name, CPU half, card half) an arch."""
+    return [(f"{arch} f32 card vs cpu",
+             functools.partial(family_f32_cpu, arch, layers, steps),
+             functools.partial(family_f32_card, mods, parity))
+            for arch, (layers, steps) in FAMILY_CARD_CPU.items()]
 
 
 def family_clis() -> None:
@@ -5845,9 +6353,8 @@ def phase_families(mods, parity, ref, smi: str) -> dict:
     mark("b_flash")
     launches.update(family_train(mods, ref, smi, counts))
     mark("d_train")
-    for arch, (layers, steps) in FAMILY_CARD_CPU.items():
-        launches.update(family_card_cpu(mods, parity, arch, layers, steps))
-        free_card()
+    if CPU_HALVES is None:
+        run_halves(family_halves(mods, parity), launches)
     mark("e_card_vs_cpu")
     family_clis()
     mark("f_cli")
@@ -6167,51 +6674,98 @@ def _card_named(tree) -> dict:
             for p, v in named_leaves(tree)}
 
 
-def sim_globals(sim) -> tuple:
-    """(globals, reference signs) of a simulation as name -> card tensor:
-    the megastep's arena and its signs unpacked, the loop's dicts."""
+def _host_named(tree) -> dict:
+    """name -> a host copy of each leaf (a later round may write the
+    simulation's own tensors in place)."""
+    from repro_torch.tree import named_leaves
+    return {"/".join(map(str, p)): v.detach().clone()
+            for p, v in named_leaves(tree)}
+
+
+def sim_globals(sim, named=_card_named) -> tuple:
+    """(globals, reference signs) of a simulation as name -> tensor (card
+    copies, or ``named``'s): the megastep's arena and its signs unpacked,
+    the loop's dicts."""
     if sim.megastep:
         arena = sim._arena
-        return (_card_named(arena.unpack(sim._params_mat.to("cuda"),
-                                         torch.float32)),
-                _card_named(arena.unpack(sim._ref_mat.to("cuda"),
-                                         torch.int8)))
-    return _card_named(sim.params), _card_named(sim.ref_sign)
+        dev = "cuda" if named is _card_named else sim._params_mat.device
+        return (named(arena.unpack(sim._params_mat.to(dev), torch.float32)),
+                named(arena.unpack(sim._ref_mat.to(dev), torch.int8)))
+    return named(sim.params), named(sim.ref_sign)
 
 
-def sim_lm_card_cpu(T, parity, mods, arch: str, path: str) -> dict:
-    """10 (c): ``arch`` at full width cut to 2 layers, f32, TF32 off, on
-    the sim ``path``, card against CPU from the same weights (drawn on the
-    card from seed 0) at B 1 × 128 tokens and one local step a client,
-    each run's SGD recording its gradients. After
-    round 0: each client's first gradient (both from the shared start)
-    by ``parity.grad_problems``; the globals by ``sim_weight_problems``
-    and the reference signs by ``ref_sign_problems``, both against
-    ``sim_round_bounds`` of the CPU's gradients. After round 1: the
-    records by ``record_mismatches``, and no θ ratio of either run within
-    ``THETA_BAND``. Returns (run, the card's launches in round 0,
-    problems)."""
+def sim_f32_cfg(arch: str):
     from repro_torch.configs import registry
+    return registry.get_config(arch).replace(
+        dtype="float32", num_layers=SIM_LM_CUT, attention_impl="blockwise")
+
+
+def sim_f32_weights(arch: str) -> dict:
+    """10 (c)'s weights, drawn on the card from seed 0 and copied to the
+    host (the CPU half's; its card half draws them again, the same bits)."""
     from repro_torch.models import api as model_api
     from repro_torch.models import transformer
-    c = SIM_LM
-    seq = SIM_LM_CPU_SEQ
-    cfg = registry.get_config(arch).replace(
-        dtype="float32", num_layers=SIM_LM_CUT, attention_impl="blockwise")
-    S = SIM_LM_CPU_STEPS
-    spec = sim_lm_spec(T, cfg, rounds=2, path=path, seq=seq, eval_samples=2,
-                       steps=S)
-    card_params = model_api.init_params(
-        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
-    params = transformer.tree_to(card_params, "cpu")
+    card = model_api.init_params(
+        torch.Generator(device="cuda").manual_seed(0), sim_f32_cfg(arch),
+        "cuda")
+    host = transformer.tree_to(card, "cpu")
+    del card
+    free_card()
+    return host
+
+
+def sim_f32_cpu(arch: str, path: str, params) -> dict:
+    """The CPU half of 10 (c): ``arch`` at full width cut to 2 layers,
+    f32, on the sim ``path`` from ``params`` (``sim_f32_weights``) at B 1
+    × 128 tokens and one local step a client, its SGD recording its
+    gradients, 2 rounds: round 0's gradients, globals and reference signs
+    (host copies), then the records and θ ratios."""
+    import repro_torch as T
+    from repro_torch.api import parity
+    cfg = sim_f32_cfg(arch)
+    spec = sim_lm_spec(T, cfg, rounds=2, path=path, seq=SIM_LM_CPU_SEQ,
+                       eval_samples=2, steps=SIM_LM_CPU_STEPS)
     with recording_sgd(parity) as seen:
         cpu = T.build_simulation(spec, device="cpu", params=params)
-        card = T.build_simulation(spec, device="cuda", params=card_params)
-    del card_params
-    cpu_grads, card_grads = seen
+    grads = seen[0]
     t0 = time.perf_counter()
     cpu.run(1)
     t_cpu = time.perf_counter() - t0
+    round0 = list(grads)
+    grads.clear()
+    globals0, ref0 = sim_globals(cpu, named=_host_named)
+    t1 = time.perf_counter()
+    cpu.run(1)
+    t_cpu += time.perf_counter() - t1
+    grads.clear()
+    return dict(arch=arch, path=path, cfg=cfg, spec=spec, params=params,
+                grads=round0, globals=globals0, ref=ref0,
+                lr=cpu.strategy.lr, alpha0=cpu.schedule.alpha0,
+                records=[T.record_from_metrics(m) for m in cpu.history],
+                theta_ratios=cpu.theta_ratios, cpu_rounds_s=t_cpu)
+
+
+def sim_f32_card(T, parity, mods, cpu: dict) -> dict:
+    """Its card half: the same spec on the card from the same weights (drawn
+    on the card from seed 0), TF32 off, its SGD recording. After round 0:
+    each client's first gradient (both from the shared start) by
+    ``parity.grad_problems``; the globals by ``sim_weight_problems`` and
+    the reference signs by ``ref_sign_problems``, both against
+    ``sim_round_bounds`` of the CPU's gradients. After round 1: the
+    records by ``record_mismatches``, and no θ ratio of either run within
+    ``THETA_BAND``. Returns the card's launches in round 0."""
+    from repro_torch.models import api as model_api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = SIM_LM
+    arch, path, cfg, spec = cpu["arch"], cpu["path"], cpu["cfg"], cpu["spec"]
+    seq, S = SIM_LM_CPU_SEQ, SIM_LM_CPU_STEPS
+    card_params = model_api.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    with recording_sgd(parity) as seen:
+        card = T.build_simulation(spec, device="cuda", params=card_params)
+    del card_params
+    card_grads, cpu_grads = seen[0], cpu["grads"]
     torch.cuda.synchronize()
     reset_launches(mods)
     card.run(1)
@@ -6236,15 +6790,15 @@ def sim_lm_card_cpu(T, parity, mods, arch: str, path: str) -> dict:
             grad_gap[k] = max(grad_gap.get(k, 0.0), gap / b if b else 0.0)
         del want, got
     per_client = [parity.sgd_delta_bounds(
-        [_card_named(g) for g in cpu_grads[i:i + S]], cpu.strategy.lr,
+        [_card_named(g) for g in cpu_grads[i:i + S]], cpu["lr"],
         SIM_LM_MOMENTUM, width, rows) for i in range(0, len(cpu_grads), S)]
-    cpu_grads.clear()
     card_grads.clear()
-    start = _card_named(params)
-    want, want_ref = sim_globals(cpu)
+    start = _card_named(cpu["params"])
+    want = {k: v.to("cuda") for k, v in cpu["globals"].items()}
+    want_ref = {k: v.to("cuda") for k, v in cpu["ref"].items()}
     got, got_ref = sim_globals(card)
     bounds = parity.sim_round_bounds(want, start, per_client, S,
-                                     cpu.schedule.alpha0)
+                                     cpu["alpha0"])
     problems += parity.sim_weight_problems(got, want, bounds,
                                            where="round 0 globals: ")
     moved = {k: want[k] - start[k] for k in want}
@@ -6255,34 +6809,45 @@ def sim_lm_card_cpu(T, parity, mods, arch: str, path: str) -> dict:
     del got, want, moved, start, got_ref, want_ref
     free_card()
     t_check = time.perf_counter() - t_check
-    t1 = time.perf_counter()
-    cpu.run(1)
-    t_cpu += time.perf_counter() - t1
     card.run(1)
     torch.cuda.synchronize()
-    cpu_grads.clear()
     card_grads.clear()
     got_r = [T.record_from_metrics(m) for m in card.history]
-    want_r = [T.record_from_metrics(m) for m in cpu.history]
+    want_r = cpu["records"]
     problems += parity.record_mismatches(got_r, want_r)
-    for who, sim in (("card", card), ("cpu", cpu)):
+    for who, ratios in (("card", card.theta_ratios),
+                        ("cpu", cpu["theta_ratios"])):
         problems += [f"{who}: {p}" for p in parity.theta_band_violations(
-            sim.theta_ratios, c["theta"])]
+            ratios, c["theta"])]
+    run = f"{arch} {SIM_LM_CUT}-layer f32 sim {path}"
     line = dict(
-        run=f"{arch} {SIM_LM_CUT}-layer f32 sim {path}", layers=SIM_LM_CUT,
+        run=run, layers=SIM_LM_CUT,
         seq=seq, path=path, rounds=2, problems=problems,
         records_card=[dataclasses.asdict(r) for r in got_r],
         records_cpu=[dataclasses.asdict(r) for r in want_r],
         theta_ratios_card=card.theta_ratios,
-        theta_ratios_cpu=cpu.theta_ratios,
+        theta_ratios_cpu=cpu["theta_ratios"],
         step0_grad_gap_over_bound_max=max(grad_gap.values(), default=None),
         round0_weight_gap_over_bound=weight_gap,
-        local_steps=S, launches_round0=launches, cpu_rounds_s=t_cpu,
-        check_s=t_check)
+        local_steps=S, launches_round0=launches,
+        cpu_rounds_s=cpu["cpu_rounds_s"], check_s=t_check)
     emit("card_vs_cpu", **line)
-    del cpu, card
+    del card
     free_card()
-    return line["run"], launches, problems
+    if problems:
+        raise AssertionError(f"card and CPU disagree: {run}: "
+                             + "; ".join(problems))
+    return {run: launches}
+
+
+def sim_halves(T, parity, mods) -> list:
+    """Phase 10 (c) as (name, CPU half, card half) an arch; the weights are
+    drawn on the card here, once, and copied to the host."""
+    return [(f"{arch} {SIM_LM_CUT}-layer f32 sim {path}",
+             functools.partial(sim_f32_cpu, arch, path,
+                               sim_f32_weights(arch)),
+             functools.partial(sim_f32_card, T, parity, mods))
+            for arch, path in SIM_LM_CARD_CPU.items()]
 
 
 def phase_sim_lm(T, parity, mods, ref, smi: str) -> dict:
@@ -6299,17 +6864,9 @@ def phase_sim_lm(T, parity, mods, ref, smi: str) -> dict:
     mark("a_full_width")
     launches.update(sim_lm_cut(T, mods, ref, smi))
     mark("b_cut")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    problems = []
-    for arch, path in SIM_LM_CARD_CPU.items():
-        run, got, line_problems = sim_lm_card_cpu(T, parity, mods, arch,
-                                                  path)
-        launches[run] = got
-        problems += [f"{run}: {p}" for p in line_problems]
+    if CPU_HALVES is None:
+        run_halves(sim_halves(T, parity, mods), launches)
     mark("c_card_vs_cpu")
-    if problems:
-        raise AssertionError("card and CPU disagree: " + "; ".join(problems))
     emit("sim_lm_phase", seconds=time.perf_counter() - t_phase,
          seconds_by_part=parts, nvidia_smi=smi)
     return launches
@@ -6708,6 +7265,60 @@ def mesh_population(smi: str) -> dict:
     return line
 
 
+# qwen2-1.5b × train_4k on the 16 × 16 mesh as the JAX package compiles it:
+# ``python -m repro.launch.dryrun --arch qwen2-1.5b --shape train_4k --mesh
+# single`` (jax 0.9.0 on 512 forced host devices, CPU), a device's
+# ``hlo_census`` FLOPs and collective bytes by kind and its
+# ``memory_analysis`` (whose peak on the CPU backend is its arguments';
+# ``temp_bytes`` beside it)
+JAX_QWEN2_TRAIN_16X16 = dict(
+    flops=91695404285952.0,
+    per_op_bytes={"all-reduce": 97955377000.0,
+                  "all-gather": 120390286848.0,
+                  "collective-permute": 3554964608.0,
+                  "all-to-all": 116785152.0},
+    collective_bytes=222017413608.0,
+    memory_analysis=dict(argument_bytes=1668144144, output_bytes=1667620704,
+                         temp_bytes=18954558712, peak_bytes=1668158626))
+MESH_FLOPS_RTOL = 0.05     # the port's per-device FLOPs against JAX's
+QWEN2_D_FF = 8960
+
+
+def mesh_census_held(lines, smi: str) -> bool:
+    """The dry-run CLI's 16 × 16 training row of qwen2-1.5b against the JAX
+    package's compiled step on the same mesh (``JAX_QWEN2_TRAIN_16X16``):
+    the census's matrix-product FLOPs a device within ``MESH_FLOPS_RTOL``
+    of JAX's, and none of its largest products (the dry run prints them by
+    local shape) spans the whole d_ff, i.e. contracts over it or makes it
+    on a "model" rank; collective bytes by kind and the peak a device
+    printed beside JAX's (``"phase": "mesh"``)."""
+    import ast
+    block = "\n".join(lines).split("train_4k × 16x16:")[1].split(
+        "[dryrun]")[0]
+    flops = float(re.search(r"flops=([0-9.e+]+)", block).group(1))
+    memory = ast.literal_eval(re.search(r"memory_analysis: (\{.*\})",
+                                        block).group(1))
+    per_op = ast.literal_eval(re.search(r"collectives: (\{.*\})",
+                                        block).group(1))
+    products = re.findall(r"of the FLOPs: (.*)", block)
+    whole = [p for p in products if str(QWEN2_D_FF) in re.split(r"\W+", p)]
+    jax = JAX_QWEN2_TRAIN_16X16
+    held = (abs(flops / jax["flops"] - 1.0) <= MESH_FLOPS_RTOL
+            and not whole)
+    emit("mesh", run="qwen2-1.5b train_4k 16x16 census vs jax",
+         torch=torch.__version__, flops=flops, jax_flops=jax["flops"],
+         flops_ratio=flops / jax["flops"], rtol=MESH_FLOPS_RTOL,
+         per_op_bytes=per_op, collective_bytes=sum(per_op.values()),
+         jax_per_op_bytes=jax["per_op_bytes"],
+         jax_collective_bytes=jax["collective_bytes"],
+         peak_bytes=memory["peak_bytes"], memory_analysis=memory,
+         jax_memory_analysis=jax["memory_analysis"],
+         card_bytes=torch.cuda.get_device_properties(0).total_memory,
+         largest_products=products, whole_d_ff_products=whole,
+         held=held, nvidia_smi=smi)
+    return held
+
+
 def phase_mesh(mods, smi: str) -> dict:
     """Phase 12 (module docstring, (a) to (c))."""
     import torch.distributed as tdist
@@ -6733,7 +7344,8 @@ def phase_mesh(mods, smi: str) -> dict:
         "train_4k", "--mesh", "both", "--results", "{ckpt}/dry.jsonl"],
         lambda lines: lines[-1] == "[dryrun] all combos traced on meta "
         "successfully" and sum(line.startswith(
-            "[dryrun] qwen2-1.5b × train_4k × ") for line in lines) == 2)
+            "[dryrun] qwen2-1.5b × train_4k × ") for line in lines) == 2
+        and mesh_census_held(lines, smi))
     problems = [p for line in lines for p in line["problems"]]
     emit("mesh_phase", seconds=time.perf_counter() - t_phase,
          seconds_by_part=seconds, problems=problems, nvidia_smi=smi)
@@ -6842,15 +7454,28 @@ def main() -> int:
     global DEFERRED_CLIS
     DEFERRED_CLIS = []
 
+    # the CPU halves of phases 7-10's card-vs-CPU checks start on a worker
+    # thread now; it parks while host work is timed (``quiet``) and the
+    # card halves run between phases (``drain``) and at the end
+    global CPU_HALVES
+    CPU_HALVES = CpuHalves(CPU_HALF_THREADS, CPU_HALF_BUDGET)
+    for half in (lm_halves(mods) + moe_halves(mods, parity)
+                 + train_halves(mods, parity) + family_halves(mods, parity)
+                 + sim_halves(T, parity, mods)):
+        CPU_HALVES.add(*half)
+    CPU_HALVES.start()
+    launches = {}
+
     # 3. kernels
-    rows = phase_kernels(sign_align, masked_agg, ref)
-    sign_chunk_edges(sign_align, _launch, ref)
-    sign_past_int32(sign_align, _launch, ref, smi)
-    rows.update(phase_quantize(quantize, gather, _launch, ref))
-    rows.update(phase_gather(quantize, gather, _launch, ref))
-    phase_launch(quantize, gather, masked_agg, sign_align, _launch)
-    rows.update(phase_spmd_kernels(sign_align, masked_agg, ref))
-    rows.update(phase_flash(flash_attn, ref))
+    with quiet():
+        rows = phase_kernels(sign_align, masked_agg, ref)
+        sign_chunk_edges(sign_align, _launch, ref)
+        sign_past_int32(sign_align, _launch, ref, smi)
+        rows.update(phase_quantize(quantize, gather, _launch, ref))
+        rows.update(phase_gather(quantize, gather, _launch, ref))
+        phase_launch(quantize, gather, masked_agg, sign_align, _launch)
+        rows.update(phase_spmd_kernels(sign_align, masked_agg, ref))
+        rows.update(phase_flash(flash_attn, ref))
 
     # 4. slice: the quickstart spec on the card. Each run sets every launch
     # count to 0 just before it and reads them just after.
@@ -6878,38 +7503,43 @@ def main() -> int:
         "fedavg scanned": (dataclasses.replace(
             quickstart_spec(T, "fedavg"), **scanned), ("masked_agg",)),
     }
-    finals, sims, launches = {}, {}, {}
-    for run, (spec, needed) in runs.items():
-        sim, wall, launches[run], by_rows = run_card(T, spec, params,
-                                                     mods)
-        res = T.result_from_simulation(spec, sim, wall_time=wall)
-        for rec in res.records:
-            emit("slice", run=run, **dataclasses.asdict(rec))
-        emit("slice", run=run, megastep=spec.megastep,
-             rounds_per_dispatch=spec.rounds_per_dispatch,
-             fused_eval=spec.fused_eval, rounds=len(res.records),
-             wall_s=wall, wall_s_per_round=wall / len(res.records),
-             dispatches=sim.dispatches, launches=launches[run],
-             rows_per_call=rows_line(by_rows), cohorts=sim.cohorts or None)
-        # the scanned path without fused eval evaluates at the end of each
-        # dispatch, so its first rounds carry NaN
-        first_eval = (spec.rounds_per_dispatch - 1 if
-                      spec.rounds_per_dispatch and not spec.fused_eval else 0)
-        if not (all(math.isfinite(r.loss) for r in res.records) and all(
-                math.isfinite(r.accuracy) for r in res.records[first_eval:])):
-            raise AssertionError(f"{run}: accuracy or loss not finite")
-        held_launches(run, launches[run], needed, by_rows)
-        if "int8 scanned" in run and launches[run]["cohort_gather"] != \
-                spec.rounds:
-            raise AssertionError(f"{run}: cohort_gather launched "
-                                 f"{launches[run]['cohort_gather']} times, "
-                                 f"not once a round")
-        finals[run], sims[run] = res, sim
-    emit("slice", run="ours+int8 scanned half",
-         sync_free_dispatch=sync_free_dispatch(
-             T, runs["ours+int8 scanned half"][0], params))
-    phase_trace(T, runs["ours+int8 scanned fused"][0], runs["ours+int8"][0],
-                params)
+    finals, sims = {}, {}
+    # the quickstart's s a round and the traces: the worker parked
+    with quiet():
+        for run, (spec, needed) in runs.items():
+            sim, wall, launches[run], by_rows = run_card(T, spec, params,
+                                                         mods)
+            res = T.result_from_simulation(spec, sim, wall_time=wall)
+            for rec in res.records:
+                emit("slice", run=run, **dataclasses.asdict(rec))
+            emit("slice", run=run, megastep=spec.megastep,
+                 rounds_per_dispatch=spec.rounds_per_dispatch,
+                 fused_eval=spec.fused_eval, rounds=len(res.records),
+                 wall_s=wall, wall_s_per_round=wall / len(res.records),
+                 dispatches=sim.dispatches, launches=launches[run],
+                 rows_per_call=rows_line(by_rows), cohorts=sim.cohorts or None)
+            # the scanned path without fused eval evaluates at the end of
+            # each dispatch, so its first rounds carry NaN
+            first_eval = (spec.rounds_per_dispatch - 1
+                          if spec.rounds_per_dispatch and not spec.fused_eval
+                          else 0)
+            if not (all(math.isfinite(r.loss) for r in res.records) and all(
+                    math.isfinite(r.accuracy)
+                    for r in res.records[first_eval:])):
+                raise AssertionError(f"{run}: accuracy or loss not finite")
+            held_launches(run, launches[run], needed, by_rows)
+            if "int8 scanned" in run and launches[run]["cohort_gather"] != \
+                    spec.rounds:
+                raise AssertionError(
+                    f"{run}: cohort_gather launched "
+                    f"{launches[run]['cohort_gather']} times, not once a "
+                    f"round")
+            finals[run], sims[run] = res, sim
+        emit("slice", run="ours+int8 scanned half",
+             sync_free_dispatch=sync_free_dispatch(
+                 T, runs["ours+int8 scanned half"][0], params))
+        phase_trace(T, runs["ours+int8 scanned fused"][0],
+                    runs["ours+int8"][0], params)
     base = finals["fedavg"].final
     for run in ("ours", "ours+int8"):
         final = finals[run].final
@@ -6953,58 +7583,74 @@ def main() -> int:
         raise AssertionError("runs disagree: " + "; ".join(problems))
 
     # 6. the kernel-ops API and the spmd engine
+    drain(launches)
     launches["ops"] = phase_ops(T, ops, params, mods)
-    launches.update(phase_spmd(T, parity, params, mods))
+    with quiet():
+        launches.update(phase_spmd(T, parity, params, mods))
 
-    # 6b. dynamic worlds on the four ported paths
+    # 6b. dynamic worlds on the four ported paths (each timed run quiet)
     launches.update(phase_scenario(T, parity, params, mods, smi))
 
-    # 6c. hierarchical topologies on the four ported paths
-    launches.update(phase_topology(T, parity, sign_align, ref, params, mods,
-                                   smi))
+    # 6c. hierarchical topologies on the four ported paths (each timed run
+    # quiet)
+    launches.update(phase_topology(T, parity, sign_align, ref, params,
+                                   mods, smi))
 
     # 6d. world scale: the population plane, two-stage selection and
     # non-resident worlds
-    launches.update(phase_population(T, parity, sign_align, masked_agg,
-                                     quantize, ref, params, mods, smi))
+    with quiet():
+        launches.update(phase_population(T, parity, sign_align, masked_agg,
+                                         quantize, ref, params, mods, smi))
 
     # 6e. sessions: checkpoint, restore and resume on the four paths
+    drain(launches)
     phase_session(T, parity, params, mods, smi)
 
     # 6f. serving the detector, with drift-triggered re-federation
-    phase_serve(T, parity, mods, smi)
+    drain(launches)
+    with quiet():
+        phase_serve(T, parity, mods, smi)
 
     # 7. LM serving at qwen2-1.5b's full width, then the moe and vlm
     # families (granite-moe, internvl2, arctic cut to one layer)
+    drain(launches)
     launches.update(phase_lm(mods))
+    drain(launches)
     launches.update(phase_moe(mods, parity, smi))
 
     # 8. training the language models: qwen2-1.5b and granite-moe at full
     # width through the spmd step, the kernels at the LM arena, the flash
     # backward, card against CPU at 2 layers, the trainer's CLI
+    drain(launches)
     launches.update(phase_train(mods, parity, ref, smi))
 
     # 9. the ssm, hybrid and audio families: rwkv6-7b, hymba-1.5b and
     # whisper-tiny served at full width, hymba and whisper trained, card
     # against CPU in f32, their CLIs
+    drain(launches)
     launches.update(phase_families(mods, parity, ref, smi))
 
     # 10. the language models on the sim engines under ours: qwen2-1.5b at
     # full width through the async megastep, the loop, the int8 megastep
     # and the int8 scanned path at 2 layers, card against CPU in f32
+    drain(launches)
     launches.update(phase_sim_lm(T, parity, mods, ref, smi))
 
     # 11. the dry run's census against the card: qwen2-1.5b's prefill and
     # training step
+    drain(launches)
     phase_dryrun(mods, smi)
 
     # 12. the port on a mesh: the sharded step and population over a
     # one-rank NCCL group, the production meshes' dry run; then every CLI
-    # check of phases 6f-12, together
+    # check of phases 6f-12, together, and the card halves not yet run
+    drain(launches)
     phase_mesh(mods, smi)
+    drain(launches)
     t0 = time.perf_counter()
     run_clis(DEFERRED_CLIS)
     emit("cli_phase", seconds=time.perf_counter() - t0, nvidia_smi=smi)
+    CPU_HALVES.finish(launches)
 
     # launches on each kernel's main path: the megastep int8 run for the
     # three kernels it runs, the per-client int8 loop for the codec pair,

@@ -32,15 +32,35 @@ def _funcol():
     return funcol
 
 
-def all_reduce(t: torch.Tensor, mesh, mesh_dims: Iterable[int]
-               ) -> torch.Tensor:
-    """The sum of ``t`` over the ranks of ``mesh_dims`` (one all-reduce a
-    mesh dim, in order)."""
+def all_reduce(t: torch.Tensor, mesh, mesh_dims: Iterable[int],
+               op: str = "sum") -> torch.Tensor:
+    """The sum (or ``op``: "max") of ``t`` over the ranks of ``mesh_dims``
+    (one all-reduce a mesh dim, in order)."""
     funcol = _funcol()
     for d in mesh_dims:
         if mesh.size(d) > 1:
-            t = funcol.wait_tensor(funcol.all_reduce(t, "sum", (mesh, d)))
+            t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, d)))
     return t
+
+
+class _SumOfReplicas(torch.autograd.Function):
+    """The sum over mesh dims of a per-rank part of a value that every
+    rank then uses alike: the gradient of each part is the (replicated)
+    gradient of the sum, no collective."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, mesh_dims):
+        return all_reduce(t, mesh, mesh_dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def sum_parts(t: torch.Tensor, mesh, mesh_dims) -> torch.Tensor:
+    """``all_reduce`` of ``t``'s parts, differentiable for a sum whose
+    every later use is replicated over ``mesh_dims``."""
+    return _SumOfReplicas.apply(t, mesh, tuple(mesh_dims))
 
 
 def all_gather(t: torch.Tensor, mesh, mesh_dim: int,
@@ -53,6 +73,70 @@ def all_gather(t: torch.Tensor, mesh, mesh_dim: int,
     gather = getattr(funcol, "all_gather_single", None) or \
         funcol.all_gather_tensor
     return funcol.wait_tensor(gather(t.contiguous(), dim, (mesh, mesh_dim)))
+
+
+def reduce_scatter(t: torch.Tensor, mesh, mesh_dim: int,
+                   dim: int = 0) -> torch.Tensor:
+    """The ranks' ``t`` of mesh dim ``mesh_dim`` summed, this rank's chunk
+    of ``dim`` kept (rank order, as ``all_gather`` concatenates)."""
+    if mesh.size(mesh_dim) == 1:
+        return t
+    funcol = _funcol()
+    return funcol.wait_tensor(funcol.reduce_scatter_tensor(
+        t.contiguous(), "sum", dim % t.dim(), (mesh, mesh_dim)))
+
+
+class _GatherLast(torch.autograd.Function):
+    """All-gather along the last dim; the gradient reduce-scattered back
+    (every rank's use of the gathered tensor contributes to its piece)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, mesh_dim):
+        ctx.group = (mesh, mesh_dim)
+        return all_gather(t, mesh, mesh_dim, dim=t.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, mesh_dim = ctx.group
+        return reduce_scatter(g, mesh, mesh_dim, dim=g.dim() - 1), None, None
+
+
+def gather_last(t: torch.Tensor, mesh, mesh_dim: int) -> torch.Tensor:
+    """Local ``t`` concatenated along its last dim over the ranks of mesh
+    dim ``mesh_dim`` (differentiable; none on a dim of one rank)."""
+    if mesh.size(mesh_dim) == 1:
+        return t
+    return _GatherLast.apply(t, mesh, mesh_dim)
+
+
+_SPLIT_MESHES: Dict[tuple, object] = {}
+
+
+def split_dim(mesh, mesh_dim: int, inner: int):
+    """``mesh`` with mesh dim ``mesh_dim`` of n ranks split into (n /
+    inner, inner): the new last-but-one dims, so that a collective over
+    the inner dim runs within each block of ``inner`` consecutive ranks of
+    the old dim. Made once a mesh and split (a new mesh creates its
+    groups, a collective call of every rank)."""
+    names = tuple(mesh.mesh_dim_names)
+    key = (names, tuple(mesh.mesh.flatten().tolist()), mesh_dim, inner)
+    if key not in _SPLIT_MESHES:
+        from torch.distributed.device_mesh import DeviceMesh
+        shape = list(mesh.mesh.shape)
+        n = shape[mesh_dim]
+        shape[mesh_dim:mesh_dim + 1] = [n // inner, inner]
+        new = (names[:mesh_dim] + (names[mesh_dim] + "_outer",
+                                   names[mesh_dim] + "_inner")
+               + names[mesh_dim + 1:])
+        _SPLIT_MESHES[key] = DeviceMesh(mesh.device_type,
+                                        mesh.mesh.reshape(shape),
+                                        mesh_dim_names=new)
+    return _SPLIT_MESHES[key]
+
+
+def split_meshes() -> list:
+    """The meshes ``split_dim`` has made (the census names their groups)."""
+    return list(_SPLIT_MESHES.values())
 
 
 def shard_dims(t, tensor_dim: int) -> list:

@@ -20,9 +20,12 @@ with the one collective the rule needs. The rules:
   * ``cohort_gather``: the (N+1, rows, lane) arena replicated over its
     slabs (``population_pspecs`` keeps it so), rows may be sharded; the
     ids replicated; the gather is local.
-  * ``flash_attention``: batch and heads may be sharded (heads only where
-    the KV heads shard alike); a sharded sequence or head dim is gathered
-    first, which the census counts as the all-gather it is.
+  * ``flash_attention``: batch and heads may be sharded (heads over one
+    mesh dim, where each rank's query heads read whole KV heads or a part
+    of one: the KV heads sharded alike or gathered and sliced, as the
+    models' attention on a mesh lays them out); a sharded sequence or
+    head dim is gathered first, which the census counts as the all-gather
+    it is.
 
 Any other sharding of an argument (or a partial sum) is redistributed
 to fit first; the lane dim is never sharded.
@@ -225,19 +228,33 @@ def cohort_gather(src, idx):
 def flash_attention_gqa(q, k, v, *, causal, sliding_window=None,
                         out_dtype=None):
     """q (B, S, H, hd), k / v (B, Sk, K, hd): batch sharded alike on all
-    three; heads sharded on q where the KV heads are sharded alike over
-    the same mesh dims (so each rank's query heads read its own KV heads),
-    otherwise gathered; sequence and head dim gathered."""
+    three; heads sharded on q over one mesh dim of n ranks where each
+    rank's H / n query heads read whole KV heads or a part of one (GQA:
+    the layout of ``models/layers._attention_on_mesh``): the KV heads
+    sharded alike where n divides K, else gathered and each rank taking
+    the ones its query heads read; otherwise the heads gathered; sequence
+    and head dim gathered."""
     from repro_torch.kernels import flash_attn
     mesh = _mesh_of(q, k, v)
     q, k, v = (dist.keep_shards(_as_dtensor(t, mesh), (0, 2))
                for t in (q, k, v))
+    H, K = q.shape[2], k.shape[2]
     bdims = dist.shard_dims(q, 0)
-    hdims = [d for d in dist.shard_dims(q, 2)
-             if k.shape[2] % mesh.size(d) == 0 and d not in bdims]
+    hdims = [d for d in dist.shard_dims(q, 2) if d not in bdims][:1]
+    per = H // mesh.size(hdims[0]) if hdims else H
+    if hdims and (H % mesh.size(hdims[0])
+                  or not (per % (H // K) == 0 or (H // K) % per == 0)):
+        hdims, per = [], H
     shards = {**{d: 0 for d in bdims}, **{d: 2 for d in hdims}}
-    q, k, v = (dist.require(t, mesh, shards) for t in (q, k, v))
+    kv_whole = bool(hdims) and K % mesh.size(hdims[0]) != 0
+    kv_shards = {d: 0 for d in bdims} if kv_whole else shards
+    q = dist.require(q, mesh, shards)
+    kl, vl = (dist.require(t, mesh, kv_shards).to_local() for t in (k, v))
+    if kv_whole:
+        kv0 = mesh.get_local_rank(hdims[0]) * per // (H // K)
+        nkv = max(per // (H // K), 1)
+        kl, vl = kl[:, :, kv0:kv0 + nkv], vl[:, :, kv0:kv0 + nkv]
     out = flash_attn.flash_attention_gqa(
-        q.to_local(), k.to_local(), v.to_local(), causal=causal,
+        q.to_local(), kl, vl, causal=causal,
         sliding_window=sliding_window, out_dtype=out_dtype)
     return dist.from_local(out, mesh, shards, q.shape)

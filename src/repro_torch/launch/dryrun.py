@@ -44,7 +44,7 @@ import traceback
 
 from repro_torch import tree as tree_mod
 from repro_torch.configs import registry
-from repro_torch.configs.shapes import SHAPES
+from repro_torch.configs.shapes import SHAPES, SMOKE_SHAPES
 from repro_torch.core import fl_step
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import sharding
@@ -111,12 +111,13 @@ def _bytes(tree) -> int:
     return total
 
 
-def trace_step(arch: str, shape_name: str, mesh=None):
+def trace_step(arch: str, shape_name: str, mesh=None, smoke: bool = False):
     """(the step's outputs, its census, its arguments' bytes a device) for
     one combo, traced on the meta device: on one device, or on ``mesh``
-    with every argument distributed by the sharding rules."""
-    cfg = registry.config_for_shape(arch, shape_name)
-    shape = SHAPES[shape_name]
+    with every argument distributed by the sharding rules; ``smoke`` takes
+    the arch's smoke config and the shape's smoke counterpart."""
+    cfg = registry.config_for_shape(arch, shape_name, smoke=smoke)
+    shape = (SMOKE_SHAPES if smoke else SHAPES)[shape_name]
     census = Census(mesh)
 
     def put(tree, specs):

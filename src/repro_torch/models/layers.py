@@ -269,32 +269,167 @@ FLASH_BLOCK = 512
 def full_attention(cfg, p, x, positions=None, causal=True, xkv=None,
                    sliding_window: Optional[int] = None, use_rope=True):
     """Full-sequence attention (prefill, encoder, and cross attention over
-    ``xkv``, which takes no rotary and no mask). Returns (out, (k, v))."""
+    ``xkv``, which takes no rotary and no mask). Returns (out, (k, v)).
+    Self-attention on DTensors whose projections are column-parallel over
+    a "model" mesh axis runs as ``_attention_on_mesh`` lays it out."""
+    if xkv is None and _heads_on_mesh(p):
+        return _attention_on_mesh(cfg, p, x, positions, causal,
+                                  sliding_window, use_rope)
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, xkv)
-    Sk = k.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     if use_rope and xkv is None:
         q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
+    out = _attend(cfg, q, k, v, causal=causal and xkv is None,
+                  sliding_window=sliding_window, dtype=x.dtype)
+    return out @ p["wo"], (k, v)
+
+
+def _attend(cfg, q, k, v, *, causal: bool, sliding_window, dtype):
+    """q (B,S,H,hd), k / v (B,Sk,K,hd) -> (B,S,H*hd) in ``dtype``: the
+    flash branch when the config asks for it and both lengths are
+    multiples of ``FLASH_BLOCK``, else dense f32 scores."""
+    S, Sk = q.shape[1], k.shape[1]
     if (cfg.attention_impl == "blockwise" and S % FLASH_BLOCK == 0
             and Sk % FLASH_BLOCK == 0):
-        out = blockwise_attention(q, k, v, causal=(causal and xkv is None),
-                                  sliding_window=sliding_window,
-                                  out_dtype=x.dtype)
-        return out @ p["wo"], (k, v)
+        return blockwise_attention(q, k, v, causal=causal,
+                                   sliding_window=sliding_window,
+                                   out_dtype=dtype)
     scores = _gqa_scores(q, k)                     # (B,K,G,S,Sk)
-    if causal and xkv is None:
-        i = torch.arange(S, device=x.device)[:, None]
-        j = torch.arange(Sk, device=x.device)[None, :]
+    if causal:
+        i = torch.arange(S, device=q.device)[:, None]
+        j = torch.arange(Sk, device=q.device)[None, :]
         mask = j <= i
         if sliding_window is not None:
             mask &= (i - j) < sliding_window
         scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
-    out = _gqa_out(probs, v, x.dtype)
-    return out @ p["wo"], (k, v)
+    return _gqa_out(probs, v, dtype)
+
+
+# --------------------------------------------------------------------------
+# attention on a mesh (tensor parallel over "model")
+# --------------------------------------------------------------------------
+
+def head_groups(H: int, K: int, m: int) -> tuple:
+    """(f, r): the H query heads in f groups of H / f over the m ranks of
+    the "model" axis, each group on r = m / f consecutive ranks, which
+    compute its attention alike. f is the largest divisor of gcd(H, m)
+    whose groups read whole KV heads or a part of one (GQA: query head h
+    reads KV head h // (H / K)). The JAX package's GSPMD lays qwen2-1.5b's
+    12 heads over 16 ranks out the same way: 3 heads a rank, one KV head,
+    each group's scores and values computed on 4 ranks."""
+    G = H // K
+    for f in range(math.gcd(H, m), 1, -1):
+        if H % f == 0 and m % f == 0 and ((H // f) % G == 0
+                                          or G % (H // f) == 0):
+            return f, m // f
+    return 1, m
+
+
+def _heads_on_mesh(p) -> bool:
+    """Whether the projections are DTensors sharded over a "model" mesh
+    dim on their last (head) dim, all three alike."""
+    from repro_torch import dist
+    wq = p["wq"]
+    if not dist.is_dtensor(wq):
+        return False
+    names = tuple(wq.device_mesh.mesh_dim_names or ())
+    if "model" not in names:
+        return False
+    md = names.index("model")
+    return all(dist.shard_dims(p[n], -1) == [md] for n in ("wq", "wk", "wv"))
+
+
+def _attention_on_mesh(cfg, p, x, positions, causal, sliding_window,
+                       use_rope):
+    """Self-attention with q, k, v column-parallel over "model" (m ranks):
+    Megatron's layout, with GQA heads that need not divide m.
+
+    x is replicated over "model" (``replicate_hidden``), so each rank's
+    projections are its own slices of the heads' features, no collective.
+    The query heads fall in f groups of r = m / f ranks (``head_groups``):
+    the group's q is gathered within its r ranks and each rank gathers
+    k and v over "model" (GQA keeps them small) and takes the KV heads its
+    group reads. The attention runs on local tensors (the flash kernel
+    under ``blockwise``), each rank keeps its own slice of the group's
+    output, the row-parallel ``wo`` contracts over it, and one all-reduce
+    over "model" sums the partial products. In the backward the gathers
+    reduce-scatter. On one rank this is the plain attention, operation for
+    operation. Returns (out, (k, v)), k and v whole over "model"."""
+    from repro_torch import dist
+    mesh = p["wq"].device_mesh
+    md = tuple(mesh.mesh_dim_names).index("model")
+    m, i = mesh.size(md), mesh.get_local_rank(md)
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    x = replicate_hidden(x)
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    B, S, _ = q.shape
+    f, r = head_groups(H, K, m)
+    hq, G = H // f, H // K
+    ql = q.to_local()
+    if r > 1:
+        ql = dist.gather_last(ql, dist.split_dim(mesh, md, r), md + 1)
+    kl = dist.gather_last(k.to_local(), mesh, md)
+    vl = dist.gather_last(v.to_local(), mesh, md)
+    Bl = ql.shape[0]
+    ql = ql.reshape(Bl, S, hq, hd)
+    kl, vl = kl.reshape(Bl, S, K, hd), vl.reshape(Bl, S, K, hd)
+    if positions is None:
+        positions = torch.arange(S, device=ql.device)[None, :]
+    if use_rope:
+        ql = apply_rope(ql, positions, cfg.rope_fraction, cfg.rope_theta)
+        kl = apply_rope(kl, positions, cfg.rope_fraction, cfg.rope_theta)
+    kv0, nkv = (i // r) * hq // G, max(hq // G, 1)
+    ks, vs = (kl, vl) if nkv == K else (kl[:, :, kv0:kv0 + nkv],
+                                        vl[:, :, kv0:kv0 + nkv])
+    out = _attend(cfg, ql, ks, vs, causal=causal,
+                  sliding_window=sliding_window, dtype=x.dtype)
+    if r > 1:
+        w = H * hd // m
+        out = out[..., (i % r) * w:(i % r + 1) * w].contiguous()
+    o = dist.wrap(out, mesh, q.placements, (B, S, H * hd))
+    batch = dist.placements(mesh, {d: 0 for d in dist.shard_dims(q, 0)})
+    kv = tuple(dist.wrap(t, mesh, batch, (B, S, K, hd)) for t in (kl, vl))
+    return reduce_partial(o @ p["wo"]), kv
+
+
+def replicate_hidden(x):
+    """A DTensor hidden state (..., d) with its last dim replicated (its
+    other dims' shards kept), as the column-parallel products take it,
+    and its gradient made whole there in the backward (Megatron's "f":
+    the products' input gradients are partial sums, all-reduced once
+    here rather than carried on into the layer's other operators); a
+    plain tensor as it is."""
+    from repro_torch import dist
+    if not dist.is_dtensor(x):
+        return x
+    return _WholeGrad.apply(dist.keep_shards(x, range(x.dim() - 1)))
+
+
+def reduce_partial(y):
+    """A row-parallel product's DTensor output with its partial sums
+    all-reduced (one all-reduce over "model"); a plain tensor as it is."""
+    from repro_torch import dist
+    if not dist.is_dtensor(y):
+        return y
+    return dist.keep_shards(y, range(y.dim() - 1))
+
+
+class _WholeGrad(torch.autograd.Function):
+    """The identity on a DTensor; its gradient's partial sums reduced."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_partial(g)
 
 
 def blockwise_attention(q, k, v, *, causal: bool, sliding_window=None,
@@ -419,10 +554,16 @@ def ffn_params(cfg, generator, dtype, lead=()):
 
 
 def ffn(cfg, p, x):
+    """The feed-forward block: column-parallel up (and gate) products and a
+    row-parallel down product on a mesh, whose partial sums are
+    all-reduced once (``reduce_partial``)."""
+    x = replicate_hidden(x)
     if cfg.mlp_act == "swiglu":
-        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+        return reduce_partial((F.silu(x @ p["wg"]) * (x @ p["wu"]))
+                              @ p["wd"])
     # jax.nn.gelu's default is the tanh approximation
-    return F.gelu(x @ p["w1"] + p["b1"], approximate="tanh") @ p["w2"] + p["b2"]
+    return reduce_partial(F.gelu(x @ p["w1"] + p["b1"], approximate="tanh")
+                          @ p["w2"]) + p["b2"]
 
 
 # --------------------------------------------------------------------------
@@ -489,12 +630,43 @@ def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-example softmax cross-entropy; logits (..., V), labels int64
     (...). The loss is computed in f32. The gold logit is a masked sum,
     as in the JAX package, not a gather: a gather's backward on the card
-    scatters with atomics, in an order that changes from run to run."""
+    scatters with atomics, in an order that changes from run to run.
+    DTensor logits sharded over the vocabulary take ``_nll_vocab_sharded``
+    (never gathered whole)."""
+    from repro_torch import dist
+    if dist.is_dtensor(logits) and dist.shard_dims(logits, -1):
+        return _nll_vocab_sharded(logits, labels)
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     idx = torch.arange(lf.shape[-1], device=lf.device)
     gold = torch.where(idx == labels.unsqueeze(-1), lf, 0.0).sum(dim=-1)
     return lse - gold
+
+
+def _nll_vocab_sharded(logits, labels):
+    """``nll`` of DTensor logits sharded over the vocabulary (the
+    vocab-parallel ``lm_head``), as GSPMD lays out the JAX loss: each rank
+    reduces its own slice, an all-reduce of the max and two of the sums
+    over the vocabulary's mesh dims, (B, S) floats, where the plain loss
+    would gather the (B, S, V) f32 logits. The max is a constant of the
+    log-sum-exp (no gradient through it). Returns a DTensor laid out as
+    the logits' other dims."""
+    from repro_torch import dist
+    mesh = logits.device_mesh
+    vdims = dist.shard_dims(logits, -1)
+    keep = {d: p.dim % logits.dim() for d, p in enumerate(logits.placements)
+            if p.is_shard() and d not in vdims}
+    lab = dist.require(labels, mesh, keep).to_local()
+    lf = logits.to_local().to(torch.float32)
+    offset, _ = dist.local_offset(logits.shape[-1], mesh, vdims)
+    mx = dist.all_reduce(lf.detach().amax(dim=-1), mesh, vdims, op="max")
+    total = dist.sum_parts(torch.exp(lf - mx.unsqueeze(-1)).sum(dim=-1),
+                           mesh, vdims)
+    idx = torch.arange(lf.shape[-1], device=lf.device) + offset
+    gold = dist.sum_parts(torch.where(idx == lab.unsqueeze(-1), lf,
+                                      0.0).sum(dim=-1), mesh, vdims)
+    return dist.from_local(mx + torch.log(total) - gold, mesh, keep,
+                           logits.shape[:-1])
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,

@@ -103,7 +103,9 @@ def _embed_inputs(params, cfg, batch):
     if cfg.family == "vlm":
         patches = batch["patch_embeds"].to(x.dtype) @ params["patch_proj"]
         x = torch.cat([patches, x], dim=1)
-    return x
+    # on a mesh the d-sharded table's rows are gathered over "model" once
+    # here, and the hidden state stays replicated there between layers
+    return L.replicate_hidden(x)
 
 
 def _ffn(cfg, lp, x):
@@ -153,7 +155,7 @@ def forward(params, batch, cfg, *, return_cache: bool = False):
                 vs.append(v)
         if moe_aux is not None:
             aux = aux + moe_aux
-    x = L.apply_norm(cfg, x, params["final_norm"])
+    x = L.replicate_hidden(L.apply_norm(cfg, x, params["final_norm"]))
     logits = x @ _head(params, cfg)
     cache = None
     if return_cache:

@@ -124,8 +124,41 @@ def _nodes(group) -> int:
 
 
 def _in_fake_mode() -> bool:
-    return torch._C._get_dispatch_mode(
+    return (torch._C._get_dispatch_mode(
         torch._C._TorchDispatchModeKey.FAKE) is not None
+        or _PROPAGATING[0] > 0)
+
+
+# > 0 while DTensor derives an operator's global output shape: its fake
+# mode then runs the operator at its global shapes, and the first
+# operator of each kind reaches the census there (on meta inputs the fake
+# mode is off the stack while it dispatches)
+_PROPAGATING = [0]
+
+
+@contextlib.contextmanager
+def _shape_derivation_skipped():
+    """``ShardingPropagator._propagate_tensor_meta_non_cached`` marked
+    while it runs, so the census counts none of its work."""
+    try:
+        from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    except ImportError:
+        yield
+        return
+    orig = ShardingPropagator._propagate_tensor_meta_non_cached
+
+    def marked(self, op_schema):
+        _PROPAGATING[0] += 1
+        try:
+            return orig(self, op_schema)
+        finally:
+            _PROPAGATING[0] -= 1
+
+    ShardingPropagator._propagate_tensor_meta_non_cached = marked
+    try:
+        yield
+    finally:
+        ShardingPropagator._propagate_tensor_meta_non_cached = orig
 
 
 @functools.lru_cache(maxsize=None)
@@ -149,11 +182,7 @@ class Census(TorchDispatchMode):
         # of NODE_CARDS consecutive ranks they lie in)
         self._groups = {}
         if mesh is not None:
-            names = tuple(mesh.mesh_dim_names or ())
-            for d in range(mesh.ndim):
-                group = mesh.get_group(d)
-                self._groups[group.group_name] = (
-                    (names[d],), mesh.size(d), _nodes(group))
+            self._name_groups(mesh)
         self.collective_bytes = defaultdict(float)
         self.collectives = {}
         self.flops = 0.0
@@ -180,12 +209,15 @@ class Census(TorchDispatchMode):
         # the models' time loops (``loops.loop``) count here while entered
         self._counting = loops.counting(self)
         self._counting.__enter__()
+        self._skipping = _shape_derivation_skipped()
+        self._skipping.__enter__()
         return super().__enter__()
 
     def __exit__(self, *exc):
         try:
             return super().__exit__(*exc)
         finally:
+            self._skipping.__exit__(*exc)
             self._counting.__exit__(*exc)
             self._no_early_stop.__exit__(*exc)
 
@@ -257,10 +289,22 @@ class Census(TorchDispatchMode):
             self._track(t)
         return out
 
+    def _name_groups(self, mesh) -> None:
+        names = tuple(mesh.mesh_dim_names or ())
+        for d in range(mesh.ndim):
+            group = mesh.get_group(d)
+            self._groups.setdefault(group.group_name, (
+                (names[d],), mesh.size(d), _nodes(group)))
+
     def _collective(self, kind: str, args, out) -> None:
         nbytes = self._scale * sum(t.numel() * t.element_size()
                                    for t in _tensors(out))
         group = next((a for a in reversed(args) if isinstance(a, str)), "")
+        if group not in self._groups:
+            # a mesh split within a dim by the models (``dist.split_dim``)
+            from repro_torch import dist
+            for split in dist.split_meshes():
+                self._name_groups(split)
         dims, size, nodes = self._groups.get(group) or ((group,), None,
                                                         None)
         if size == 1:                   # one rank: nothing moves

@@ -157,6 +157,9 @@ def _kernels(rank, workdir, inputs, mesh):
         q, k, v = (put(t[n], *pl) for n in ("q", "k", "v"))
         out[f"flash_{name}"] = _np(flash_attn.flash_attention_gqa(
             q, k, v, causal=True))
+    out["flash_gqa"] = _np(flash_attn.flash_attention_gqa(
+        put(t["q"], S0, Shard(2)), put(t["k1"], S0, R), put(t["v1"], S0, R),
+        causal=True))
     # past 2^24 matches over two row shards: 2^24 + 1 in the first, 1 in
     # the second; f32 partials would add to f32(2^24 + 1) + 1 = 2^24, the
     # int64 all-reduce gives 2^24 + 2

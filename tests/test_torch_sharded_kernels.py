@@ -50,6 +50,9 @@ def _inputs(rng):
         "q": rng.normal(size=(2, 128, 4, 16)).astype(np.float32),
         "k": rng.normal(size=(2, 128, 2, 16)).astype(np.float32),
         "v": rng.normal(size=(2, 128, 2, 16)).astype(np.float32),
+        # one KV head for the 4 query heads: 2 a rank read a part of it
+        "k1": rng.normal(size=(2, 128, 1, 16)).astype(np.float32),
+        "v1": rng.normal(size=(2, 128, 1, 16)).astype(np.float32),
         "big_rows": np.int64(BIG_ROWS),
         # smoke qwen2's step on the mesh: 4 clients × 1 × 128 tokens
         "step2_tokens": tokens, "step2_labels": np.roll(tokens, -1, -1),
@@ -126,12 +129,15 @@ def test_cohort_gather_equals_by_bits(ranks):
         out["gather"], gather.cohort_gather(t["src"], t["idx"]).numpy())
 
 
-@pytest.mark.parametrize("layout", ["bh", "seq"])
+@pytest.mark.parametrize("layout", ["bh", "seq", "gqa"])
 def test_flash_attention_within_its_rule(ranks, layout):
     """Batch over "data" and heads over "model" (each rank's query heads
-    read its own KV head); a sharded sequence is gathered first."""
+    read its own KV head); a sharded sequence is gathered first; with one
+    KV head for 4 query heads over 2 ranks, each rank's 2 heads read the
+    gathered KV head."""
     t, out = ranks
-    want = flash_attn.flash_attention_gqa(t["q"], t["k"], t["v"],
+    k, v = ("k1", "v1") if layout == "gqa" else ("k", "v")
+    want = flash_attn.flash_attention_gqa(t["q"], t[k], t[v],
                                           causal=True).numpy()
     np.testing.assert_allclose(out[f"flash_{layout}"], want, rtol=0,
                                atol=1e-5)
