@@ -7,9 +7,12 @@ Phases, each printing JSON lines:
 
   1. device  — the card's name and power limit (nvidia-smi), torch and
                CUDA versions; TF32 matmuls must be off.
-  2. build   — compile every ``csrc/*.cu`` with nvcc, all at once; the
-               wgmma flash source's ptxas report per instantiation
-               (registers, spill bytes, which must be 0, shared memory).
+  2. build   — compile every ``csrc/*.cu`` with nvcc and
+               ``csrc/tensor_call.cpp`` with the host's C++ compiler, all at
+               once, each source's seconds (``source_seconds``, the
+               binding's ``binding_seconds``); the wgmma flash source's
+               ptxas report per instantiation (registers, spill bytes, which
+               must be 0, shared memory).
   3. kernels — each hand-written kernel against its plain PyTorch version on
                the card. Sign-align and masked-agg at the main path's shape (C
                = 16 clients, R = 54 arena rows) and a ragged one (C = 5, R =
@@ -69,15 +72,22 @@ Phases, each printing JSON lines:
                (back to back calls) and device (a CUDA graph), each kernel's
                and, where one PyTorch call computes the same function, that
                call's (``library_ms``, ``library_device_ms``). Every wrapper
-               launches through ``kernels/_launch.py``; for ``quantize_q8``,
-               ``dequantize_q8`` and ``cohort_gather`` the split of one call's
-               host time by piece (``host_us``: checks, lookup, stream, alloc,
-               the C call, the whole call) and its eager ms beside its library
-               call's, in turns. Then (``"phase": "launch"``) the launch path's
-               stream must be PyTorch's current one on the default stream,
-               under ``torch.cuda.stream(side)`` and during a graph's capture,
-               and ten non-contiguous or misaligned inputs to the wrappers must
-               be refused with ``ValueError``.
+               launches through ``kernels/_launch.py``; for ``quantize_q8``
+               (864 rows), ``dequantize_q8`` (864 and 54 rows) and
+               ``cohort_gather`` the split of one call's host time by piece
+               (``host_us``: ``quantize_q8``'s checks, lookup, stream, alloc,
+               the C call; the tensor calls' DTensor test, card test,
+               lookup, ``tensor_call``, the one C++ call of
+               ``csrc/tensor_call.cpp``; the whole call) and its eager
+               ms beside its library call's, in turns, with their ratio
+               against the 1.0 target. Then (``"phase": "launch"``) the
+               launch path's stream must be PyTorch's current one on the
+               default stream, under ``torch.cuda.stream(side)`` and during a
+               graph's capture, the tensor calls' must be too, held by what
+               they compute (``tensor_call_stream``: an input rewritten on
+               the side stream after a sleep, and a captured call replayed),
+               and ten non-contiguous or misaligned inputs to the wrappers
+               must be refused with ``ValueError``.
   4. slice   — the paper's quickstart experiment (anomaly-mlp, 10 clients,
                20,000 samples, 8 rounds) through ``repro_torch.run_experiment``
                on the card, from random weights made from a seed: ``fedavg``,
@@ -521,25 +531,33 @@ one full-width trainer among them), each line with its seconds from its
 wave's start (``"phase": "cli_phase"`` the waves' seconds); a phase run
 alone by its flag runs its own at its end.
 
-The CPU halves of the card-vs-CPU checks of phases 7-10 (7's three 2-layer
-f32 serves, 8 (e), 9 (e), 10 (c): each CPU run, and the states, logits,
-routings and gradients its card half replays and holds) run in one
-spawned worker process (``CpuHalves``), started after the build with all
-but two of the host's cores, while the main process drives the card: the
-worker is stopped while phases 3, 4, 6, 6d and 6f run and while 6b and 6c
-run a timed scenario or topology (their host µs, turns, s a round,
-population ms and serving latencies are timed on the host), and starts no
-half while the results it sent and the main process has not taken hold
-more than ``CPU_HALF_BUDGET`` bytes of host memory (each result's tensors
-move into shared memory once). Between phases the main process runs the
-card halves of the CPU halves done so far, and after the CLI waves the
-rest, in order, each waiting for its CPU half. Each card half prints its
-check's lines as before and a ``"phase": "cpu_half"`` line (the CPU
-half's ``start_s``, ``end_s`` and ``stopped_s``, the card half's
-``card_half_s``, ``waited_s``, its host bytes); ``"phase": "cpu_halves"``
-at the end has the whole schedule. An exception in a CPU half, or the
-worker's death, fails the script when its card half takes it. A phase run
-alone by its flag runs its halves in line.
+The CPU halves of the card-vs-CPU checks run in two spawned worker
+processes (``CpuHalves``) while the main process drives the card, both at
+the lowest priority (nice 19): phases 7-10's (7's three 2-layer f32
+serves, 8 (e), 9 (e), 10 (c): each CPU run, and the states, logits,
+routings and gradients its card half replays and holds) in one, on all
+but two of the host's cores, started after the build; the quickstart's
+of phases 5, 6b and 6c (each run's records, θ ratios, selections, control
+state, error feedback and topology summaries on the CPU) and phase 11's
+censuses on meta in the other, on one core, started before the build.
+Both stop while phase 3, the grouped sign kernel's turns and 6f run
+(their host µs, turns and serving latencies are timed on the host), and
+start no half while the results they sent and the main process has not
+taken hold more than ``CPU_HALF_BUDGET`` bytes of host memory (each
+result's tensors move into shared memory once). Between phases the main
+process runs the card halves of the CPU halves done so far (the
+quickstart's once its card runs are done: the card's side of each check,
+its replays from the card's carry and the comparison), and after the CLI
+waves the rest, in order, each waiting for its CPU half; before a card
+half it page-locks its result's storages (``page_locked``), so that the
+replay's copies to the card go at the card's DMA rate. Each card half
+prints its check's lines as before and a ``"phase": "cpu_half"`` line (the
+CPU half's ``start_s``, ``end_s`` and ``stopped_s``, the card half's
+``card_half_s``, ``waited_s``, its host bytes and ``register_s``);
+``"phase": "cpu_halves"`` at the end has each worker's schedule. An
+exception in a CPU half, or a worker's death, fails the script when its
+card half takes it. A phase run alone by its flag runs its halves in
+line.
 
 Every ``"phase"`` line carries ``at_s``, its seconds since the script
 started. Then the ``kernels`` summary line, the nvidia-smi line, and last
@@ -608,6 +626,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -637,10 +656,17 @@ CODEC_CHECK_ROWS = QUANT_ROWS + (432, 433)
 T_START = time.perf_counter()
 
 
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(phase: str, **kw) -> None:
-    """One JSON line; ``at_s``: seconds since the script started."""
-    print(json.dumps({"phase": phase, **kw,
-                      "at_s": time.perf_counter() - T_START}), flush=True)
+    """One JSON line; ``at_s``: seconds since the script started. One
+    write under a lock: the CLI checks' thread emits too."""
+    line = json.dumps({"phase": phase, **kw,
+                       "at_s": time.perf_counter() - T_START}) + "\n"
+    with _EMIT_LOCK:
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 # ---------------------------------------------------------------------------
@@ -648,65 +674,92 @@ def emit(phase: str, **kw) -> None:
 # ---------------------------------------------------------------------------
 
 class CpuHalves:
-    """The CPU halves of phases 7-10's card-vs-CPU checks, computed in a
-    spawned worker process while the main process drives the card.
+    """The CPU halves of card-vs-CPU checks, computed in a spawned worker
+    process while the main process drives the card. The whole script has
+    two: the language models' (phases 7-10) and the quickstart's (phases
+    5, 6b, 6c) with the dry run's censuses (11).
 
     Each check is split in two: a CPU half, which needs nothing from the
     card (its weights drawn on the CPU, or, phase 10's, drawn on the card
     and copied to the host before the worker starts), and a card half,
-    which replays the card from the CPU half's states and holds the two by
-    ``api/parity.py``. The worker (``_cpu_worker``) runs the CPU halves in
-    the order added, on ``threads`` of the host's cores, and sends each
-    result as it finishes: its tensors move into shared memory once, and
-    the main process maps them, no copy through a pipe or a file. The
-    worker starts no half while the results sent and not yet taken hold
-    more than ``budget`` bytes. The main process runs a card half where it
-    drains (``drain``: the halves that are done, between phases) and the
-    rest at the end (``finish``). A process, not a thread: a thread's
-    every operator waits for the interpreter lock that the main thread's
-    Python holds (on the card's host the CPU halves ran 2-4x slower on a
-    thread, with the lock handed over every 5 ms or every 0.1 ms alike,
-    and the main thread's phases up to 2x slower).
+    which replays the card from the CPU half's states, or runs the card's
+    side, and holds the two by ``api/parity.py``. The worker
+    (``_cpu_worker``) runs the CPU halves in the order added, on
+    ``threads`` of the host's cores at the lowest priority (nice 19: where
+    it and the main process want one core, the main process gets it), and
+    sends each result as it finishes: its tensors move into shared memory
+    once, and the main process maps them, no copy through a pipe or a
+    file. The worker starts no half while the results sent and not yet
+    taken hold more than ``budget`` bytes. The main process runs a card
+    half where it drains (``drain``: the halves that are done and whose
+    card half is known, between phases) and the rest at the end
+    (``finish``); it page-locks a result's storages in place before (so
+    that the card half's copies to the card are DMA, ``page_locked``).
+    A card half may be given after the worker starts (``card_half``: the
+    quickstart's, once the card's runs are done), and a phase may take a
+    result itself (``result``: the censuses). A process, not a thread: a
+    thread's every operator waits for the interpreter lock that the main
+    thread's Python holds (on the card's host the CPU halves ran 2-4x
+    slower on a thread, with the lock handed over every 5 ms or every 0.1
+    ms alike, and the main thread's phases up to 2x slower).
 
-    Timed host work (phase 3's host µs and turns, the quickstart's s a
-    round, serving's latencies) runs inside ``quiet()``: the worker is
-    stopped (SIGSTOP) for the block and continued after it. An exception
-    in a CPU half is raised in the main process when its card half takes
-    it, as is the worker's death; the worker then runs no more."""
+    Where a kernel's host time is measured (phase 3's host µs and turns,
+    the grouped sign kernel's turns, serving's latencies) the block runs
+    inside ``quiet()``: the worker is stopped (SIGSTOP) for the block and
+    continued after it. An exception in a CPU half is raised in the main
+    process when its card half takes it, as is the worker's death; the
+    worker then runs no more."""
 
-    def __init__(self, threads: int, budget: int):
-        self.threads, self.budget = threads, budget
-        self.jobs, self.order = {}, []
+    def __init__(self, name: str, threads: int, budget: int):
+        self.name, self.threads, self.budget = name, threads, budget
+        self.jobs, self.order, self._initial = {}, [], []
         self._proc = None
         self._depth = 0             # quiet blocks entered
         self._stopped_at = None
         self._stops = []            # (start, end) of each quiet block
         self.started_at = None
 
-    def add(self, name: str, cpu, card) -> None:
+    def add(self, name: str, cpu, card=None, threads=None) -> None:
         """``cpu()`` in the worker (picklable: a module-level function or a
-        partial of one, with picklable arguments); ``card(result)`` ->
-        launches in the main process."""
+        partial of one, with picklable arguments) on ``threads`` threads
+        (None: the worker's); ``card(result)`` -> launches in the main
+        process, given here or later (``card_half``). Added after the
+        worker started, it runs after the halves before it."""
         self.jobs[name] = dict(card=card, result=None, error=None,
                                done=False, taken=False, bytes=0,
                                start_s=None, end_s=None)
         self.order.append((name, cpu))
+        if self._proc is not None:
+            # pickled here, not by the queue's feeder thread
+            from multiprocessing.reduction import ForkingPickler
+            self._jobs.put(bytes(ForkingPickler.dumps((name, cpu, threads))))
+        else:
+            self._initial.append((name, cpu, threads))
+
+    def card_half(self, name: str, card) -> None:
+        """The card half of ``name``, added without one: it runs at the
+        first drain after its CPU half is done."""
+        self.jobs[name]["card"] = card
+
+    def result(self, name: str):
+        """The result of the CPU half ``name`` itself, waited for here."""
+        self.jobs[name]["card"] = lambda result: result
+        return self._take(name)
 
     def start(self) -> None:
-        """The worker starts, and the main process keeps the host's other
-        cores until ``finish``."""
+        """The worker starts, with the halves added so far."""
         import atexit
         import torch.multiprocessing as tmp
         ctx = tmp.get_context("spawn")
         self._results, self._acks = ctx.Queue(), ctx.Queue()
+        self._jobs = ctx.Queue()
         self._proc = ctx.Process(
-            target=_cpu_worker, daemon=True, name="cpu-halves",
-            args=(self.order, self._results, self._acks, self.threads,
-                  self.budget))
+            target=_cpu_worker, daemon=True, name=f"cpu-halves-{self.name}",
+            args=(self._initial, self._jobs, self._results, self._acks,
+                  self.threads, self.budget))
         self._proc.start()
         atexit.register(self._kill)
         self.started_at = time.perf_counter() - T_START
-        torch.set_num_threads(max(1, HOST_CORES - self.threads))
 
     def _kill(self) -> None:
         """At exit: a stopped worker never handles SIGTERM."""
@@ -783,13 +836,16 @@ class CpuHalves:
         result, error = job["result"], job["error"]
         job["result"], job["taken"] = None, True
         self._acks.put(job["bytes"])
+        t0 = time.perf_counter()
+        locked = [] if error is not None else page_locked(result)
+        register_s = time.perf_counter() - t0
         emit("cpu_half", run=name, start_s=job["start_s"],
              end_s=job["end_s"], seconds=job["end_s"] - job["start_s"],
              stopped_s=self._stopped_within(job["start_s"] + T_START,
                                             job["end_s"] + T_START),
              card_half_s=taken_s, waited_s=max(0.0, job["end_s"] - taken_s),
-             host_bytes=job["bytes"], threads=self.threads,
-             failed=error is not None)
+             host_bytes=job["bytes"], register_s=register_s,
+             threads=self.threads, failed=error is not None)
         if error is not None:
             raise RuntimeError(f"the CPU half of {name!r} failed") from error
         # a card half turns TF32 off (the phase around it keeps its own)
@@ -804,6 +860,7 @@ class CpuHalves:
             torch.set_num_threads(threads)
             (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) = flags
+            page_unlocked(locked)
 
     def drain(self, launches: dict) -> None:
         """The card halves of every CPU half done so far, in order."""
@@ -811,20 +868,25 @@ class CpuHalves:
             pass
         for name, _cpu in self.order:
             job = self.jobs[name]
-            if job["done"] and not job["taken"]:
+            if job["done"] and not job["taken"] and job["card"] is not None:
                 launches.update(self._take(name))
                 free_card()
 
     def finish(self, launches: dict) -> None:
         """The remaining card halves, each once its CPU half is done."""
+        self._jobs.put(None)            # no more halves
         for name, _cpu in self.order:
             if not self.jobs[name]["taken"]:
+                if self.jobs[name]["card"] is None:
+                    raise RuntimeError(f"the check {name!r} has a CPU half "
+                                       f"and no card half")
                 launches.update(self._take(name))
                 free_card()
         self._proc.join(timeout=60)
         torch.set_num_threads(HOST_CORES)
         import resource
-        emit("cpu_halves", started_s=self.started_at, threads=self.threads,
+        emit("cpu_halves", worker=self.name, started_s=self.started_at,
+             threads=self.threads,
              budget_bytes=self.budget, worker_exitcode=self._proc.exitcode,
              host_max_rss_bytes=resource.getrusage(
                  resource.RUSAGE_SELF).ru_maxrss * 1024,
@@ -837,14 +899,16 @@ class CpuHalves:
                        for n, _cpu in self.order])
 
 
-def _cpu_worker(order, results, acks, threads: int, budget: int) -> None:
-    """The CPU halves' worker process: each half in order, its result (or
-    its error) sent with its start and end on the shared monotonic clock
-    and its bytes; no half starts while the results sent and not taken
-    (``acks`` brings each taken result's bytes) exceed ``budget``. After a
-    failure it runs no more. It stays until every result sent is taken:
-    the main process receives a result's shared memory through this
-    process's file descriptors."""
+def _cpu_worker(order, jobs, results, acks, threads: int,
+                budget: int) -> None:
+    """The CPU halves' worker process: each (name, half, threads) of
+    ``order``, then of ``jobs`` (each pickled, until None), in turn, its
+    result (or its error) sent with its start and end on the shared
+    monotonic clock and its bytes; no half starts while the results sent
+    and not taken (``acks`` brings each taken result's bytes) exceed
+    ``budget``. After a failure it runs no more. It stays until every
+    result sent is taken: the main process receives a result's shared
+    memory through this process's file descriptors."""
     import queue
     import traceback
     from multiprocessing.reduction import ForkingPickler
@@ -852,6 +916,9 @@ def _cpu_worker(order, results, acks, threads: int, budget: int) -> None:
     # the halves' own prints (serve_lm's) go to stderr a line at a time:
     # the main process's JSON lines alone make up stdout
     sys.stdout = sys.stderr
+    # the lowest priority: where the worker and the main process want the
+    # same core, the main process gets it
+    os.nice(19)
     torch.set_num_threads(threads)
     held, sent, taken = 0, 0, 0
 
@@ -864,18 +931,20 @@ def _cpu_worker(order, results, acks, threads: int, budget: int) -> None:
         taken += 1
         return True
 
-    for name, cpu in order:
+    def run(name, cpu, nthreads) -> bool:
+        nonlocal held, sent
         while held > budget:
             ack(True)
         while ack(False):
             pass
+        torch.set_num_threads(nthreads or threads)
         t0 = time.perf_counter()
         try:
             result = cpu()
         except BaseException:
             results.put(("error", name, traceback.format_exc(), t0,
                          time.perf_counter(), 0))
-            break
+            return False
         nbytes = host_bytes(result)
         try:
             # pickled here, not by the queue's feeder thread, whose
@@ -886,12 +955,19 @@ def _cpu_worker(order, results, acks, threads: int, budget: int) -> None:
         except BaseException:
             results.put(("error", name, traceback.format_exc(), t0,
                          time.perf_counter(), 0))
-            break
+            return False
         held += nbytes
         sent += 1
         results.put(("ok", name, bytes(payload), t0, time.perf_counter(),
                      nbytes))
-        del result, payload
+        return True
+
+    ok = all(run(*job) for job in order)
+    while ok:
+        job = jobs.get()
+        if job is None:
+            break
+        ok = run(*ForkingPickler.loads(job))
     while taken < sent:
         ack(True)
 
@@ -947,6 +1023,60 @@ def to_shared_memory(tree) -> None:
                 time.sleep(0.05)
 
 
+def page_locked(tree) -> list:
+    """Each distinct storage of a nest's tensors page-locked in place
+    (``cudaHostRegister``), so that its copies to the card are DMA from
+    the host's memory; returns the pointers for ``page_unlocked``. A CPU
+    half's result lies in shared memory that this process maps on first
+    touch: copied to the card as it is (pageable), it went at 0.55 GB/s,
+    registered first at 4.7 GB/s, registration included (one H100 host,
+    4 GiB; ``PERF.md``, the card script's findings)."""
+    cudart = torch.cuda.cudart()
+    locked = []
+    for t in _tensors(tree):
+        st = t.untyped_storage()
+        ptr, nbytes = st.data_ptr(), st.nbytes()
+        if nbytes and ptr not in locked:
+            err = int(cudart.cudaHostRegister(ptr, nbytes, 0))
+            if err:
+                page_unlocked(locked)
+                raise RuntimeError(f"cudaHostRegister failed on {nbytes} "
+                                   f"bytes: CUDA error {err}")
+            locked.append(ptr)
+    return locked
+
+
+def page_unlocked(locked: list) -> None:
+    """Undo ``page_locked`` (before the storages are freed)."""
+    if not locked:
+        return
+    cudart = torch.cuda.cudart()
+    for ptr in locked:
+        cudart.cudaHostUnregister(ptr)
+    locked.clear()
+
+
+def shared_host_copy(tree):
+    """A nest of card tensors copied into the host's shared memory (as a
+    CPU half's arguments are sent to the worker: no copy at its start),
+    each leaf's storage page-locked for the copy, so that it runs at the
+    card's DMA rate."""
+    from repro_torch.tree import tree_map
+
+    def shared_empty(t):
+        # made in shared memory, not moved there (no copy)
+        st = torch.UntypedStorage._new_shared(t.numel() * t.element_size())
+        return torch.empty(0, dtype=t.dtype).set_(st, 0, t.shape)
+    host = tree_map(shared_empty, tree)
+    locked = page_locked(host)
+    try:
+        tree_map(lambda h, t: h.copy_(t), host, tree)
+        torch.cuda.synchronize()
+    finally:
+        page_unlocked(locked)
+    return host
+
+
 def host_bytes(tree) -> int:
     """Bytes of the distinct tensor storages in a nest (``_tensors``: a
     CPU half's result)."""
@@ -959,29 +1089,39 @@ def host_bytes(tree) -> int:
     return total
 
 
-# the whole script's CPU halves (``main``); None when a phase runs alone by
-# its flag, which then runs its checks' halves in line (``run_halves``)
+# the whole script's two workers (``main``): the language models' CPU
+# halves (``CPU_HALVES``), and the quickstart's and the dry run's
+# (``QUICK_HALVES``: small operators and Python, one thread); None when a
+# phase runs alone by its flag, which then runs its checks' halves in line
+# (``run_halves``)
 CPU_HALVES = None
+QUICK_HALVES = None
 HOST_CORES = len(os.sched_getaffinity(0))
-CPU_HALF_THREADS = max(1, HOST_CORES - 2)  # the main process keeps two
+MAIN_THREADS = 2                 # the main process's, beside the workers
+CPU_HALF_THREADS = max(1, HOST_CORES - MAIN_THREADS)
+QUICK_HALF_THREADS = 1
+SIM_HALF_THREADS = 4             # phase 10's halves in the quickstart's
 CPU_HALF_BUDGET = 28 * 2 ** 30   # finished CPU halves' bytes held at once
 CPU_HALF_STALL_S = 400.0
 
 
+def workers() -> list:
+    return [w for w in (CPU_HALVES, QUICK_HALVES) if w is not None]
+
+
 @contextlib.contextmanager
 def quiet():
-    """Timed host work: the CPU halves' worker stopped while it runs."""
-    if CPU_HALVES is None:
+    """Timed host work: the workers stopped while it runs."""
+    with contextlib.ExitStack() as stack:
+        for w in workers():
+            stack.enter_context(w.quiet())
         yield
-    else:
-        with CPU_HALVES.quiet():
-            yield
 
 
 def drain(launches: dict) -> None:
     """Between phases: the card halves of the CPU halves done so far."""
-    if CPU_HALVES is not None:
-        CPU_HALVES.drain(launches)
+    for w in workers():
+        w.drain(launches)
 
 
 def run_halves(halves, launches: dict) -> None:
@@ -990,6 +1130,85 @@ def run_halves(halves, launches: dict) -> None:
     for _name, cpu, card in halves:
         launches.update(card(cpu()))
         free_card()
+
+
+def owner(name: str):
+    """The worker that has the CPU half ``name``, or None."""
+    for w in workers():
+        if name in w.jobs:
+            return w
+    return None
+
+
+def card_half(name: str, cpu, card, launches: dict) -> None:
+    """The check ``name``: ``card(cpu())`` -> launches. Its CPU half added
+    to a worker (the whole script), the card half runs at the first drain
+    after the CPU half is done; else both here, now."""
+    w = owner(name)
+    if w is not None:
+        w.card_half(name, card)
+    else:
+        launches.update(card(cpu()))
+
+
+def cpu_result(name: str, cpu):
+    """``cpu()``: the worker's result where one has the half ``name``,
+    waited for, else computed here."""
+    w = owner(name)
+    return cpu() if w is None else w.result(name)
+
+
+def quickstart_params(T) -> dict:
+    """The quickstart's weights, from seed 0 on the CPU (every phase's)."""
+    from repro_torch.models import api as model_api
+    cfg = quickstart_spec(T, "ours").resolve_model()
+    return model_api.init_params(torch.Generator().manual_seed(0), cfg)
+
+
+def quick_checks(T) -> dict:
+    """The quickstart's card-vs-CPU checks whose CPU halves run in the
+    worker, in the order the script reaches them: name -> spec. Phase 5's
+    megastep runs and its scanned half-selection run, 6b's scenario runs,
+    6c's topology runs and 6d's lazy-world and two-stage runs."""
+    checks = {
+        "ours": quickstart_spec(T, "ours"),
+        "ours+int8": quickstart_spec(T, "ours", quantize=True),
+        "ours+int8 scanned half": dataclasses.replace(
+            quickstart_spec(T, "ours", quantize=True, select_fraction=0.5),
+            rounds_per_dispatch=4),
+    }
+    for run, (base, _needed) in scenario_runs(T).items():
+        for scn in SCENARIOS:
+            checks[f"{run} {scn}"] = dataclasses.replace(base, scenario=scn)
+    for run, (base, _needed) in scenario_runs(T).items():
+        for preset in TOPOLOGY_PRESETS_RUN:
+            checks[f"{run} {preset}"] = dataclasses.replace(base,
+                                                            topology=preset)
+    for run, (spec, _needed) in population_cells(T).items():
+        checks[run] = spec
+    return checks
+
+
+MEGASTEP_CHECKS = ("ours", "ours+int8")     # held by compare_card_cpu
+
+
+def quick_cpu(name: str) -> dict:
+    """The CPU half of the quickstart check ``name`` (``quick_checks``):
+    its CPU run's view (``megastep_view`` or ``sim_view``)."""
+    import repro_torch as T
+    from repro_torch.kernels import quantize, ref
+    spec = quick_checks(T)[name]
+    params = quickstart_params(T)
+    if name in MEGASTEP_CHECKS:
+        return megastep_view(T, spec, params, quantize, ref)
+    return sim_view(T, spec, params)
+
+
+def quick_halves(T) -> list:
+    """The quickstart checks as (name, CPU half) for the worker; their card
+    halves are given when the card's runs are done (``card_half``)."""
+    return [(name, functools.partial(quick_cpu, name))
+            for name in quick_checks(T)]
 
 
 def quickstart_spec(T, strategy: str, quantize: bool = False,
@@ -1112,10 +1331,11 @@ def host_us(pieces: dict, n: int = 1000, warmup: int = 100) -> dict:
     return out
 
 
-def split_inputs():
-    """The inputs at which a wrapper call's host time is split: 864 rows
-    of the codec (the cohort folded) and 10 of 11 slabs of 54 rows."""
-    x = quant_inputs(QUANT_ROWS[0], seed=1)
+def split_inputs(rows: int = QUANT_ROWS[0]):
+    """The inputs at which a wrapper call's host time is split: ``rows``
+    of the codec (864, the cohort folded, or 54, one client) and 10 of 11
+    slabs of 54 rows."""
+    x = quant_inputs(rows, seed=1)
     q = torch.randint(-127, 128, x.shape, dtype=torch.int8, device="cuda")
     s = torch.rand((x.shape[0], 1), device="cuda")
     return x, q, s, gather_inputs(11, 54, seed=1), torch.arange(
@@ -1124,29 +1344,26 @@ def split_inputs():
 
 def launch_pieces(quantize, gather, launch, x, q, s, src, idx) -> dict:
     """The pieces of each wrapper call on the shared launch path
-    (``kernels/_launch.py``), as the wrappers take them, for ``host_us``."""
+    (``kernels/_launch.py``), as the wrappers take them, for ``host_us``.
+    ``quantize_q8``: the Python checks, the entry's lookup, the stream,
+    the outputs' allocation, the trampoline's C call. ``dequantize_q8``
+    and ``cohort_gather`` (``csrc/tensor_call.cpp``): the DTensor test,
+    the card test, the lookup, the one C++ call (checks, output, stream
+    and launch)."""
+    from repro_torch import dist
     dev, R = x.get_device(), x.shape[0]
-    N, Rg, _ = src.shape
-    K = idx.shape[0]
-    fns = {k: launch.entries[k] for k in launch.ENTRY_POINTS}
+    quantize_c = launch.entries["quantize_q8"]
+    tensor_calls = {k: launch.tensor_entries[k] for k in launch.TENSOR_CALLS}
     stream = launch.stream(dev)
     ptr = launch.aligned_pointer
-    px, pq, ps, psrc, pidx = (t.data_ptr() for t in (x, q, s, src, idx))
+    px = x.data_ptr()
     q_out, s_out = torch.empty_like(q), torch.empty_like(s)
-    d_out, g_out = torch.empty_like(x), src.new_empty((K, Rg, 1024))
-
-    def g_checks():
-        gather.check_args(src, idx)
-        ptr("cohort_gather", src)
-        idx.is_contiguous()
-
-    def g_alloc():
-        N, R, _ = src.shape
-        K = idx.numel()
-        return src.new_empty(K, R, 1024)
 
     def lookup(name):
         return lambda: launch.entries[name]
+
+    def tensor_lookup(name):
+        return lambda: launch.tensor_entries[name]
 
     return {
         "quantize_q8": dict(
@@ -1155,22 +1372,20 @@ def launch_pieces(quantize, gather, launch, x, q, s, src, idx) -> dict:
             lookup=lookup("quantize_q8"), stream=lambda: launch.stream(dev),
             alloc=lambda: (torch.empty_like(x, dtype=torch.int8),
                            x.new_empty(x.shape[0], 1)),
-            c_call=lambda: fns["quantize_q8"](
+            c_call=lambda: quantize_c(
                 px, q_out.data_ptr(), s_out.data_ptr(), R, stream),
             call=lambda: quantize.quantize_q8(x)),
         "dequantize_q8": dict(
-            checks=lambda: (quantize.check_dequantize(q, s),
-                            ptr("dequantize_q8", q), ptr("dequantize_q8", s)),
-            lookup=lookup("dequantize_q8"), stream=lambda: launch.stream(dev),
-            alloc=lambda: torch.empty_like(q, dtype=torch.float32),
-            c_call=lambda: fns["dequantize_q8"](
-                pq, ps, d_out.data_ptr(), R, stream),
+            dtensor=lambda: dist.is_dtensor(q, s),
+            on_card=lambda: launch.on_card(q),
+            lookup=tensor_lookup("dequantize_q8"),
+            tensor_call=lambda: tensor_calls["dequantize_q8"](q, s),
             call=lambda: quantize.dequantize_q8(q, s)),
         "cohort_gather": dict(
-            checks=g_checks, lookup=lookup("cohort_gather"),
-            stream=lambda: launch.stream(dev), alloc=g_alloc,
-            c_call=lambda: fns["cohort_gather"](
-                psrc, pidx, g_out.data_ptr(), N, Rg, K, stream),
+            dtensor=lambda: dist.is_dtensor(src, idx),
+            on_card=lambda: launch.on_card(src),
+            lookup=tensor_lookup("cohort_gather"),
+            tensor_call=lambda: tensor_calls["cohort_gather"](src, idx),
             call=lambda: gather.cohort_gather(src, idx)),
     }
 
@@ -1204,26 +1419,32 @@ def turns(name: str, pieces: dict, library: dict, order) -> dict:
     return out
 
 
-def host_split(names, launch, quantize, gather, **shape) -> None:
+def host_split(names, launch, quantize, gather, rows: int = QUANT_ROWS[0],
+               **shape) -> None:
     """One ``kernels`` line per named wrapper: the split of one call's
-    host time by piece (``host_us``, µs, the median over five turns;
+    host time by piece (``host_us``, µs, the median over ten turns;
     ``call`` is the whole wrapper call, timed the same way) at
-    ``split_inputs()``, and the call's eager ms beside its library
+    ``split_inputs(rows)``, and the call's eager ms beside its library
     call's, each turn's and their medians, in turns of this wrapper,
-    library, library, this wrapper."""
-    inputs = split_inputs()
+    library, library, this wrapper; the ratio of the medians against
+    the 1.0 target (the wrapper no slower than its library call)."""
+    inputs = split_inputs(rows)
     pieces = {"this": launch_pieces(quantize, gather, launch, *inputs)}
     library = library_calls(*inputs)
     for name in names:
         runs = turns(name, pieces, library, ["this", "library", "library",
                                              "this"] * 5)
         this, lib = runs["this"], runs.get("library")
-        emit("kernels", name=name, wrapper="this", **shape,
+        ratio = lib and float(np.median(this["ms"]) / np.median(lib["ms"]))
+        at = shape if name == "cohort_gather" else dict(shape, rows=rows)
+        emit("kernels", name=name, wrapper="this", **at,
              host_us={k: float(np.median([r[k] for r in this["host_us"]]))
                       for k in this["host_us"][0]},
              ms=this["ms"], ms_median=float(np.median(this["ms"])),
              library_ms=lib and lib["ms"],
-             library_ms_median=lib and float(np.median(lib["ms"])))
+             library_ms_median=lib and float(np.median(lib["ms"])),
+             ratio_to_library=ratio, ratio_target=1.0 if lib else None,
+             target_met=lib and ratio <= 1.0)
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -1825,13 +2046,24 @@ def phase_quantize(quantize, gather, launch, ref) -> dict:
             plain_ms=time_ms(lambda: ref.dequantize_q8(q, s)),
             bound_ms=d_bound[0], bound_by=d_bound[1],
             library_ms=time_ms(lambda: torch.mul(q, s)),
-            library_device_ms=graph_ms(lambda: torch.mul(q, s))),
+            library_device_ms=graph_ms(lambda: torch.mul(q, s)),
+            design=launch_design(lambda: quantize.dequantize_q8(q, s),
+                                 "dequantize_q8_kernel")),
     }
     emit("kernels", name="dequantize_q8", rows=R,
          **{k: v for k, v in rows["dequantize_q8"].items()
-            if k.endswith("ms")})
+            if k.endswith("ms") or k == "design"})
+    q8, s8 = quantize.quantize_q8(quant_inputs(QUANT_ROWS[0], seed=1))
+    emit("kernels", name="dequantize_q8", rows=QUANT_ROWS[0],
+         device_ms=graph_ms(lambda: quantize.dequantize_q8(q8, s8)),
+         library_device_ms=graph_ms(lambda: torch.mul(q8, s8)),
+         design=launch_design(lambda: quantize.dequantize_q8(q8, s8),
+                              "dequantize_q8_kernel"))
     host_split(["quantize_q8", "dequantize_q8"], launch, quantize, gather,
                rows=QUANT_ROWS[0])
+    # and at the main path's 54 rows (the per-client loop)
+    host_split(["dequantize_q8"], launch, quantize, gather,
+               rows=QUANT_ROWS[1])
     return rows
 
 
@@ -1954,9 +2186,12 @@ def phase_gather(quantize, gather, launch, ref) -> dict:
         plain_ms=time_ms(lambda: ref.cohort_gather(src, idx)),
         bound_ms=bound[0], bound_by=bound[1],
         library_ms=time_ms(lambda: torch.index_select(src, 0, idx)),
-        library_device_ms=graph_ms(lambda: torch.index_select(src, 0, idx)))
+        library_device_ms=graph_ms(lambda: torch.index_select(src, 0, idx)),
+        design=launch_design(lambda: gather.cohort_gather(src, idx),
+                             "cohort_gather_kernel"))
     emit("kernels", name="cohort_gather", slabs=[N, R], k=K,
-         **{k: v for k, v in row.items() if k.endswith("ms")})
+         **{k: v for k, v in row.items()
+            if k.endswith("ms") or k == "design"})
     host_split(["cohort_gather"], launch, quantize, gather, slabs=[N, R],
                k=K)
     return {"cohort_gather": row}
@@ -1992,6 +2227,10 @@ def phase_launch(quantize, gather, masked_agg, sign_align, launch) -> None:
     if wrong:
         raise AssertionError(f"the launch path's stream is not the current "
                              f"one: {wrong}")
+    tensor_streams = tensor_call_streams(quantize, gather, side)
+    if not all(tensor_streams.values()):
+        raise AssertionError(f"a tensor call did not launch on the current "
+                             f"stream: {tensor_streams}")
 
     def misaligned(shape, dtype):
         nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
@@ -2045,7 +2284,51 @@ def phase_launch(quantize, gather, masked_agg, sign_align, launch) -> None:
     if counts() != before:
         raise AssertionError("a refused call launched a kernel")
     emit("launch", stream={k: v[0] == v[1] for k, v in streams.items()},
-         refused=refused)
+         tensor_call_stream=tensor_streams, refused=refused)
+
+
+def tensor_call_streams(quantize, gather, side) -> dict:
+    """The stream of ``dequantize_q8`` and ``cohort_gather``, whose C++
+    call (``csrc/tensor_call.cpp``) asks it, held by what the kernels
+    compute: under ``torch.cuda.stream(side)`` each input is rewritten on
+    ``side`` after a sleep of the card, so a launch on another stream
+    reads the old input; and each call captured on ``side`` into a CUDA
+    graph (a launch on another stream breaks the capture), its replay
+    against the plain version of the inputs it then reads. True where
+    the output equals the plain version's."""
+    from repro_torch.kernels import ref
+    R = 54
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randint(-127, 128, (R, 1024), generator=g, dtype=torch.int8,
+                      device="cuda")
+    s = torch.rand((R, 1), generator=g, device="cuda")
+    src = torch.randn((11, R, 1024), generator=g, device="cuda")
+    idx = torch.arange(10, device="cuda")
+    calls = {"dequantize_q8": (lambda: quantize.dequantize_q8(q, s),
+                               lambda: ref.dequantize_q8(q, s), q),
+             "cohort_gather": (lambda: gather.cohort_gather(src, idx),
+                               lambda: ref.cohort_gather(src, idx), src)}
+    out = {}
+    for name, (call, plain, inp) in calls.items():
+        new = inp.flip(0)
+        torch.cuda.synchronize()
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(20_000_000)       # about 10 ms of the card
+            inp.copy_(new)
+            got = call()
+        side.synchronize()
+        out[f"{name} side"] = torch.equal(got, plain())
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                got = call()
+        torch.cuda.current_stream().wait_stream(side)
+        inp.copy_(inp.flip(0))
+        graph.replay()
+        torch.cuda.synchronize()
+        out[f"{name} capture"] = torch.equal(got, plain())
+    return out
 
 
 FUSED_SHAPES = ((10, 54), (16, 864), (1, 35))   # (C, R)
@@ -2436,36 +2719,88 @@ def held_per_round(run: str, spec, launches: dict, needed) -> dict:
     return per_round
 
 
-def scenario_card_cpu(T, parity, spec, params, card, card_recs) -> tuple:
-    """(the problems of the card's run ``card`` against the same spec on
-    the CPU from the same weights, by its path's rules; the CPU run; the
-    comparison line's other fields: a scanned run's ``grad_norm_gap``)."""
+def sim_view(T, spec, params) -> dict:
+    """What a card-vs-CPU check reads of ``spec`` run on the CPU through
+    its engine from ``params`` (picklable: a CPU half's result): records,
+    θ ratios, and by path the selector's records, the dropout draws, the
+    loader streams, the control state, the topology's view."""
     if spec.rounds_per_dispatch:
-        line, cpu = scanned_card_cpu(T, parity, spec, params, card)
-        return line["problems"], cpu, dict(
-            grad_norm_gap=line["grad_norm_gap"])
+        return scanned_view(T, spec, params)
     if spec.engine == "spmd":
         cpu = T.SpmdDriver(spec, device="cpu", params=params,
                            agg_dtype=torch.float32)
-        problems = parity.record_mismatches(card_recs,
-                                            cpu.run_rounds(spec.rounds))
-        problems += parity.control_mismatches(
-            {f: v.cpu().numpy() for f, v in card.state.control._asdict().items()},
-            {f: v.numpy() for f, v in cpu.state.control._asdict().items()})
+        view = dict(records=cpu.run_rounds(spec.rounds),
+                    control={f: v.numpy() for f, v in
+                             cpu.state.control._asdict().items()})
     else:
         cpu = T.build_simulation(spec, device="cpu", params=params)
         cpu.run(spec.rounds)
-        problems = parity.record_mismatches(
-            card_recs, T.result_from_simulation(spec, cpu).records)
+        view = dict(records=T.result_from_simulation(spec, cpu).records,
+                    selector={c: dataclasses.asdict(r)
+                              for c, r in cpu.selector.records.items()},
+                    failure_log=cpu.failure_log)
+        if not spec.world.resident:
+            view["loaders"] = cpu.loaders.state_dict()
+    view.update(theta_ratios=cpu.theta_ratios,
+                topology=topology_view(cpu) if spec.topology else None)
+    return view
+
+
+def scanned_view(T, spec, params) -> dict:
+    """``sim_view`` of a scanned ``spec``: the run's records, cohorts,
+    control state and θ ratios, and the error feedback after one round
+    of it run again."""
+    cpu = T.build_simulation(spec, device="cpu", params=params)
+    cpu.run(spec.rounds)
+    one = T.build_simulation(dataclasses.replace(spec, rounds=1),
+                             device="cpu", params=params)
+    one.run(1)
+    return dict(records=T.result_from_simulation(spec, cpu).records,
+                cohorts=cpu.cohorts,
+                control={f: v.numpy()
+                         for f, v in cpu._scan_ctl._asdict().items()},
+                theta_ratios=cpu.theta_ratios,
+                ef=one._scan_ctl.ef[:-1].numpy(),
+                topology=topology_view(cpu) if spec.topology else None)
+
+
+def scenario_card_cpu(T, parity, spec, params, card, card_recs, cpu,
+                      replay=None) -> tuple:
+    """(the problems of the card's run ``card`` against the same spec on
+    the CPU from the same weights (``cpu``, its ``sim_view``), by its
+    path's rules; the comparison line's other fields: a scanned run's
+    ``grad_norm_gap``, ``replay`` its ``norm_replay``)."""
+    if spec.rounds_per_dispatch:
+        line = scanned_card_cpu(T, parity, spec, params, card, cpu, replay)
+        return line["problems"], dict(grad_norm_gap=line["grad_norm_gap"])
+    problems = parity.record_mismatches(card_recs, cpu["records"])
+    if spec.engine == "spmd":
+        problems += parity.control_mismatches(
+            {f: v.cpu().numpy() for f, v in card.state.control._asdict().items()},
+            cpu["control"])
+    else:
         if {c: dataclasses.asdict(r) for c, r in card.selector.records.items()} \
-                != {c: dataclasses.asdict(r)
-                    for c, r in cpu.selector.records.items()}:
+                != cpu["selector"]:
             problems.append("selector records differ")
-        if card.failure_log != cpu.failure_log:
+        if card.failure_log != cpu["failure_log"]:
             problems.append("dropout draws differ")
     return problems + (parity.theta_band_violations(card.theta_ratios, 0.65)
-                       + parity.theta_band_violations(cpu.theta_ratios,
-                                                      0.65)), cpu, {}
+                       + parity.theta_band_violations(cpu["theta_ratios"],
+                                                      0.65)), {}
+
+
+def scenario_card_half(T, parity, spec, params, card, recs, name: str,
+                       cpu, replay=None) -> dict:
+    """6b's card-vs-CPU check of the card's run ``card`` of ``spec``
+    against its CPU half's view ``cpu``: its line; raises on a problem."""
+    found, extra = scenario_card_cpu(T, parity, spec, params, card, recs,
+                                     cpu, replay)
+    emit("card_vs_cpu", run=name, problems=found,
+         theta_tests=len(card.theta_ratios), **extra)
+    if found:
+        raise AssertionError(f"scenario run {name} disagrees: "
+                             + "; ".join(found))
+    return {}
 
 
 def byzantine_tests(spec, theta_ratios) -> tuple:
@@ -2476,20 +2811,22 @@ def byzantine_tests(spec, theta_ratios) -> tuple:
     return tests, [t for t in tests if t[2] >= theta]
 
 
-def phase_scenario(T, parity, params, mods, smi: str) -> dict:
+def phase_scenario(T, parity, params, mods, smi: str,
+                   statics: dict) -> dict:
     """The scenario phase (module docstring, 6b). Returns each scenario
-    run's launches."""
+    run's launches; ``statics`` gets each path's run without a world
+    (``run_path_card``'s tuple), which 6c holds its topologies to."""
     launches, problems, cards = {}, [], {}
     for run, (base, needed) in scenario_runs(T).items():
         walls = {}
         for scn in (None,) + SCENARIOS:
             spec = dataclasses.replace(base, scenario=scn)
             name = f"{run} {scn}" if scn else run
-            with quiet():       # its s a round is timed on the host
-                card, recs, wall, got, rows = run_path_card(T, spec, params,
-                                                             mods)
+            card, recs, wall, got, rows = run_path_card(T, spec, params,
+                                                         mods)
             walls[scn or "static"] = wall / spec.rounds
             if scn is None:
+                statics[run] = card, recs, wall, got, rows
                 continue
             for rec in recs:
                 emit("slice", run=name, **dataclasses.asdict(rec))
@@ -2513,11 +2850,10 @@ def phase_scenario(T, parity, params, mods, smi: str) -> dict:
                     problems.append(f"{name}: the byzantine client passed θ "
                                     f"in {passed} of {len(tests)} tests")
             emit("slice", **line)
-            found, _cpu, extra = scenario_card_cpu(T, parity, spec, params,
-                                                   card, recs)
-            emit("card_vs_cpu", run=name, problems=found,
-                 theta_tests=len(card.theta_ratios), **extra)
-            problems += [f"{name}: {p}" for p in found]
+            quick_check(T, parity, name, spec, params, card,
+                        functools.partial(scenario_card_half, T, parity,
+                                          spec, params, card, recs, name),
+                        launches)
             launches[name], cards[name] = got, card
         emit("scenario_overhead", run=run, nvidia_smi=smi,
              wall_s_per_round=walls,
@@ -2752,27 +3088,26 @@ def same_control(a, b) -> bool:
 
 
 def phase_topology(T, parity, sign_align, ref, params, mods,
-                   smi: str) -> dict:
+                   smi: str, statics: dict) -> dict:
     """The topology phase (module docstring, 6c). Returns each run's
-    launches."""
+    launches. ``statics``: each path's run without a topology, from 6b
+    (the same spec; run here where 6b did not run)."""
     t0 = time.perf_counter()
-    # the kernels' eager turns and every run's s a round are timed on the
-    # host: the CPU halves' worker stopped
+    # the kernel's eager turns time host work: the CPU halves' worker
+    # stopped (the runs' s a round run beside it, at its low priority)
     with quiet():
         grouped_sign_kernel(sign_align, ref, smi)
-        launches = {"hierarchical": full_width_topology(T, params, mods,
-                                                        smi)}
-    problems = []
+    launches = {"hierarchical": full_width_topology(T, params, mods,
+                                                    smi)}
     for run, (base, needed) in scenario_runs(T).items():
-        with quiet():
-            flat, flat_recs, flat_wall, flat_launches, _ = run_path_card(
-                T, base, params, mods)
+        flat, flat_recs, flat_wall, flat_launches, _ = (
+            statics[run] if run in statics
+            else run_path_card(T, base, params, mods))
         for preset in TOPOLOGY_PRESETS_RUN:
             spec = dataclasses.replace(base, topology=preset)
             name = f"{run} {preset}"
-            with quiet():
-                card, recs, wall, got, rows = run_path_card(T, spec, params,
-                                                             mods)
+            card, recs, wall, got, rows = run_path_card(T, spec, params,
+                                                         mods)
             held_launches(name, got, needed, rows)
             equal_to_flat = same_records(recs, flat_recs)
             found = [] if equal_to_flat else [
@@ -2783,32 +3118,51 @@ def phase_topology(T, parity, sign_align, ref, params, mods,
                 if not control_equal:
                     found.append("control state differs from the run "
                                  "without the topology")
-            problems_cpu, cpu, norm_gap = scenario_card_cpu(
-                T, parity, spec, params, card, recs)
-            found += problems_cpu
-            summary, tests, n_tests = topology_view(card)
-            cpu_summary, cpu_tests, _n = topology_view(cpu)
-            thetas = [t.theta for t in spec.resolve_topology().tiers[1:]]
-            found += parity.topology_problems(summary, cpu_summary,
-                                              tests + cpu_tests, thetas)
-            extra = (got["per_client_sign_align"]
-                     - flat_launches["per_client_sign_align"])
-            emit("card_vs_cpu", run=name, problems=found,
-                 equal_to_flat=equal_to_flat, theta_tests=n_tests,
-                 min_theta_distance=min((abs(x - thetas[b])
-                                         for b, _r, _j, x in tests),
-                                        default=None),
-                 topology_summary=summary, grouped_launches=extra,
-                 control_equal_to_flat=control_equal, **norm_gap,
-                 wall_s_per_round=dict(flat=flat_wall / spec.rounds,
-                                       topology=wall / spec.rounds),
-                 nvidia_smi=smi)
-            problems += [f"{name}: {p}" for p in found]
+            fields = dict(
+                equal_to_flat=equal_to_flat,
+                grouped_launches=(got["per_client_sign_align"]
+                                  - flat_launches["per_client_sign_align"]),
+                control_equal_to_flat=control_equal,
+                wall_s_per_round=dict(flat=flat_wall / spec.rounds,
+                                      topology=wall / spec.rounds),
+                nvidia_smi=smi)
+            quick_check(T, parity, name, spec, params, card,
+                        functools.partial(topology_card_half, T, parity,
+                                          spec, params, card, recs, name,
+                                          found, fields), launches)
             launches[name] = got
     emit("topology_phase", seconds=time.perf_counter() - t0)
-    if problems:
-        raise AssertionError("topology runs disagree: " + "; ".join(problems))
     return launches
+
+
+def topology_card_half(T, parity, spec, params, card, recs, name: str,
+                       found: list, fields: dict, cpu, replay=None) -> dict:
+    """6c's card-vs-CPU check of a topology run ``card`` against its CPU
+    half's view ``cpu`` (``found``: the card's own problems against the
+    run without the topology): the scenario phase's rules, then the
+    topologies' summaries by ``parity.topology_problems``; its line,
+    raises on a problem."""
+    problems_cpu, norm_gap = scenario_card_cpu(T, parity, spec, params,
+                                               card, recs, cpu, replay)
+    found = found + problems_cpu
+    summary, tests, n_tests = topology_view(card)
+    cpu_summary, cpu_tests, _n = cpu["topology"]
+    thetas = [t.theta for t in spec.resolve_topology().tiers[1:]]
+    found += parity.topology_problems(summary, cpu_summary,
+                                      tests + cpu_tests, thetas)
+    emit("card_vs_cpu", run=name, problems=found,
+         equal_to_flat=fields["equal_to_flat"], theta_tests=n_tests,
+         min_theta_distance=min((abs(x - thetas[b])
+                                 for b, _r, _j, x in tests), default=None),
+         topology_summary=summary,
+         grouped_launches=fields["grouped_launches"],
+         control_equal_to_flat=fields["control_equal_to_flat"], **norm_gap,
+         wall_s_per_round=fields["wall_s_per_round"],
+         nvidia_smi=fields["nvidia_smi"])
+    if found:
+        raise AssertionError(f"topology run {name} disagrees: "
+                             + "; ".join(found))
+    return {}
 
 
 # benchmarks/fig3_scaling.py --population's cells: populations, cohort,
@@ -3093,10 +3447,23 @@ def phase_population(T, parity, sign_align, masked_agg, quantize, ref,
     scale_kernels(sign_align, masked_agg, quantize, ref)
     launches = {"ours+int8 lazy 100k": lazy_full_width(T, params, mods,
                                                       smi)}
-    problems = []
+    for run, (spec, needed) in population_cells(T).items():
+        card, recs, wall, got, rows = run_path_card(T, spec, params, mods)
+        held_launches(run, got, needed, rows)
+        quick_check(T, parity, run, spec, params, card,
+                    functools.partial(population_card_half, T, parity, spec,
+                                      params, card, recs, run, wall, got),
+                    launches)
+        launches[run] = got
+    emit("population_phase", seconds=time.perf_counter() - t0)
+    return launches
+
+
+def population_cells(T) -> dict:
+    """6d (c)'s runs: name -> (spec, the kernels that must launch)."""
     small = lazy_spec(T, 200, 16, 0.5, 4, 4)
     half = quickstart_spec(T, "ours", quantize=True, select_fraction=0.5)
-    cells = {
+    return {
         "lazy megastep": (small, ("per_client_sign_align", "masked_agg",
                                   "ef_round_trip")),
         "lazy loop": (dataclasses.replace(small, megastep=False), CODEC),
@@ -3110,29 +3477,30 @@ def phase_population(T, parity, sign_align, masked_agg, quantize, ref,
             engine="spmd", candidate_frac=0.5, candidate_shards=2),
             ("per_client_sign_align", "masked_agg", "ef_round_trip")),
     }
-    for run, (spec, needed) in cells.items():
-        card, recs, wall, got, rows = run_path_card(T, spec, params, mods)
-        held_launches(run, got, needed, rows)
-        found, cpu, extra = scenario_card_cpu(T, parity, spec, params, card,
-                                              recs)
-        line = dict(run=run, rounds=len(recs), problems=found, **extra,
-                    wall_s_per_round=wall / len(recs), launches=got,
-                    updates_applied=[r.updates_applied for r in recs])
-        if not spec.world.resident:
-            line.update(loaders_resident=card.loaders.resident,
-                        loaders_capacity=card.loaders.capacity)
-            if card.loaders.state_dict() != cpu.loaders.state_dict():
-                found.append("loader streams differ")
-        if spec.rounds_per_dispatch:
-            line["cohorts"] = card.cohorts
-        emit("card_vs_cpu", **line)
-        problems += [f"{run}: {p}" for p in found]
-        launches[run] = got
-    emit("population_phase", seconds=time.perf_counter() - t0)
-    if problems:
-        raise AssertionError("world-scale runs disagree: "
-                             + "; ".join(problems))
-    return launches
+
+
+def population_card_half(T, parity, spec, params, card, recs, run: str,
+                         wall: float, got: dict, cpu, replay=None) -> dict:
+    """6d (c)'s card-vs-CPU check of the card's run ``card`` against its
+    CPU half's view ``cpu`` (the scenario phase's rules, and a lazy
+    world's loader streams equal): its line; raises on a problem."""
+    found, extra = scenario_card_cpu(T, parity, spec, params, card, recs,
+                                     cpu, replay)
+    line = dict(run=run, rounds=len(recs), problems=found, **extra,
+                wall_s_per_round=wall / len(recs), launches=got,
+                updates_applied=[r.updates_applied for r in recs])
+    if not spec.world.resident:
+        line.update(loaders_resident=card.loaders.resident,
+                    loaders_capacity=card.loaders.capacity)
+        if card.loaders.state_dict() != cpu["loaders"]:
+            found.append("loader streams differ")
+    if spec.rounds_per_dispatch:
+        line["cohorts"] = card.cohorts
+    emit("card_vs_cpu", **line)
+    if found:
+        raise AssertionError(f"world-scale run {run} disagrees: "
+                             + "; ".join(found))
+    return {}
 
 
 def phase_spmd(T, parity, params, mods) -> dict:
@@ -3423,6 +3791,64 @@ def phase_trace(T, spec_scanned, spec_mega, params) -> None:
          device_events_per_round=line["device_events"], **line)
 
 
+def norm_replay_card(T, spec, params, card_sim) -> tuple:
+    """The card's side of ``norm_replay``: ``spec`` (scanned) run on the
+    card one round a dispatch. Returns (the carry before each round, on
+    the host; the card's update-norm EMA after each round; the problem
+    that its run differs by bits from ``card_sim``, or none)."""
+    from repro_torch.core.async_engine import _moved
+    one = dataclasses.replace(spec, rounds_per_dispatch=1)
+    card = T.build_simulation(one, device="cuda", params=params)
+    carries, got = [], []
+    for _r in range(spec.rounds):
+        carry = card.scan_carry()
+        carries.append(_moved(carry[:-1], "cpu") + carry[-1:])
+        card.run(1)
+        got.append(card._scan_ctl.grad_norm.cpu().numpy())
+    problems = []
+    if not (same_control(card._scan_ctl, card_sim._scan_ctl)
+            and torch.equal(card._params_mat, card_sim._params_mat)
+            and card.cohorts == card_sim.cohorts):
+        problems.append("the card's run at one round a dispatch differs "
+                        "from its run at "
+                        f"{spec.rounds_per_dispatch}")
+    return carries, got, problems
+
+
+def norm_replay_cpu(spec, params, carries) -> list:
+    """The CPU's side of ``norm_replay``: each round of ``spec`` replayed
+    on the CPU from the card's carry before it; the update-norm EMA after
+    each."""
+    import repro_torch as T
+    one = dataclasses.replace(spec, rounds_per_dispatch=1)
+    cpu = T.build_simulation(one, device="cpu", params=params)
+    want = []
+    for carry in carries:
+        cpu.load_scan_carry(carry)
+        cpu._scan_dispatch(1)
+        want.append(cpu._scan_ctl.grad_norm.numpy().copy())
+    return want
+
+
+def quick_replay_cpu(name: str, carries) -> list:
+    """``norm_replay_cpu`` of the quickstart check ``name``, in a worker."""
+    import repro_torch as T
+    return norm_replay_cpu(quick_checks(T)[name], quickstart_params(T),
+                           carries)
+
+
+def norm_replay_held(parity, got, want, problems) -> tuple:
+    """(problems, the largest relative gap of each round) of the card's
+    update-norm EMAs ``got`` against the CPU's replays ``want``, within
+    ``parity.NORM_RTOL``, after the card's own ``problems``."""
+    problems, gaps = list(problems), []
+    for r, (g, w) in enumerate(zip(got, want)):
+        problems += parity.norm_mismatches(g, w, where=f"round {r}: ")
+        gaps.append(float(np.max(np.abs(g.astype(np.float64) - w)
+                                 / np.abs(w))))
+    return problems, gaps
+
+
 def norm_replay(T, parity, spec, params, card_sim) -> tuple:
     """Each round of ``spec`` (scanned) run on the card one round a
     dispatch, and replayed on the CPU from the card's carry before it
@@ -3431,69 +3857,82 @@ def norm_replay(T, parity, spec, params, card_sim) -> tuple:
     ``parity.NORM_RTOL`` of the CPU's (one round from one state). The
     card's one-round-a-dispatch run must equal ``card_sim`` by bits.
     Returns (problems, the largest relative gap of each round)."""
-    one = dataclasses.replace(spec, rounds_per_dispatch=1)
-    card = T.build_simulation(one, device="cuda", params=params)
-    cpu = T.build_simulation(one, device="cpu", params=params)
-    problems, gaps = [], []
-    for r in range(spec.rounds):
-        carry = card.scan_carry()
-        card.run(1)
-        cpu.load_scan_carry(carry)
-        cpu._scan_dispatch(1)
-        got = card._scan_ctl.grad_norm.cpu().numpy()
-        want = cpu._scan_ctl.grad_norm.numpy()
-        problems += parity.norm_mismatches(got, want, where=f"round {r}: ")
-        gaps.append(float(np.max(np.abs(got.astype(np.float64) - want)
-                                 / np.abs(want))))
-    if not (same_control(card._scan_ctl, card_sim._scan_ctl)
-            and torch.equal(card._params_mat, card_sim._params_mat)
-            and card.cohorts == card_sim.cohorts):
-        problems.append("the card's run at one round a dispatch differs "
-                        "from its run at "
-                        f"{spec.rounds_per_dispatch}")
-    return problems, gaps
+    carries, got, problems = norm_replay_card(T, spec, params, card_sim)
+    return norm_replay_held(parity, got,
+                            norm_replay_cpu(spec, params, carries), problems)
 
 
-def scanned_card_cpu(T, parity, spec, params, card_sim) -> tuple:
+def quick_check(T, parity, name: str, spec, params, card_sim, card,
+                launches: dict) -> None:
+    """The quickstart's check ``name`` of the card's run ``card_sim`` of
+    ``spec``: ``card(cpu)`` with its CPU half's view, at the first drain
+    after the CPU half is done; a scanned run's by ``scanned_check``."""
+    if spec.rounds_per_dispatch:
+        scanned_check(T, parity, name, spec, params, card_sim, card,
+                      launches)
+    else:
+        card_half(name, functools.partial(quick_cpu, name), card, launches)
+
+
+def scanned_check(T, parity, name: str, spec, params, card_sim, card,
+                  launches: dict) -> None:
+    """The quickstart's scanned check ``name``: ``card(cpu, replay)`` ->
+    launches, with ``cpu`` its CPU half's view and ``replay`` the
+    ``norm_replay`` of the card's run ``card_sim``. The card's side of the
+    replay runs now; its CPU side joins the CPU half's worker, and the
+    check runs at the first drain after both are done. Without a worker,
+    all of it here, now."""
+    w = owner(name)
+    if w is None:
+        launches.update(card(quick_cpu(name), norm_replay(
+            T, parity, spec, params, card_sim)))
+        return
+    carries, got, own = norm_replay_card(T, spec, params, card_sim)
+    views = {}
+    w.card_half(name, lambda view: views.update(view=view) or {})
+    w.add(f"{name} norm replay",
+          functools.partial(quick_replay_cpu, name, carries),
+          lambda want: card(views.pop("view"),
+                            norm_replay_held(parity, got, want, own)))
+
+
+def scanned_card_cpu(T, parity, spec, params, card_sim, cpu,
+                     replay) -> dict:
     """``spec`` (scanned) on the CPU from the same weights and draws as the
-    card's run ``card_sim``: the control state after the run (the
-    update-norm EMA within ``parity.NORM_RUN_RTOL``), each
-    round's update-norm EMA replayed from the card's carry
-    (``norm_replay``); then both for one round again, for the error
-    feedback after round 0. Returns the comparison line's fields and the
-    CPU run."""
-    cpu = T.build_simulation(spec, device="cpu", params=params)
-    cpu.run(spec.rounds)
+    card's run ``card_sim`` (``cpu``, its ``scanned_view``): the control
+    state after the run (the update-norm EMA within
+    ``parity.NORM_RUN_RTOL``), each round's update-norm EMA replayed from
+    the card's carry (``norm_replay``); then both for one round again,
+    for the error feedback after round 0 (``replay``: ``norm_replay``'s
+    answer). Returns the comparison line's fields."""
     card_recs = T.result_from_simulation(spec, card_sim).records
-    cpu_recs = T.result_from_simulation(spec, cpu).records
+    cpu_recs = cpu["records"]
     problems = parity.scanned_mismatches(card_recs, cpu_recs)
-    if card_sim.cohorts != cpu.cohorts:
+    if card_sim.cohorts != cpu["cohorts"]:
         problems.append(f"selections differ: {card_sim.cohorts} vs "
-                        f"{cpu.cohorts}")
+                        f"{cpu['cohorts']}")
     card_ctl = card_sim._scan_ctl._asdict()
     problems += parity.control_mismatches(
-        {f: v.cpu().numpy() for f, v in card_ctl.items()},
-        {f: v.numpy() for f, v in cpu._scan_ctl._asdict().items()},
+        {f: v.cpu().numpy() for f, v in card_ctl.items()}, cpu["control"],
         norm_rtol=parity.NORM_RUN_RTOL)
-    replay, replay_gaps = norm_replay(T, parity, spec, params, card_sim)
+    replay, replay_gaps = replay
     problems += replay
     problems += (parity.theta_band_violations(card_sim.theta_ratios, 0.65)
-                 + parity.theta_band_violations(cpu.theta_ratios, 0.65))
-    one = dataclasses.replace(spec, rounds=1)
-    ef = {}
-    for dev in ("cuda", "cpu"):
-        sim = T.build_simulation(one, device=dev, params=params)
-        sim.run(1)
-        ef[dev] = sim._scan_ctl.ef[:-1].cpu().numpy()
+                 + parity.theta_band_violations(cpu["theta_ratios"], 0.65))
+    one = T.build_simulation(dataclasses.replace(spec, rounds=1),
+                             device="cuda", params=params)
+    one.run(1)
+    ef = {"cuda": one._scan_ctl.ef[:-1].cpu().numpy(), "cpu": cpu["ef"]}
     problems += parity.ef_mismatches(ef["cuda"], ef["cpu"])
     gaps = {f: max(abs(getattr(a, f) - getattr(b, f))
                    / max(abs(getattr(b, f)), 1e-30)
                    for a, b in zip(card_recs, cpu_recs))
             for f in ("sim_time", "comm_time", "idle_time", "bytes_sent",
                       "loss")}
+    cpu_norm = cpu["control"]["grad_norm"]
     run_gap = float(np.max(np.abs(
-        card_ctl["grad_norm"].cpu().numpy().astype(np.float64)
-        - cpu._scan_ctl.grad_norm.numpy()) / cpu._scan_ctl.grad_norm.numpy()))
+        card_ctl["grad_norm"].cpu().numpy().astype(np.float64) - cpu_norm)
+        / cpu_norm))
     return dict(problems=problems, cohorts=card_sim.cohorts,
                 grad_norm_gap=dict(
                     run=run_gap, run_bound=parity.NORM_RUN_RTOL,
@@ -3501,13 +3940,14 @@ def scanned_card_cpu(T, parity, spec, params, card_sim) -> tuple:
                     replay_bound=parity.NORM_RTOL),
                 theta_tests=len(card_sim.theta_ratios),
                 max_ratio_gap=max((abs(a[2] - b[2]) for a, b in zip(
-                    card_sim.theta_ratios, cpu.theta_ratios)), default=0.0),
+                    card_sim.theta_ratios, cpu["theta_ratios"])),
+                    default=0.0),
                 max_rel_gap=gaps,
                 max_acc_gap=max((abs(a.accuracy - b.accuracy)
                                  for a, b in zip(card_recs, cpu_recs)
                                  if math.isfinite(b.accuracy)), default=0.0),
                 ef_round0_elements_beyond_rtol=parity.ef_flips(ef["cuda"],
-                                                               ef["cpu"])), cpu
+                                                               ef["cpu"]))
 
 
 def run_round0_codes(sim, quantize, ref) -> tuple:
@@ -3553,64 +3993,111 @@ def ef_rows(sim):
     return sim._ef_arena[:-1].cpu().numpy()
 
 
+def megastep_card_half(T, parity, spec, params, records, quantize, ref,
+                       run: str, cpu) -> dict:
+    """Phase 5's card-vs-CPU check of a megastep run (``compare_card_cpu``
+    against its CPU half's view ``cpu``): its line; raises on a problem."""
+    line = compare_card_cpu(T, parity, spec, params, records, quantize, ref,
+                            cpu)
+    emit("card_vs_cpu", run=run, **line)
+    if line["problems"]:
+        raise AssertionError(f"{run} card vs CPU: "
+                             + "; ".join(line["problems"]))
+    return {}
+
+
+def scanned_card_half(T, parity, spec, params, sim, run: str, cpu,
+                      replay=None) -> dict:
+    """Phase 5's card-vs-CPU check of the scanned run ``sim``
+    (``scanned_card_cpu`` against its CPU half's view ``cpu``): its line;
+    raises on a problem."""
+    line = scanned_card_cpu(T, parity, spec, params, sim, cpu, replay)
+    emit("card_vs_cpu", run=run, **line)
+    if line["problems"]:
+        raise AssertionError(f"{run} card vs CPU: "
+                             + "; ".join(line["problems"]))
+    return {}
+
+
+def megastep_view(T, spec, params, quantize, ref) -> dict:
+    """The CPU half of ``compare_card_cpu``: ``spec`` (megastep) on the CPU
+    from ``params``, with compression round by round (round 0's int8 codes
+    and kernel elements off the plain version by ``run_round0_codes``, the
+    error-feedback rows after every round); the records, θ ratios,
+    selector records, dropout draws and batch sizes."""
+    cpu = T.build_simulation(spec, device="cpu", params=params)
+    view = {}
+    if spec.resolve_strategy().quantize_updates:
+        codes, off = run_round0_codes(cpu, quantize, ref)
+        # copies: on the CPU ef_rows is a view of the live arena
+        ef = [ef_rows(cpu).copy()]
+        for _rnd in range(1, spec.rounds):
+            cpu.run(1)
+            ef.append(ef_rows(cpu).copy())
+        view.update(codes=codes, off=off, ef=ef)
+    else:
+        cpu.run(spec.rounds)
+    view.update(records=T.result_from_simulation(spec, cpu).records,
+                theta_ratios=cpu.theta_ratios,
+                selector={c: dataclasses.asdict(r)
+                          for c, r in cpu.selector.records.items()},
+                failure_log=cpu.failure_log,
+                batch_sizes=[l.batch_size for l in cpu.loaders])
+    return view
+
+
 def compare_card_cpu(T, parity, spec, params, card_records, quantize,
-                     ref):
-    """``spec`` on the card and on the CPU from the same weights; returns
-    the comparison line's fields. With compression the runs go round by
-    round: the error feedback is held to ``parity.ef_mismatches`` after
-    round 0, and each round prints how many of its elements lie beyond
-    ``parity.EF_RTOL``, card against CPU and card against a card run from
-    weights one ulp apart (``nudged``)."""
-    sims = {dev: T.build_simulation(spec, device=dev, params=params)
-            for dev in ("cuda", "cpu")}
-    card, cpu = sims["cuda"], sims["cpu"]
+                     ref, cpu):
+    """``spec`` on the card against the CPU from the same weights (``cpu``,
+    the CPU half's ``megastep_view``); returns the comparison line's
+    fields. With compression the card runs go round by round: the error
+    feedback is held to ``parity.ef_mismatches`` after round 0, and each
+    round prints how many of its elements lie beyond ``parity.EF_RTOL``,
+    card against CPU and card against a card run from weights one ulp
+    apart (``nudged``)."""
+    card = T.build_simulation(spec, device="cuda", params=params)
     problems, out = [], {}
     if spec.resolve_strategy().quantize_updates:
-        codes, off = {}, {}
-        for dev, sim in sims.items():
-            codes[dev], off[dev] = run_round0_codes(sim, quantize, ref)
-        if off["cuda"]:
-            problems.append(f"round 0: {off['cuda']} elements of the card's "
+        codes, off = run_round0_codes(card, quantize, ref)
+        if off:
+            problems.append(f"round 0: {off} elements of the card's "
                             f"round trips differ by bits from the plain "
                             f"version on the same inputs")
-        problems += parity.ef_mismatches(ef_rows(card), ef_rows(cpu))
+        problems += parity.ef_mismatches(ef_rows(card), cpu["ef"][0])
         twin = T.build_simulation(spec, device="cuda", params=nudged(params))
         twin.run(1)
         flips = {"card_vs_cpu": [], "card_vs_nudged_card": []}
         for rnd in range(spec.rounds):
             if rnd:
-                for sim in (card, cpu, twin):
+                for sim in (card, twin):
                     sim.run(1)
             flips["card_vs_cpu"].append(parity.ef_flips(ef_rows(card),
-                                                        ef_rows(cpu)))
+                                                        cpu["ef"][rnd]))
             flips["card_vs_nudged_card"].append(
                 parity.ef_flips(ef_rows(twin), ef_rows(card)))
-        out = dict(round0_codes=codes["cpu"].numel(),
-                   round0_codes_differing=int((codes["cuda"]
-                                               != codes["cpu"]).sum()),
-                   round0_kernel_elements_off_plain=off["cuda"],
-                   ef_elements=ef_rows(cpu).size,
+        out = dict(round0_codes=cpu["codes"].numel(),
+                   round0_codes_differing=int((codes != cpu["codes"]).sum()),
+                   round0_kernel_elements_off_plain=off,
+                   ef_elements=cpu["ef"][0].size,
                    ef_elements_beyond_rtol_per_round=flips)
     else:
-        for sim in sims.values():
-            sim.run(spec.rounds)
+        card.run(spec.rounds)
     problems += (parity.theta_band_violations(card.theta_ratios, 0.65)
-                 + parity.theta_band_violations(cpu.theta_ratios, 0.65))
+                 + parity.theta_band_violations(cpu["theta_ratios"], 0.65))
     card_recs = T.result_from_simulation(spec, card).records
-    cpu_recs = T.result_from_simulation(spec, cpu).records
+    cpu_recs = cpu["records"]
     problems += parity.record_mismatches(card_recs, cpu_recs)
     problems += parity.record_mismatches(card_records, cpu_recs)
     if {c: dataclasses.asdict(r) for c, r in card.selector.records.items()} \
-            != {c: dataclasses.asdict(r)
-                for c, r in cpu.selector.records.items()}:
+            != cpu["selector"]:
         problems.append("selector records differ")
-    if card.failure_log != cpu.failure_log:
+    if card.failure_log != cpu["failure_log"]:
         problems.append("dropout draws differ")
-    if [l.batch_size for l in card.loaders] != \
-            [l.batch_size for l in cpu.loaders]:
+    if [l.batch_size for l in card.loaders] != cpu["batch_sizes"]:
         problems.append("batch sizes differ")
     ratio_gap = max((abs(a[2] - b[2]) for a, b in
-                     zip(card.theta_ratios, cpu.theta_ratios)), default=0.0)
+                     zip(card.theta_ratios, cpu["theta_ratios"])),
+                    default=0.0)
     out.update(problems=problems, theta_tests=len(card.theta_ratios),
                max_ratio_gap=ratio_gap,
                min_ratio_distance_to_theta=min(
@@ -4442,6 +4929,47 @@ def run_clis(jobs, timeout: float = 600.0) -> None:
                                     f"{stdout[-2000:]}\n{stderr[-2000:]}")
     if failures:
         raise AssertionError("CLI checks failed: " + "\n".join(failures))
+
+
+class BackgroundClis:
+    """``run_clis(jobs)`` on a thread (its processes only wait on their
+    children: the main thread keeps the interpreter lock's share it had);
+    ``join(more)`` runs ``more`` beside the last wave, waits for both and
+    raises what either raised."""
+
+    def __init__(self, jobs):
+        self.error = None
+        last = max((j["wave"] for j in jobs), default=0)
+        self._last_wave = threading.Event()
+        self._thread = threading.Thread(target=self._run, args=(jobs, last),
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self, jobs, last) -> None:
+        try:
+            early = [j for j in jobs if j["wave"] < last]
+            if early:
+                run_clis(early)
+            self._last_wave.set()
+            run_clis([j for j in jobs if j["wave"] == last])
+        except BaseException as e:      # raised in the main thread by join
+            self.error = e
+        finally:
+            self._last_wave.set()
+
+    def join(self, more) -> None:
+        self._last_wave.wait()
+        error = None
+        try:
+            if more:
+                run_clis(more)
+        except BaseException as e:
+            error = e
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+        if error is not None:
+            raise error
 
 
 def lm_cli(arch: str) -> None:
@@ -6704,11 +7232,10 @@ def sim_f32_weights(arch: str) -> dict:
     """10 (c)'s weights, drawn on the card from seed 0 and copied to the
     host (the CPU half's; its card half draws them again, the same bits)."""
     from repro_torch.models import api as model_api
-    from repro_torch.models import transformer
     card = model_api.init_params(
         torch.Generator(device="cuda").manual_seed(0), sim_f32_cfg(arch),
         "cuda")
-    host = transformer.tree_to(card, "cpu")
+    host = shared_host_copy(card)
     del card
     free_card()
     return host
@@ -7017,9 +7544,7 @@ def dryrun_train(mods, smi: str) -> list:
     C, B, S = (TRAIN_CELL[k] for k in ("clients", "per_client", "seq"))
     draw = train_mod.make_batch_fn(cfg, C, B, S, seed=0, device="cuda")
     batches = [draw() for _ in range(3)]
-    census = census_of(fl_step.build_fl_train_step(
-        cfg, theta=TRAIN_CELL["theta"]), fl_step.init_state(
-            None, cfg, device="meta"), batches[0])
+    census = cpu_result("dryrun train census", train_census)
     step = fl_step.build_fl_train_step(cfg, theta=TRAIN_CELL["theta"])
     box = [fl_step.init_state(torch.Generator(device="cuda").manual_seed(0),
                               cfg, device="cuda")]
@@ -7045,15 +7570,29 @@ def dryrun_train(mods, smi: str) -> list:
         "per_client_sign_align": 1, "masked_agg": 1})
 
 
-def dryrun_peaks(smi: str) -> None:
-    """11 (c): the census's peak of one training step at the card's cell
-    (C 2 × 1 × 4,096, blockwise, remat, the config's optimizer) for the
-    configs not trained at full depth on the card, with their arena
-    rows; reckoned on meta, not run."""
+def train_census() -> dict:
+    """11 (b)'s census, a CPU half (it needs no card): qwen2-1.5b's
+    training step at the card's cell traced on meta."""
+    from repro_torch.configs import registry
+    from repro_torch.core import fl_step
+    from repro_torch.launch import train as train_mod
+    cfg = registry.get_config("qwen2-1.5b").replace(
+        attention_impl="blockwise")
+    C, B, S = (TRAIN_CELL[k] for k in ("clients", "per_client", "seq"))
+    batch = train_mod.make_batch_fn(cfg, C, B, S, seed=0, device="cpu")()
+    return census_of(fl_step.build_fl_train_step(
+        cfg, theta=TRAIN_CELL["theta"]), fl_step.init_state(
+            None, cfg, device="meta"), batch)
+
+
+def peak_censuses() -> dict:
+    """11 (c)'s censuses, a CPU half: arch -> (layers, arena rows, the
+    census of one training step at the card's cell on meta)."""
     from repro_torch.configs import registry
     from repro_torch.core import fl_step
     from repro_torch.kernels import arena as arena_mod
     C, B, S = (TRAIN_CELL[k] for k in ("clients", "per_client", "seq"))
+    out = {}
     for arch in DRYRUN_PEAKS:
         cfg = registry.get_config(arch).replace(attention_impl="blockwise")
         state = fl_step.init_state(None, cfg, device="meta")
@@ -7066,10 +7605,28 @@ def dryrun_peaks(smi: str) -> None:
             batch["patch_embeds"] = torch.empty(
                 (C, B, cfg.num_patches, cfg.d_model),
                 dtype=cfg.compute_dtype, device="meta")
-        census = census_of(step, state, batch)
+        out[arch] = (cfg.num_layers, arena_mod.ParamArena(state.params).rows,
+                     census_of(step, state, batch))
+    return out
+
+
+def dryrun_halves() -> list:
+    """Phase 11's censuses as (name, CPU half) for a worker; the phase
+    takes their results (``cpu_result``)."""
+    return [("dryrun train census", train_census),
+            ("dryrun peak censuses", peak_censuses)]
+
+
+def dryrun_peaks(smi: str) -> None:
+    """11 (c): the census's peak of one training step at the card's cell
+    (C 2 × 1 × 4,096, blockwise, remat, the config's optimizer) for the
+    configs not trained at full depth on the card, with their arena
+    rows; reckoned on meta, not run."""
+    C, B, S = (TRAIN_CELL[k] for k in ("clients", "per_client", "seq"))
+    for arch, (layers, rows, census) in cpu_result(
+            "dryrun peak censuses", peak_censuses).items():
         emit("dryrun", run=f"{arch} train blockwise C {C} x {B} x {S}",
-             reckoned_only=True, layers=cfg.num_layers,
-             arena_rows=arena_mod.ParamArena(state.params).rows,
+             reckoned_only=True, layers=layers, arena_rows=rows,
              census_peak_bytes=census["peak_bytes"],
              census_flops=census["flops"],
              census_kernel_launches=census["kernel_launches"],
@@ -7436,10 +7993,29 @@ def main() -> int:
         raise AssertionError("TF32 matmuls are on; they would move the θ "
                              "ratios")
 
+    # the CPU halves of the card-vs-CPU checks start in two worker
+    # processes now, beside the build, at the lowest priority: the
+    # quickstart's (5, 6b, 6c, 6d) and the dry run's censuses (11) in one,
+    # on one thread, the language models' of phases 7-9 in the other; both
+    # stop while a kernel's host time is measured (``quiet``), and the card
+    # halves run between phases (``drain``) and at the end
+    global QUICK_HALVES, CPU_HALVES
+    QUICK_HALVES = CpuHalves("quick", QUICK_HALF_THREADS, CPU_HALF_BUDGET)
+    for half in quick_halves(T) + dryrun_halves():
+        QUICK_HALVES.add(*half)
+    QUICK_HALVES.start()
+    CPU_HALVES = CpuHalves("lm", CPU_HALF_THREADS, CPU_HALF_BUDGET)
+    for half in (lm_halves(mods) + moe_halves(mods, parity)
+                 + train_halves(mods, parity) + family_halves(mods, parity)):
+        CPU_HALVES.add(*half)
+    CPU_HALVES.start()
+
     # 2. build
     t0 = time.perf_counter()
     logs = _build.build_all()
     emit("build", seconds=time.perf_counter() - t0, built=sorted(logs),
+         source_seconds=_build.build_seconds,
+         binding_seconds=_build.build_seconds.get("tensor_call"),
          ptxas={k: [l for l in v.splitlines() if "registers" in l]
                 for k, v in logs.items()})
     if "flash_attn_wgmma" in logs:
@@ -7454,16 +8030,15 @@ def main() -> int:
     global DEFERRED_CLIS
     DEFERRED_CLIS = []
 
-    # the CPU halves of phases 7-10's card-vs-CPU checks start on a worker
-    # thread now; it parks while host work is timed (``quiet``) and the
-    # card halves run between phases (``drain``) and at the end
-    global CPU_HALVES
-    CPU_HALVES = CpuHalves(CPU_HALF_THREADS, CPU_HALF_BUDGET)
-    for half in (lm_halves(mods) + moe_halves(mods, parity)
-                 + train_halves(mods, parity) + family_halves(mods, parity)
-                 + sim_halves(T, parity, mods)):
-        CPU_HALVES.add(*half)
-    CPU_HALVES.start()
+    # phase 10's CPU halves, whose weights are drawn on the card, join
+    # the quickstart's worker once it is done with the quickstart's, on
+    # more threads
+    t0 = time.perf_counter()
+    for half in sim_halves(T, parity, mods):
+        QUICK_HALVES.add(*half, threads=SIM_HALF_THREADS)
+    emit("cpu_halves", worker=QUICK_HALVES.name, weights_s=time.perf_counter()
+         - t0, halves=[run for run, _cpu in QUICK_HALVES.order])
+    torch.set_num_threads(MAIN_THREADS)
     launches = {}
 
     # 3. kernels
@@ -7504,42 +8079,42 @@ def main() -> int:
             quickstart_spec(T, "fedavg"), **scanned), ("masked_agg",)),
     }
     finals, sims = {}, {}
-    # the quickstart's s a round and the traces: the worker parked
-    with quiet():
-        for run, (spec, needed) in runs.items():
-            sim, wall, launches[run], by_rows = run_card(T, spec, params,
-                                                         mods)
-            res = T.result_from_simulation(spec, sim, wall_time=wall)
-            for rec in res.records:
-                emit("slice", run=run, **dataclasses.asdict(rec))
-            emit("slice", run=run, megastep=spec.megastep,
-                 rounds_per_dispatch=spec.rounds_per_dispatch,
-                 fused_eval=spec.fused_eval, rounds=len(res.records),
-                 wall_s=wall, wall_s_per_round=wall / len(res.records),
-                 dispatches=sim.dispatches, launches=launches[run],
-                 rows_per_call=rows_line(by_rows), cohorts=sim.cohorts or None)
-            # the scanned path without fused eval evaluates at the end of
-            # each dispatch, so its first rounds carry NaN
-            first_eval = (spec.rounds_per_dispatch - 1
-                          if spec.rounds_per_dispatch and not spec.fused_eval
-                          else 0)
-            if not (all(math.isfinite(r.loss) for r in res.records) and all(
-                    math.isfinite(r.accuracy)
-                    for r in res.records[first_eval:])):
-                raise AssertionError(f"{run}: accuracy or loss not finite")
-            held_launches(run, launches[run], needed, by_rows)
-            if "int8 scanned" in run and launches[run]["cohort_gather"] != \
-                    spec.rounds:
-                raise AssertionError(
-                    f"{run}: cohort_gather launched "
-                    f"{launches[run]['cohort_gather']} times, not once a "
-                    f"round")
-            finals[run], sims[run] = res, sim
-        emit("slice", run="ours+int8 scanned half",
-             sync_free_dispatch=sync_free_dispatch(
-                 T, runs["ours+int8 scanned half"][0], params))
-        phase_trace(T, runs["ours+int8 scanned fused"][0],
-                    runs["ours+int8"][0], params)
+    # the quickstart's s a round and the traces, beside the workers at
+    # their low priority
+    for run, (spec, needed) in runs.items():
+        sim, wall, launches[run], by_rows = run_card(T, spec, params,
+                                                     mods)
+        res = T.result_from_simulation(spec, sim, wall_time=wall)
+        for rec in res.records:
+            emit("slice", run=run, **dataclasses.asdict(rec))
+        emit("slice", run=run, megastep=spec.megastep,
+             rounds_per_dispatch=spec.rounds_per_dispatch,
+             fused_eval=spec.fused_eval, rounds=len(res.records),
+             wall_s=wall, wall_s_per_round=wall / len(res.records),
+             dispatches=sim.dispatches, launches=launches[run],
+             rows_per_call=rows_line(by_rows), cohorts=sim.cohorts or None)
+        # the scanned path without fused eval evaluates at the end of
+        # each dispatch, so its first rounds carry NaN
+        first_eval = (spec.rounds_per_dispatch - 1
+                      if spec.rounds_per_dispatch and not spec.fused_eval
+                      else 0)
+        if not (all(math.isfinite(r.loss) for r in res.records) and all(
+                math.isfinite(r.accuracy)
+                for r in res.records[first_eval:])):
+            raise AssertionError(f"{run}: accuracy or loss not finite")
+        held_launches(run, launches[run], needed, by_rows)
+        if "int8 scanned" in run and launches[run]["cohort_gather"] != \
+                spec.rounds:
+            raise AssertionError(
+                f"{run}: cohort_gather launched "
+                f"{launches[run]['cohort_gather']} times, not once a "
+                f"round")
+        finals[run], sims[run] = res, sim
+    emit("slice", run="ours+int8 scanned half",
+         sync_free_dispatch=sync_free_dispatch(
+             T, runs["ours+int8 scanned half"][0], params))
+    phase_trace(T, runs["ours+int8 scanned fused"][0],
+                runs["ours+int8"][0], params)
     base = finals["fedavg"].final
     for run in ("ours", "ours+int8"):
         final = finals[run].final
@@ -7553,21 +8128,22 @@ def main() -> int:
 
     # 5. card vs CPU, from the same weights; the card's loop against its
     # megastep
+    # (the card-vs-CPU checks at the first drain after their CPU halves)
     problems = []
-    for run in ("ours", "ours+int8"):
-        line = compare_card_cpu(T, parity, runs[run][0], params,
-                                finals[run].records, quantize, ref)
-        emit("card_vs_cpu", run=run, **line)
-        problems += [f"{run}: {p}" for p in line["problems"]]
+    for run in MEGASTEP_CHECKS:
+        card_half(run, functools.partial(quick_cpu, run),
+                  functools.partial(megastep_card_half, T, parity,
+                                    runs[run][0], params,
+                                    finals[run].records, quantize, ref, run),
+                  launches)
     loop_vs_mega = parity.path_mismatches(finals["ours+int8 loop"].records,
                                           finals["ours+int8"].records)
     emit("loop_vs_megastep", run="ours+int8", problems=loop_vs_mega)
     problems += [f"loop vs megastep: {p}" for p in loop_vs_mega]
     run = "ours+int8 scanned half"
-    line, _cpu = scanned_card_cpu(T, parity, runs[run][0], params,
-                                  sims[run])
-    emit("card_vs_cpu", run=run, **line)
-    problems += [f"{run}: {p}" for p in line["problems"]]
+    quick_check(T, parity, run, runs[run][0], params, sims[run],
+                functools.partial(scanned_card_half, T, parity, runs[run][0],
+                                  params, sims[run], run), launches)
     run = "ours+int8 scanned fused"
     single, _wall, _l, _r = run_card(T, dataclasses.replace(
         runs[run][0], rounds_per_dispatch=1), params, mods)
@@ -7585,22 +8161,20 @@ def main() -> int:
     # 6. the kernel-ops API and the spmd engine
     drain(launches)
     launches["ops"] = phase_ops(T, ops, params, mods)
-    with quiet():
-        launches.update(phase_spmd(T, parity, params, mods))
+    launches.update(phase_spmd(T, parity, params, mods))
 
-    # 6b. dynamic worlds on the four ported paths (each timed run quiet)
-    launches.update(phase_scenario(T, parity, params, mods, smi))
+    # 6b. dynamic worlds on the four ported paths
+    statics = {}
+    launches.update(phase_scenario(T, parity, params, mods, smi, statics))
 
-    # 6c. hierarchical topologies on the four ported paths (each timed run
-    # quiet)
+    # 6c. hierarchical topologies on the four ported paths
     launches.update(phase_topology(T, parity, sign_align, ref, params,
-                                   mods, smi))
+                                   mods, smi, statics))
 
     # 6d. world scale: the population plane, two-stage selection and
     # non-resident worlds
-    with quiet():
-        launches.update(phase_population(T, parity, sign_align, masked_agg,
-                                         quantize, ref, params, mods, smi))
+    launches.update(phase_population(T, parity, sign_align, masked_agg,
+                                     quantize, ref, params, mods, smi))
 
     # 6e. sessions: checkpoint, restore and resume on the four paths
     drain(launches)
@@ -7642,15 +8216,19 @@ def main() -> int:
     phase_dryrun(mods, smi)
 
     # 12. the port on a mesh: the sharded step and population over a
-    # one-rank NCCL group, the production meshes' dry run; then every CLI
-    # check of phases 6f-12, together, and the card halves not yet run
-    drain(launches)
-    phase_mesh(mods, smi)
+    # one-rank NCCL group, the production meshes' dry run; beside it, on
+    # a thread, every CLI check of phases 6f-11 in their waves (the mesh
+    # phase's own, on meta, with the last wave); then the card halves not
+    # yet run
     drain(launches)
     t0 = time.perf_counter()
-    run_clis(DEFERRED_CLIS)
+    clis = BackgroundClis(DEFERRED_CLIS)
+    DEFERRED_CLIS = []
+    phase_mesh(mods, smi)
+    clis.join(DEFERRED_CLIS)
     emit("cli_phase", seconds=time.perf_counter() - t0, nvidia_smi=smi)
-    CPU_HALVES.finish(launches)
+    for w in workers():
+        w.finish(launches)
 
     # launches on each kernel's main path: the megastep int8 run for the
     # three kernels it runs, the per-client int8 loop for the codec pair,

@@ -16,6 +16,11 @@
 //
 // Design: one block of 256 threads per (row, slab) pair; each thread copies
 // one float4 (16-byte loads and stores, the warp's addresses contiguous).
+// More bytes in flight a thread did not make it faster: at 10 of 11 slabs
+// of 54 rows one warp of eight float4 a thread took 2.023 and 2.041 us in
+// two probes of ten turns against this design's 2.053 and 2.030, 64
+// threads of four 2.053-2.060, 16 of sixteen 2.135 (one H100 80GB HBM3,
+// 700 W, CUDA graphs; PERF.md section 6); the bound is 1.32 us.
 // Every block reads its index from device memory, so the wrapper never
 // reads an index on the host and the kernel can run inside a dispatch with
 // no host synchronisation. An index outside [0, N) traps the kernel (the

@@ -17,7 +17,8 @@
 // A trampoline is bound to a signature, not to a kernel: the wrapper
 // picks it from the entry point's declared argument types, and
 // tests/test_torch_launch.py holds those to the C signatures and each
-// trampoline's name to the types it converts.
+// trampoline's name to the types it converts. dequantize_q8 and
+// cohort_gather launch through csrc/tensor_call.cpp instead.
 
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
@@ -95,7 +96,7 @@ PyObject* call(PyObject* const* args, Py_ssize_t n) {
 using P = void*;
 using L = long long;
 
-// the codec (quantize_q8, dequantize_q8)
+// quantize_q8
 PyObject* ppplp(PyObject*, PyObject* const* args, Py_ssize_t n) {
   return call<P, P, P, L, P>(args, n);
 }
@@ -103,11 +104,6 @@ PyObject* ppplp(PyObject*, PyObject* const* args, Py_ssize_t n) {
 // ef_round_trip
 PyObject* pppplp(PyObject*, PyObject* const* args, Py_ssize_t n) {
   return call<P, P, P, P, L, P>(args, n);
-}
-
-// cohort_gather
-PyObject* pppllip(PyObject*, PyObject* const* args, Py_ssize_t n) {
-  return call<P, P, P, L, L, int, P>(args, n);
 }
 
 // masked_agg
@@ -146,7 +142,7 @@ PyObject* ppppiiiiiiipiifp(PyObject*, PyObject* const* args, Py_ssize_t n) {
   {#name, (PyCFunction)(void (*)(void))name, METH_FASTCALL, nullptr}
 
 PyMethodDef methods[] = {METHOD(ppplp),    METHOD(pppplp),
-                         METHOD(pppllip),  METHOD(pppilp),
+                         METHOD(pppilp),
                          METHOD(ppppiilip),
                          METHOD(pipppilp), METHOD(pippplip),
                          METHOD(ppppiiiiiiiipiifp),

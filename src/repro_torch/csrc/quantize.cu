@@ -57,6 +57,16 @@
 // slower than 256 at 54 and 864 rows.
 // The round trip takes 2.09 us at 54 rows and 3.06 at 540 where the add,
 // the codec pair and the subtraction took 6.35 and 8.36.
+// Dequantization is at the launch's floor with one block a row: at the
+// loop's 54 rows, 256 threads of one char4 take 1.28-1.29 us in two
+// probes of ten turns each, and every design that spreads a row over more,
+// smaller blocks, so that every SM works, is slower (64 threads of one
+// char4, 216 blocks: 1.333; 16 threads of four, 16 codes a thread: 1.39;
+// 32 of four: 1.39; 16 codes in one 16-byte load: 1.41-1.52), as are
+// fewer, larger blocks (two rows a block: 1.31-1.33; four: 1.46) and 512
+// threads of one char2 (1.290, equal). At 864 rows 32 threads of four
+// char4 are 1.2-1.6% faster (2.145-2.165 against 2.180-2.192), a row
+// count no path gives the kernel, so there is no switch.
 //
 // Bit-exactness with the plain version (kernels/ref.py), which the error
 // feedback needs, or trajectories part:

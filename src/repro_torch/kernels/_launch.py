@@ -9,11 +9,17 @@ of its C signature in ``csrc/pycall.cu`` (a METH_FASTCALL function, not a
 ctypes call), the stream is asked of PyTorch's C layer without building a
 ``torch.cuda.Stream``, and a tensor's data pointer is taken once, for the
 alignment test and the launch alike.
+
+The entry points of ``TENSOR_CALLS`` go further: their wrappers hand the
+tensors to one function of ``csrc/tensor_call.cpp`` (``tensor_entries``),
+which checks them, allocates the output, asks the stream, launches and
+returns the output in C++, so that a call's host work is one C++ call.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import operator
 from typing import Callable, Optional
 
 import torch
@@ -53,6 +59,11 @@ ENTRY_POINTS = {
                               _FLASH + (_I32,) * 7 + _FLASH_TAIL),
 }
 
+# Entry points whose wrappers launch through csrc/tensor_call.cpp: the
+# tensors in, the output out, one C++ call (its function of the same name,
+# bound to the entry point's address).
+TENSOR_CALLS = ("dequantize_q8", "cohort_gather")
+
 # C functions that return a value and launch nothing, called through
 # ctypes with these types, off the launch path.
 QUERIES = {
@@ -85,6 +96,33 @@ class _Entries(dict):
 
 
 entries = _Entries()
+
+
+class _TensorEntries(dict):
+    """Name of a ``TENSOR_CALLS`` entry point -> its function of
+    ``csrc/tensor_call.cpp``, a callable of the tensors that returns the
+    output or raises (ValueError, TypeError on what the kernel does not
+    take, RuntimeError if the launch fails). Resolved on the first lookup,
+    building the kernel's source and the binding and binding the entry
+    point's address; later lookups are a dict's."""
+
+    def __missing__(self, name: str) -> Callable[..., torch.Tensor]:
+        if name not in TENSOR_CALLS:
+            raise KeyError(name)
+        source, _argtypes = ENTRY_POINTS[name]
+        address = ctypes.cast(getattr(_build.load(source), name),
+                              ctypes.c_void_p).value
+        module = _build.load_module("tensor_call")
+        module.bind(name, address)
+        fn = self[name] = getattr(module, name)
+        return fn
+
+
+tensor_entries = _TensorEntries()
+
+# on_card(t): whether a wrapper hands ``t`` to its kernel's tensor call (a
+# CUDA tensor), a C attribute read
+on_card = operator.attrgetter("is_cuda")
 
 
 def query(name: str, *args) -> int:

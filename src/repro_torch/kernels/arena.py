@@ -180,5 +180,8 @@ def fused_apply(p: torch.Tensor, u: torch.Tensor,
 
 def cohort_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """src: (N, rows, lane) f32 per-client slabs, idx: (K,) int64 client
-    ids -> (K, rows, lane), row k the slab of client idx[k]."""
+    ids -> (K, rows, lane), row k the slab of client idx[k].
+
+    The JAX package's ``onehot_gather`` (``src/repro/kernels/gather.py``):
+    it takes a one-hot (K, N) matrix where this takes the ids."""
     return _gather.cohort_gather(src, idx)

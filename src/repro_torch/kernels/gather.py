@@ -1,15 +1,22 @@
 """Cohort gather of per-client arena slabs: the scanned control plane's
 error-feedback fetch (core/megastep.py, ``build_scanned_rounds``).
 
+This is the JAX package's ``onehot_gather`` (``src/repro/kernels/
+gather.py``), under the name of what it does here: the JAX function takes
+a one-hot (K, N) matrix and sums onehot·src, a workaround for the TPU's
+matrix unit, where ``cohort_gather`` takes the ids themselves.
+
 ``cohort_gather(src, idx)`` takes src (N, R, LANE) f32 and the cohort's
 client ids idx (K,) int64 on the same device and returns
 out[k] = src[idx[k]] as (K, R, LANE) f32. The tensor's device decides the
 implementation: on the CPU the plain version in ``kernels/ref.py``, on a
-CUDA device the hand-written kernel in ``csrc/gather.cu`` or an
-exception; on the meta device a shape-only call (``kernels/meta.py``) for
-the dry run; a DTensor takes its placement rule (``kernels/sharded.py``).
-The kernel reads the indices on the device, so a call never waits for the
-card. ``launches`` counts the kernel's launches.
+CUDA device the hand-written kernel in ``csrc/gather.cu``, launched
+through ``csrc/tensor_call.cpp`` (the checks, the output, the stream and
+the launch in one C++ call), or an exception; on the meta device a
+shape-only call (``kernels/meta.py``) for the dry run; a DTensor takes
+its placement rule (``kernels/sharded.py``). The kernel reads the indices
+on the device, so a call never waits for the card. ``launches`` counts
+the kernel's launches.
 """
 from __future__ import annotations
 
@@ -47,18 +54,11 @@ def cohort_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if dist.is_dtensor(src, idx):
         from repro_torch.kernels import sharded
         return sharded.cohort_gather(src, idx)
-    device = check_args(src, idx)
-    if device == _launch.CPU:
-        return ref.cohort_gather(src, idx)
-    if device == _launch.META:
+    if _launch.on_card(src):
+        # checks, output, stream and launch in one C++ call
+        out = _launch.tensor_entries["cohort_gather"](src, idx)
+        launches += 1
+        return out
+    if check_args(src, idx) == _launch.META:
         return meta.cohort_gather(src, idx)
-    psrc = _launch.aligned_pointer("cohort_gather", src)
-    if not idx.is_contiguous():
-        raise ValueError("the cohort_gather kernel takes a contiguous idx")
-    N, R, _ = src.shape
-    K = idx.numel()
-    out = src.new_empty(K, R, LANE)
-    _launch.entries["cohort_gather"](psrc, idx.data_ptr(), out.data_ptr(), N,
-                                   R, K, _launch.stream(device))
-    launches += 1
-    return out
+    return ref.cohort_gather(src, idx)

@@ -10,7 +10,9 @@ returns (restored, residual) = (dequantize_q8(*quantize_q8(c)),
 c − restored), each (M, LANE) f32. The tensor's device decides the
 implementation: on the CPU the plain versions in ``kernels/ref.py``, on a
 CUDA device the hand-written kernels in ``csrc/quantize.cu`` or an
-exception; on the meta device a shape-only call (``kernels/meta.py``) for
+exception (``dequantize_q8`` launches through ``csrc/tensor_call.cpp``,
+which checks its tensors, allocates the output and launches in one C++
+call); on the meta device a shape-only call (``kernels/meta.py``) for
 the dry run; a DTensor takes its placement rule (``kernels/sharded.py``).
 ``launches`` counts each kernel's launches, by function name.
 """
@@ -94,18 +96,14 @@ def dequantize_q8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     if dist.is_dtensor(q, scale):
         from repro_torch.kernels import sharded
         return sharded.dequantize_q8(q, scale)
-    device = check_dequantize(q, scale)
-    if device == _launch.CPU:
-        return ref.dequantize_q8(q, scale)
-    if device == _launch.META:
+    if _launch.on_card(q):
+        # checks, output, stream and launch in one C++ call
+        out = _launch.tensor_entries["dequantize_q8"](q, scale)
+        launches["dequantize_q8"] += 1
+        return out
+    if check_dequantize(q, scale) == _launch.META:
         return meta.dequantize_q8(q, scale)
-    pq = _launch.aligned_pointer("dequantize_q8", q)
-    ps = _launch.aligned_pointer("dequantize_q8", scale)
-    out = torch.empty_like(q, dtype=torch.float32)
-    _launch.entries["dequantize_q8"](pq, ps, out.data_ptr(), q.shape[0],
-                                   _launch.stream(device))
-    launches["dequantize_q8"] += 1
-    return out
+    return ref.dequantize_q8(q, scale)
 
 
 def ef_round_trip(d: torch.Tensor, e: torch.Tensor):

@@ -5,15 +5,20 @@ There is no card here. The declared argument types are held to the C
 signatures in ``csrc/`` and to the trampolines of ``csrc/pycall.cu``
 that convert them, the kernel path's refusals are made on CPU tensors,
 and the wrappers' kernel path runs with CPU tensors against stand-ins
-for the C functions, which record what they are passed.
+for the C functions, which record what they are passed. The tensor
+calls of ``csrc/tensor_call.cpp`` (``dequantize_q8``, ``cohort_gather``)
+are the binding itself, built here by the host's C++ compiler against
+this PyTorch for CPU tensors (``-DTENSOR_CALL_DEVICE=CPU``).
 """
 import ctypes
 import importlib.util
 import math
+import pathlib
 import re
 import shutil
 import subprocess
 import sysconfig
+import tempfile
 import types
 
 import pytest
@@ -34,6 +39,24 @@ C_TYPES = {"ptr": ctypes.c_void_p, "long long": ctypes.c_longlong,
 DECLARED = {**_launch.ENTRY_POINTS, **_launch.QUERIES}
 KERNEL_SOURCES = sorted(p.stem for p in _build.CSRC.glob("*.cu")
                         if p.stem != "pycall")
+_HOST_BINDING = {}
+
+
+def host_binding():
+    """``csrc/tensor_call.cpp`` built by the host's C++ compiler for CPU
+    tensors (its stream null) and imported: built once a test process,
+    into a directory of its own, and bound to nothing."""
+    if "module" not in _HOST_BINDING:
+        out = pathlib.Path(tempfile.mkdtemp()) / "tensor_call_host.so"
+        subprocess.run([shutil.which("c++"),
+                        str(_build.source_path("tensor_call")),
+                        *_build.torch_flags("CPU"), "-o", str(out)],
+                       check=True, capture_output=True, text=True)
+        spec = importlib.util.spec_from_file_location("tensor_call", out)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        _HOST_BINDING["module"] = module
+    return _HOST_BINDING["module"]
 
 
 def _c_signatures(source):
@@ -81,7 +104,7 @@ def test_wrapper_calls_c_only_through_the_launch_path(name):
     own: each reaches its C functions through ``_launch``."""
     text = (_build.CSRC.parent / "kernels" / f"{name}.py").read_text()
     assert "_build" not in text and "argtypes" not in text
-    assert "_launch.entries[" in text
+    assert "_launch.entries[" in text or "_launch.tensor_entries[" in text
 
 
 def _trampolines():
@@ -108,8 +131,14 @@ def test_trampoline_names_spell_the_types_they_convert():
 
 @pytest.mark.parametrize("name", sorted(_launch.ENTRY_POINTS))
 def test_each_entry_point_has_the_trampoline_of_its_signature(name):
-    _source, argtypes = _launch.ENTRY_POINTS[name]
-    assert _launch.trampoline_name(argtypes) in _trampolines()[0]
+    """A tensor call's entry point is called by the binding through a
+    pointer of its C signature (``_binding_types``), every other one by
+    the trampoline of its argument types."""
+    source, argtypes = _launch.ENTRY_POINTS[name]
+    if name in _launch.TENSOR_CALLS:
+        assert _binding_types()[name] == _c_signatures(source)[name]
+    else:
+        assert _launch.trampoline_name(argtypes) in _trampolines()[0]
 
 
 # the place of the flash kernels' strides pointer among their arguments
@@ -123,9 +152,24 @@ def fake_card(monkeypatch):
     has an address of its own, and each trampoline records what it is
     passed (the flash kernels' strides pointer as the 12 strides it
     points to, read during the call) and, as ``csrc/pycall.cu`` does,
-    raises when its entry point returns a CUDA error (``errors[name]``)."""
+    raises when its entry point returns a CUDA error (``errors[name]``).
+    The tensor calls' wrappers take CPU tensors for the card's
+    (``on_card``) and reach the host-built binding (``host_binding``),
+    whose entry points are stand-ins of their C signatures that record
+    their arguments (the null stream as 0) and return ``errors[name]``."""
     calls, loads, errors = [], [], {}
-    stubs = {name: ctypes.CFUNCTYPE(ctypes.c_int)(lambda: 0)
+
+    def typed_stub(name):
+        argtypes = _launch.ENTRY_POINTS[name][1]
+        code = _launch.trampoline_name(argtypes)
+
+        def record(*args):
+            calls.append((name, code, tuple(a or 0 for a in args)))
+            return errors.get(name, 0)
+        return ctypes.CFUNCTYPE(ctypes.c_int, *argtypes)(record)
+
+    stubs = {name: (typed_stub(name) if name in _launch.TENSOR_CALLS else
+                    ctypes.CFUNCTYPE(ctypes.c_int)(lambda: 0))
              for name in _launch.ENTRY_POINTS}
     named = {ctypes.cast(f, ctypes.c_void_p).value: n
              for n, f in stubs.items()}
@@ -151,6 +195,8 @@ def fake_card(monkeypatch):
 
     def load_module(name):
         loads.append(name)
+        if name == "tensor_call":
+            return host_binding()
         codes = {_launch.trampoline_name(t)
                  for _, t in _launch.ENTRY_POINTS.values()}
         return types.SimpleNamespace(**{c: trampoline(c) for c in codes})
@@ -164,9 +210,12 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(_build, "load", load)
     monkeypatch.setattr(_build, "load_module", load_module)
     monkeypatch.setattr(_launch, "entries", _launch._Entries())
+    monkeypatch.setattr(_launch, "tensor_entries", _launch._TensorEntries())
     monkeypatch.setattr(_launch, "stream", lambda device: 77)
     monkeypatch.setattr(_launch, "device_index", index)
-    return types.SimpleNamespace(calls=calls, loads=loads, errors=errors)
+    monkeypatch.setattr(_launch, "on_card", lambda t: True)
+    return types.SimpleNamespace(calls=calls, loads=loads, errors=errors,
+                                 stubs=stubs)
 
 
 def _codec_inputs(R=3):
@@ -215,12 +264,13 @@ def _wrapper_cases():
     return {
         "quantize_q8": (lambda: tq.quantize_q8(x),
                         lambda out: (*ptrs(x, *out), 3, 77)),
+        # the tensor calls ask the stream in C++: null in the host build
         "dequantize_q8": (lambda: tq.dequantize_q8(q, s),
-                          lambda out: (*ptrs(q, s, out), 3, 77)),
+                          lambda out: (*ptrs(q, s, out), 3, 0)),
         "ef_round_trip": (lambda: tq.ef_round_trip(x, x),
                           lambda out: (*ptrs(x, x, *out), 3, 77)),
         "cohort_gather": (lambda: tgather.cohort_gather(src, idx),
-                          lambda out: (*ptrs(src, idx, out), 4, 2, 3, 77)),
+                          lambda out: (*ptrs(src, idx, out), 4, 2, 3, 0)),
         "masked_agg": (lambda: tma.masked_agg(u, w),
                        lambda out: (*ptrs(u, w, out), 5, 2 * LANE, 77)),
         "fused_update": (lambda: tma.fused_update(p16, u, w),
@@ -403,6 +453,7 @@ def test_wrapper_outputs_have_the_plain_versions_shapes(fake_card):
         got = fn(*args)
         with pytest.MonkeyPatch.context() as m:
             m.setattr(_launch, "device_index", lambda *a: -1)
+            m.setattr(_launch, "on_card", lambda t: False)
             want = fn(*args)
         got, want = ((got, want) if isinstance(got, tuple)
                      else ((got,), (want,)))
@@ -495,10 +546,17 @@ def _kernel_path_refusals():
 
 @pytest.mark.parametrize("case", sorted(_kernel_path_refusals()))
 def test_kernel_path_refusals_come_before_the_launch(fake_card, case):
+    """A refused call launches nothing and counts nothing. A trampoline's
+    wrapper refuses before it builds or loads anything; a tensor call's
+    checks are the binding's (``csrc/tensor_call.cpp``), so its wrapper
+    has loaded the binding and its kernel's source, no more."""
     before = _launch_counts()
     with pytest.raises(ValueError):
         _kernel_path_refusals()[case]()
-    assert fake_card.calls == [] and fake_card.loads == []
+    assert fake_card.calls == []
+    assert set(fake_card.loads) <= {"tensor_call", "quantize", "gather"}
+    if "tensor_call" not in fake_card.loads:
+        assert fake_card.loads == []
     assert _launch_counts() == before
 
 
@@ -631,3 +689,185 @@ def test_trampolines_pass_each_argument_in_order(tmp_path):
             at = name.index("i")
             with pytest.raises(OverflowError):
                 trampoline("k", address, *args[:at], 2**31, *args[at + 1:])
+
+
+# ---------------------------------------------------------------------------
+# csrc/tensor_call.cpp, the tensor calls' binding, built here for CPU tensors
+# ---------------------------------------------------------------------------
+
+def _binding_types():
+    """{C entry point: [C type of each parameter]} as the binding's
+    function-pointer types declare them, by the entry point they call."""
+    text = _build.source_path("tensor_call").read_text()
+    fn_types = {
+        alias: [" ".join(t.split()) for t in params.split(",")]
+        for alias, params in re.findall(
+            r"using (\w+) = int \(\*\)\(([^)]*)\);", text)}
+    entries = dict(re.findall(r"(\w+) = reinterpret_cast<(\w+)>\(address\)",
+                              text))
+    kinds = {"const void*": "ptr", "void*": "ptr", "long long": "long long",
+             "int": "int"}
+    return {name: [kinds[t] for t in fn_types[alias]]
+            for name, alias in (
+                (n, entries[v]) for n, v in (
+                    ("dequantize_q8", "dequantize_entry"),
+                    ("cohort_gather", "gather_entry")))}
+
+
+def test_tensor_calls_are_entry_points_of_the_binding():
+    """Every tensor call is a declared entry point, a function of the
+    binding's method table and a name ``bind`` takes."""
+    text = _build.source_path("tensor_call").read_text()
+    listed = re.findall(r"(?<!define )METHOD\((\w+)\)", text)
+    assert sorted(listed) == sorted(list(_launch.TENSOR_CALLS) + ["bind"])
+    assert set(_launch.TENSOR_CALLS) <= set(_launch.ENTRY_POINTS)
+    for name in _launch.TENSOR_CALLS:
+        assert f'which == "{name}"' in text
+
+
+@pytest.mark.parametrize("name", sorted(_launch.TENSOR_CALLS))
+def test_tensor_call_types_match_the_c_signature(name):
+    """The binding calls each entry point through a pointer of the entry
+    point's own C signature (in ``csrc/<source>.cu``)."""
+    source, _argtypes = _launch.ENTRY_POINTS[name]
+    assert _binding_types()[name] == _c_signatures(source)[name]
+
+
+_BOUND = {}
+
+
+def _bound_binding():
+    """The host-built binding, each tensor call bound to a stand-in of its
+    C signature that records its arguments and returns ``result``; the
+    stand-ins live as long as the test process."""
+    module = host_binding()
+    if not _BOUND:
+        _BOUND["seen"], _BOUND["result"] = [], {"value": 0}
+        for name in _launch.TENSOR_CALLS:
+            argtypes = _launch.ENTRY_POINTS[name][1]
+
+            def record(*args, name=name):
+                _BOUND["seen"].append((name, tuple(a or 0 for a in args)))
+                return _BOUND["result"]["value"]
+            _BOUND[name] = ctypes.CFUNCTYPE(ctypes.c_int, *argtypes)(record)
+    for name in _launch.TENSOR_CALLS:
+        module.bind(name, ctypes.cast(_BOUND[name], ctypes.c_void_p).value)
+    _BOUND["seen"].clear()
+    _BOUND["result"]["value"] = 0
+    return module
+
+
+def _binding_refusals():
+    """Case -> (the binding's function, its arguments, the exception, a
+    part of its message)."""
+    _x, q, s = _codec_inputs()
+    src, idx = _gather_inputs()
+    meta = torch.zeros((3, 1), device="meta")
+    return {
+        "dequantize_q8 one argument": ("dequantize_q8", (q,), TypeError,
+                                       "takes 2 arguments"),
+        "dequantize_q8 not a tensor": ("dequantize_q8", (q, 1.0), TypeError,
+                                       "takes tensors"),
+        "dequantize_q8 q 3-d": ("dequantize_q8", (q[None], s), ValueError,
+                                "q must be"),
+        "dequantize_q8 q narrow": ("dequantize_q8", (q[:, :512], s),
+                                   ValueError, "q must be"),
+        "dequantize_q8 q empty": ("dequantize_q8", (q[:0], s[:0]),
+                                  ValueError, "q must be"),
+        "dequantize_q8 q float": ("dequantize_q8", (q.float(), s),
+                                  TypeError, "expected q int8"),
+        "dequantize_q8 scale rows": ("dequantize_q8", (q, s[:2]), ValueError,
+                                     "scale must be (3, 1)"),
+        "dequantize_q8 scale double": ("dequantize_q8", (q, s.double()),
+                                       TypeError, "expected scale float32"),
+        "dequantize_q8 two devices": ("dequantize_q8", (q, meta), ValueError,
+                                      "on one device"),
+        "dequantize_q8 meta": ("dequantize_q8",
+                               (q.to("meta"), meta), ValueError,
+                               "no dequantize_q8 kernel for device meta"),
+        "dequantize_q8 q non-contiguous": (
+            "dequantize_q8",
+            (torch.zeros((3, 2 * LANE), dtype=torch.int8)[:, ::2], s),
+            ValueError, "contiguous"),
+        "dequantize_q8 q misaligned": (
+            "dequantize_q8", (_misaligned((3, LANE), torch.int8), s),
+            ValueError, "16-byte aligned"),
+        "dequantize_q8 scale misaligned": (
+            "dequantize_q8", (q, _misaligned((3, 1), torch.float32)),
+            ValueError, "16-byte aligned"),
+        "cohort_gather src 2-d": ("cohort_gather", (src[0], idx), ValueError,
+                                  "src must be"),
+        "cohort_gather src no rows": ("cohort_gather", (src[:, :0], idx),
+                                      ValueError, "src must be"),
+        "cohort_gather idx 2-d": ("cohort_gather", (src, idx[None]),
+                                  ValueError, "idx must be"),
+        "cohort_gather idx empty": ("cohort_gather", (src, idx[:0]),
+                                    ValueError, "idx must be"),
+        "cohort_gather idx past the grid": (
+            "cohort_gather", (src, torch.zeros(65536, dtype=torch.int64)),
+            ValueError, "idx must be"),
+        "cohort_gather src double": ("cohort_gather", (src.double(), idx),
+                                     TypeError, "expected src float32"),
+        "cohort_gather idx int32": ("cohort_gather", (src, idx.int()),
+                                    TypeError, "idx int64"),
+        "cohort_gather two devices": ("cohort_gather",
+                                      (src, idx.to("meta")), ValueError,
+                                      "on one device"),
+        "cohort_gather src non-contiguous": (
+            "cohort_gather", (torch.zeros((4, 2, 2 * LANE))[..., ::2], idx),
+            ValueError, "contiguous"),
+        "cohort_gather src misaligned": (
+            "cohort_gather", (_misaligned((4, 2, LANE), torch.float32), idx),
+            ValueError, "16-byte aligned"),
+        "cohort_gather idx non-contiguous": (
+            "cohort_gather", (src, torch.tensor([3, 9, 0, 9])[::2]),
+            ValueError, "contiguous idx"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_binding_refusals()))
+def test_tensor_call_refuses_before_the_launch(case):
+    """The binding's checks, the Python wrappers' before it: each refusal
+    raises the wrappers' exception and launches nothing."""
+    module = _bound_binding()
+    name, args, error, words = _binding_refusals()[case]
+    with pytest.raises(error, match=re.escape(words)):
+        getattr(module, name)(*args)
+    assert _BOUND["seen"] == []
+
+
+def test_tensor_call_passes_the_c_signature():
+    """On tensors it takes, the binding allocates the output (the plain
+    version's shape and dtype, contiguous), passes the pointers, sizes
+    and the stream (none in a host build) in the C signature's order, and
+    raises with the kernel's name and the error the entry point returns."""
+    module = _bound_binding()
+    _x, q, s = _codec_inputs()
+    src, idx = _gather_inputs()
+    out = module.dequantize_q8(q, s)
+    got = module.cohort_gather(src, idx)
+    assert (out.shape, out.dtype) == (q.shape, torch.float32)
+    assert (got.shape, got.dtype) == ((3, 2, LANE), torch.float32)
+    assert out.is_contiguous() and got.is_contiguous()
+    assert _BOUND["seen"] == [
+        ("dequantize_q8", (q.data_ptr(), s.data_ptr(), out.data_ptr(), 3, 0)),
+        ("cohort_gather", (src.data_ptr(), idx.data_ptr(), got.data_ptr(), 4,
+                           2, 3, 0))]
+    for value, words in ((700, "CUDA error 700"), (-3, "host error -3")):
+        _BOUND["result"]["value"] = value
+        for name, args in (("dequantize_q8", (q, s)),
+                           ("cohort_gather", (src, idx))):
+            with pytest.raises(RuntimeError,
+                               match=f"^{name} kernel launch failed: "
+                                     f"{words}$"):
+                getattr(module, name)(*args)
+
+
+def test_tensor_call_bind_refuses_what_it_cannot_call():
+    module = host_binding()
+    with pytest.raises(KeyError):
+        module.bind("quantize_q8", 4096)
+    with pytest.raises(ValueError, match="null entry point"):
+        module.bind("dequantize_q8", 0)
+    with pytest.raises(TypeError):
+        module.bind("dequantize_q8")
